@@ -1,5 +1,9 @@
-"""Command-line application for the port's predict and serve tasks.
+"""Command-line application for the port's train, predict and serve
+tasks.
 
+    python -m lightgbm_tpu_torch task=train data=train.csv \\
+        objective=binary output_model=model.txt [valid_data=valid.csv] \\
+        [num_iterations=100 num_leaves=63 ...] [device=cuda|cpu]
     python -m lightgbm_tpu_torch task=predict input_model=model.txt \\
         data=rows.csv output_result=preds.txt [device=cuda|cpu]
     python -m lightgbm_tpu_torch task=serve input_model=model.txt \\
@@ -7,9 +11,9 @@
 
 Parameters parse as in the JAX CLI (``key=value`` tokens, ``config=``
 file first, command line wins, the same aliases); keys this port does not
-read are ignored with one warning each.  ``python -m lightgbm_tpu_torch
-serve ...`` is sugar for ``task=serve``.  ``task=train`` is not ported
-yet.
+read are ignored with one warning each.  Data files are dense CSV/TSV
+with the label in the first column.  ``python -m lightgbm_tpu_torch
+serve ...`` is sugar for ``task=serve``.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Dict, Iterator, List
 
 import numpy as np
 
-from .basic import Booster
+from .basic import Booster, Dataset
 from .config import Config, parse_cli_args
 from .utils import log
 from .utils.log import LightGBMError
@@ -38,7 +42,7 @@ def _value(tok: str) -> float:
 
 
 def _parse_lines(lines: List[str], numbers: List[int], delim: str,
-                 label_idx: int, path: str) -> np.ndarray:
+                 path: str) -> np.ndarray:
     rows = []
     width = None
     for ln, no in zip(lines, numbers):
@@ -54,16 +58,22 @@ def _parse_lines(lines: List[str], numbers: List[int], delim: str,
         except ValueError:
             raise LightGBMError(f"{path}:{no}: unparseable_token in "
                                 f"{ln.strip()[:80]!r}")
-    mat = np.asarray(rows, np.float64).reshape(len(rows), width or 0)
+    return np.asarray(rows, np.float64).reshape(len(rows), width or 0)
+
+
+def _split_label(mat: np.ndarray, label_idx: int, with_label: bool):
+    label = None
     if 0 <= label_idx < mat.shape[1]:
+        label = mat[:, label_idx].copy()
         mat = np.delete(mat, label_idx, axis=1)
-    return mat
+    return (mat, label) if with_label else mat
 
 
-def read_rows(path: str, has_header: bool, label_idx: int
-              ) -> Iterator[np.ndarray]:
+def read_rows(path: str, has_header: bool, label_idx: int,
+              with_label: bool = False) -> Iterator:
     """Dense CSV/TSV feature rows of ``path`` in chunks (the label
-    column ``label_idx`` dropped; blank lines skipped; NA -> NaN)."""
+    column ``label_idx`` dropped; blank lines skipped; NA -> NaN).  With
+    ``with_label`` each chunk is ``(rows, labels)``."""
     delim = None
     lines: List[str] = []
     numbers: List[int] = []
@@ -84,10 +94,22 @@ def read_rows(path: str, has_header: bool, label_idx: int
             lines.append(line)
             numbers.append(no)
             if len(lines) >= _CHUNK_ROWS:
-                yield _parse_lines(lines, numbers, delim, label_idx, path)
+                yield _split_label(_parse_lines(lines, numbers, delim, path),
+                                   label_idx, with_label)
                 lines, numbers = [], []
     if lines:
-        yield _parse_lines(lines, numbers, delim, label_idx, path)
+        yield _split_label(_parse_lines(lines, numbers, delim, path),
+                           label_idx, with_label)
+
+
+def read_labeled(path: str, has_header: bool):
+    """The whole of a training file: ([N, F] rows, [N] labels from the
+    first column)."""
+    parts = list(read_rows(path, has_header, 0, with_label=True))
+    if not parts:
+        raise LightGBMError(f"{path}: no data rows")
+    return (np.concatenate([p[0] for p in parts], axis=0),
+            np.concatenate([p[1] for p in parts]))
 
 
 def _write_prediction_rows(fh, part: np.ndarray) -> None:
@@ -132,6 +154,39 @@ def run_predict(config: Config, params: Dict[str, str]) -> None:
     log.info("Finished prediction. Results saved to %s", out)
 
 
+def run_train(config: Config, params: Dict[str, str]) -> None:
+    """task=train: bin ``data`` (and each ``valid_data`` file against its
+    mappers), boost ``num_iterations`` rounds on ``device``, log the
+    metrics each ``output_freq`` rounds, save ``output_model``."""
+    if not config.data:
+        log.fatal("No training data specified (data=...)")
+    config.check_trainable()          # before reading a large file
+    start = time.monotonic()
+    X, y = read_labeled(config.data, config.has_header)
+    train_set = Dataset(X, y, params=dict(params))
+    booster = Booster(params=dict(params), train_set=train_set,
+                      device=config.device)
+    for i, path in enumerate(config.valid_data):
+        Xv, yv = read_labeled(path, config.has_header)
+        booster.add_valid(train_set.create_valid(Xv, yv), f"valid_{i + 1}")
+    log.info("Finished loading data in %f seconds",
+             time.monotonic() - start)
+    for it in range(config.num_iterations):
+        finished = booster.update()
+        if (it + 1) % max(config.output_freq, 1) == 0:
+            results = (booster.eval_train() if config.is_training_metric
+                       else []) + booster.eval_valid()
+            for name, metric, value, _ in results:
+                log.info("Iteration:%d, %s %s : %g", it + 1, name, metric,
+                         value)
+        if finished:
+            break
+    booster.save_model(config.output_model)
+    log.info("%f seconds elapsed, finished training",
+             time.monotonic() - start)
+    log.info("Finished training. Model saved to %s", config.output_model)
+
+
 def run_serve(config: Config, params: Dict[str, str]) -> None:
     """task=serve: freeze ``input_model`` on the card, warm it, and serve
     over HTTP until SIGINT/SIGTERM."""
@@ -142,7 +197,10 @@ def run_serve(config: Config, params: Dict[str, str]) -> None:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
-        print("usage: python -m lightgbm_tpu_torch task=predict "
+        print("usage: python -m lightgbm_tpu_torch task=train "
+              "data=<csv> objective=binary [output_model=<file>] "
+              "[valid_data=<csv>] [device=cuda|cpu]\n"
+              "       python -m lightgbm_tpu_torch task=predict "
               "input_model=<model> data=<csv> [output_result=<file>] "
               "[device=cuda|cpu]\n"
               "       python -m lightgbm_tpu_torch serve "
@@ -153,13 +211,15 @@ def main(argv=None) -> int:
     params = parse_cli_args(argv)
     config = Config(params)
     log.set_verbosity(config.verbose)
-    if config.task in ("predict", "prediction", "test"):
+    if config.task == "train":
+        run_train(config, params)
+    elif config.task in ("predict", "prediction", "test"):
         run_predict(config, params)
     elif config.task == "serve":
         run_serve(config, params)
     else:
         log.fatal("task=%s is not ported to the torch package yet "
-                  "(predict and serve are)", config.task)
+                  "(train, predict and serve are)", config.task)
     return 0
 
 

@@ -1,10 +1,13 @@
-"""Parameter surface of the serving path: defaults, aliases, coercion.
+"""Parameter surface of the port: defaults, aliases, coercion.
 
 The JAX package's config.py holds every training and serving key; the
-port carries only the keys its predict/serve path reads, with the same
-names, aliases and defaults, so a conf file written for the JAX CLI runs
-here unchanged.  Any other key is accepted and ignored with one warning
-per key.
+port carries only the keys its train/predict/serve paths read, with the
+same names, aliases and defaults, so a conf file written for the JAX CLI
+runs here unchanged.  Any other key is accepted and ignored with one
+warning per key.  Training settings the port has not ported yet
+(bagging, feature fraction, GOSS, DART, linear trees, serial growers
+other than ``ordered``, objectives other than binary) raise in
+:meth:`Config.check_trainable` instead of being ignored.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Any, Dict, List, Mapping, Optional
 
 from .utils import coerce_bool as _coerce_bool
 from .utils import log
+from .utils.log import LightGBMError
 
 # alias -> canonical name (the JAX config's table, cut to these keys)
 PARAM_ALIASES: Dict[str, str] = {
@@ -28,6 +32,45 @@ PARAM_ALIASES: Dict[str, str] = {
     "raw_score": "is_predict_raw_score",
     "header": "has_header",
     "verbosity": "verbose",
+    # training keys
+    "application": "objective",
+    "app": "objective",
+    "boosting": "boosting_type",
+    "boost": "boosting_type",
+    "model_output": "output_model",
+    "model_out": "output_model",
+    "valid": "valid_data",
+    "test_data": "valid_data",
+    "test": "valid_data",
+    "is_sparse": "is_enable_sparse",
+    "enable_sparse": "is_enable_sparse",
+    "tranining_metric": "is_training_metric",
+    "train_metric": "is_training_metric",
+    "min_data_per_leaf": "min_data_in_leaf",
+    "min_data": "min_data_in_leaf",
+    "min_child_samples": "min_data_in_leaf",
+    "min_sum_hessian_per_leaf": "min_sum_hessian_in_leaf",
+    "min_sum_hessian": "min_sum_hessian_in_leaf",
+    "min_hessian": "min_sum_hessian_in_leaf",
+    "min_child_weight": "min_sum_hessian_in_leaf",
+    "num_leaf": "num_leaves",
+    "sub_feature": "feature_fraction",
+    "colsample_bytree": "feature_fraction",
+    "num_iteration": "num_iterations",
+    "num_tree": "num_iterations",
+    "num_round": "num_iterations",
+    "num_trees": "num_iterations",
+    "num_rounds": "num_iterations",
+    "sub_row": "bagging_fraction",
+    "subsample": "bagging_fraction",
+    "subsample_freq": "bagging_freq",
+    "shrinkage_rate": "learning_rate",
+    "tree": "tree_learner",
+    "min_split_gain": "min_gain_to_split",
+    "reg_alpha": "lambda_l1",
+    "reg_lambda": "lambda_l2",
+    "num_classes": "num_class",
+    "unbalanced_sets": "is_unbalance",
 }
 
 _DEFAULTS: Dict[str, Any] = {
@@ -51,13 +94,75 @@ _DEFAULTS: Dict[str, Any] = {
     "serve_nonfinite_policy": "reject",
     # the port's own: where the forest runs ("cuda" or "cpu")
     "device": "cuda",
+    # training (the JAX config's defaults)
+    "objective": "regression",
+    "boosting_type": "gbdt",
+    "tree_learner": "serial",
+    "serial_grow": "ordered",
+    "num_class": 1,
+    "metric": [],
+    "valid_data": [],
+    "output_model": "LightGBM_model.txt",
+    "num_iterations": 10,
+    "learning_rate": 0.1,
+    "num_leaves": 127,
+    "max_bin": 255,
+    "min_data_in_leaf": 100,
+    "min_sum_hessian_in_leaf": 10.0,
+    "lambda_l1": 0.0,
+    "lambda_l2": 0.0,
+    "min_gain_to_split": 0.0,
+    "max_depth": -1,
+    "min_data_in_bin": 5,
+    "bin_construct_sample_cnt": 200000,
+    "data_random_seed": 1,
+    "is_enable_sparse": True,
+    "enable_bundle": True,
+    "max_conflict_rate": 0.0,
+    "sigmoid": 1.0,
+    "is_unbalance": False,
+    "scale_pos_weight": 1.0,
+    "is_training_metric": False,
+    "output_freq": 1,
+    "bagging_fraction": 1.0,
+    "bagging_freq": 0,
+    "feature_fraction": 1.0,
+    "linear_tree": False,
 }
 
 _BOOL_KEYS = {k for k, v in _DEFAULTS.items() if isinstance(v, bool)}
 _INT_KEYS = {k for k, v in _DEFAULTS.items()
              if isinstance(v, int) and not isinstance(v, bool)}
 _FLOAT_KEYS = {k for k, v in _DEFAULTS.items() if isinstance(v, float)}
-_LIST_KEYS = {"predict_buckets"}
+_LIST_KEYS = {"predict_buckets", "metric", "valid_data"}
+
+_OBJECTIVE_ALIASES = {
+    "regression": "regression", "regression_l2": "regression",
+    "mean_squared_error": "regression", "mse": "regression",
+    "l2": "regression",
+    "regression_l1": "regression_l1", "mean_absolute_error":
+    "regression_l1", "mae": "regression_l1", "l1": "regression_l1",
+    "huber": "huber", "fair": "fair", "poisson": "poisson",
+    "binary": "binary", "multiclass": "multiclass", "softmax": "multiclass",
+    "lambdarank": "lambdarank", "rank": "lambdarank",
+}
+
+_METRIC_ALIASES = {
+    "l2": "l2", "mse": "l2", "mean_squared_error": "l2", "regression": "l2",
+    "l1": "l1", "mae": "l1", "mean_absolute_error": "l1",
+    "huber": "huber", "fair": "fair", "poisson": "poisson",
+    "binary_logloss": "binary_logloss", "binary": "binary_logloss",
+    "binary_error": "binary_error", "auc": "auc",
+    "multi_logloss": "multi_logloss", "multiclass": "multi_logloss",
+    "multi_error": "multi_error", "ndcg": "ndcg",
+    "map": "map", "mean_average_precision": "map",
+}
+
+_DEFAULT_METRIC = {
+    "regression": ["l2"], "regression_l1": ["l1"], "huber": ["huber"],
+    "fair": ["fair"], "poisson": ["poisson"], "binary": ["binary_logloss"],
+    "multiclass": ["multi_logloss"], "lambdarank": ["ndcg"],
+}
 
 
 def apply_aliases(params: Mapping[str, Any]) -> Dict[str, Any]:
@@ -104,8 +209,16 @@ class Config:
 
     @staticmethod
     def _coerce(key: str, value: Any) -> Any:
+        if key == "metric":
+            return [_METRIC_ALIASES.get(n, n) for n in _coerce_list(value)
+                    if n not in ("", "none", "null", "na")]
+        if key == "valid_data":
+            return _coerce_list(value)
         if key in _LIST_KEYS:
             return _coerce_list(value, int)
+        if key == "objective":
+            name = str(value).strip()
+            return _OBJECTIVE_ALIASES.get(name, name)
         if key in _BOOL_KEYS:
             return _coerce_bool(value)
         if key in _INT_KEYS:
@@ -134,6 +247,52 @@ class Config:
                 "(expected auto, fused or gather)")
         if any(b <= 0 for b in v["predict_buckets"]):
             raise ValueError("predict_buckets must be positive sizes")
+        # the JAX config's conflict derivation (config.cpp:138-176)
+        if v["serial_grow"] not in ("ordered", "cached", "fused"):
+            raise ValueError(
+                f"Unknown serial_grow strategy {v['serial_grow']}")
+        if v["objective"] != "multiclass" and v["num_class"] != 1 \
+                and v["task"] == "train":
+            raise ValueError(
+                "Number of classes must be 1 for non-multiclass training")
+        for metric in v["metric"]:
+            if (v["objective"] == "multiclass") != (
+                    metric in ("multi_logloss", "multi_error")):
+                raise ValueError("Objective and metrics don't match")
+        if not v["metric"]:
+            v["metric"] = list(_DEFAULT_METRIC.get(v["objective"], []))
+        if v["num_leaves"] <= 1:
+            raise ValueError("num_leaves must be > 1")
+        if v["max_depth"] > 0:
+            v["num_leaves"] = min(v["num_leaves"], 2 ** v["max_depth"])
+
+    def check_trainable(self) -> None:
+        """Raise for every training setting outside the ported slice
+        (serial, leaf-ordered, binary GBDT without row or feature
+        sampling); nothing here is silently ignored."""
+        v = self._values
+        unported = []
+        if v["objective"] != "binary":
+            unported.append(f"objective={v['objective']} (binary is)")
+        if v["boosting_type"] != "gbdt":
+            unported.append(f"boosting_type={v['boosting_type']} "
+                            "(GOSS and DART)")
+        if v["tree_learner"] != "serial":
+            unported.append(f"tree_learner={v['tree_learner']} "
+                            "(distributed learners)")
+        if v["serial_grow"] != "ordered":
+            unported.append(f"serial_grow={v['serial_grow']} "
+                            "(ordered is)")
+        if v["bagging_fraction"] < 1.0:
+            unported.append("bagging_fraction<1 (bagging)")
+        if v["feature_fraction"] < 1.0:
+            unported.append("feature_fraction<1")
+        if v["linear_tree"]:
+            unported.append("linear_tree=true")
+        if unported:
+            raise LightGBMError(
+                "not ported yet to the torch package: "
+                + "; ".join(unported))
 
     def __getattr__(self, name: str) -> Any:
         values = object.__getattribute__(self, "_values")

@@ -1,7 +1,8 @@
 """Host-side decision tree: flat arrays + reference-compatible text.
 
 The port's copy of the JAX package's models/tree.py, cut to what loading,
-saving and host prediction need.  Leaves are encoded as ``~leaf_index``
+saving, host prediction and building a tree from a grower's arrays
+(``from_arrays``) need.  Leaves are encoded as ``~leaf_index``
 in the child arrays; decision_type 0 is numerical ``value <= threshold``
 and 1 is categorical ``int(value) == int(threshold)``; the ``Tree=``
 text block is the reference layout (tree.cpp:295-338).
@@ -53,6 +54,37 @@ class Tree:
         self.internal_value = np.zeros(n, dtype=np.float64)
         self.internal_count = np.zeros(n, dtype=np.int32)
         self.shrinkage = 1.0
+
+    @classmethod
+    def from_arrays(cls, tree_arrays, mappers, used_feature_map,
+                    learning_rate: float) -> "Tree":
+        """Build from a grower's ``TreeArrays`` (ops/grow.py).  Split
+        features map back to real feature indices and bin thresholds to
+        values through the training mappers (``bin_to_value``); leaf
+        values arrive already shrunk and ``shrinkage`` records the rate
+        (Tree::Shrinkage)."""
+        ta = type(tree_arrays)(*(np.asarray(a) for a in tree_arrays))
+        num_leaves = int(ta.num_leaves)
+        t = cls(num_leaves)
+        n = num_leaves - 1
+        sf, sb = ta.split_feature[:n], ta.split_bin[:n]
+        t.split_feature = np.asarray(
+            [used_feature_map[f] for f in sf], dtype=np.int32)
+        t.split_gain = ta.split_gain[:n].astype(np.float64)
+        t.threshold = np.asarray(
+            [mappers[f].bin_to_value(b) for f, b in zip(sf, sb)],
+            dtype=np.float64)
+        t.decision_type = np.asarray(
+            [1 if mappers[f].bin_type == 1 else 0 for f in sf], dtype=np.int8)
+        t.left_child = ta.left_child[:n].astype(np.int32)
+        t.right_child = ta.right_child[:n].astype(np.int32)
+        t.leaf_parent = ta.leaf_parent[:num_leaves].astype(np.int32)
+        t.leaf_value = ta.leaf_value[:num_leaves].astype(np.float64)
+        t.leaf_count = ta.leaf_count[:num_leaves].astype(np.int32)
+        t.internal_value = ta.internal_value[:n].astype(np.float64)
+        t.internal_count = ta.internal_count[:n].astype(np.int32)
+        t.shrinkage = learning_rate
+        return t
 
     def has_linear(self) -> bool:
         """True when some leaf carries a non-zero affine coefficient."""
