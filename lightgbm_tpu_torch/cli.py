@@ -3,7 +3,9 @@ tasks.
 
     python -m lightgbm_tpu_torch task=train data=train.csv \\
         objective=binary output_model=model.txt [valid_data=valid.csv] \\
-        [num_iterations=100 num_leaves=63 ...] [device=cuda|cpu]
+        [num_iterations=100 num_leaves=63 ...] [device=cuda|cpu] \\
+        [serial_grow=ordered|cached|fused] \\
+        [histogram_pool_size=<MB> memory_policy=fail_fast|degrade]
     python -m lightgbm_tpu_torch task=predict input_model=model.txt \\
         data=rows.csv output_result=preds.txt [device=cuda|cpu]
     python -m lightgbm_tpu_torch task=serve input_model=model.txt \\

@@ -5,8 +5,8 @@ port carries only the keys its train/predict/serve paths read, with the
 same names, aliases and defaults, so a conf file written for the JAX CLI
 runs here unchanged.  Any other key is accepted and ignored with one
 warning per key.  Training settings the port has not ported yet
-(bagging, feature fraction, GOSS, DART, linear trees, serial growers
-other than ``ordered``, objectives other than binary) raise in
+(bagging, feature fraction, GOSS, DART, linear trees, distributed
+learners, objectives other than binary) raise in
 :meth:`Config.check_trainable` instead of being ignored.
 """
 
@@ -128,6 +128,11 @@ _DEFAULTS: Dict[str, Any] = {
     "bagging_freq": 0,
     "feature_fraction": 1.0,
     "linear_tree": False,
+    # the per-leaf histogram cache bound (MB, <= 0: none) and what to do
+    # when it binds (fail_fast: warn that it does not bound memory;
+    # degrade: drop the cache for the full-pass grower)
+    "histogram_pool_size": -1.0,
+    "memory_policy": "fail_fast",
 }
 
 _BOOL_KEYS = {k for k, v in _DEFAULTS.items() if isinstance(v, bool)}
@@ -251,6 +256,10 @@ class Config:
         if v["serial_grow"] not in ("ordered", "cached", "fused"):
             raise ValueError(
                 f"Unknown serial_grow strategy {v['serial_grow']}")
+        if v["memory_policy"] not in ("fail_fast", "degrade"):
+            raise ValueError(
+                f"Unknown memory_policy {v['memory_policy']} "
+                "(expected fail_fast or degrade)")
         if v["objective"] != "multiclass" and v["num_class"] != 1 \
                 and v["task"] == "train":
             raise ValueError(
@@ -268,8 +277,8 @@ class Config:
 
     def check_trainable(self) -> None:
         """Raise for every training setting outside the ported slice
-        (serial, leaf-ordered, binary GBDT without row or feature
-        sampling); nothing here is silently ignored."""
+        (serial binary GBDT with any ``serial_grow``, without row or
+        feature sampling); nothing here is silently ignored."""
         v = self._values
         unported = []
         if v["objective"] != "binary":
@@ -280,9 +289,6 @@ class Config:
         if v["tree_learner"] != "serial":
             unported.append(f"tree_learner={v['tree_learner']} "
                             "(distributed learners)")
-        if v["serial_grow"] != "ordered":
-            unported.append(f"serial_grow={v['serial_grow']} "
-                            "(ordered is)")
         if v["bagging_fraction"] < 1.0:
             unported.append("bagging_fraction<1 (bagging)")
         if v["feature_fraction"] < 1.0:

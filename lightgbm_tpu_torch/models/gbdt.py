@@ -7,14 +7,23 @@ header field, tree section and the footer with the JAX loader's checks
 and error texts; text after the ``feature importances`` block (the drift
 fingerprint section) is kept verbatim and written back on save.
 
-The training half is the serial, leaf-ordered, binary slice: the device
-state of ``_DeviceData`` (feature-major and row-major bins, the [1, N]
-f32 score), one boosting round as plain torch calls (gradients ->
-``grow_tree_ordered`` -> ``score[cls] += delta``, the JAX
+The training half is the serial binary slice: the device state of
+``_DeviceData`` (feature-major and row-major bins, the [1, N] f32
+score), one boosting round as plain torch calls (gradients -> the
+grower that ``serial_grow`` selects -> ``score[cls] += delta``, the JAX
 ``_build_shared_train_step``), valid-set scoring through
 ``ops/predict.py``, the saturation pop of the JAX ``_flush_pending``
 (gbdt.cpp:362-378) and the metrics.  Rounds run synchronously, with no
 pipelining; the score buffers are updated in place.
+
+Growers (``_serial_grow_kind``): ``ordered`` (default) is
+``grow_tree_ordered``; ``cached``, ``fused`` and ``nocache`` are
+``grow_tree`` with the matching ``SerialComm``.  ``nocache`` is the
+``hist_cache`` step of ``memory_policy=degrade``, taken when
+``histogram_pool_size`` bounds the per-leaf histogram cache below its
+size (``_check_memory_budget``).  The JAX package's admission gate
+against the device's memory (``MemoryBudgetExceeded``) and its
+``score_donation`` and ``row_pad`` steps are not ported.
 """
 
 from __future__ import annotations
@@ -28,12 +37,31 @@ import torch
 
 from ..metric import create_metric
 from ..objective import create_objective
-from ..ops.grow import GrowParams, pack_tree_arrays, unpack_tree_arrays
+from ..ops.grow import (GrowParams, SerialComm, grow_tree, pack_tree_arrays,
+                        unpack_tree_arrays)
 from ..ops.ordered_grow import grow_tree_ordered
 from ..ops.predict import predict_binned_tree
-from ..utils import log
+from ..utils import log, resource
 from ..utils.log import LightGBMError
 from .tree import Tree
+
+
+def estimate_train_memory(num_data: int, num_features: int, num_leaves: int,
+                          max_bin: int, num_models: int,
+                          bin_itemsize: int = 1, *,
+                          leaf_cache: bool = True) -> Dict[str, int]:
+    """Rough device footprint (bytes) of training, by component: the
+    column- and row-major bin copies, the score, gradient, hessian and
+    delta buffers, and the [L, F, 9, B] int32 per-leaf histogram cache
+    (zero without ``leaf_cache``: the fused grower and the
+    ``hist_cache`` degrade step).  The JAX version's terms for packed
+    word lanes, score donation and linear fits are not ported."""
+    n, f = num_data, num_features
+    bins = 2 * n * f * bin_itemsize
+    scores = num_models * n * 4 * 4
+    cache = num_leaves * f * 9 * max_bin * 4 if leaf_cache else 0
+    return {"bins_device": bins, "scores_and_gradients": scores,
+            "histogram_cache": cache, "total": bins + scores + cache}
 
 
 class _PredictionObjective:
@@ -135,6 +163,10 @@ class GBDT:
             min_gain_to_split=config.min_gain_to_split,
             max_depth=config.max_depth)
         self.shrinkage_rate = config.learning_rate
+        self._degrade_steps: tuple = ()
+        self._degrade_leaf_cache_off = False
+        self._check_memory_budget(config, train_set)
+        self._grow = self._make_grow_fn()
         self.num_bin = torch.from_numpy(
             train_set.num_bin_per_feature()).to(device)
         self.is_cat = torch.from_numpy(
@@ -152,6 +184,86 @@ class GBDT:
         # TreeArrays (host) of every tree grown, a popped saturated one
         # included: valid sets added later replay them
         self.tree_arrays: list = []
+
+    def _serial_grow_kind(self) -> str:
+        """``fused`` / ``nocache`` / ``ordered`` / ``cached`` (the JAX
+        version without its EFB and screening branch: neither is
+        ported)."""
+        if self.config.serial_grow == "fused":
+            return "fused"
+        # the hist_cache degrade step dropped the per-leaf histogram
+        # cache: the full-pass learner scans the same histograms
+        if self._degrade_leaf_cache_off:
+            return "nocache"
+        return self.config.serial_grow
+
+    def _check_memory_budget(self, cfg, train_set) -> None:
+        """The histogram-pool half of the JAX admission gate:
+        ``histogram_pool_size`` (MB) against the per-leaf histogram
+        cache.  Under ``memory_policy=degrade`` a cache over the pool
+        takes the ``hist_cache`` step (no cache: the full-pass grower);
+        under ``fail_fast`` it warns that the pool does not bound
+        memory."""
+        policy = resource.check_memory_policy(cfg.memory_policy)
+        est = estimate_train_memory(
+            train_set.num_data, train_set.num_features, cfg.num_leaves,
+            cfg.max_bin, self.num_class,
+            bin_itemsize=train_set.bins.dtype.itemsize,
+            leaf_cache=cfg.serial_grow != "fused")
+        pool_mb = float(cfg.histogram_pool_size)
+        if pool_mb <= 0 or est["histogram_cache"] <= pool_mb * (1 << 20):
+            return
+        if policy == "degrade":
+            self._apply_degrade(
+                "hist_cache", est["histogram_cache"],
+                f"histogram_pool_size={pool_mb:g}MB bounds the per-leaf "
+                f"histogram cache "
+                f"({est['histogram_cache'] / (1 << 20):.0f}MB resident): "
+                f"dropping the cache — children recompute instead of "
+                f"sibling-subtraction")
+            return
+        log.warn_once(
+            "histogram_pool_size",
+            "histogram_pool_size=%.0fMB requested but the device design "
+            "keeps the whole per-leaf histogram cache resident (%.0fMB for "
+            "num_leaves=%d x %d columns x 9 x %d bins); under "
+            "memory_policy=fail_fast the parameter does NOT bound memory — "
+            "lower num_leaves/max_bin, or set memory_policy=degrade to make "
+            "the bound real", pool_mb, est["histogram_cache"] / (1 << 20),
+            cfg.num_leaves, train_set.num_features, cfg.max_bin)
+
+    def _apply_degrade(self, step: str, saved_bytes: int,
+                       detail: str) -> None:
+        if step == "hist_cache":
+            self._degrade_leaf_cache_off = True
+        self._degrade_steps = self._degrade_steps + (step,)
+        resource.note_degrade(step, saved_bytes, detail)
+
+    def _make_grow_fn(self):
+        """The grower of this booster's kind, as ``fn(grad, hess) ->
+        (TreeArrays, leaf_id, delta)`` over the training data.  Unlike
+        the JAX package, whose leaf-ordered grower packs uint8 bins into
+        words and falls back to the cached learner for more than 256
+        bins, the port's ordered grower takes uint16 bins too, and its
+        trees equal the cached grower's; so ``ordered`` stays
+        ``ordered``."""
+        kind = self.grow_kind = self._serial_grow_kind()
+        params = self.grow_params
+
+        def grow(grad, hess):
+            td = self.train_data
+            args = (self.num_bin, self.is_cat, self._feat_mask, grad, hess,
+                    self._row_weight, self.shrinkage_rate, params)
+            if kind == "ordered":
+                return grow_tree_ordered(td.bins_rm, *args)
+            # fused: each split's pass is K3 (per-feature candidates);
+            # nocache: K2 histograms and the split scan; cached: K1 over
+            # the smaller child and the exact sibling subtraction
+            comm = {"fused": SerialComm(leaf_cache=False, fused_gain=True),
+                    "nocache": SerialComm(leaf_cache=False),
+                    "cached": SerialComm()}[kind]
+            return grow_tree(td.bins, *args, comm=comm, bins_rm=td.bins_rm)
+        return grow
 
     def _make_metrics(self, dataset) -> list:
         out = []
@@ -196,10 +308,7 @@ class GBDT:
         score = self.train_data.score
         grad, hess = self.objective.gradients_with(self._grad_arrays, score)
         for cls in range(self.num_class):
-            ta, _, delta = grow_tree_ordered(
-                self.train_data.bins_rm, self.num_bin, self.is_cat,
-                self._feat_mask, grad[cls], hess[cls], self._row_weight,
-                self.shrinkage_rate, self.grow_params)
+            ta, _, delta = self._grow(grad[cls], hess[cls])
             score[cls] += delta
             for dd in self.valid_data:
                 dd.score[cls] += self._tree_delta(dd, ta)

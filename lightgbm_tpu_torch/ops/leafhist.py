@@ -17,6 +17,11 @@ tensor it runs :func:`digit_histogram_plain`, one ``index_add_`` keyed by
 bit for bit in any summation order.  Kernel launches are counted in
 :data:`LAUNCHES`.
 
+:func:`leaf_histogram` serves the cached grower (``ops/grow.py``): it
+compacts the rows of a mask into a window of a power-of-two size class
+(:func:`size_classes`, :func:`compact_rows`: a stable sort of the mask)
+and hands the window to :func:`digit_histogram`.
+
 Preconditions: every bin code is below ``max_bin``, and a window holds
 fewer than 2^24 rows (|digit| <= 128, so 128 * rows stays below 2^31).
 """
@@ -25,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -228,3 +233,54 @@ def digit_histogram(bins_rm: torch.Tensor, digits: torch.Tensor,
             f"digit_histogram kernel launch failed: CUDA error {err}")
     _count("digit_histogram")
     return out
+
+
+# ---------------------------------------------------------------------------
+# compaction + size classes (the cached grower's smaller child)
+
+
+def size_classes(num_data: int, min_size: int = 8192) -> Tuple[int, ...]:
+    """Power-of-two compaction sizes covering [1, ceil(N/2)]."""
+    top = max(num_data + 1, 2) // 2
+    smax = 1
+    while smax < top:
+        smax *= 2
+    sizes = []
+    s = min(min_size, smax)
+    while s < smax:
+        sizes.append(s)
+        s *= 2
+    sizes.append(smax)
+    return tuple(sizes)
+
+
+def compact_rows(mask: torch.Tensor, size: int):
+    """Indices of the up-to-``size`` True rows of ``mask``, in row order,
+    padded with other rows: a stable sort of the mask (selected rows
+    first).  Returns (idx [size] int64, valid [size] bool)."""
+    cnt = torch.sum(mask.to(torch.int32))
+    key = (~mask).to(torch.uint8)
+    _, idx_sorted = torch.sort(key, stable=True)
+    idx = idx_sorted[:size]
+    valid = torch.arange(size, dtype=torch.int32, device=mask.device) < cnt
+    return idx, valid
+
+
+def leaf_histogram(bins_rm: torch.Tensor, digits: torch.Tensor,
+                   mask: torch.Tensor, count: int, max_bin: int,
+                   classes: Sequence[int]) -> torch.Tensor:
+    """[F, 9, max_bin] int32 digit sums over the rows selected by ``mask``
+    [N] bool: the rows are compacted into a window of the smallest size
+    class that holds ``count`` (== sum(mask), a host int), rows past the
+    count get zero digits, and the window goes to :func:`digit_histogram`
+    (K1 on a card)."""
+    sizes = list(classes)
+    cls = min(sum(int(count) > s for s in sizes), len(sizes) - 1)
+    idx, valid = compact_rows(mask, sizes[cls])
+    store = bins_rm.view(torch.int16) if bins_rm.dtype == torch.uint16 \
+        else bins_rm
+    gathered_bins = store.index_select(0, idx).view(bins_rm.dtype)
+    gathered_dig = digits.index_select(0, idx)
+    gathered_dig = torch.where(valid[:, None], gathered_dig,
+                               torch.zeros_like(gathered_dig))
+    return digit_histogram(gathered_bins, gathered_dig, max_bin)

@@ -297,7 +297,8 @@ def test_train_without_device_raises_here(monkeypatch):
     ({"boosting_type": "goss"}, "GOSS"),
     ({"boosting": "dart"}, "DART"),
     ({"linear_tree": True}, "linear_tree"),
-    ({"serial_grow": "cached"}, "serial_grow=cached"),
+    ({"objective": "multiclass", "num_class": 3, "metric": "multi_logloss"},
+     "objective=multiclass"),
     ({"tree_learner": "data"}, "tree_learner"),
 ])
 def test_unported_training_settings_raise(extra, what):
@@ -326,7 +327,8 @@ def test_config_training_keys_match_jax():
 def test_training_modules_import_nothing_of_jax():
     new = ["io/binning.py", "io/dataset.py", "objective/__init__.py",
            "metric/__init__.py", "ops/split.py", "ops/leafhist.py",
-           "ops/grow.py", "ops/ordered_grow.py", "engine.py"]
+           "ops/grow.py", "ops/ordered_grow.py", "engine.py",
+           "ops/histogram.py", "ops/children_hist.py", "utils/resource.py"]
     for rel in new:
         path = REPO / "lightgbm_tpu_torch" / rel
         tree = ast.parse(path.read_text())
@@ -339,3 +341,4 @@ def test_training_modules_import_nothing_of_jax():
                 assert name.split(".")[0] not in (
                     "jax", "jaxlib", "lightgbm_tpu"), (rel, name)
     assert (REPO / "lightgbm_tpu_torch/csrc/leaf_hist.cu").is_file()
+    assert (REPO / "lightgbm_tpu_torch/csrc/children_hist.cu").is_file()
