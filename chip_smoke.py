@@ -24,6 +24,18 @@ Every phase prints one JSON line; any failure raises and exits non-zero.
    third of the rows in each child and a third elsewhere, plus the root
    forms at 1M rows; K3's features and thresholds equal except at
    reported near-ties.  Each call adds exactly one to its launch counter.
+   The linear and bf16 variants of the walk (``linear_forest``): the
+   Higgs forest below made piece-wise linear (its own random trees, one
+   feature categorical; every leaf of ~90% of the trees gets 5 affine
+   slots from its own path features, the categorical one included,
+   N(0, 0.01) coefficients, ~10% of the slots -1 pads) with uint16 bins,
+   the same at 250 cut values (uint8 bins), and a linear multiclass
+   forest with a ragged tail, all on rows with 5% NaN; the linear walks
+   within 1e-6 of their plain versions (expected bit-equal: both sum the
+   slots in ascending order with one rounding per product and per add).
+   The bf16 variants, on the Higgs forests with leaf values scaled by
+   1e-2 (``serve_quantize_leaves`` keeps bf16 for them), bit-equal
+   (``torch.equal``) to the plain walk on the dequantized table.
 3. ``serve``: the serving path at full width.  A Higgs-sized forest
    (binary, 28 features, 500 trees, 255 leaves, 255 cut values per
    feature: LightGBM's published Higgs experiment settings) is written
@@ -35,6 +47,18 @@ Every phase prints one JSON line; any failure raises and exits non-zero.
    (host f64 binning, then the binned kernel) is held against the f64
    host walk ``Tree.predict`` (raw <= 1e-5).  The launch counters are set
    to 0 just before this phase and read just after it.
+   ``serve_linear``: the linear Higgs forest served the same way
+   (``serve_nonfinite_policy=propagate``, 2% NaN in the rows; responses
+   against the plain linear walk, ``/healthz`` reports ``linear``),
+   ``Booster.predict`` (the binned linear kernel) against the f64 host
+   walk with its affine part, then ``serve_from_config`` with
+   ``serve_quantize_leaves=true`` three times: the two scaled forests
+   (constant and linear) must freeze to bfloat16 and predict through
+   both paths within QUANTIZE_LEAF_ATOL + 1e-5 of the f64 host walk;
+   the linear Higgs forest itself, whose summed bf16 error is far over
+   the pin, must stay float32 with one ``forest_quantize_fallback``.
+   Counters set to 0 before and read after; every linear and bf16
+   variant must have launched.
 4. ``train``: the training path at full width: the bench operating point
    (binary, ``make_higgs_like(1000000)`` from ``--seed``, 28 features,
    ``num_leaves=63``, ``max_bin=255``, ``learning_rate=0.1``,
@@ -56,9 +80,18 @@ Every phase prints one JSON line; any failure raises and exits non-zero.
    structure-equal to the ordered ones, values within 1e-6 relative.
    One more round per grower, outside the counted run, splits the
    round's time into the histogram kernel, the split scan (and the
-   ordered grower's partition) and the rest with CUDA events.
+   ordered grower's partition) and the rest with CUDA events.  The
+   datasets keep raw values, and a fifth run trains ``linear_tree=true``
+   (``linear_max_leaf_features=5``, ``linear_lambda=0.01``, the ordered
+   grower): its launches as ordered's, tree 1 and 2 re-grown (from the
+   run's own scores) and re-fit through the plain versions
+   structure-equal, the saved model against
+   the score buffer (1e-5) and against the f64 host walk with its affine
+   part (1e-5), AUC rising, and the fit's share of a round.
 5. ``timing``: CUDA-event medians of each kernel and its plain version on
-   the Higgs forest at B in {1, 256, 4096, 65536}, and of K1, K2 and K3
+   the Higgs forest at B in {1, 256, 4096, 65536} (the linear and bf16
+   variants on their forests, beside the constant walk over the same
+   trees; their plain versions at B = 4096), and of K1, K2 and K3
    at S in {4096, 65536, 500000, 1000000} beside their plain versions
    and the ``index_add_`` library call, each beside its bound.
 
@@ -79,14 +112,18 @@ import urllib.request
 import numpy as np
 import torch
 
-SOURCE = {"forest_walk": "lightgbm_tpu_torch/csrc/forest_walk.cu",
-          "forest_walk_raw": "lightgbm_tpu_torch/csrc/forest_walk.cu",
+WALKS = tuple(f"forest_walk{raw}{lin}{q}" for raw in ("", "_raw")
+              for lin in ("", "_linear") for q in ("", "_bf16"))
+SOURCE = {**{name: "lightgbm_tpu_torch/csrc/forest_walk.cu"
+             for name in WALKS},
           "digit_histogram": "lightgbm_tpu_torch/csrc/leaf_hist.cu",
           "children_histograms": "lightgbm_tpu_torch/csrc/children_hist.cu",
           "fused_split_candidates":
               "lightgbm_tpu_torch/csrc/children_hist.cu"}
-REPLACES = {"forest_walk": "lightgbm_tpu/ops/pallas_walk.py:372",
-            "forest_walk_raw": "lightgbm_tpu/ops/pallas_walk.py:391",
+# the binned and raw entry points of the TPU walk; their aff= option is
+# the affine epilogue (pallas_walk.py:238-242), a bf16 lv their :236 cast
+REPLACES = {**{name: "lightgbm_tpu/ops/pallas_walk.py:"
+               + ("391" if "_raw" in name else "372") for name in WALKS},
             "digit_histogram": "lightgbm_tpu/ops/leafhist.py:138",
             "children_histograms": "lightgbm_tpu/ops/pallas_histogram.py:185",
             "fused_split_candidates":
@@ -95,6 +132,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 TOL = 1e-6
 HIGGS = dict(num_features=28, num_trees=500, num_leaves=255, num_cuts=255)
+LINEAR_K = 5                   # affine slots a leaf (linear_max_leaf_features)
+LINEAR_CAT = (3,)              # the linear Higgs forest's categorical feature
+TINY_LEAVES = 1e-2             # leaf scale the bf16 pin accepts at 500 trees
 SERVE_SIZES = (1, 64, 4096)
 SERVE_CLIENTS = 4
 SOLO = 5                       # sequential 1-row requests after the load
@@ -110,11 +150,18 @@ HIST_TIMING_SIZES = (4096, 65536, 500_000, 1_000_000)
 TREE_TIE_RTOL = 1e-3
 # the training runs: (grower, extra params, the histogram kernel it runs);
 # the cache of 63 x 28 x 9 x 255 int32 (16 MB) is over a 1 MB pool
-GROWERS = (("ordered", {}, "digit_histogram"),
-           ("cached", {"serial_grow": "cached"}, "digit_histogram"),
-           ("fused", {"serial_grow": "fused"}, "fused_split_candidates"),
-           ("nocache", {"histogram_pool_size": 1, "memory_policy": "degrade"},
-            "children_histograms"))
+# (the datasets keep raw values for the linear run, so the constant runs
+# say linear_tree=false)
+CONST = {"linear_tree": False}
+LINEAR_PARAMS = {"linear_tree": True, "linear_max_leaf_features": LINEAR_K,
+                 "linear_lambda": 0.01}
+GROWERS = (("ordered", {**CONST}, "digit_histogram"),
+           ("cached", {**CONST, "serial_grow": "cached"}, "digit_histogram"),
+           ("fused", {**CONST, "serial_grow": "fused"},
+            "fused_split_candidates"),
+           ("nocache", {**CONST, "histogram_pool_size": 1,
+                        "memory_policy": "degrade"}, "children_histograms"),
+           ("linear", LINEAR_PARAMS, "digit_histogram"))
 
 
 def emit(obj) -> None:
@@ -211,6 +258,57 @@ def random_model(seed: int, num_features: int, num_trees: int,
     return g, grid
 
 
+def leaf_path_features(tree):
+    """Each leaf's split features from the leaf up to the root, repeats
+    dropped (categorical ones kept)."""
+    parent = {}
+    for node in range(tree.num_leaves - 1):
+        for child in (tree.left_child[node], tree.right_child[node]):
+            if child >= 0:
+                parent[int(child)] = node
+    out = []
+    for leaf in range(tree.num_leaves):
+        feats, node = [], int(tree.leaf_parent[leaf])
+        while node >= 0:
+            f = int(tree.split_feature[node])
+            if f not in feats:
+                feats.append(f)
+            node = parent.get(node, -1)
+        out.append(feats)
+    return out
+
+
+def make_linear(g, seed: int, const_frac: float = 0.1,
+                pad_frac: float = 0.1):
+    """Give every leaf of ~(1 - const_frac) of ``g``'s trees LINEAR_K
+    affine slots from its own path features (categorical ones included,
+    as loaded model text may name them), N(0, 0.01) coefficients, and
+    ``pad_frac`` of the slots -1; the other trees stay constant."""
+    rng = np.random.RandomState(seed)
+    for t in g.models:
+        if t.num_leaves <= 1 or rng.rand() < const_frac:
+            continue
+        feat = np.full((t.num_leaves, LINEAR_K), -1, np.int32)
+        for leaf, fs in enumerate(leaf_path_features(t)):
+            fs = fs[:LINEAR_K]
+            feat[leaf, :len(fs)] = fs
+        feat[rng.rand(*feat.shape) < pad_frac] = -1
+        t.leaf_feat = feat
+        t.leaf_coeff = np.where(feat >= 0,
+                                rng.normal(0.0, 0.01, feat.shape), 0.0)
+    return g
+
+
+def scaled(g, factor: float):
+    """A copy of ``g`` (through its model text) with every leaf value
+    times ``factor``; affine coefficients unchanged."""
+    from lightgbm_tpu_torch.models.gbdt import GBDT
+    out = GBDT.from_string(g.save_model_to_string())
+    for t in out.models:
+        t.leaf_value = t.leaf_value * factor
+    return out
+
+
 def random_rows(rng, n: int, grid, cat_features=(), num_cats: int = 0,
                 nan_frac: float = 0.0, tie_frac: float = 0.0) -> np.ndarray:
     """[n, F] f64 rows: N(0,1) values, ``tie_frac`` of them exactly on a
@@ -293,41 +391,72 @@ def phase_build():
 
 
 def compare_kernels(cf, X, sizes, label, errs):
-    """Both wrappers against their plain versions at each size; each
-    wrapper launch must add exactly one to its counter."""
+    """Both wrappers of ``cf``'s variant against their plain versions at
+    each size (a bf16 table bit-equal to the plain walk on its
+    dequantized values, the rest within TOL); each wrapper launch must
+    add exactly one to its variant's counter."""
     from lightgbm_tpu_torch.ops import forest_walk as fw
     tables = cf.walk_tables
     bnd, cats, is_cat = cf.cut_tables()
-    out = {}
+    nb, nr = tables.variant(raw=False), tables.variant(raw=True)
+    exact = tables.leaves.dtype == torch.bfloat16
+    out = {"variants": [nb, nr], "bin_dtype": cf.info()["bin_dtype"]}
     for B in sizes:
         bins = cf.device_bins(X[:B])
         rows = cf.device_rows(X[:B])
+        xt = cf.device_covariates(X[:B]) if tables.linear else None
         before = fw.launch_counts()
-        got = fw.forest_walk(tables, bins)
+        got = fw.forest_walk(tables, bins, xt)
         got_raw = fw.forest_walk_raw(tables, bnd, cats, is_cat, rows)
         torch.cuda.synchronize()
         after = fw.launch_counts()
-        check(after["forest_walk"] == before["forest_walk"] + 1
-              and after["forest_walk_raw"] == before["forest_walk_raw"] + 1,
+        check(after[nb] == before[nb] + 1 and after[nr] == before[nr] + 1
+              and sum(after.values()) == sum(before.values()) + 2,
               f"{label} B={B}: launch counters {before} -> {after}")
-        want = fw.forest_walk_plain(tables, bins)
+        want = fw.forest_walk_plain(tables, bins, xt)
         want_raw = fw.forest_walk_raw_plain(tables, bnd, cats, is_cat, rows)
         d = float((got - want).abs().max())
         d_raw = float((got_raw - want_raw).abs().max())
+        bit_equal = bool(torch.equal(got, want)
+                         and torch.equal(got_raw, want_raw))
         check(bool(torch.isfinite(got).all() and torch.isfinite(got_raw)
                    .all()), f"{label} B={B}: non-finite kernel output")
         check(d <= TOL and d_raw <= TOL,
               f"{label} B={B}: kernel vs plain max_abs_diff binned={d} "
               f"raw={d_raw} (tolerance {TOL})")
-        errs["forest_walk"] = max(errs["forest_walk"], d)
-        errs["forest_walk_raw"] = max(errs["forest_walk_raw"], d_raw)
-        out[str(B)] = {"binned": d, "raw": d_raw,
-                       "bit_equal": bool(torch.equal(got, want)
-                                         and torch.equal(got_raw, want_raw))}
+        check(bit_equal or not exact,
+              f"{label} B={B}: the bf16 walk is not bit-equal to the plain "
+              f"walk on the dequantized table")
+        errs[nb] = max(errs[nb], d)
+        errs[nr] = max(errs[nr], d_raw)
+        out[str(B)] = {"binned": d, "raw": d_raw, "bit_equal": bit_equal}
     return out
 
 
-def phase_kernels(seed, dev, higgs_model, higgs_grid, errs):
+def linear_forests(seed, higgs_model, higgs_grid):
+    """The linear Higgs forest, its grid, and the kernels phase's linear
+    and bf16 forests as (label, GBDT, grid, quantize, categorical
+    features, categories)."""
+    lin, grid = random_model(seed + 5, cat_features=LINEAR_CAT, num_cats=8,
+                             **HIGGS)
+    make_linear(lin, seed + 6)
+    lin8, grid8 = random_model(seed + 7, cat_features=LINEAR_CAT,
+                               num_cats=8, **{**HIGGS, "num_cuts": 250})
+    make_linear(lin8, seed + 8)
+    mc, gmc = random_model(seed + 2, 6, 7, 15, 30, num_class=3,
+                           ragged_tail=2, cat_features=(1,), num_cats=6)
+    make_linear(mc, seed + 9)
+    return lin, grid, [
+        ("higgs_linear_u16", lin, grid, False, LINEAR_CAT, 8),
+        ("higgs_linear_u8", lin8, grid8, False, LINEAR_CAT, 8),
+        ("multiclass_ragged_linear", mc, gmc, False, (1,), 6),
+        ("higgs_bf16", scaled(higgs_model, TINY_LEAVES), higgs_grid, True,
+         (), 0),
+        ("higgs_linear_bf16", scaled(lin, TINY_LEAVES), grid, True,
+         LINEAR_CAT, 8)]
+
+
+def phase_kernels(seed, dev, higgs_model, higgs_grid, linear_set, errs):
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import children_hist as ch
     from lightgbm_tpu_torch.ops import forest_walk as fw
@@ -355,6 +484,20 @@ def phase_kernels(seed, dev, higgs_model, higgs_grid, errs):
     X = random_rows(np.random.RandomState(seed + 13), 4096, higgs_grid,
                     tie_frac=0.02)
     results["higgs"] = compare_kernels(cf, X, (16, 64, 4096), "higgs", errs)
+    for i, (label, g, grid, quantize, cat, ncat) in enumerate(linear_set):
+        cf = lt.CompiledForest.from_booster(g, device=dev,
+                                            quantize_leaves=quantize)
+        info = cf.info()
+        check(info["linear"] == ("linear" in label)
+              and info["leaf_dtype"] == ("bfloat16" if quantize
+                                         else "float32"),
+              f"{label}: froze as {info}")
+        if label.endswith(("_u8", "_u16")):
+            check(info["bin_dtype"] == "uint" + label.rsplit("_u", 1)[1],
+                  f"{label}: bins are {info['bin_dtype']}")
+        X = random_rows(np.random.RandomState(seed + 60 + i), 4096, grid,
+                        cat, ncat, nan_frac=0.05, tie_frac=0.02)
+        results[label] = compare_kernels(cf, X, (1, 64, 4096), label, errs)
     results["digit_histogram"] = compare_leaf_hist(seed, dev, errs)
     results["children_hist"] = compare_children_hist(seed, dev, errs)
     emit({"phase": "kernels", "max_abs_diff": results,
@@ -626,7 +769,10 @@ def phase_serve(seed, dev, higgs_model, higgs_grid, workdir, errs):
         booster = Booster(model_file=path)
         pred = booster.predict(Xb, raw_score=True)
         torch.cuda.synchronize()
-        launches = fw.launch_counts()
+        launches = {k: v for k, v in fw.launch_counts().items()
+                    if k in ("forest_walk", "forest_walk_raw")}
+        check(sum(fw.launch_counts().values()) == sum(launches.values()),
+              "the constant f32 forest launched another walk variant")
     finally:
         srv.stop()
     check(not srv.batcher._worker.is_alive(), "batcher worker still alive")
@@ -673,6 +819,139 @@ def phase_serve(seed, dev, higgs_model, higgs_grid, workdir, errs):
     return launches
 
 
+def phase_serve_linear(seed, dev, lin_model, lin_grid, higgs_model,
+                       workdir, errs):
+    """The linear Higgs forest over HTTP, then three freezes with
+    ``serve_quantize_leaves=true``; returns the launch counts of the
+    linear and bf16 variants, every one of which must have run."""
+    from lightgbm_tpu_torch import Booster
+    from lightgbm_tpu_torch.config import Config, parse_cli_args
+    from lightgbm_tpu_torch.ops import forest_walk as fw
+    from lightgbm_tpu_torch.serve.forest import CompiledForest
+    from lightgbm_tpu_torch.serve.server import serve_from_config
+    from lightgbm_tpu_torch.utils import log
+
+    paths = {}
+    for name, g in (("linear", lin_model),
+                    ("linear_tiny", scaled(lin_model, TINY_LEAVES)),
+                    ("tiny", scaled(higgs_model, TINY_LEAVES))):
+        paths[name] = f"{workdir}/higgs_{name}.txt"
+        with open(paths[name], "w") as fh:
+            fh.write(g.save_model_to_string())
+    rng = np.random.RandomState(seed + 70)
+
+    def rows(n):
+        return random_rows(rng, n, lin_grid, LINEAR_CAT, 8, nan_frac=0.02,
+                           tie_frac=0.02)
+    plans = [[rows(n) for n in SERVE_SIZES] for _ in range(SERVE_CLIENTS)]
+    Xb = rows(2000)
+
+    def serve_config(path, *extra):
+        return Config(parse_cli_args([
+            "task=serve", f"input_model={path}", "serve_port=0",
+            "serve_max_batch=4096", "serve_max_delay_ms=2",
+            "serve_nonfinite_policy=propagate", *extra]))
+
+    fw.reset_launch_counts()
+    t0 = time.perf_counter()
+    srv = serve_from_config(serve_config(paths["linear"])).start()
+    startup_s = time.perf_counter() - t0
+    try:
+        host, port = srv.address
+        base = f"http://{host}:{port}"
+        got = [[None] * len(SERVE_SIZES) for _ in range(SERVE_CLIENTS)]
+        lat = {n: [] for n in SERVE_SIZES}
+        failures = []
+
+        def client(c):
+            try:
+                for j, X in enumerate(plans[c]):
+                    resp, ms = _post_rows(base, X)
+                    check(resp["num_rows"] == len(X), "num_rows mismatch")
+                    got[c][j] = np.asarray(resp["predictions"], np.float64)
+                    lat[len(X)].append(ms)
+            except BaseException as exc:       # re-raised below
+                failures.append(repr(exc))
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        check(not failures, f"client failures: {failures}")
+        health = json.loads(urllib.request.urlopen(base + "/healthz",
+                                                   timeout=60).read())
+        booster = Booster(model_file=paths["linear"])
+        pred = booster.predict(Xb, raw_score=True)
+        torch.cuda.synchronize()
+    finally:
+        srv.stop()
+    cf = srv.forest
+    Xall = np.concatenate([X for p in plans for X in p], axis=0)
+    want = cf.transform_scores(fw.forest_walk_raw_plain(
+        cf.walk_tables, *cf.cut_tables(), cf.device_rows(Xall)))[0]
+    flat = np.concatenate([g for row in got for g in row])
+    check(flat.shape == (Xall.shape[0],) and np.isfinite(flat).all(),
+          "linear responses have the wrong shape or non-finite values")
+    d_serve = float(np.abs(flat - want.double().cpu().numpy()).max())
+    check(d_serve <= TOL, f"served linear predictions vs plain: {d_serve}")
+    errs["forest_walk_raw_linear"] = max(errs["forest_walk_raw_linear"],
+                                         d_serve)
+    d_host = float(np.abs(pred - booster._booster.predict_raw(Xb)[0]).max())
+    check(d_host <= 1e-5, f"linear Booster.predict vs f64 host walk: "
+                          f"{d_host}")
+    check(health["linear"] is True and health["linear_k"] == LINEAR_K
+          and health["leaf_dtype"] == "float32",
+          f"/healthz of the linear forest: {health}")
+
+    # serve_quantize_leaves=true: two forests the pin accepts, one it
+    # refuses (the real Higgs leaves: their summed bf16 error)
+    frozen = {}
+    atol = CompiledForest.QUANTIZE_LEAF_ATOL + 1e-5
+    for name in ("tiny", "linear_tiny", "linear"):
+        b32 = Booster(model_file=paths[name])
+        f32 = CompiledForest.from_booster(b32, quantize_leaves=False)
+        fell = log.counter("forest_quantize_fallback")
+        qsrv = serve_from_config(serve_config(paths[name],
+                                              "serve_quantize_leaves=true"))
+        fell = log.counter("forest_quantize_fallback") - fell
+        qf = qsrv.forest
+        dtype = qf.info()["leaf_dtype"]
+        check(dtype == ("float32" if name == "linear" else "bfloat16")
+              and fell == (name == "linear"),
+              f"quantize {name}: leaf_dtype {dtype}, fallbacks {fell}")
+        # host f64 binning against the f64 host walk; the f32 binning of
+        # the serving path against the f32 table's, which bins the same
+        host = b32._booster.predict_raw(Xb)[0]
+        d_bin = float(np.abs(qf.predict(Xb, raw_score=True) - host).max())
+        d_dev = float(np.abs(
+            qf.predict(Xb, raw_score=True, device_binning=True)
+            - f32.predict(Xb, raw_score=True, device_binning=True)).max())
+        check(max(d_bin, d_dev) <= atol,
+              f"quantize {name}: {d_bin} from the f64 host walk, {d_dev} "
+              f"from the f32 table")
+        frozen[name] = {"leaf_dtype": dtype, "fallbacks": fell,
+                        "binned_vs_host_f64": d_bin,
+                        "raw_vs_f32_table": d_dev}
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in fw.launch_counts().items()
+                if k not in ("forest_walk", "forest_walk_raw")}
+    check(all(v > 0 for v in launches.values()),
+          f"a linear or bf16 walk was not launched on the main path: "
+          f"{launches}")
+    emit({"phase": "serve_linear", "startup_s": startup_s,
+          "launches": launches,
+          "latency_ms_median": {str(n): float(np.median(v))
+                                for n, v in lat.items()},
+          "max_abs_diff_vs_plain": d_serve,
+          "booster_vs_host_f64": d_host, "quantize": frozen,
+          "healthz": {k: health[k] for k in ("linear", "linear_k",
+                                             "leaf_dtype", "bin_dtype",
+                                             "num_features")}})
+    return launches
+
+
 class _timed_updates:
     """Record the synchronized wall time of every ``Booster.update`` call
     made inside the block (one boosting round each)."""
@@ -710,7 +989,9 @@ def phase_train(seed, dev, workdir):
     Xv, yv = make_higgs_like(VALID_ROWS, seed=seed + 41)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    train_set = lt.Dataset(X, y, params=TRAIN_PARAMS).construct()
+    # raw values kept for the linear run (the constant runs ignore them)
+    train_set = lt.Dataset(X, y, params={**TRAIN_PARAMS,
+                                         "linear_tree": True}).construct()
     valid_set = lt.Dataset(Xv, yv, reference=train_set).construct()
     binning_s = time.perf_counter() - t0
     emit({"phase": "train_data", "rows": TRAIN_ROWS,
@@ -808,7 +1089,12 @@ def train_run(name, extra, kernel, train_set, valid_set, X, workdir,
     runs.  Checks the re-grow of the first two trees through the plain
     versions, the saved model against
     the training score buffer, the AUC and, beside the ordered run, the
-    cached trees and every grower's final valid AUC."""
+    cached trees and every constant grower's final valid AUC.  The
+    ``linear`` run grows with the ordered grower and fits its leaves:
+    its trees are re-grown from the run's own scores and re-fit
+    (structure-equal: the fit's ``index_add_`` adds in no fixed order),
+    and its saved model is also held against the f64 host walk with its
+    affine part."""
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import children_hist as ch
     from lightgbm_tpu_torch.ops import grow as gr
@@ -816,6 +1102,8 @@ def train_run(name, extra, kernel, train_set, valid_set, X, workdir,
     from lightgbm_tpu_torch.ops import ordered_grow as og
     params = {**TRAIN_PARAMS, **extra}
     L = params["num_leaves"]
+    linear = name == "linear"
+    kind = "ordered" if linear else name
     evals = {}
     lh.reset_launch_counts()
     ch.reset_launch_counts()
@@ -833,13 +1121,15 @@ def train_run(name, extra, kernel, train_set, valid_set, X, workdir,
     train_s = time.perf_counter() - t0
 
     gbdt = booster._booster
-    check(gbdt.grow_kind == name, f"{name}: the booster grew with "
+    check(gbdt.grow_kind == kind, f"{name}: the booster grew with "
                                   f"{gbdt.grow_kind}")
+    check((gbdt._linear is not None) == linear,
+          f"{name}: linear_tree setting not taken")
     grown = list(gbdt.tree_arrays)
     leaves = [int(ta.num_leaves) for ta in grown]
     check(booster.num_trees() == TRAIN_ROUNDS,
           f"{name}: {booster.num_trees()} trees after {TRAIN_ROUNDS} rounds")
-    want = sum(leaves) if name == "ordered" else TRAIN_ROUNDS * L
+    want = sum(leaves) if kind == "ordered" else TRAIN_ROUNDS * L
     check(launches[kernel] == want,
           f"{name}: {kernel} launches {launches[kernel]} != {want}")
     check(all(v == 0 for k, v in launches.items() if k != kernel),
@@ -854,7 +1144,13 @@ def train_run(name, extra, kernel, train_set, valid_set, X, workdir,
     for i in range(2):
         grad, hess = gbdt.objective.gradients_with(gbdt._grad_arrays, score)
         with _plain_kernels():
-            ta, _, delta = gbdt._grow(grad[0], hess[0])
+            ta, leaf_id, delta = gbdt._grow(grad[0], hess[0])
+        if linear:
+            ta = gbdt._fit_linear(ta, leaf_id, grad[0], hess[0])[0]
+            # the next gradients from the run's own fitted tree (its delta
+            # bit for bit), so the re-fit's atomic sums do not compound
+            delta = gbdt._tree_delta(gbdt.train_data, grown[i],
+                                     gbdt.tree_linear[i])
         score[0] += delta
         flip, rel = compare_regrown(grown[i], ta, f"{name} tree {i}",
                                     exact=name in ("ordered", "cached"))
@@ -871,6 +1167,17 @@ def train_run(name, extra, kernel, train_set, valid_set, X, workdir,
     d_pred = float(np.abs(pred - buf).max())
     check(d_pred <= 1e-5, f"{name}: saved model vs training score buffer: "
                           f"{d_pred}")
+    beside = {}
+    if linear:
+        loaded = lt.Booster(model_file=path)
+        d_host = float(np.abs(loaded._booster.predict_raw(X[:4096])[0]
+                              - pred).max())
+        check(d_host <= 1e-5, f"{name}: kernel vs f64 host walk: {d_host}")
+        n_lin = sum(t.has_linear() for t in loaded._booster.models)
+        check(n_lin == len(grown), f"{name}: {n_lin} linear trees saved")
+        beside.update(kernel_vs_host_f64=d_host,
+                      linear_fallbacks=gbdt.linear_fallbacks,
+                      valid_auc_ordered=ordered["auc"]["valid"])
 
     auc = {k: v["auc"] for k, v in evals.items()}
     for key in ("train", "valid"):
@@ -878,8 +1185,7 @@ def train_run(name, extra, kernel, train_set, valid_set, X, workdir,
         check(len(a) == TRAIN_ROUNDS and all(np.isfinite(a))
               and min(a) > 0.5 and a[-1] > a[0],
               f"{name}: {key} AUC {a} is not finite, above 0.5 and rising")
-    beside = {}
-    if ordered is not None:
+    if ordered is not None and not linear:
         d_auc = abs(auc["valid"][-1] - ordered["auc"]["valid"][-1])
         check(d_auc <= 1e-3, f"{name}: valid AUC {auc['valid'][-1]} vs the "
                              f"ordered run's {ordered['auc']['valid'][-1]}")
@@ -955,6 +1261,10 @@ def profile_round(booster, name):
                            (og, "find_best_split", "split_scan")),
                "cached": ((lh, "digit_histogram", "k1"),
                           (gr, "find_best_split", "split_scan")),
+               "linear": ((lh, "digit_histogram", "k1"),
+                          (og, "_partition", "partition"),
+                          (og, "find_best_split", "split_scan"),
+                          (booster._booster, "_fit_linear", "linear_fit")),
                "fused": ((ch, "fused_split_candidates", "k3"),
                          (gr, "combine_feature_candidates", "split_scan")),
                "nocache": ((ch, "children_histograms", "k2"),
@@ -999,54 +1309,106 @@ def cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def phase_timing(seed, dev, higgs_model, higgs_grid, reps):
+def phase_timing(seed, dev, higgs_model, higgs_grid, lin_model, lin_grid,
+                 reps):
+    """Every walk variant at each B of TIMING_SIZES: the constant f32 and
+    bf16 tables on the Higgs forest's trees, the linear f32 and bf16 ones
+    on the linear Higgs forest's, beside the constant walk over the same
+    trees (``const_walk_ms``).  Plain versions at every B for the
+    constant f32 walks, at B = 4096 for the others.  Bound: bins (or
+    raw rows) plus the linear binned walk's covariates plus the output
+    plus the forest tables (nodes, leaves, affine tables) and the raw
+    walk's cut tables once, over 3.35 TB/s; ops: this data's node visits,
+    4 Kahan operations a tree a row, the raw walk's binary searches and,
+    for linear leaves, a multiply and an add a used slot plus one add."""
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import forest_walk as fw
-    cf = lt.CompiledForest.from_booster(higgs_model, device=dev)
-    tables = cf.walk_tables
-    bnd, cats, is_cat = cf.cut_tables()
-    depth = torch.from_numpy(leaf_depths(tables)).to(dev)
-    K, T = tables.num_class, tables.trees_per_class
-    table_bytes = (tables.nodes.numel() * 4 + tables.leaves.numel() * 4)
-    cut_bytes = bnd.numel() * 4 + cats.numel() * 4 + is_cat.numel()
-    search_steps = int(np.ceil(np.log2(bnd.shape[1] + 1)))
+
+    def freeze(g, quantize=False):
+        return lt.CompiledForest.from_booster(g, device=dev,
+                                              quantize_leaves=quantize)
+
+    structures = (
+        ("higgs", (freeze(higgs_model),
+                   freeze(scaled(higgs_model, TINY_LEAVES), True)),
+         higgs_grid, (), 0),
+        ("higgs_linear", (freeze(lin_model),
+                          freeze(scaled(lin_model, TINY_LEAVES), True)),
+         lin_grid, LINEAR_CAT, 8))
     rng = np.random.RandomState(seed + 30)
     rows = []
-    for B in TIMING_SIZES:
-        X = random_rows(rng, B, higgs_grid, tie_frac=0.02)
-        bins = cf.device_bins(X)
-        xt = cf.device_rows(X)
-        F = xt.shape[0]
-        k_ms = cuda_ms(lambda: fw.forest_walk(tables, bins), reps)
-        kr_ms = cuda_ms(lambda: fw.forest_walk_raw(tables, bnd, cats,
-                                                   is_cat, xt), reps)
-        p_ms = cuda_ms(lambda: fw.forest_walk_plain(tables, bins), 2)
-        pr_ms = cuda_ms(lambda: fw.forest_walk_raw_plain(
-            tables, bnd, cats, is_cat, xt), 2)
-        leaves = fw.walk_plain(tables, bins)[1]
-        visits = int(depth.gather(2, leaves).sum())
-        leaves_r = fw.walk_plain(tables, fw.bucketize_plain(
-            bnd, cats, is_cat, xt, tables.nan_bin))[1]
-        visits_r = int(depth.gather(2, leaves_r).sum())
-        out_bytes = K * B * 4
-        for name, ms, plain_ms, nbytes, ops in (
-                ("forest_walk", k_ms, p_ms,
-                 bins.numel() * bins.element_size() + table_bytes
-                 + out_bytes, visits + 4 * K * T * B),
-                ("forest_walk_raw", kr_ms, pr_ms,
-                 xt.numel() * 4 + cut_bytes + table_bytes + out_bytes,
-                 visits_r + 4 * K * T * B + B * F * search_steps)):
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops / F32_OPS_PER_S * 1e3
-            rows.append({"kernel": name, "B": B, "ms": ms,
-                         "plain_ms": plain_ms,
-                         "rows_per_s": B / (ms * 1e-3),
-                         "node_visits": visits if name == "forest_walk"
-                         else visits_r,
-                         "bytes": int(nbytes), "ops": int(ops),
-                         "bound_ms": max(bytes_ms, ops_ms),
-                         "bound_by": "bytes" if bytes_ms >= ops_ms
-                         else "operations"})
+    for struct, cfs, grid, cat, ncat in structures:
+        base = cfs[0].walk_tables
+        const = base._replace(coeff=None, feat=None, max_feat=-1)
+        bnd, cats, is_cat = cfs[0].cut_tables()
+        depth = torch.from_numpy(leaf_depths(base)).to(dev)
+        K, T = base.num_class, base.trees_per_class
+        cut_bytes = bnd.numel() * 4 + cats.numel() * 4 + is_cat.numel()
+        search_steps = int(np.ceil(np.log2(bnd.shape[1] + 1)))
+        for B in TIMING_SIZES:
+            X = random_rows(rng, B, grid, cat, ncat, tie_frac=0.02)
+            bins = cfs[0].device_bins(X)
+            xr = cfs[0].device_rows(X)
+            xt = cfs[0].device_covariates(X)
+            F = xr.shape[0]
+            leaves = fw.walk_plain(const, bins)[1]
+            leaves_r = fw.walk_plain(const, fw.bucketize_plain(
+                bnd, cats, is_cat, xr, const.nan_bin))[1]
+            const_ms = (cuda_ms(lambda: fw.forest_walk(const, bins), reps),
+                        cuda_ms(lambda: fw.forest_walk_raw(
+                            const, bnd, cats, is_cat, xr), reps))
+            for cf in cfs:
+                t = cf.walk_tables
+                cov = xt if t.linear else None
+                table_bytes = (t.nodes.numel() * 4 + t.leaves.numel()
+                               * t.leaves.element_size())
+                slots = None
+                if t.linear:
+                    table_bytes += t.coeff.numel() * 4 + t.feat.numel() * 4
+                    slots = (t.feat >= 0).sum(dim=2).reshape(K, T, -1)
+                for raw in (False, True):
+                    name = t.variant(raw)
+                    lv = leaves_r if raw else leaves
+                    if raw:
+                        def run():
+                            return fw.forest_walk_raw(t, bnd, cats, is_cat,
+                                                      xr)
+
+                        def plain():
+                            return fw.forest_walk_raw_plain(
+                                t, bnd, cats, is_cat, xr)
+                        nbytes = xr.numel() * 4 + cut_bytes
+                    else:
+                        def run():
+                            return fw.forest_walk(t, bins, cov)
+
+                        def plain():
+                            return fw.forest_walk_plain(t, bins, cov)
+                        nbytes = bins.numel() * bins.element_size() + (
+                            cov.numel() * 4 if t.linear else 0)
+                    nbytes += table_bytes + K * B * 4
+                    visits = int(depth.gather(2, lv).sum())
+                    ops = visits + 4 * K * T * B + (
+                        B * F * search_steps if raw else 0)
+                    if t.linear:
+                        ops += int((2 * slots.gather(2, lv) + 1).sum())
+                    ms = cuda_ms(run, reps)
+                    const_f32 = name in ("forest_walk", "forest_walk_raw")
+                    plain_ms = (cuda_ms(plain, 2) if const_f32 or B == 4096
+                                else None)
+                    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                    ops_ms = ops / F32_OPS_PER_S * 1e3
+                    row = {"kernel": name, "forest": struct, "B": B,
+                           "ms": ms, "plain_ms": plain_ms,
+                           "rows_per_s": B / (ms * 1e-3),
+                           "node_visits": visits,
+                           "bytes": int(nbytes), "ops": int(ops),
+                           "bound_ms": max(bytes_ms, ops_ms),
+                           "bound_by": "bytes" if bytes_ms >= ops_ms
+                           else "operations"}
+                    if not const_f32:
+                        row["const_walk_ms"] = const_ms[int(raw)]
+                    rows.append(row)
     rows += leaf_hist_timing(seed, dev, reps)
     rows += children_hist_timing(seed, dev, reps)
     emit({"phase": "timing", "reps": reps, "rows": rows})
@@ -1167,14 +1529,20 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = phase_build()
     higgs_model, higgs_grid = random_model(args.seed, **HIGGS)
+    lin_model, lin_grid, linear_set = linear_forests(args.seed, higgs_model,
+                                                     higgs_grid)
     errs = {name: 0.0 for name in SOURCE}
-    phase_kernels(args.seed, dev, higgs_model, higgs_grid, errs)
+    phase_kernels(args.seed, dev, higgs_model, higgs_grid, linear_set, errs)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        launches = phase_serve(args.seed, dev, higgs_model, higgs_grid,
-                               workdir, errs)
+        served = phase_serve(args.seed, dev, higgs_model, higgs_grid,
+                             workdir, errs)
+        launches = dict(served)
+        launches.update(phase_serve_linear(args.seed, dev, lin_model,
+                                           lin_grid, higgs_model, workdir,
+                                           errs))
         launches.update(phase_train(args.seed, dev, workdir))
     timing = phase_timing(args.seed, dev, higgs_model, higgs_grid,
-                          args.timing_reps)
+                          lin_model, lin_grid, args.timing_reps)
     # the walks at B=4096, the histograms at the training root (S = 1M)
     at = {r["kernel"]: r for r in timing
           if r.get("B") == 4096 or r.get("S") == TRAIN_ROWS}

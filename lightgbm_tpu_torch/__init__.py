@@ -1,15 +1,16 @@
 """PyTorch/CUDA port of lightgbm_tpu.
 
 Two paths.  Serving: model text -> frozen forest -> the hand-written
-forest-walk CUDA kernel (``csrc/forest_walk.cu``) -> micro-batcher and
-HTTP server.  Training (serial, binary): ``train(params, Dataset(X, y))``
--> objective gradients -> the grower ``serial_grow`` selects -> score
-update.  ``ordered`` (default) and ``cached`` run the hand-written
-leaf-histogram kernel (``csrc/leaf_hist.cu``); ``fused`` and the
-``nocache`` grower of the ``hist_cache`` degrade step run the
-hand-written full-pass kernels of ``csrc/children_hist.cu``.  Entry
-points run on the first CUDA card unless the caller passes
-``device="cpu"``.
+forest-walk CUDA kernel (``csrc/forest_walk.cu``; constant or affine
+leaves, f32 or bf16 leaf tables) -> micro-batcher and HTTP server.
+Training (serial, binary): ``train(params, Dataset(X, y))`` -> objective
+gradients -> the grower ``serial_grow`` selects -> (``linear_tree``: the
+per-leaf affine fit, ``models/linear.py``) -> score update.  ``ordered``
+(default) and ``cached`` run the hand-written leaf-histogram kernel
+(``csrc/leaf_hist.cu``); ``fused`` and the ``nocache`` grower of the
+``hist_cache`` degrade step run the hand-written full-pass kernels of
+``csrc/children_hist.cu``.  Entry points run on the first CUDA card
+unless the caller passes ``device="cpu"``.
 """
 
 from .basic import Booster, Dataset
@@ -17,7 +18,7 @@ from .engine import train
 from .serve.forest import CompiledForest
 from .utils.log import LightGBMError
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 __all__ = ["Booster", "CompiledForest", "Dataset", "LightGBMError",
            "__version__", "train"]

@@ -31,7 +31,8 @@ class Dataset:
     (a valid set); ``params`` carries the binning keys (``max_bin``,
     ``min_data_in_bin``, ``min_data_in_leaf``,
     ``bin_construct_sample_cnt``, ``data_random_seed``,
-    ``enable_bundle``, ``max_conflict_rate``); ``categorical_feature``
+    ``enable_bundle``, ``max_conflict_rate``, and ``linear_tree``, which
+    keeps the raw values the linear fit reads); ``categorical_feature``
     lists column indices."""
 
     def __init__(self, data, label=None, reference: "Dataset" = None,
@@ -68,7 +69,8 @@ class Dataset:
             data_random_seed=cfg.data_random_seed,
             enable_bundle=cfg.enable_bundle,
             max_conflict_rate=cfg.max_conflict_rate,
-            is_enable_sparse=cfg.is_enable_sparse)
+            is_enable_sparse=cfg.is_enable_sparse,
+            keep_raw=cfg.linear_tree)
         return self
 
     def create_valid(self, data, label=None) -> "Dataset":

@@ -5,9 +5,9 @@ port carries only the keys its train/predict/serve paths read, with the
 same names, aliases and defaults, so a conf file written for the JAX CLI
 runs here unchanged.  Any other key is accepted and ignored with one
 warning per key.  Training settings the port has not ported yet
-(bagging, feature fraction, GOSS, DART, linear trees, distributed
-learners, objectives other than binary) raise in
-:meth:`Config.check_trainable` instead of being ignored.
+(bagging, feature fraction, GOSS, DART, distributed learners, objectives
+other than binary) raise in :meth:`Config.check_trainable` instead of
+being ignored.
 """
 
 from __future__ import annotations
@@ -127,7 +127,12 @@ _DEFAULTS: Dict[str, Any] = {
     "bagging_fraction": 1.0,
     "bagging_freq": 0,
     "feature_fraction": 1.0,
+    # piece-wise linear trees (models/linear.py): affine leaf models fitted
+    # by a batched ridge solve after growth
     "linear_tree": False,
+    "linear_lambda": 0.0,            # ridge strength on the slope terms
+    "linear_max_leaf_features": 5,   # K: path features per leaf (0 =
+                                     # constant leaves)
     # the per-leaf histogram cache bound (MB, <= 0: none) and what to do
     # when it binds (fail_fast: warn that it does not bound memory;
     # degrade: drop the cache for the full-pass grower)
@@ -272,13 +277,21 @@ class Config:
             v["metric"] = list(_DEFAULT_METRIC.get(v["objective"], []))
         if v["num_leaves"] <= 1:
             raise ValueError("num_leaves must be > 1")
+        if v["linear_lambda"] < 0.0:
+            raise ValueError("linear_lambda must be >= 0 (ridge strength "
+                             "on the per-leaf affine slope terms)")
+        if v["linear_max_leaf_features"] < 0:
+            raise ValueError("linear_max_leaf_features must be >= 0 "
+                             "(0 degenerates linear_tree to constant "
+                             "leaves)")
         if v["max_depth"] > 0:
             v["num_leaves"] = min(v["num_leaves"], 2 ** v["max_depth"])
 
     def check_trainable(self) -> None:
         """Raise for every training setting outside the ported slice
-        (serial binary GBDT with any ``serial_grow``, without row or
-        feature sampling); nothing here is silently ignored."""
+        (serial binary GBDT with any ``serial_grow``, constant or linear
+        leaves, without row or feature sampling); nothing here is
+        silently ignored."""
         v = self._values
         unported = []
         if v["objective"] != "binary":
@@ -293,8 +306,6 @@ class Config:
             unported.append("bagging_fraction<1 (bagging)")
         if v["feature_fraction"] < 1.0:
             unported.append("feature_fraction<1")
-        if v["linear_tree"]:
-            unported.append("linear_tree=true")
         if unported:
             raise LightGBMError(
                 "not ported yet to the torch package: "

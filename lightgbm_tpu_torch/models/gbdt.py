@@ -16,6 +16,13 @@ grower that ``serial_grow`` selects -> ``score[cls] += delta``, the JAX
 (gbdt.cpp:362-378) and the metrics.  Rounds run synchronously, with no
 pipelining; the score buffers are updated in place.
 
+``linear_tree=true`` (models/linear.py, docs/LINEAR_TREES.md) fits an
+affine model in every leaf after any grower: the fit's intercepts
+replace the grown leaf values, its delta replaces the grower's, valid
+sets add the affine part, and the saved trees carry their
+``leaf_coeff``/``leaf_feat`` sections.  It needs the raw feature values
+(``Dataset`` keeps them when ``linear_tree`` is set).
+
 Growers (``_serial_grow_kind``): ``ordered`` (default) is
 ``grow_tree_ordered``; ``cached``, ``fused`` and ``nocache`` are
 ``grow_tree`` with the matching ``SerialComm``.  ``nocache`` is the
@@ -37,12 +44,14 @@ import torch
 
 from ..metric import create_metric
 from ..objective import create_objective
-from ..ops.grow import (GrowParams, SerialComm, grow_tree, pack_tree_arrays,
-                        unpack_tree_arrays)
+from ..ops.grow import (GrowParams, SerialComm, _read, grow_tree,
+                        pack_tree_arrays, unpack_tree_arrays)
 from ..ops.ordered_grow import grow_tree_ordered
 from ..ops.predict import predict_binned_tree
 from ..utils import log, resource
 from ..utils.log import LightGBMError
+from .linear import (LeafModels, LinearParams, affine_epilogue,
+                     attach_linear, fit_leaf_models)
 from .tree import Tree
 
 
@@ -93,11 +102,12 @@ def _to_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
 class _DeviceData:
     """A binned dataset on the training device plus its score buffer
     (ScoreUpdater, score_updater.hpp:23-99): ``bins`` [F, N] and, for the
-    training set, ``bins_rm`` [N, F] in the dataset's uint8/uint16, and
-    ``score`` [num_models, N] f32."""
+    training set, ``bins_rm`` [N, F] in the dataset's uint8/uint16,
+    ``score`` [num_models, N] f32 and, for linear trees, ``raw`` [F, N]
+    f32 with NaN read as 0.0."""
 
     def __init__(self, dataset, num_models: int, device: torch.device,
-                 with_row_major: bool = False):
+                 with_row_major: bool = False, with_raw: bool = False):
         self.dataset = dataset
         self.num_data = dataset.num_data
         self.bins = torch.from_numpy(np.ascontiguousarray(
@@ -109,6 +119,11 @@ class _DeviceData:
             init += np.asarray(dataset.metadata.init_score,
                                np.float32).reshape(num_models, -1)
         self.score = torch.from_numpy(init).to(device)
+        self.raw = None
+        if with_raw:
+            self.raw = torch.from_numpy(np.where(
+                np.isnan(dataset.raw), np.float32(0.0),
+                dataset.raw).astype(np.float32)).to(device)
 
     def host_score(self) -> np.ndarray:
         """[num_models, num_data] f64 host copy of the score buffer."""
@@ -166,13 +181,17 @@ class GBDT:
         self._degrade_steps: tuple = ()
         self._degrade_leaf_cache_off = False
         self._check_memory_budget(config, train_set)
+        self._linear = self._setup_linear(config, train_set)
         self._grow = self._make_grow_fn()
         self.num_bin = torch.from_numpy(
             train_set.num_bin_per_feature()).to(device)
         self.is_cat = torch.from_numpy(
             train_set.is_categorical_per_feature()).to(device)
+        self._is_cat_host = torch.from_numpy(
+            train_set.is_categorical_per_feature())
         self.train_data = _DeviceData(train_set, self.num_class, device,
-                                      with_row_major=True)
+                                      with_row_major=True,
+                                      with_raw=self._linear is not None)
         self.valid_data: List[_DeviceData] = []
         self.valid_metrics: List[list] = []
         self.train_metrics = self._make_metrics(train_set)
@@ -182,8 +201,33 @@ class GBDT:
         self._feat_mask = torch.ones(train_set.num_features,
                                      dtype=torch.bool, device=device)
         # TreeArrays (host) of every tree grown, a popped saturated one
-        # included: valid sets added later replay them
+        # included, and beside each its LeafModels (None for constant
+        # leaves): valid sets added later replay them
         self.tree_arrays: list = []
+        self.tree_linear: list = []
+        self.linear_fallbacks = 0
+
+    def _setup_linear(self, cfg, train_set) -> Optional[LinearParams]:
+        """The linear-leaf settings, or None when ``linear_tree`` is off
+        or inert (``linear_max_leaf_features=0``: constant leaves, with a
+        warning).  Refuses a dataset without raw values."""
+        if not cfg.linear_tree:
+            return None
+        k = int(cfg.linear_max_leaf_features)
+        if k <= 0:
+            log.warn_once(
+                "linear_tree_k0",
+                "linear_tree=true with linear_max_leaf_features=0: leaves "
+                "stay constant (the linear subsystem is inert and output "
+                "is identical to linear_tree=false)")
+            return None
+        if train_set.raw is None:
+            raise LightGBMError(
+                "linear_tree requires the raw feature values, but this "
+                "dataset carries none.  Rebuild the Dataset from an "
+                "in-memory matrix with linear_tree=true in its params")
+        return LinearParams(k, float(cfg.linear_lambda),
+                            float(cfg.lambda_l2))
 
     def _serial_grow_kind(self) -> str:
         """``fused`` / ``nocache`` / ``ordered`` / ``cached`` (the JAX
@@ -282,24 +326,59 @@ class GBDT:
                 [m.to_state() for m in self.train_set.mappers]:
             log.fatal("Cannot add validation data, since it has different "
                       "bin mappers with training data")
-        dd = _DeviceData(valid_set, self.num_class, self.device)
-        for ta in self.tree_arrays:
-            dd.score[0] += self._tree_delta(dd, ta)
+        if self._linear is not None and valid_set.raw is None:
+            log.fatal("linear_tree validation scoring needs the valid "
+                      "set's raw feature values (the per-leaf affine "
+                      "epilogue reads them); create the valid set with "
+                      "reference=train from an in-memory matrix")
+        dd = _DeviceData(valid_set, self.num_class, self.device,
+                         with_raw=self._linear is not None)
+        for ta, lin in zip(self.tree_arrays, self.tree_linear):
+            dd.score[0] += self._tree_delta(dd, ta, lin)
         self.valid_data.append(dd)
         self.valid_metrics.append(self._make_metrics(valid_set))
 
-    def _tree_delta(self, dd: _DeviceData, ta) -> torch.Tensor:
+    def _tree_delta(self, dd: _DeviceData, ta,
+                    lin: Optional[LeafModels] = None) -> torch.Tensor:
         """One tree's f32 leaf values on every row of ``dd``, through the
-        plain binned walk (the JAX ``_device_tree_delta``)."""
+        plain binned walk, plus the affine part of linear leaves (the JAX
+        ``_device_tree_delta``)."""
         L = self.grow_params.num_leaves
         ints, flts = pack_tree_arrays(ta)
         t = unpack_tree_arrays(_to_device(ints, self.device),
                                _to_device(flts, self.device), L)
-        delta, _ = predict_binned_tree(
+        delta, leaf = predict_binned_tree(
             t.split_feature, t.split_bin,
             self.is_cat[t.split_feature.clamp(min=0).long()],
             t.left_child, t.right_child, t.leaf_value, dd.bins, L)
+        if lin is not None:
+            delta = delta + affine_epilogue(leaf, lin.coeff, lin.feat,
+                                            dd.raw)
         return delta
+
+    def _fit_linear(self, ta, leaf_id, grad, hess):
+        """The per-leaf affine fit of one grown tree: (TreeArrays with the
+        fitted intercepts, its LeafModels, the host (coeff, feat) tables,
+        the train-score delta).  One host read brings the intercepts,
+        slopes and fallback count back for the model text."""
+        td = self.train_data
+        const, coeff, feat, delta, fb = fit_leaf_models(
+            ta, td.bins, self._is_cat_host, td.raw, grad, hess,
+            self._row_weight, self.shrinkage_rate, self._linear,
+            leaf=leaf_id)
+        L, K = coeff.shape
+        # feature indices and the count are small integers, exact in f32
+        host = _read(torch.cat([
+            const, coeff.reshape(-1), feat.reshape(-1).to(torch.float32),
+            fb.to(torch.float32).reshape(1)]))
+        fallbacks = int(host[-1])
+        self.linear_fallbacks += fallbacks
+        log.inc("linear_fallback_total", fallbacks)
+        ta = ta._replace(leaf_value=torch.from_numpy(host[:L].copy()))
+        coeff_host = host[L:L + L * K].reshape(L, K)
+        feat_host = host[L + L * K:L + 2 * L * K].astype(np.int32)
+        return (ta, LeafModels(coeff, feat),
+                (coeff_host, feat_host.reshape(L, K)), delta)
 
     def train_one_iter(self) -> bool:
         """One boosting round (gbdt.cpp:295-382).  Returns True when the
@@ -308,14 +387,24 @@ class GBDT:
         score = self.train_data.score
         grad, hess = self.objective.gradients_with(self._grad_arrays, score)
         for cls in range(self.num_class):
-            ta, _, delta = self._grow(grad[cls], hess[cls])
+            ta, leaf_id, delta = self._grow(grad[cls], hess[cls])
+            lin = host_lin = None
+            if self._linear is not None:
+                # the grower's leaf of every row is the leaf a re-walk of
+                # the grown structure over the bins finds (tested)
+                ta, lin, host_lin, delta = self._fit_linear(
+                    ta, leaf_id, grad[cls], hess[cls])
             score[cls] += delta
             for dd in self.valid_data:
-                dd.score[cls] += self._tree_delta(dd, ta)
+                dd.score[cls] += self._tree_delta(dd, ta, lin)
             self.tree_arrays.append(ta)
+            self.tree_linear.append(lin)
             tree = Tree.from_arrays(ta, self.train_set.mappers,
                                     self.train_set.used_feature_map,
                                     self.shrinkage_rate)
+            if host_lin is not None:
+                attach_linear(tree, *host_lin,
+                              self.train_set.used_feature_map)
             if tree.num_leaves <= 1:
                 log.warning("Stopped training because there are no more "
                             "leaves that meet the split requirements.")

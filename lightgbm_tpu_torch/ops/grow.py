@@ -125,7 +125,8 @@ _SYNCS = {"host_syncs": 0}
 
 
 def host_syncs() -> int:
-    """Device-to-host reads ``grow_tree`` has made since the last reset."""
+    """Device-to-host reads ``grow_tree`` and the linear fit
+    (``models/gbdt.py``) have made since the last reset."""
     with _sync_lock:
         return _SYNCS["host_syncs"]
 

@@ -1,8 +1,7 @@
 """Freeze a loaded booster into an immutable forest on one device.
 
-Port of the JAX package's serve/forest.py ``CompiledForest`` for
-constant-leaf forests served by the forest-walk kernel
-(``ops/forest_walk.py``, ``csrc/forest_walk.cu``):
+Port of the JAX package's serve/forest.py ``CompiledForest``, served by
+the forest-walk kernel (``ops/forest_walk.py``, ``csrc/forest_walk.cu``):
 
 - every tree is padded to a common leaf count and stacked into
   ``[num_class, T, L]`` SoA arrays (1-leaf trees and the multiclass
@@ -14,13 +13,24 @@ constant-leaf forests served by the forest-walk kernel
   does; the serving path (:meth:`_device_scores`) bucketizes in f32
   inside the kernel, so a row closer to a threshold than f32 resolution
   may route differently (the standard f32-inference trade);
+- piece-wise linear forests (docs/LINEAR_TREES.md) carry per-class
+  ``[K, T, L, Kf]`` affine stacks (real feature indices, -1 pad; the
+  ragged tail and constant trees all pad), and F widens to the largest
+  affine feature.  The covariates are the request rows with NaN read as
+  0.0: built on the host for the binned path, read by the kernel from
+  ``X`` on the raw path;
+- ``serve_quantize_leaves`` stores the leaf table in bf16 when the
+  per-class sum over trees of the largest per-leaf bf16 rounding error
+  is within :attr:`CompiledForest.QUANTIZE_LEAF_ATOL`; otherwise the
+  forest stays f32 with a named ``forest_quantize_fallback`` warning.
+  Either way the kernel runs;
 - batch shapes are padded up the ``serve/batcher.py`` ladder; the
   output transform (sigmoid / softmax) runs in torch after the kernel
   with the padding masked.
 
 ``serve_walk=auto|fused`` runs the kernel.  ``gather`` (the XLA
-per-level gather strategy), linear forests and bf16 leaves are not
-ported yet and raise a named :class:`LightGBMError`.
+per-level gather strategy) is not ported yet and raises a named
+:class:`LightGBMError`.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from ..ops import _build
 from ..ops.forest_walk import (WalkTables, bin_index_dtype,
                                build_walk_tables, forest_walk,
                                forest_walk_raw)
+from ..utils import log
 from ..utils.log import LightGBMError
 from .batcher import BucketLadder, pad_rows
 
@@ -103,6 +114,24 @@ def stack_class_trees(trees, num_leaves: int, cuts_num, cuts_cat):
     return sf, sb, ic, lc, rc, lv
 
 
+def stack_class_linear(trees, num_leaves: int, linear_k: int):
+    """One class's per-leaf affine tables -> ``[T, L, Kf]`` coeff (f32)
+    and feat (int32 real feature indices, -1 pad); constant trees get
+    all-pad rows, which add nothing."""
+    T = len(trees)
+    L = max(num_leaves, 2)
+    kf = max(linear_k, 1)
+    lcf = np.zeros((T, L, kf), np.float32)
+    lft = np.full((T, L, kf), -1, np.int32)
+    for t, tree in enumerate(trees):
+        if not tree.has_linear():
+            continue
+        nl, tk = tree.leaf_coeff.shape
+        lcf[t, :nl, :tk] = tree.leaf_coeff
+        lft[t, :nl, :tk] = tree.leaf_feat
+    return lcf, lft
+
+
 def _zero_tree(num_leaves: int):
     """SoA padding block for one absorbing 0-valued 1-leaf tree."""
     L = max(num_leaves, 2)
@@ -129,6 +158,11 @@ class CompiledForest:
     tables on one device.  Build with :meth:`from_booster` or
     :meth:`from_arrays`."""
 
+    #: bound on the output error of bf16 leaf storage (the JAX
+    #: package's ``QUANTIZE_LEAF_ATOL``): ``serve_quantize_leaves`` keeps
+    #: bf16 only when the worst-case per-class rounding stays within it
+    QUANTIZE_LEAF_ATOL = 1e-3
+
     def __init__(self):
         raise TypeError("use CompiledForest.from_booster()")
 
@@ -142,7 +176,8 @@ class CompiledForest:
         """Freeze ``booster`` (a ``Booster`` or a ``models/gbdt.py``
         ``GBDT``).  ``device`` defaults to the booster's (else ``cuda``);
         ``buckets`` overrides the ladder; ``serve_walk`` and
-        ``quantize_leaves`` default to the booster's config."""
+        ``quantize_leaves`` default to the booster's config (bf16 leaf
+        storage behind :attr:`QUANTIZE_LEAF_ATOL`)."""
         b = getattr(booster, "_booster", booster)
         cfg = getattr(booster, "config", None)
         if device is None:
@@ -153,25 +188,23 @@ class CompiledForest:
             quantize_leaves = bool(getattr(cfg, "serve_quantize_leaves",
                                            False))
         walk = _resolve_walk(serve_walk)
-        if quantize_leaves:
-            raise LightGBMError(
-                "serve_quantize_leaves=true is not ported yet: the forest "
-                "walk kernel serves f32 leaves only")
         models = list(b.models)
         K = max(int(b.num_class), 1)
         n_models = len(models)
         if num_iteration > 0:
             n_models = min(n_models, num_iteration * K)
         models = models[:n_models]
-        if any(t.has_linear() for t in models):
-            raise LightGBMError(
-                "linear (affine-leaf) forests are not ported yet: the "
-                "forest walk kernel serves constant leaves only")
+        linear = any(t.has_linear() for t in models)
+        linear_k = max([t.leaf_feat.shape[1] for t in models
+                        if t.has_linear()] + [1])
         num_leaves = max([t.num_leaves for t in models] + [2])
         cuts_num, cuts_cat = build_cut_tables(models)
         F = int(b.max_feature_idx) + 1
         for f in list(cuts_num) + list(cuts_cat):
             F = max(F, f + 1)
+        for t in models:      # affine covariates widen the rows too
+            if t.has_linear():
+                F = max(F, int(t.leaf_feat.max(initial=-1)) + 1)
         per_class = _tree_class_lists(models, K, n_models)
         T = max([len(ts) for ts in per_class] + [0])
         zero = _zero_tree(num_leaves)
@@ -186,32 +219,82 @@ class CompiledForest:
             stacks.append(arrs)
         stacked = tuple(np.stack([s[i] for s in stacks], axis=0)
                         for i in range(6))
+        lin = None
+        if linear:
+            lin_stacks = []
+            for ts in per_class:
+                lcf, lft = stack_class_linear(ts, num_leaves, linear_k)
+                pad = T - len(ts)
+                if pad:       # ragged tail: all-pad epilogue rows
+                    lcf = np.concatenate(
+                        [lcf, np.zeros((pad,) + lcf.shape[1:], np.float32)])
+                    lft = np.concatenate(
+                        [lft, np.full((pad,) + lft.shape[1:], -1, np.int32)])
+                lin_stacks.append((lcf, lft))
+            lin = tuple(np.stack([s[i] for s in lin_stacks], axis=0)
+                        for i in range(2))
         sigmoid = float(getattr(b, "sigmoid", -1.0) or -1.0)
         transform = ("softmax" if K > 1
                      else "sigmoid" if sigmoid > 0 else "identity")
+        lv = stacked[5]
+        leaf_dtype = (cls._quantize_pin(lv.reshape(K * T, lv.shape[2]), K, T)
+                      if quantize_leaves else "float32")
         return cls._assemble(stacked, cuts_num, cuts_cat, F, transform,
-                             sigmoid, device, buckets, n_models, walk)
+                             sigmoid, device, buckets, n_models, walk, lin,
+                             leaf_dtype)
 
     @classmethod
     def from_arrays(cls, sf, sb, ic, lc, rc, lv, cuts_num, cuts_cat,
                     num_features: int, transform: str, sigmoid: float,
                     device: DeviceLike = None,
-                    buckets: Optional[Sequence[int]] = None
+                    buckets: Optional[Sequence[int]] = None,
+                    lin=None, leaf_dtype: str = "float32"
                     ) -> "CompiledForest":
         """Build from another freeze's stacked SoA arrays ([K, T, M] /
         [K, T, L], e.g. the JAX ``CompiledForest._tree_dev`` as numpy)
-        and its cut tables (``_cuts_num`` / ``_cuts_cat`` dicts)."""
+        and its cut tables (``_cuts_num`` / ``_cuts_cat`` dicts).  A
+        linear forest passes ``lin``, its ``(coeff, feat)`` [K, T, L, Kf]
+        stacks (the JAX ``_lin_dev``); ``leaf_dtype`` is the JAX forest's
+        (``float32`` or ``bfloat16``: the table is stored so, rounded to
+        nearest even)."""
         stacked = tuple(np.asarray(a) for a in (sf, sb, ic, lc, rc, lv))
         K, T = stacked[0].shape[:2]
+        if leaf_dtype not in ("float32", "bfloat16"):
+            raise LightGBMError(f"leaf_dtype must be float32 or bfloat16 "
+                                f"(got {leaf_dtype!r})")
+        if lin is not None:
+            lin = tuple(np.asarray(a) for a in lin)
         return cls._assemble(stacked, dict(cuts_num), dict(cuts_cat),
                              int(num_features), str(transform),
                              float(sigmoid), device, buckets, K * T,
-                             "fused")
+                             "fused", lin, leaf_dtype)
+
+    @classmethod
+    def _quantize_pin(cls, lvf: np.ndarray, K: int, T: int) -> str:
+        """``bfloat16`` when storing the [K*T, L] f32 leaf table in bf16
+        moves no class's output by more than QUANTIZE_LEAF_ATOL: every row
+        takes exactly one leaf per tree, so the bound is the per-class sum
+        over trees of the largest per-leaf rounding error.  Otherwise
+        ``float32``, with a named warning and the
+        ``forest_quantize_fallback`` counter."""
+        lv_q = torch.from_numpy(lvf).to(torch.bfloat16).float().numpy()
+        per_tree = np.abs(lv_q - lvf).max(axis=1)
+        bound = float(per_tree.reshape(K, T).sum(axis=1).max()
+                      if per_tree.size else 0.0)
+        if bound <= cls.QUANTIZE_LEAF_ATOL:
+            return "bfloat16"
+        log.inc("forest_quantize_fallback")
+        log.warning("forest_quantize_fallback: serve_quantize_leaves=true "
+                    "but bf16 leaves could move a score by up to %g > "
+                    "QUANTIZE_LEAF_ATOL=%g; the leaf table stays float32",
+                    bound, cls.QUANTIZE_LEAF_ATOL)
+        return "float32"
 
     @classmethod
     def _assemble(cls, stacked, cuts_num, cuts_cat, F: int, transform: str,
                   sigmoid: float, device: DeviceLike, buckets,
-                  num_trees: int, walk: str) -> "CompiledForest":
+                  num_trees: int, walk: str, lin=None,
+                  leaf_dtype: str = "float32") -> "CompiledForest":
         self = object.__new__(cls)
         dev = resolve_device(device)
         self.device = dev
@@ -241,8 +324,11 @@ class CompiledForest:
         self._bnd = torch.from_numpy(bnd).to(dev)
         self._cats = torch.from_numpy(cats).to(dev)
         self._is_cat = torch.from_numpy(is_cat).to(dev)
-        self._tables = build_walk_tables(sf, sb, ic, lc, rc, lv,
-                                         self._nan_bin, dev)
+        self.leaf_dtype = leaf_dtype
+        self._tables = build_walk_tables(
+            sf, sb, ic, lc, rc, lv, self._nan_bin, dev,
+            *(lin if lin is not None else (None, None)),
+            leaf_dtype=getattr(torch, leaf_dtype))
         self._objective = _PredictionObjective(
             transform, sigmoid if transform == "sigmoid" else -1.0,
             self.num_class)
@@ -320,9 +406,16 @@ class CompiledForest:
         """[N, F] raw rows -> [F, N] f32 ``forest_walk_raw`` operand."""
         return self._to_device(np.asarray(X, np.float32).T)
 
+    def device_covariates(self, X: np.ndarray) -> torch.Tensor:
+        """[N, F] raw rows -> [F, N] f32 affine covariates of a linear
+        forest's binned walk: the same rows, NaN read as 0.0."""
+        return self._to_device(
+            np.where(np.isnan(X), 0.0, X).T.astype(np.float32))
+
     def _dispatch_binned(self, Xp: np.ndarray, mask: np.ndarray):
         """[K, B] raw scores of one padded bucket, binned on the host."""
-        raw = forest_walk(self._tables, self.device_bins(Xp))
+        xt = self.device_covariates(Xp) if self._tables.linear else None
+        raw = forest_walk(self._tables, self.device_bins(Xp), xt)
         return torch.where(self._to_device(mask)[None, :], raw, 0.0)
 
     def _dispatch_raw(self, Xp: np.ndarray, mask: np.ndarray):
@@ -413,9 +506,10 @@ class CompiledForest:
             "transform": self.transform,
             "buckets": list(self.ladder.sizes),
             "max_cuts": int(self.max_cuts),
-            "linear": False,
+            "linear": bool(self._tables.linear),
+            "linear_k": self._tables.linear_k,
             "serve_walk": self.walk_strategy,
-            "leaf_dtype": "float32",
+            "leaf_dtype": self.leaf_dtype,
             "bin_dtype": str(self._bin_dtype).replace("torch.", ""),
             "device": str(self.device),
         }

@@ -4,7 +4,7 @@ which follows the reference include/LightGBM/utils/log.h)."""
 from __future__ import annotations
 
 import sys
-from typing import Set
+from typing import Dict, Set
 
 _current_level = 1
 _warned_once: Set[str] = set()
@@ -41,6 +41,19 @@ def warn_once(key: str, msg: str, *args) -> None:
         return
     _warned_once.add(key)
     warning(msg, *args)
+
+
+_counters: Dict[str, int] = {}
+
+
+def inc(name: str, n: int = 1) -> None:
+    """Add ``n`` to the named process-wide counter (the JAX package's
+    ``obs.inc``: ``forest_quantize_fallback``, ``linear_fallback_total``)."""
+    _counters[name] = _counters.get(name, 0) + int(n)
+
+
+def counter(name: str) -> int:
+    return _counters.get(name, 0)
 
 
 class LightGBMError(Exception):

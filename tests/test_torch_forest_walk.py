@@ -216,7 +216,7 @@ def test_plain_version_counts_no_launches(forests):
     fw.reset_launch_counts()
     tf.predict(X[:40], device_binning=True)
     tf.predict(X[:40])
-    assert fw.launch_counts() == {"forest_walk": 0, "forest_walk_raw": 0}
+    assert all(v == 0 for v in fw.launch_counts().values())
 
 
 @pytest.mark.cuda

@@ -175,8 +175,10 @@ def test_linear_sections_parse_like_jax():
     np.testing.assert_allclose(ours.predict_raw(X)[0],
                                bst.predict(X, raw_score=True),
                                rtol=0, atol=1e-12)
-    with pytest.raises(lt.LightGBMError, match="linear"):
-        lt.Booster(model_str=text, device="cpu").predict(X)
+    # the port serves affine leaves through the linear forest walk
+    np.testing.assert_allclose(
+        lt.Booster(model_str=text, device="cpu").predict(X),
+        bst.predict(X), rtol=0, atol=1e-6)
 
 
 def test_tree_from_string_rejects_bad_child_index():

@@ -123,8 +123,9 @@ def test_unported_strategies_raise_named_errors(trained):
     _, ours, _ = trained["binary"]
     with pytest.raises(lt.LightGBMError, match="gather is not ported"):
         lt.CompiledForest.from_booster(ours, serve_walk="gather")
-    with pytest.raises(lt.LightGBMError, match="serve_quantize_leaves"):
-        lt.CompiledForest.from_booster(ours, quantize_leaves=True)
+    # bf16 leaves are ported: the pin decides, and info() says which
+    cf = lt.CompiledForest.from_booster(ours, quantize_leaves=True)
+    assert cf.info()["leaf_dtype"] in ("float32", "bfloat16")
     with pytest.raises(lt.LightGBMError, match="serve_walk must be"):
         lt.CompiledForest.from_booster(ours, serve_walk="xla")
 
@@ -135,7 +136,7 @@ def test_warmup_runs_every_bucket_without_kernel_launches(trained):
     cf = lt.CompiledForest.from_booster(ours, device="cpu",
                                         buckets=[16, 64, 256, 1024])
     assert cf.warmup(max_bucket=100) is cf
-    assert fw.launch_counts() == {"forest_walk": 0, "forest_walk_raw": 0}
+    assert all(v == 0 for v in fw.launch_counts().values())
     info = cf.info()
     assert info["serve_walk"] == "fused" and info["device"] == "cpu"
 
@@ -236,8 +237,8 @@ def test_server_concurrent_predict_matches_jax(server):
     assert stats["requests"] == len(spans) + 2
     assert 1 <= stats["batches"] <= stats["requests"]
     assert stats["rows"] == 300 + 4 + 3
-    assert set(stats["kernel_launches"]) == {"forest_walk",
-                                             "forest_walk_raw"}
+    assert set(stats["kernel_launches"]) == set(fw.VARIANTS)
+    assert {"forest_walk", "forest_walk_raw"} <= set(fw.VARIANTS)
 
 
 @pytest.mark.parametrize("case", ["ragged", "nan", "width", "text",

@@ -296,7 +296,6 @@ def test_train_without_device_raises_here(monkeypatch):
     ({"feature_fraction": 0.8}, "feature_fraction"),
     ({"boosting_type": "goss"}, "GOSS"),
     ({"boosting": "dart"}, "DART"),
-    ({"linear_tree": True}, "linear_tree"),
     ({"objective": "multiclass", "num_class": 3, "metric": "multi_logloss"},
      "objective=multiclass"),
     ({"tree_learner": "data"}, "tree_learner"),
