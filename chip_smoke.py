@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
-card.
+"""Drive the PyTorch/CUDA port's serving, training and probe paths on one
+NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--timing-reps 20]
 
-Every phase prints one JSON line; any failure raises and exits non-zero.
+Every phase prints one JSON line (the probes phase first prints the
+probes' own lines); any failure raises and exits non-zero.
 
 1. ``build``: nvcc builds every kernel under ``lightgbm_tpu_torch/csrc/``
    for ``sm_90a`` (one nvcc per source, all started together).
@@ -36,6 +37,17 @@ Every phase prints one JSON line; any failure raises and exits non-zero.
    The bf16 variants, on the Higgs forests with leaf values scaled by
    1e-2 (``serve_quantize_leaves`` keeps bf16 for them), bit-equal
    (``torch.equal``) to the plain walk on the dequantized table.
+   The probe kernels (``compare_probes``): the roll chain P1 bit-equal
+   to its plain version on the probe's seeded [12, 2048] input and two
+   more seeds, and after the probe's 50-call ``^ 1`` chain; the
+   device-windowed digit histogram P2 on the probe's 2^20 rows
+   bit-equal to its plain version and to K1 on the same window, for
+   both digit layouts (packed words, [N, 9] matrix), every probe nb and
+   the default split, on the probe's window (5, N/2), an empty one, one
+   row, one ending at N, one whose offset is not a multiple of nb and
+   one clamped past N (bin 255 present); then the probe's 10-call loop,
+   each offset computed on the card from the last output, under
+   ``torch.cuda.set_sync_debug_mode("error")``, against a plain replay.
 3. ``serve``: the serving path at full width.  A Higgs-sized forest
    (binary, 28 features, 500 trees, 255 leaves, 255 cut values per
    feature: LightGBM's published Higgs experiment settings) is written
@@ -87,13 +99,25 @@ Every phase prints one JSON line; any failure raises and exits non-zero.
    run's own scores) and re-fit through the plain versions
    structure-equal, the saved model against
    the score buffer (1e-5) and against the f64 host walk with its affine
-   part (1e-5), AUC rising, and the fit's share of a round.
-5. ``timing``: CUDA-event medians of each kernel and its plain version on
+   part (1e-5), AUC rising, and the fit's share of a round.  Every run
+   also counts its histogram kernel's launches by the power-of-two
+   class of the rows each scans (``train_windows``: printed only).
+5. ``probes``: the probes' own entry points, ``python -m
+   lightgbm_tpu_torch.tools.probe_roll`` and ``probe_dynhist`` (their
+   ``main``) at the JAX probes' sizes, each with its launch counter set
+   to 0 just before and read just after.
+6. ``timing``: CUDA-event medians of each kernel and its plain version on
    the Higgs forest at B in {1, 256, 4096, 65536} (the linear and bf16
    variants on their forests, beside the constant walk over the same
-   trees; their plain versions at B = 4096), and of K1, K2 and K3
+   trees; their plain versions at B = 4096), of K1, K2 and K3
    at S in {4096, 65536, 500000, 1000000} beside their plain versions
-   and the ``index_add_`` library call, each beside its bound.
+   and the ``index_add_`` library call, and of P1 and P2 at the probes'
+   shapes (P2 beside K1 on the same window and ``index_add_`` on the
+   unpacked window), each beside its bound.  Then ``rule2``: the
+   kernels in the order to redesign them, first those that lose to the
+   PyTorch call computing the same function at the sizes the main path
+   launches them (K1 timed at each window class the train phase
+   counted), then by launches x (ms - bound).
 
 Then the kernels summary line, the card's name and power limit as
 ``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``.
@@ -119,7 +143,9 @@ SOURCE = {**{name: "lightgbm_tpu_torch/csrc/forest_walk.cu"
           "digit_histogram": "lightgbm_tpu_torch/csrc/leaf_hist.cu",
           "children_histograms": "lightgbm_tpu_torch/csrc/children_hist.cu",
           "fused_split_candidates":
-              "lightgbm_tpu_torch/csrc/children_hist.cu"}
+              "lightgbm_tpu_torch/csrc/children_hist.cu",
+          "roll_chain": "lightgbm_tpu_torch/csrc/roll_chain.cu",
+          "window_digit_histogram": "lightgbm_tpu_torch/csrc/window_hist.cu"}
 # the binned and raw entry points of the TPU walk; their aff= option is
 # the affine epilogue (pallas_walk.py:238-242), a bf16 lv their :236 cast
 REPLACES = {**{name: "lightgbm_tpu/ops/pallas_walk.py:"
@@ -127,7 +153,9 @@ REPLACES = {**{name: "lightgbm_tpu/ops/pallas_walk.py:"
             "digit_histogram": "lightgbm_tpu/ops/leafhist.py:138",
             "children_histograms": "lightgbm_tpu/ops/pallas_histogram.py:185",
             "fused_split_candidates":
-                "lightgbm_tpu/ops/pallas_histogram.py:232"}
+                "lightgbm_tpu/ops/pallas_histogram.py:232",
+            "roll_chain": "tools/probe_roll.py:45",
+            "window_digit_histogram": "tools/probe_dynhist.py:148"}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 TOL = 1e-6
@@ -461,6 +489,8 @@ def phase_kernels(seed, dev, higgs_model, higgs_grid, linear_set, errs):
     from lightgbm_tpu_torch.ops import children_hist as ch
     from lightgbm_tpu_torch.ops import forest_walk as fw
     from lightgbm_tpu_torch.ops import leafhist as lh
+    from lightgbm_tpu_torch.ops import roll_chain as rc
+    from lightgbm_tpu_torch.ops import window_hist as wh
     results = {}
     cat = (0, 1, 2)
     g, grid = random_model(seed + 1, 8, 20, 31, 40, cat_features=cat,
@@ -500,9 +530,11 @@ def phase_kernels(seed, dev, higgs_model, higgs_grid, linear_set, errs):
         results[label] = compare_kernels(cf, X, (1, 64, 4096), label, errs)
     results["digit_histogram"] = compare_leaf_hist(seed, dev, errs)
     results["children_hist"] = compare_children_hist(seed, dev, errs)
+    results["probes"] = compare_probes(seed, dev, errs)
     emit({"phase": "kernels", "max_abs_diff": results,
           "launches": {**fw.launch_counts(), **lh.launch_counts(),
-                       **ch.launch_counts()}})
+                       **ch.launch_counts(), **rc.launch_counts(),
+                       **wh.launch_counts()}})
 
 
 def compare_leaf_hist(seed, dev, errs):
@@ -703,6 +735,134 @@ def compare_children_hist(seed, dev, errs):
             "tolerance": {"hist_rtol_of_abs_sums": ch.HIST_RTOL,
                           "hist_atol": ch.HIST_ATOL,
                           "gain": "children_hist.gain_tolerance"}}
+
+
+def probe_windows(n: int):
+    """P2's windows at ``n`` rows as (off, count): the probe's first, an
+    empty one, one row, one ending at ``n``, one whose off is not a
+    multiple of any probe nb, one clamped past ``n``."""
+    return ((5, n // 2), (7, 0), (12345, 1), (n - 100_000, 100_000),
+            (3001, 70_000), (n - 1000, 5000))
+
+
+def compare_probes(seed, dev, errs):
+    """P1 bit-equal to its plain version on the probe's input and two
+    more seeds, and after the probe's 50-call chain.  P2 on the probe's
+    inputs (2^20 rows) bit-equal to its plain version and to K1 on the
+    same window, for both digit layouts and every probe nb (and the
+    default split), on PROBE_WINDOWS; then the probe's 10-call chained
+    loop under ``torch.cuda.set_sync_debug_mode("error")`` (a host read
+    in the wrapper raises), replayed through the plain version.  Each
+    call adds exactly one to its counter."""
+    from lightgbm_tpu_torch.ops import leafhist as lh
+    from lightgbm_tpu_torch.ops import roll_chain as rc
+    from lightgbm_tpu_torch.ops import window_hist as wh
+    from lightgbm_tpu_torch.tools import probe_dynhist as pd
+    from lightgbm_tpu_torch.tools import probe_roll as pr
+    out = {"roll_chain": {}, "window_digit_histogram": {}}
+    for label, x in (("probe_input", pr.make_input()),
+                     *((f"seed{seed + k}", np.random.RandomState(seed + k)
+                        .randint(-2**31, 2**31 - 1, (rc.WORDS, rc.NB),
+                                 np.int64).astype(np.int32))
+                       for k in (1, 2))):
+        xt = torch.from_numpy(x).to(dev)
+        before = rc.launch_counts()["roll_chain"]
+        got = rc.roll_chain(xt)
+        torch.cuda.synchronize()
+        check(rc.launch_counts()["roll_chain"] == before + 1,
+              f"P1 {label}: launch counter did not move by one")
+        check(torch.equal(got, rc.roll_chain_plain(xt)),
+              f"P1 {label}: not bit-equal to the plain version")
+        out["roll_chain"][label] = 0.0
+    xt = torch.from_numpy(pr.make_input()).to(dev)
+    want = xt
+    for _ in range(pr.CHAIN):
+        want = rc.roll_chain_plain(want) ^ 1
+    check(torch.equal(pr.chain(xt), want),
+          "P1: the 50-call chain is not bit-equal to the plain chain")
+    out["roll_chain"]["chain50"] = 0.0
+
+    bins, digits = pd.make_inputs(pd.N)
+    bins[pd.N - 1, 5] = bins[6000, 0] = pd.B - 1      # bin 255 lands too
+    n = bins.shape[0]
+    bw, dw, dmat = pd.device_inputs(bins, digits, dev)
+    tb = torch.from_numpy(bins).to(dev)
+    nbs = sorted({nb for _, nb, _ in pd.RUNS})
+    for off, count in probe_windows(n):
+        win = torch.tensor([off, count], dtype=torch.int32, device=dev)
+        lo, hi = wh.clamp_window(off, count, n)
+        k1 = lh.digit_histogram(tb, dmat, pd.B, lo, hi - lo)
+        for layout, dig in (("words", dw), ("matrix", dmat)):
+            want = wh.window_digit_histogram_plain(bw, dig, win, pd.F, pd.B)
+            check(torch.equal(want, k1), f"P2 plain {layout} ({off}, "
+                                         f"{count}): not equal to K1")
+            for nb in [None] + nbs:
+                before = wh.launch_counts()["window_digit_histogram"]
+                got = wh.window_digit_histogram(bw, dig, win, pd.F, pd.B,
+                                                block_rows=nb)
+                torch.cuda.synchronize()
+                check(wh.launch_counts()["window_digit_histogram"]
+                      == before + 1, "P2: launch counter did not move by one")
+                check(torch.equal(got, want),
+                      f"P2 {layout} nb={nb} window ({off}, {count}): not "
+                      f"bit-equal to the plain version and K1")
+                out["window_digit_histogram"][
+                    f"{layout}/nb{nb}/{off}+{count}"] = 0.0
+    count = torch.tensor(n // 2, dtype=torch.int32, device=dev)
+    chained = {}
+    for name, nb, matrix in pd.RUNS:
+        dig = dmat if matrix else dw
+        start = torch.tensor([pd.FIRST_OFF, n // 2], dtype=torch.int32,
+                             device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            win, acc = pd.loop(bw, dig, start, count, nb)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        pwin, pacc = start, 0
+        for _ in range(pd.CALLS):
+            o = wh.window_digit_histogram_plain(bw, dig, pwin, pd.F, pd.B)
+            pwin = torch.stack([torch.remainder(o[0, 0, 0], 128), count])
+            pacc += int(o[0, 0, 1])
+        check(torch.equal(win, pwin) and int(acc) == pacc,
+              f"P2 chained loop {name} nb={nb}: window {win.tolist()} acc "
+              f"{int(acc)} against the plain replay's {pwin.tolist()} "
+              f"{pacc}")
+        chained[f"{name}/nb{nb}"] = {"last_window": win.tolist(),
+                                     "acc": int(acc)}
+    out["chained_under_sync_debug_error"] = chained
+    return out
+
+
+def phase_probes(reps):
+    """The probes' own main path: ``python -m
+    lightgbm_tpu_torch.tools.probe_roll`` and ``probe_dynhist`` as a user
+    runs them (their ``main``), each with its launch counter set to 0
+    just before and read just after; returns those counts."""
+    from lightgbm_tpu_torch.ops import roll_chain as rc
+    from lightgbm_tpu_torch.ops import window_hist as wh
+    from lightgbm_tpu_torch.tools import probe_dynhist as pd
+    from lightgbm_tpu_torch.tools import probe_roll as pr
+    rc.reset_launch_counts()
+    roll = pr.main(["--reps", str(reps)])
+    torch.cuda.synchronize()
+    launches = rc.launch_counts()
+    wh.reset_launch_counts()
+    dyn = pd.main([])
+    torch.cuda.synchronize()
+    launches.update(wh.launch_counts())
+    check(all(v > 0 for v in launches.values()),
+          f"a probe kernel was not launched on its path: {launches}")
+    want_dyn = 2 * pd.CALLS * len(pd.RUNS)
+    check(launches["window_digit_histogram"] == want_dyn,
+          f"P2 launches {launches['window_digit_histogram']} != {want_dyn}")
+    check(len({(r["last_off"], r["acc"]) for r in dyn["runs"]}) == 1,
+          f"the probe's layouts disagree: {dyn['runs']}")
+    emit({"phase": "probes", "launches": launches, "roll_chain": roll,
+          "window_digit_histogram": dyn})
+    return launches
 
 
 def _post_rows(base: str, rows: np.ndarray):
@@ -997,7 +1157,7 @@ def phase_train(seed, dev, workdir):
     emit({"phase": "train_data", "rows": TRAIN_ROWS,
           "valid_rows": VALID_ROWS, "features": X.shape[1], "seed": seed,
           "generate_s": gen_s, "binning_s": binning_s})
-    launches = {}
+    launches, windows = {}, {}
     ordered = None
     for name, extra, kernel in GROWERS:
         run = train_run(name, extra, kernel, train_set, valid_set, X,
@@ -1005,7 +1165,14 @@ def phase_train(seed, dev, workdir):
         if ordered is None:
             ordered = run
         launches[kernel] = launches.get(kernel, 0) + run["launches"][kernel]
-    return launches
+        for cls, n in run["windows"].get(kernel, {}).items():
+            per = windows.setdefault(kernel, {})
+            per[cls] = per.get(cls, 0) + n
+    windows = {k: dict(sorted(v.items(), key=lambda kv: int(kv[0])))
+               for k, v in windows.items()}
+    emit({"phase": "train_windows", "runs": [g[0] for g in GROWERS],
+          "launches_by_window_rows": windows})
+    return launches, windows
 
 
 class _plain_kernels:
@@ -1079,6 +1246,50 @@ def compare_regrown(a, b, label, exact):
     return None, worst
 
 
+class _window_classes:
+    """Inside the block, count every histogram kernel call (K1, K2, K3)
+    by the power-of-two class of the rows it scans (``2^k`` counts
+    windows of ``2^(k-1) + 1`` to ``2^k`` rows): K1 its window, K2 and
+    K3 every row of the full pass (``root_histogram`` goes through
+    ``children_histograms``).  A printed count only."""
+
+    WRAPPED = (("leafhist", "digit_histogram"),
+               ("children_hist", "children_histograms"),
+               ("children_hist", "fused_split_candidates"))
+
+    def __init__(self):
+        self.counts = {}
+
+    def __enter__(self):
+        from lightgbm_tpu_torch.ops import children_hist as ch
+        from lightgbm_tpu_torch.ops import leafhist as lh
+        mods = {"leafhist": lh, "children_hist": ch}
+        self._saved = [(mods[m], attr, getattr(mods[m], attr))
+                       for m, attr in self.WRAPPED]
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, self._wrap(attr, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def counted(*args, **kwargs):
+            if name == "digit_histogram":
+                start = args[3] if len(args) > 3 else kwargs.get("start", 0)
+                count = args[4] if len(args) > 4 else kwargs.get("count")
+                rows = args[0].shape[0] - start if count is None \
+                    else int(count)
+            else:
+                rows = args[0].shape[1]
+            cls = str(1 << (rows - 1).bit_length()) if rows > 0 else "0"
+            per = self.counts.setdefault(name, {})
+            per[cls] = per.get(cls, 0) + 1
+            return fn(*args, **kwargs)
+        return counted
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+
+
 def train_run(name, extra, kernel, train_set, valid_set, X, workdir,
               ordered):
     """10 rounds of one grower.  Launch counts: the ordered grower runs
@@ -1110,13 +1321,17 @@ def train_run(name, extra, kernel, train_set, valid_set, X, workdir,
     og.reset_host_syncs()
     gr.reset_host_syncs()
     t0 = time.perf_counter()
-    with _timed_updates() as rounds:
+    with _timed_updates() as rounds, _window_classes() as windows:
         booster = lt.train(params, train_set, TRAIN_ROUNDS,
                            valid_sets=[train_set, valid_set],
                            valid_names=["train", "valid"],
                            evals_result=evals, verbose_eval=False)
     torch.cuda.synchronize()
     launches = {**lh.launch_counts(), **ch.launch_counts()}
+    check(all(sum(windows.counts.get(k, {}).values()) == v
+              for k, v in launches.items()),
+          f"{name}: launches by window class {windows.counts} do not add "
+          f"up to {launches}")
     syncs = og.host_syncs() + gr.host_syncs()
     train_s = time.perf_counter() - t0
 
@@ -1201,12 +1416,14 @@ def train_run(name, extra, kernel, train_set, valid_set, X, workdir,
            "round_s_median_3_10": float(np.median(rounds.seconds[2:])),
            "leaves_per_tree": leaves,
            "host_syncs_per_tree": syncs / len(grown),
-           "launches": launches, "regrown": regrow,
+           "launches": launches,
+           "launches_by_window_rows": windows.counts, "regrown": regrow,
            "saved_model_vs_score_buffer": d_pred,
            "auc_train": auc["train"], "auc_valid": auc["valid"],
            **beside, "profile_round": phases}
     emit(out)
-    return {"launches": launches, "auc": auc, "trees": grown}
+    return {"launches": launches, "auc": auc, "trees": grown,
+            "windows": windows.counts}
 
 
 def same_trees(trees, ref):
@@ -1306,6 +1523,74 @@ def cuda_ms(fn, reps: int) -> float:
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def phase_rule2(seed, dev, reps, at, windows, launches):
+    """The order in which to redesign the kernels: first those that lose
+    to the PyTorch call computing the same function at the sizes the
+    main path launches them, then by launches x (ms - bound_ms).  K1 is
+    timed, beside ``index_add_`` and its bound, at each power-of-two
+    window class the train phase counted (at the class's top size, the
+    1M-row root for the largest); every other kernel at its kernels-line
+    shape (K2/K3 run only at the training root, the full pass)."""
+    from lightgbm_tpu_torch.ops import leafhist as lh
+    F, B = 28, 255
+    bins, dig = hist_inputs(np.random.RandomState(seed + 52), TRAIN_ROWS, F,
+                            B, np.uint8, dev)
+    k1 = []
+    for cls, n in windows.get("digit_histogram", {}).items():
+        S = min(int(cls), TRAIN_ROWS)
+        seg = (torch.arange(F, device=dev)[None, :] * B
+               + bins[:S].long()).reshape(-1)
+        vals = dig[:S].to(torch.int32)[:, None, :].expand(S, F, 9) \
+            .reshape(-1, 9)
+        acc = torch.zeros((F * B, 9), dtype=torch.int32, device=dev)
+        nbytes = S * F + 9 * S + 4 * F * 9 * B
+        ops = int((dig[:S] != 0).sum()) * F
+        k1.append({"window_class": int(cls), "S": S, "launches": n,
+                   "ms": cuda_ms(lambda: lh.digit_histogram(bins, dig, B, 0,
+                                                            S), reps),
+                   "library_ms": cuda_ms(lambda: acc.index_add_(0, seg,
+                                                                vals), 5),
+                   "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                   ops / F32_OPS_PER_S) * 1e3})
+        del seg, vals, acc
+    order = []
+    for name, r in at.items():
+        if name == "digit_histogram" and k1:
+            gap = sum(c["launches"] * (c["ms"] - c["bound_ms"]) for c in k1)
+            losing = sum(c["launches"] for c in k1
+                         if c["ms"] > c["library_ms"])
+        else:
+            gap = launches[name] * (r["ms"] - r["bound_ms"])
+            lib = r.get("library_ms")
+            losing = launches[name] if lib is not None and r["ms"] > lib \
+                else 0
+        order.append({"kernel": name, "launches": launches[name],
+                      "launches_losing_to_library": losing,
+                      "launch_ms_over_bound": gap})
+    order.sort(key=lambda o: (o["launches_losing_to_library"] == 0,
+                              -o["launch_ms_over_bound"]))
+    emit({"phase": "rule2", "k1_by_window_class": k1, "order": order})
+
+
+def back_to_back_ms(fn, reps: int, per: int = 50) -> float:
+    """Median over ``reps`` CUDA-event timings of ``per`` calls of ``fn``
+    enqueued back to back, divided by ``per``: a kernel's time without
+    the host's launch cost where the kernel is the longer of the two."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(per):
+            fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / per)
     return float(np.median(times))
 
 
@@ -1411,6 +1696,7 @@ def phase_timing(seed, dev, higgs_model, higgs_grid, lin_model, lin_grid,
                     rows.append(row)
     rows += leaf_hist_timing(seed, dev, reps)
     rows += children_hist_timing(seed, dev, reps)
+    rows += probe_timing(dev, reps)
     emit({"phase": "timing", "reps": reps, "rows": rows})
     return rows
 
@@ -1513,6 +1799,90 @@ def children_hist_timing(seed, dev, reps):
     return rows
 
 
+def probe_timing(dev, reps):
+    """P1 on the probe's input: the kernel alone (launched back to back;
+    also as single launches, which include the host's launch cost), the
+    plain version and one call of the probe's 50-call chain (kernel +
+    ``^ 1``).  Bytes: the
+    block read once and written once; ops: per stage and column one
+    compare, one select per word and the 13 roll reads (the count the
+    JAX probe's comment implies), 2 x 13 a column.  No PyTorch call
+    computes a roll-select chain (library null).
+
+    P2 on the probe's inputs and first window (5, N/2), every probe nb and
+    the default split, both digit layouts, beside K1 on the same window,
+    the plain version (which reads the window on the host and unpacks
+    it) and the ``index_add_`` its plain version is built on, on the
+    already unpacked window (the unpack not timed).  Bytes: the window's
+    bin and digit words (or matrix rows) read once, the window and the
+    output; ops: one add per non-zero digit per feature (this data's
+    count).  The kernels line takes laneconcat at nb = 2048, the
+    probe's first run."""
+    from lightgbm_tpu_torch.ops import leafhist as lh
+    from lightgbm_tpu_torch.ops import roll_chain as rc
+    from lightgbm_tpu_torch.ops import window_hist as wh
+    from lightgbm_tpu_torch.tools import probe_dynhist as pd
+    from lightgbm_tpu_torch.tools import probe_roll as pr
+
+    def bound(nbytes, ops):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / F32_OPS_PER_S * 1e3
+        return {"bytes": int(nbytes), "ops": int(ops),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+    x = torch.from_numpy(pr.make_input()).to(dev)
+    rows = [{"kernel": "roll_chain", "stages": rc.STAGES,
+             "words": rc.WORDS, "nb": rc.NB,
+             "ms": back_to_back_ms(lambda: rc.roll_chain(x), reps),
+             "single_launch_ms": cuda_ms(lambda: rc.roll_chain(x), reps),
+             "plain_ms": cuda_ms(lambda: rc.roll_chain_plain(x), reps),
+             "library_ms": None,
+             "chain_ms_per_call": cuda_ms(lambda: pr.chain(x), 5) / pr.CHAIN,
+             # one SM's shared-memory traffic: per stage and column 2 key
+             # reads, 12 word reads and 12 word writes of 4 bytes
+             "smem_bytes": rc.STAGES * rc.NB * (2 + 2 * rc.WORDS) * 4,
+             **bound(2 * x.numel() * 4,
+                     rc.STAGES * rc.NB * 2 * (rc.WORDS + 1)),
+             "kernels_line": True}]
+
+    bins, digits = pd.make_inputs(pd.N)
+    n = bins.shape[0]
+    bw, dw, dmat = pd.device_inputs(bins, digits, dev)
+    off, count = pd.FIRST_OFF, n // 2
+    win = torch.tensor([off, count], dtype=torch.int32, device=dev)
+    tb = torch.from_numpy(bins).to(dev)
+    k1_ms = cuda_ms(lambda: lh.digit_histogram(tb, dmat, pd.B, off, count),
+                    reps)
+    ops = int((dmat[off:off + count] != 0).sum()) * pd.F
+    seg = (torch.arange(pd.F, device=dev)[None, :] * pd.B
+           + tb[off:off + count].long()).reshape(-1)
+    vals = dmat[off:off + count].to(torch.int32)[:, None, :] \
+        .expand(count, pd.F, 9).reshape(-1, 9)
+    acc = torch.zeros((pd.F * pd.B, 9), dtype=torch.int32, device=dev)
+    lib_ms = cuda_ms(lambda: acc.index_add_(0, seg, vals), 2)
+    del seg, vals, acc
+    plain = {m: cuda_ms(lambda: wh.window_digit_histogram_plain(
+        bw, dmat if m else dw, win, pd.F, pd.B), 2) for m in (False, True)}
+    out_bytes = 4 * pd.F * 9 * pd.B
+    for name, nb, matrix in pd.RUNS + (("default", None, False),
+                                       ("default", None, True)):
+        dig = dmat if matrix else dw
+        ms = cuda_ms(lambda: wh.window_digit_histogram(
+            bw, dig, win, pd.F, pd.B, block_rows=nb), reps)
+        nbytes = count * (len(bw) * 4 + (9 if matrix else 12)) + 8 \
+            + out_bytes
+        rows.append({"kernel": "window_digit_histogram", "layout": name,
+                     "nb": nb, "digits": "matrix" if matrix else "words",
+                     "S": count, "F": pd.F, "max_bin": pd.B, "ms": ms,
+                     "plain_ms": plain[matrix], "library_ms": lib_ms,
+                     "k1_same_window_ms": k1_ms,
+                     "rows_per_s": count / (ms * 1e-3),
+                     **bound(nbytes, ops),
+                     "kernels_line": name == "laneconcat" and nb == 2048})
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1525,6 +1895,8 @@ def main(argv=None) -> int:
     from lightgbm_tpu_torch.ops import children_hist as ch
     from lightgbm_tpu_torch.ops import forest_walk as fw
     from lightgbm_tpu_torch.ops import leafhist as lh
+    from lightgbm_tpu_torch.ops import roll_chain as rc
+    from lightgbm_tpu_torch.ops import window_hist as wh
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     smi = phase_build()
@@ -1540,14 +1912,20 @@ def main(argv=None) -> int:
         launches.update(phase_serve_linear(args.seed, dev, lin_model,
                                            lin_grid, higgs_model, workdir,
                                            errs))
-        launches.update(phase_train(args.seed, dev, workdir))
+        trained, windows = phase_train(args.seed, dev, workdir)
+        launches.update(trained)
+    launches.update(phase_probes(args.timing_reps))
     timing = phase_timing(args.seed, dev, higgs_model, higgs_grid,
                           lin_model, lin_grid, args.timing_reps)
-    # the walks at B=4096, the histograms at the training root (S = 1M)
+    # the walks at B=4096, the histograms at the training root (S = 1M),
+    # the probes at the probe's shapes
     at = {r["kernel"]: r for r in timing
-          if r.get("B") == 4096 or r.get("S") == TRAIN_ROWS}
+          if r.get("B") == 4096 or r.get("S") == TRAIN_ROWS
+          or r.get("kernels_line")}
     check(set(fw.LAUNCHES) | set(lh.LAUNCHES) | set(ch.LAUNCHES)
-          == set(REPLACES), "a kernel is missing a row")
+          | set(rc.LAUNCHES) | set(wh.LAUNCHES) == set(REPLACES),
+          "a kernel is missing a row")
+    phase_rule2(args.seed, dev, args.timing_reps, at, windows, launches)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": launches[name],

@@ -32,7 +32,8 @@ from ..utils.log import LightGBMError
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("forest_walk", "leaf_hist", "children_hist")
+SOURCES = ("forest_walk", "leaf_hist", "children_hist", "roll_chain",
+           "window_hist")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

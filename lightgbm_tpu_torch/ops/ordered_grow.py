@@ -9,8 +9,10 @@ segment.  Splitting a leaf touches only its segment:
 
   * a stable left/right partition of the segment: a cumulative count of
     the go-right rows gives every row its destination, and one gather
-    per tensor moves the rows (the JAX version's int32 word packing and
-    segment sorts are TPU workarounds and are not carried over);
+    per tensor moves the rows (the JAX version partitions int32 words
+    packed by :func:`pack_u8_words` with segment sorts, TPU workarounds
+    not carried over; the packing itself serves the windowed histogram
+    P2, ``ops/window_hist.py``);
   * the smaller child's K1 histogram over its contiguous window, handed
     to the kernel as the base tensors plus a row offset and a count;
   * the sibling by exact int32 subtraction from the parent's cached sums;
@@ -68,6 +70,25 @@ def _read(t: torch.Tensor) -> np.ndarray:
     with _sync_lock:
         _SYNCS["host_syncs"] += 1
     return t.cpu().numpy()
+
+
+def pack_u8_words(x_u8: torch.Tensor):
+    """[N, C] uint8 -> tuple of ceil(C/4) contiguous [N] int32 words:
+    column ``c`` sits in word ``c // 4`` at bits ``8 * (c % 4)``
+    (little-endian, as the JAX package's bitcast packs it)."""
+    n, c = x_u8.shape
+    w = -(-c // 4)
+    if w * 4 != c:
+        x_u8 = torch.nn.functional.pad(x_u8, (0, w * 4 - c))
+    words = x_u8.contiguous().view(torch.int32)          # [N, w]
+    return tuple(words.t().contiguous().unbind(0))
+
+
+def unpack_words(words, c: int) -> torch.Tensor:
+    """tuple of W [N] int32 words -> [N, c] uint8 (inverse of
+    :func:`pack_u8_words`)."""
+    stacked = torch.stack(tuple(words), dim=1)           # [N, W]
+    return stacked.view(torch.uint8)[:, :c].contiguous()
 
 
 def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:

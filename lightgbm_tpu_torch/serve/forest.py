@@ -479,11 +479,11 @@ class CompiledForest:
         return self._device_scores
 
     def warmup(self, max_bucket: Optional[int] = None) -> "CompiledForest":
-        """Build the kernel library (on a card) and run both paths once
+        """Build the walk kernel's library (on a card) and run both paths once
         per ladder bucket up to the one ``max_bucket`` rows dispatch to,
         so the first request pays neither the build nor a first launch."""
         if self.device.type == "cuda":
-            _build.build_all()
+            _build.build_all(("forest_walk",))
         sizes = list(self.ladder.sizes)
         if max_bucket:
             cap = self.ladder.bucket_for(int(max_bucket))
