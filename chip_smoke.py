@@ -18,13 +18,18 @@ probes' own lines); any failure raises and exits non-zero.
    of trees per class, and the Higgs forest below at the bucket sizes its
    serving run uses.  The leaf histogram K1 (exact int32 sums, so
    bit-equal, ``torch.equal``): uint8 and uint16 bins, F in {5, 28, 30},
-   windows of S in {0, 1, 4097, 65536, 1000000} rows at a row offset.
+   windows of S in {0, 1, 4097, 65536, 1000000} rows at a row offset,
+   on the wrapper's choice of path and on each of its two paths forced;
+   and at every window class of the train phase (2^10 to 2^20 rows) on
+   both paths.
    The children histograms K2 and the fused split candidates K3 (f32
    atomics: the tolerances of ``ops/children_hist.py``): uint8 with 255
    bins and uint16 with 1000, F in {5, 28, 30}, N in the same sizes, a
    third of the rows in each child and a third elsewhere, plus the root
-   forms at 1M rows; K3's features and thresholds equal except at
-   reported near-ties.  Each call adds exactly one to its launch counter.
+   forms at 1M rows and the 1M-row full pass with 2^14, 2^17, 2^19 and
+   all rows in the two children; K3's features and
+   thresholds equal except at reported near-ties.  Each call adds exactly
+   one to its launch counter.
    The linear and bf16 variants of the walk (``linear_forest``): the
    Higgs forest below made piece-wise linear (its own random trees, one
    feature categorical; every leaf of ~90% of the trees gets 5 affine
@@ -113,7 +118,17 @@ probes' own lines); any failure raises and exits non-zero.
    at S in {4096, 65536, 500000, 1000000} beside their plain versions
    and the ``index_add_`` library call, and of P1 and P2 at the probes'
    shapes (P2 beside K1 on the same window and ``index_add_`` on the
-   unpacked window), each beside its bound.  Then ``rule2``: the
+   unpacked window), each beside its bound.  ``k1_windows``: K1's small
+   path, large path, the wrapper as the growers call it and
+   ``index_add_`` at every window class the train phase counts (2^10 to
+   2^20 rows), each alone (``single_ms``: events around one call, the
+   host's enqueue included), back to back (``back_to_back_ms``), by its
+   host enqueue (``host_enqueue_us``) and by its device time per kernel
+   name from ``torch.profiler`` (``device_us``, or "not measured"); the
+   crossover of the two paths.
+   ``k3_occupancy``: K3 and K2 on the 1M-row full pass
+   with 2^14, 2^17, 2^19 and all rows in the children, timed the same
+   ways.  Then ``rule2``: the
    kernels in the order to redesign them, first those that lose to the
    PyTorch call computing the same function at the sizes the main path
    launches them (K1 timed at each window class the train phase
@@ -173,6 +188,13 @@ TRAIN_ROWS, VALID_ROWS, TRAIN_ROUNDS = 1_000_000, 100_000, 10
 HIST_SIZES = (0, 1, 4097, 65536, 1_000_000)
 HIST_FEATURES = (5, 28, 30)
 HIST_TIMING_SIZES = (4096, 65536, 500_000, 1_000_000)
+# K1's window classes on the training path (the power-of-two classes the
+# train phase counts: 2^10 .. 2^20 rows) and its paths (None: the
+# wrapper's choice); K3's leaf occupancies at the 1M-row full pass (rows in
+# the two children)
+WINDOW_CLASSES = tuple(1 << k for k in range(10, 21))
+K1_PATHS = (None, "small", "large")
+OCCUPANCIES = (1 << 14, 1 << 17, 1 << 19, 1 << 20)
 # a split of a re-grown tree may differ from the kernel run's only where
 # the two choices' gains are this close (relative): an f32 near-tie
 TREE_TIE_RTOL = 1e-3
@@ -539,31 +561,45 @@ def phase_kernels(seed, dev, higgs_model, higgs_grid, linear_set, errs):
 
 def compare_leaf_hist(seed, dev, errs):
     """K1 against its plain version: bit-equal at every dtype, width and
-    window size, one launch per call."""
+    window size, on the wrapper's own choice of path and on each path
+    forced; then at every window class the train phase counts (2^10 to
+    2^20 rows, uint8, 28 features, 255 bins) on both paths.  One launch
+    per call."""
     from lightgbm_tpu_torch.ops import leafhist as lh
     rng = np.random.RandomState(seed + 14)
     out = {}
+
+    def held(bins, dig, max_bin, start, S, label, **kw):
+        before = lh.launch_counts()["digit_histogram"]
+        got = lh.digit_histogram(bins, dig, max_bin, start, S, **kw)
+        torch.cuda.synchronize()
+        after = lh.launch_counts()["digit_histogram"]
+        check(after == before + (1 if bins.shape[1] else 0),
+              f"K1 {label}: launch counter {before} -> {after}")
+        want = lh.digit_histogram_plain(bins, dig, max_bin, start, S)
+        check(torch.equal(got, want),
+              f"K1 {label}: not bit-equal to the plain version")
+        d = float((got - want).abs().max()) if got.numel() else 0.0
+        errs["digit_histogram"] = max(errs["digit_histogram"], d)
+        out[label] = d
+
     for dtype, max_bin in ((np.uint8, 255), (np.uint16, 1000)):
         for F in HIST_FEATURES:
             bins, dig = hist_inputs(rng, max(HIST_SIZES) + 3, F, max_bin,
                                     dtype, dev)
             for S in HIST_SIZES:
                 start = 3 if S < max(HIST_SIZES) else 0
-                before = lh.launch_counts()["digit_histogram"]
-                got = lh.digit_histogram(bins, dig, max_bin, start, S)
-                torch.cuda.synchronize()
-                after = lh.launch_counts()["digit_histogram"]
-                check(after == before + 1,
-                      f"K1 {dtype.__name__} F={F} S={S}: launch counter "
-                      f"{before} -> {after}")
-                want = lh.digit_histogram_plain(bins, dig, max_bin, start, S)
-                check(torch.equal(got, want),
-                      f"K1 {dtype.__name__} F={F} S={S}: not bit-equal to "
-                      f"the plain version")
-                d = float((got - want).abs().max()) if got.numel() else 0.0
-                errs["digit_histogram"] = max(errs["digit_histogram"], d)
-                out[f"{dtype.__name__}/F{F}/S{S}"] = d
+                for path in K1_PATHS:
+                    held(bins, dig, max_bin, start, S,
+                         f"{dtype.__name__}/F{F}/S{S}/{path or 'auto'}",
+                         path=path)
             del bins, dig
+    F, B = 28, 255
+    bins, dig = hist_inputs(rng, TRAIN_ROWS + 5, F, B, np.uint8, dev)
+    for cls in WINDOW_CLASSES:
+        S = min(cls, TRAIN_ROWS)
+        for path in ("small", "large"):
+            held(bins, dig, B, 5, S, f"class{cls}/{path}", path=path)
     return out
 
 
@@ -580,6 +616,25 @@ def children_inputs(rng, rows: int, F: int, max_bin: int, dtype, dev):
     leaf = torch.from_numpy(rng.randint(0, 3, size=rows)
                             .astype(np.int32)).to(dev)
     return bins, g, h, w, leaf
+
+
+def occupancy_leaves(seed, N: int, occ: int, dev):
+    """[N] int32 leaf ids with min(occ, N) rows in the two children (half
+    in the split leaf 1, half in the right leaf 2) at rows drawn from the
+    seed, and the rest in leaf 3."""
+    occ = min(occ, N)
+    perm = np.random.RandomState(seed + 16).permutation(N)
+    leaf = np.full(N, 3, dtype=np.int32)
+    leaf[perm[:occ // 2]] = 1
+    leaf[perm[occ // 2:occ]] = 2
+    return torch.from_numpy(leaf).to(dev)
+
+
+def child_totals(g, h, w, leaf):
+    """[2, 3] (g, h, w sums) of the children leaf 1 and leaf 2."""
+    return torch.stack([torch.stack([(g * m).sum(), (h * m).sum(),
+                                     (w * m).sum()])
+                        for m in (leaf == 1, leaf == 2)])
 
 
 def abs_hist(bins, g, h, w, leaf, parent, right, max_bin):
@@ -656,8 +711,9 @@ def check_candidates(got, want, scale, totals, is_cat, label, ties):
 def compare_children_hist(seed, dev, errs):
     """K2 and K3 against their plain versions on the grid: uint8 with 255
     bins and uint16 with 1000, F in {5, 28, 30}, N in HIST_SIZES, a third
-    of the rows in each child; plus the root forms at 1M rows.  Each call
-    adds exactly one to its counter."""
+    of the rows in each child; plus the root forms at 1M rows, and the
+    1M-row full pass with OCCUPANCIES rows in the children.  Each call adds
+    exactly one to its counter."""
     from lightgbm_tpu_torch.ops import children_hist as ch
     from lightgbm_tpu_torch.ops.split import SplitParams
     rng = np.random.RandomState(seed + 15)
@@ -685,9 +741,7 @@ def compare_children_hist(seed, dev, errs):
                                                     2, max_bin)
                 scale = abs_hist(bins, g, h, w, leaf, 1, 2, max_bin)
                 d2 = check_hist(got, want, scale, f"K2 {label}")
-                totals = torch.stack([torch.stack([
-                    (g * m).sum(), (h * m).sum(), (w * m).sum()])
-                    for m in (leaf == 1, leaf == 2)])
+                totals = child_totals(g, h, w, leaf)
                 nb = torch.full((F,), max_bin, dtype=torch.int32, device=dev)
                 cat = torch.zeros(F, dtype=torch.bool, device=dev)
                 cat[0] = True
@@ -731,6 +785,30 @@ def compare_children_hist(seed, dev, errs):
     errs["children_histograms"] = max(errs["children_histograms"], d2)
     errs["fused_split_candidates"] = max(errs["fused_split_candidates"], d3)
     out["root"] = {"k2": d2, "k3_gain": d3, "k3_gain_over_tolerance": r3}
+    # the fused grower's full pass at each leaf occupancy
+    for occ in OCCUPANCIES:
+        leaf = occupancy_leaves(seed, N, occ, dev)
+        scale = abs_hist(bins, g, h, w, leaf, 1, 2, max_bin)
+        got = counted("children_histograms",
+                      lambda: ch.children_histograms(bins, g, h, w, leaf, 1,
+                                                     2, max_bin))
+        d2 = check_hist(got, ch.build_children_histograms(
+            bins, g, h, w, leaf, 1, 2, max_bin), scale, f"K2 occ{occ}")
+        totals = child_totals(g, h, w, leaf)
+        args = (bins, g, h, w, leaf, 1, 2, totals,
+                torch.full((F,), max_bin, dtype=torch.int32, device=dev),
+                cat, torch.ones(F, dtype=torch.bool, device=dev), max_bin,
+                sp)
+        got3 = counted("fused_split_candidates",
+                       lambda: ch.fused_split_candidates(*args))
+        d3, r3 = check_candidates(
+            got3, ch.fused_split_candidates_plain(*args), scale, totals, cat,
+            f"K3 occ{occ}", ties)
+        errs["children_histograms"] = max(errs["children_histograms"], d2)
+        errs["fused_split_candidates"] = max(
+            errs["fused_split_candidates"], d3)
+        out[f"occupancy{occ}"] = {"k2": d2, "k3_gain": d3,
+                                  "k3_gain_over_tolerance": r3}
     return {"max_abs_diff": out, "near_ties": ties,
             "tolerance": {"hist_rtol_of_abs_sums": ch.HIST_RTOL,
                           "hist_atol": ch.HIST_ATOL,
@@ -1541,21 +1619,15 @@ def phase_rule2(seed, dev, reps, at, windows, launches):
     k1 = []
     for cls, n in windows.get("digit_histogram", {}).items():
         S = min(int(cls), TRAIN_ROWS)
-        seg = (torch.arange(F, device=dev)[None, :] * B
-               + bins[:S].long()).reshape(-1)
-        vals = dig[:S].to(torch.int32)[:, None, :].expand(S, F, 9) \
-            .reshape(-1, 9)
-        acc = torch.zeros((F * B, 9), dtype=torch.int32, device=dev)
         nbytes = S * F + 9 * S + 4 * F * 9 * B
         ops = int((dig[:S] != 0).sum()) * F
         k1.append({"window_class": int(cls), "S": S, "launches": n,
                    "ms": cuda_ms(lambda: lh.digit_histogram(bins, dig, B, 0,
                                                             S), reps),
-                   "library_ms": cuda_ms(lambda: acc.index_add_(0, seg,
-                                                                vals), 5),
+                   "library_ms": cuda_ms(index_add_call(bins, dig, S, F, B),
+                                         5),
                    "bound_ms": max(nbytes / HBM_BYTES_PER_S,
                                    ops / F32_OPS_PER_S) * 1e3})
-        del seg, vals, acc
     order = []
     for name, r in at.items():
         if name == "digit_histogram" and k1:
@@ -1717,13 +1789,7 @@ def leaf_hist_timing(seed, dev, reps):
         k_ms = cuda_ms(lambda: lh.digit_histogram(bins, dig, B, 0, S), reps)
         p_ms = cuda_ms(lambda: lh.digit_histogram_plain(bins, dig, B, 0, S),
                        2)
-        seg = (torch.arange(F, device=dev)[None, :] * B
-               + bins[:S].long()).reshape(-1)
-        vals = dig[:S].to(torch.int32)[:, None, :].expand(S, F, 9) \
-            .reshape(-1, 9)
-        acc = torch.zeros((F * B, 9), dtype=torch.int32, device=dev)
-        lib_ms = cuda_ms(lambda: acc.index_add_(0, seg, vals), 2)
-        del seg, vals, acc
+        lib_ms = cuda_ms(index_add_call(bins, dig, S, F, B), 2)
         nbytes = S * F * bins.element_size() + 9 * S + 4 * F * 9 * B
         ops = int((dig[:S] != 0).sum()) * F
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1797,6 +1863,130 @@ def children_hist_timing(seed, dev, reps):
                          else "operations"})
         del bins, leaf
     return rows
+
+
+def host_enqueue_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn`` takes to enqueue its work (no
+    synchronize inside the loop): the host part of a call's time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def device_us(fn, calls: int = 10):
+    """Device-only microseconds a call of ``fn`` by kernel name, from
+    ``torch.profiler`` over ``calls`` calls, or "not measured" where the
+    profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0)
+        if t and t > 0:
+            out[e.key[:120]] = t / calls
+    return out or "not measured"
+
+
+def timed(fn, reps: int):
+    """A call's time three ways: alone (CUDA events around one call,
+    host enqueue included), back to back (``back_to_back_ms``) and its
+    host enqueue; plus its device-only time by kernel name."""
+    dev_us = device_us(fn)
+    row = {"single_ms": cuda_ms(fn, reps),
+           "back_to_back_ms": back_to_back_ms(fn, max(1, reps // 2), 20),
+           "host_enqueue_us": host_enqueue_us(fn), "device_us": dev_us}
+    if isinstance(dev_us, dict):
+        row["device_ms_total"] = sum(dev_us.values()) * 1e-3
+    return row
+
+
+def index_add_call(bins, dig, S: int, F: int, B: int):
+    """The one ``index_add_`` call that computes K1's function over the
+    first S rows (its inputs built outside the timed call)."""
+    dev = bins.device
+    seg = (torch.arange(F, device=dev)[None, :] * B
+           + bins[:S].long()).reshape(-1)
+    vals = dig[:S].to(torch.int32)[:, None, :].expand(S, F, 9).reshape(-1, 9)
+    acc = torch.zeros((F * B, 9), dtype=torch.int32, device=dev)
+    return lambda: acc.index_add_(0, seg, vals)
+
+
+def k1_window_timing(seed, dev, reps):
+    """K1 at every window class of the train phase (uint8, 28 features,
+    255 bins, the class's top size, the 1M-row root for 2^20): the small
+    path, the large path, the wrapper as the growers call it (its own
+    choice of path) and the ``index_add_`` library call, each timed
+    alone, back to back, by its host enqueue and by its device time.
+    The crossover: the smallest class from which the large path's
+    device time (back to back where the profiler shows none) is below the
+    small path's at every larger class."""
+    from lightgbm_tpu_torch.ops import leafhist as lh
+    F, B = 28, 255
+    rng = np.random.RandomState(seed + 53)
+    bins, dig = hist_inputs(rng, TRAIN_ROWS, F, B, np.uint8, dev)
+    classes = []
+    for cls in WINDOW_CLASSES:
+        S = min(cls, TRAIN_ROWS)
+        calls = {
+            "small": lambda: lh.digit_histogram(bins, dig, B, 0, S,
+                                                path="small"),
+            "large": lambda: lh.digit_histogram(bins, dig, B, 0, S,
+                                                path="large"),
+            "wrapper": lambda: lh.digit_histogram(bins, dig, B, 0, S),
+            "index_add_": index_add_call(bins, dig, S, F, B)}
+        row = {"window_class": cls, "S": S,
+               "plan": lh.plan(S, F, B, lh.sm_count(dev.index))._asdict(),
+               **{name: timed(fn, reps) for name, fn in calls.items()}}
+        classes.append(row)
+
+    def device_ms(t):
+        return t.get("device_ms_total", t["back_to_back_ms"])
+
+    crossover = None
+    for row in reversed(classes):
+        if device_ms(row["large"]) >= device_ms(row["small"]):
+            break
+        crossover = row["window_class"]
+    return {"classes": classes, "crossover_class": crossover,
+            "small_window_max_rows": lh.SMALL_WINDOW_MAX_ROWS}
+
+
+def k3_occupancy_timing(seed, dev, reps):
+    """K3 and K2 on the fused grower's 1M-row full pass
+    (28 features, 255 bins, uint8) with OCCUPANCIES rows in the two
+    children (``occupancy_leaves``), each timed as ``timed`` does."""
+    from lightgbm_tpu_torch.ops import children_hist as ch
+    from lightgbm_tpu_torch.ops.split import SplitParams
+    N, F, B = TRAIN_ROWS, 28, 255
+    bins, g, h, w, _ = children_inputs(np.random.RandomState(seed + 54), N,
+                                       F, B, np.uint8, dev)
+    sp = SplitParams(TRAIN_PARAMS["min_data_in_leaf"], 1e-3)
+    nb = torch.full((F,), B, dtype=torch.int32, device=dev)
+    cat = torch.zeros(F, dtype=torch.bool, device=dev)
+    fm = torch.ones(F, dtype=torch.bool, device=dev)
+    rows = []
+    for occ in OCCUPANCIES:
+        leaf = occupancy_leaves(seed, N, occ, dev)
+        k3 = (bins, g, h, w, leaf, 1, 2, child_totals(g, h, w, leaf), nb,
+              cat, fm, B, sp)
+        row = {"occupancy": min(occ, N), "rows": N,
+               "k2": timed(lambda: ch.children_histograms(
+                   bins, g, h, w, leaf, 1, 2, B), reps),
+               "k3": timed(lambda: ch.fused_split_candidates(*k3), reps)}
+        rows.append(row)
+    return {"occupancies": rows}
 
 
 def probe_timing(dev, reps):
@@ -1917,6 +2107,10 @@ def main(argv=None) -> int:
     launches.update(phase_probes(args.timing_reps))
     timing = phase_timing(args.seed, dev, higgs_model, higgs_grid,
                           lin_model, lin_grid, args.timing_reps)
+    emit({"phase": "k1_windows",
+          **k1_window_timing(args.seed, dev, args.timing_reps)})
+    emit({"phase": "k3_occupancy",
+          **k3_occupancy_timing(args.seed, dev, args.timing_reps)})
     # the walks at B=4096, the histograms at the training root (S = 1M),
     # the probes at the probe's shapes
     at = {r["kernel"]: r for r in timing

@@ -13,8 +13,11 @@ tasks.
 
 Parameters parse as in the JAX CLI (``key=value`` tokens, ``config=``
 file first, command line wins, the same aliases); keys this port does not
-read are ignored with one warning each.  Data files are dense CSV/TSV
-with the label in the first column.  ``python -m lightgbm_tpu_torch
+read are ignored with one warning each, and keys that would change the
+answer are refused (``config.py``).  Data files are dense CSV/TSV with
+the label in the first column; ``task=train`` refuses a data or valid
+file with ``.weight``, ``.init`` or ``.query`` side files beside it,
+which the JAX CLI would load.  ``python -m lightgbm_tpu_torch
 serve ...`` is sugar for ``task=serve``.
 """
 
@@ -33,6 +36,9 @@ from .utils import log
 from .utils.log import LightGBMError
 
 _CHUNK_ROWS = 1 << 16
+#: side files the JAX CLI loads beside a data file (weights, query
+#: boundaries, initial scores); the port does not load them yet
+SIDE_FILES = (".weight", ".init", ".query")
 _NA = {"", "na", "nan", "null", "none"}
 
 
@@ -163,6 +169,13 @@ def run_train(config: Config, params: Dict[str, str]) -> None:
     if not config.data:
         log.fatal("No training data specified (data=...)")
     config.check_trainable()          # before reading a large file
+    for path in [config.data, *config.valid_data]:
+        for ext in SIDE_FILES:
+            if os.path.exists(path + ext):
+                raise LightGBMError(
+                    f"{path + ext} sits beside {path}: the torch port does "
+                    f"not load {', '.join(SIDE_FILES)} side files yet, and "
+                    f"would train without it")
     start = time.monotonic()
     X, y = read_labeled(config.data, config.has_header)
     train_set = Dataset(X, y, params=dict(params))

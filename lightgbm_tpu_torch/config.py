@@ -4,10 +4,14 @@ The JAX package's config.py holds every training and serving key; the
 port carries only the keys its train/predict/serve paths read, with the
 same names, aliases and defaults, so a conf file written for the JAX CLI
 runs here unchanged.  Any other key is accepted and ignored with one
-warning per key.  Training settings the port has not ported yet
-(bagging, feature fraction, GOSS, DART, distributed learners, objectives
-other than binary) raise in :meth:`Config.check_trainable` instead of
-being ignored.
+warning per key, when it cannot change a tree or a prediction
+(``num_threads``, ``metric_freq``).  Keys that would change the answer
+and are not ported yet are refused with a ``LightGBMError`` naming them,
+under their aliases too (:data:`REFUSED`: the data-column roles, and
+``is_predict_leaf_index`` for predict).  Training settings the port has
+not ported yet (bagging, feature fraction, GOSS, DART, distributed
+learners, objectives other than binary, early stopping, continued
+training from ``input_model``) raise in :meth:`Config.check_trainable`.
 """
 
 from __future__ import annotations
@@ -71,7 +75,31 @@ PARAM_ALIASES: Dict[str, str] = {
     "reg_lambda": "lambda_l2",
     "num_classes": "num_class",
     "unbalanced_sets": "is_unbalance",
+    # keys the port refuses (REFUSED, check_trainable), so that an alias
+    # is refused too rather than warned about
+    "early_stopping_rounds": "early_stopping_round",
+    "early_stopping": "early_stopping_round",
+    "predict_leaf_index": "is_predict_leaf_index",
+    "leaf_index": "is_predict_leaf_index",
+    "label": "label_column",
+    "weight": "weight_column",
+    "group": "group_column",
+    "query": "group_column",
+    "query_column": "group_column",
+    "ignore_feature": "ignore_column",
+    "blacklist": "ignore_column",
+    "categorical_feature": "categorical_column",
+    "cat_column": "categorical_column",
+    "cat_feature": "categorical_column",
 }
+
+#: keys that change a tree or a prediction and are not ported yet: a
+#: non-empty value is refused, whatever the task (ROADMAP Queue A item 1:
+#: the port reads column 0 as the label and every other column as a
+#: feature)
+REFUSED = ("label_column", "weight_column", "group_column", "ignore_column",
+           "categorical_column")
+_PREDICT_TASKS = ("predict", "prediction", "test")
 
 _DEFAULTS: Dict[str, Any] = {
     "task": "train",
@@ -138,6 +166,14 @@ _DEFAULTS: Dict[str, Any] = {
     # degrade: drop the cache for the full-pass grower)
     "histogram_pool_size": -1.0,
     "memory_policy": "fail_fast",
+    # read only to be refused (REFUSED, _check, check_trainable)
+    "early_stopping_round": 0,
+    "is_predict_leaf_index": False,
+    "label_column": "",
+    "weight_column": "",
+    "group_column": "",
+    "ignore_column": "",
+    "categorical_column": "",
 }
 
 _BOOL_KEYS = {k for k, v in _DEFAULTS.items() if isinstance(v, bool)}
@@ -239,6 +275,18 @@ class Config:
 
     def _check(self) -> None:
         v = self._values
+        given = [f"{k}={v[k]}" for k in REFUSED if str(v[k]).strip()]
+        if given:
+            raise LightGBMError(
+                "not ported yet to the torch package: "
+                + ", ".join(given) + " (the torch port reads column 0 of "
+                "the data as the label and every other column as a "
+                "feature; it does not take column roles)")
+        if v["is_predict_leaf_index"] and v["task"] in _PREDICT_TASKS:
+            raise LightGBMError(
+                "not ported yet to the torch package: "
+                "is_predict_leaf_index=true (task=predict writes scores, "
+                "not leaf indices)")
         if v["serve_max_batch"] <= 0:
             raise ValueError("serve_max_batch must be > 0")
         if v["serve_max_delay_ms"] < 0:
@@ -290,8 +338,8 @@ class Config:
     def check_trainable(self) -> None:
         """Raise for every training setting outside the ported slice
         (serial binary GBDT with any ``serial_grow``, constant or linear
-        leaves, without row or feature sampling); nothing here is
-        silently ignored."""
+        leaves, without row or feature sampling, early stopping or
+        continued training); nothing here is silently ignored."""
         v = self._values
         unported = []
         if v["objective"] != "binary":
@@ -306,6 +354,12 @@ class Config:
             unported.append("bagging_fraction<1 (bagging)")
         if v["feature_fraction"] < 1.0:
             unported.append("feature_fraction<1")
+        if v["early_stopping_round"] > 0:
+            unported.append(f"early_stopping_round="
+                            f"{v['early_stopping_round']} (early stopping)")
+        if v["input_model"]:
+            unported.append(f"input_model={v['input_model']} with "
+                            "task=train (continued training)")
         if unported:
             raise LightGBMError(
                 "not ported yet to the torch package: "

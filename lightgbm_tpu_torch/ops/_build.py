@@ -27,6 +27,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 from ..utils.log import LightGBMError
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -136,3 +138,16 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def launch(dev, fn, *args) -> int:
+    """``fn(*args, stream)``: a kernel's C entry point called with
+    ``dev``'s current stream as a raw handle (the one PyTorch's own C++
+    launches use; ``torch.cuda.current_stream(dev).cuda_stream`` builds a
+    Stream object a call), switching the current device only when it
+    differs.  The launch's host path is most of a small window's time."""
+    index = dev.index
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))

@@ -19,8 +19,14 @@ or raises; on a CPU tensor it runs its plain version:
 
 The split leaf, the right leaf and K3's child totals go to the kernels
 as device tensors, so a caller holding them as 0-dim device tensors
-never reads them to the host.  Every output, scratch and counter is
-allocated and zeroed here with ``torch.zeros``.  Kernel launches are
+never reads them to the host.  K2's output is allocated and zeroed here
+with ``torch.zeros``.  K3 writes its output whole (``torch.empty``); its
+launch is planned by the pure function :func:`plan_fused` (one
+persistent block per SM, as many features a block as shared memory
+holds, a cooperative grid no larger than the resident blocks), and its
+partials and reduced histogram are one ``torch.empty`` a call from
+PyTorch's caching allocator (stream-ordered, no device work), never
+zeroed: the kernel writes every slot it reads.  Kernel launches are
 counted in :data:`LAUNCHES`.
 
 Tolerance.  Kernel and plain version both sum f32 values with atomics,
@@ -46,12 +52,14 @@ larger codes, the plain version would index the next feature).
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
-from typing import Dict
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from ..utils.log import LightGBMError
+from . import _build
 from .histogram import build_children_histograms, build_root_histogram
 from .split import SplitParams, per_feature_candidates
 
@@ -70,6 +78,15 @@ SMEM_LIMIT = 232448
 THREADS = 256
 #: blocks per feature group the wrapper aims for (132 SMs x 3)
 TARGET_BLOCKS = 396
+#: K3: threads a block, and consecutive rows a thread takes per tile (the
+#: kernel's 4-wide loads; its entry point refuses another tile)
+FUSED_THREADS = 1024
+FUSED_ROWS_PER_THREAD = 4
+#: K3's queue of a tile's child rows (row, g, h, w: 16 bytes each, one a
+#: thread) and its 3 counters (16 bytes), beside the histogram in shared
+#: memory
+FUSED_QUEUE_ROWS = FUSED_THREADS
+FUSED_QUEUE_BYTES = FUSED_QUEUE_ROWS * 16 + 16
 
 
 def reset_launch_counts() -> None:
@@ -124,6 +141,76 @@ def _grid(F: int, N: int, max_bin: int):
     return fg, groups, max(1, -(-N // chunks))
 
 
+class FusedPlan(NamedTuple):
+    """One launch of K3: ``fg`` features a block in ``groups`` groups,
+    ``per_group`` blocks a group (each writes one partial slot), ``grid``
+    blocks in all, ``tile`` rows a block takes at a time, ``queue`` child
+    rows its shared queue holds and ``smem`` shared bytes a block.  The
+    kernel takes every field from here."""
+    fg: int
+    groups: int
+    per_group: int
+    grid: int
+    tile: int
+    queue: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def fused_feature_group(F: int, max_bin: int) -> int:
+    """K3's features a block: as many ``[2, B, 3]`` f32 histograms as one
+    block's shared memory holds beside the child-row queue (all 28 at 255
+    bins, 171 KB + 16 KB), spread evenly over the groups."""
+    per = 2 * max_bin * 3 * 4
+    room = SMEM_LIMIT - FUSED_QUEUE_BYTES
+    if per > room:
+        raise LightGBMError(
+            f"fused_split_candidates: max_bin={max_bin} needs {per} bytes "
+            f"of shared memory per feature, more than a block has beside "
+            f"its {FUSED_QUEUE_BYTES}-byte row queue")
+    most = max(1, min(F, room // per))
+    return -(-F // -(-F // most))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_fused(F: int, max_bin: int, sms: int,
+               blocks_per_sm: int) -> FusedPlan:
+    """K3's launch for ``F`` features at ``max_bin`` bins on a card of
+    ``sms`` SMs that holds ``blocks_per_sm`` blocks of this size at once
+    (the occupancy the kernel's launcher reports).  Features:
+    :func:`fused_feature_group`.  Blocks: one a SM, and never more than
+    can be resident (the cooperative launch's grid barrier needs every
+    block resident); with more groups than blocks, each block takes
+    several groups in turn."""
+    fg = fused_feature_group(F, max_bin)
+    groups = -(-F // fg)
+    per = 2 * max_bin * 3 * 4
+    if blocks_per_sm < 1 or sms < 1:
+        raise LightGBMError(
+            f"fused_split_candidates: no block of {fg * per} shared bytes "
+            f"is resident on this card")
+    if groups <= sms:
+        per_group = sms // groups
+        grid = per_group * groups
+    else:
+        per_group, grid = 1, sms
+    return FusedPlan(fg, groups, per_group, grid,
+                     FUSED_THREADS * FUSED_ROWS_PER_THREAD, FUSED_QUEUE_ROWS,
+                     fg * per + FUSED_QUEUE_BYTES)
+
+
+def fused_block_rows(p: FusedPlan, N: int, block: int):
+    """(groups, row ranges) that block ``block`` of K3 scans, as the
+    kernel computes them (``fused_split_kernel``'s group and tile loops):
+    each group it takes, the rows of its tiles."""
+    step = p.grid // p.per_group
+    groups = list(range(block // p.per_group, p.groups, step))
+    ntiles = -(-N // p.tile)
+    rows = [(t * p.tile, min((t + 1) * p.tile, N))
+            for t in range(block % p.per_group, ntiles, p.per_group)]
+    return groups, rows
+
+
 def _check(name, bins, grad, hess, weight, leaf_id):
     if bins.dim() != 2 or bins.shape[0] == 0:
         raise LightGBMError(f"{name}: bins {tuple(bins.shape)} must be "
@@ -162,8 +249,21 @@ def _leaves(parent_leaf, right_leaf, dev) -> torch.Tensor:
     return torch.stack(out)
 
 
+def _leaf_arg(v, dev):
+    """(tensor to keep alive, device pointer or None, value) of a leaf
+    index for K3: a 0-dim int32 tensor on ``dev`` goes to the kernel as
+    its address (no host read, no launch), an int as its value."""
+    if isinstance(v, torch.Tensor):
+        if v.numel() != 1 or v.device != dev:
+            raise LightGBMError("children histograms: a leaf index must be "
+                                "one value on the bins' device")
+        if v.dtype != torch.int32:
+            v = v.to(torch.int32)
+        return v, v.data_ptr(), 0
+    return None, None, int(v)
+
+
 def _lib():
-    from . import _build
     lib = _build.load("children_hist")
     if lib.lgbt_children_histograms.argtypes is None:
         p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -172,10 +272,29 @@ def _lib():
             p, i, p, p, p, p, p, ll, i, i, i, ll, p, i, p]
         lib.lgbt_children_histograms.restype = i
         lib.lgbt_fused_split_candidates.argtypes = [
-            p, i, p, p, p, p, p, p, p, p, p, f, f, f, f, f,
-            ll, i, i, i, ll, p, p, p, i, p]
+            p, i, p, p, p, p, p, p, i, i, p, p, p, p, f, f, f, f, f,
+            ll, i, i, i, i, i, i, ll, i, i, i, p, p, p, i, p]
         lib.lgbt_fused_split_candidates.restype = i
+        lib.lgbt_fused_resident_blocks.argtypes = [
+            i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        lib.lgbt_fused_resident_blocks.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(device_index: int, bin_bytes: int,
+              smem: int) -> Tuple[int, int]:
+    """(blocks of K3 one SM holds at once, SMs) on the card."""
+    bps, sms = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _lib().lgbt_fused_resident_blocks(
+            bin_bytes, smem, FUSED_THREADS, ctypes.byref(bps),
+            ctypes.byref(sms))
+    if err != 0:
+        raise LightGBMError(
+            f"fused_split_candidates: occupancy query failed: CUDA error "
+            f"{err}")
+    return bps.value, sms.value
 
 
 def _stream(dev) -> int:
@@ -268,24 +387,33 @@ def fused_split_candidates(bins, grad, hess, weight, leaf_id, parent_leaf,
         return fused_split_candidates_plain(
             bins, grad, hess, weight, leaf_id, parent_leaf, right_leaf,
             totals, num_bin, is_cat, feat_mask, max_bin, params)
-    leaves = _leaves(parent_leaf, right_leaf, dev)
-    fg, groups, rows_per_block = _grid(F, N, max_bin)
-    scratch = torch.zeros((2, F, max_bin, 3), dtype=torch.float32,
-                          device=dev)
-    tickets = torch.zeros(groups, dtype=torch.int32, device=dev)
-    out = torch.zeros((2, F, 8), dtype=torch.float32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.lgbt_fused_split_candidates(
-            bins.data_ptr(), bins.element_size(), grad.data_ptr(),
-            hess.data_ptr(), weight.data_ptr(), leaf_id.data_ptr(),
-            leaves.data_ptr(), totals.data_ptr(), num_bin.data_ptr(),
-            is_cat.data_ptr(), feat_mask.data_ptr(),
-            float(params.min_data_in_leaf),
-            float(params.min_sum_hessian_in_leaf), float(params.lambda_l1),
-            float(params.lambda_l2), float(params.min_gain_to_split),
-            N, F, max_bin, fg, rows_per_block, scratch.data_ptr(),
-            tickets.data_ptr(), out.data_ptr(), THREADS, _stream(dev))
+    smem = (2 * max_bin * 3 * 4 * fused_feature_group(F, max_bin)
+            + FUSED_QUEUE_BYTES)
+    blocks_per_sm, sms = _resident(dev.index, bins.element_size(), smem)
+    p = plan_fused(F, max_bin, sms, blocks_per_sm)
+    E = 2 * F * max_bin * 3
+    # partials [per_group, 2, F, B, 3], then the reduced [2, F, B, 3]
+    buf = torch.empty((p.per_group + 1) * E, dtype=torch.float32,
+                      device=dev)
+    vec_rows = int(N % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (bins, grad, hess, weight,
+                                         leaf_id)))
+    (parent_t, parent_p, parent_v), (right_t, right_p, right_v) = (
+        _leaf_arg(v, dev) for v in (parent_leaf, right_leaf))
+    out = bins.new_empty((2, F, 8), dtype=torch.float32)
+    err = _build.launch(
+        dev, _lib().lgbt_fused_split_candidates,
+        bins.data_ptr(), bins.element_size(), grad.data_ptr(),
+        hess.data_ptr(), weight.data_ptr(), leaf_id.data_ptr(), parent_p,
+        right_p, parent_v, right_v, totals.data_ptr(), num_bin.data_ptr(),
+        is_cat.data_ptr(), feat_mask.data_ptr(),
+        float(params.min_data_in_leaf),
+        float(params.min_sum_hessian_in_leaf), float(params.lambda_l1),
+        float(params.lambda_l2), float(params.min_gain_to_split),
+        N, F, max_bin, p.fg, p.groups, p.per_group, p.grid, p.tile, p.queue,
+        p.smem, vec_rows, buf.data_ptr(),
+        buf.data_ptr() + 4 * p.per_group * E, out.data_ptr(), FUSED_THREADS)
+    del parent_t, right_t          # alive until the launch is enqueued
     if err != 0:
         raise LightGBMError(
             f"fused_split_candidates kernel launch failed: CUDA error {err}")

@@ -13,9 +13,14 @@ a split is the parent's sums minus the smaller child's, exactly
 tensor it launches the hand-written kernel ``csrc/leaf_hist.cu`` (which
 replaces the TPU kernel ``digit_histogram_pallas``) or raises; on a CPU
 tensor it runs :func:`digit_histogram_plain`, one ``index_add_`` keyed by
-``feature * max_bin + bin``.  Both are exact integer sums, so they agree
-bit for bit in any summation order.  Kernel launches are counted in
-:data:`LAUNCHES`.
+``feature * max_bin + bin``.  The launch is planned by the pure function
+:func:`plan`: windows up to :data:`SMALL_WINDOW_MAX_ROWS` rows take the
+small-window path (one thread-block cluster a feature group, the
+cluster's sums stored whole: one launch, nothing zero-filled), larger
+ones the large-window path (each block's non-zero sums added with global
+atomics into an output the kernel's launcher zeroes).  Both are exact
+integer sums, so they agree bit for bit in any summation order.  Kernel
+launches are counted in :data:`LAUNCHES`.
 
 :func:`leaf_histogram` serves the cached grower (``ops/grow.py``): it
 compacts the rows of a mask into a window of a power-of-two size class
@@ -29,33 +34,42 @@ fewer than 2^24 rows (|digit| <= 128, so 128 * rows stays below 2^31).
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
-from typing import Dict, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ..utils.log import LightGBMError
+from . import _build
 
 # 24-bit fixed point: values quantized to round(x / scale * 2^QBITS),
 # |q| <= 2^QBITS, split into 3 balanced radix-256 int8 digits.
 QBITS = 22
 _DIGIT_W = (65536.0, 256.0, 1.0)
 NUM_STREAMS = 9  # 3 values (g, h, w) x 3 digits
+_BIN_DTYPES = (torch.uint8, torch.uint16)
 MAX_WINDOW_ROWS = 1 << 24
 
 #: kernel launches per wrapper; reset with :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"digit_histogram": 0}
 _count_lock = threading.Lock()
 
-#: shared memory one block of the kernel may use (bytes): a third of an
-#: H100 SM's 227 KB, so three blocks can be resident on one SM
-SMEM_PER_BLOCK = 232448 // 3
+#: blocks of the large-window path resident on one SM: each may use a
+#: third of an H100 SM's 227 KB of shared memory (:data:`SMEM_PER_BLOCK`)
+BLOCKS_PER_SM = 3
 #: the most shared memory one block can have at all
 SMEM_LIMIT = 232448
+SMEM_PER_BLOCK = SMEM_LIMIT // BLOCKS_PER_SM
 THREADS = 256
-#: blocks per feature group the wrapper aims for, over all row chunks
-#: (132 SMs x 3 resident blocks)
-TARGET_BLOCKS = 396
+#: windows of at most this many rows take the small-window path (one
+#: cluster a feature group, plain stores); larger ones the large-window
+#: path.  The crossover of the two paths that chip_smoke.py measures over
+#: the train phase's window classes (PERF.md) fixes it.
+SMALL_WINDOW_MAX_ROWS = 1 << 16
+#: blocks a cluster on the small-window path (16 needs the non-portable
+#: cluster size); the large-window path launches no clusters
+CLUSTER_SMALL = 16
 
 
 def reset_launch_counts() -> None:
@@ -165,10 +179,10 @@ def digit_histogram_plain(bins_rm: torch.Tensor, digits: torch.Tensor,
 
 
 def feature_group(F: int, max_bin: int) -> int:
-    """Features per block: as many ``[9, max_bin]`` int32 histograms as
-    fit in :data:`SMEM_PER_BLOCK` (at least one, if one fits in a block
-    at all), spread evenly over the groups (28 features at 255 bins: 4
-    groups of 7, 63 KB each)."""
+    """Features per block of the large-window path: as many
+    ``[9, max_bin]`` int32 histograms as fit in :data:`SMEM_PER_BLOCK`
+    (at least one, if one fits in a block at all), spread evenly over the
+    groups (28 features at 255 bins: 4 groups of 7, 63 KB each)."""
     per = NUM_STREAMS * max_bin * 4
     if per > SMEM_LIMIT:
         raise LightGBMError(
@@ -179,55 +193,116 @@ def feature_group(F: int, max_bin: int) -> int:
     return -(-F // groups) if F else 1
 
 
-def _lib():
-    from . import _build
-    lib = _build.load("leaf_hist")
-    if lib.lgbt_digit_histogram.argtypes is None:
+class Plan(NamedTuple):
+    """One launch of K1: ``path`` ("small": one cluster a feature group,
+    plain stores; "large": many row chunks a group, global atomics into
+    a zeroed output), ``fg`` features a block, ``cluster`` blocks a
+    cluster, ``chunks`` row chunks a group (a multiple of ``cluster``),
+    ``rows_per_block`` rows a chunk, ``groups`` feature groups and
+    ``smem`` shared bytes a block."""
+    path: str
+    fg: int
+    cluster: int
+    chunks: int
+    rows_per_block: int
+    groups: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(count: int, F: int, max_bin: int, sms: int,
+         path: Optional[str] = None) -> Plan:
+    """The launch of K1 for a window of ``count`` rows of ``F`` features
+    at ``max_bin`` bins on a card of ``sms`` SMs.  ``path`` None picks
+    "small" up to :data:`SMALL_WINDOW_MAX_ROWS` rows, else "large";
+    either can be asked for (``chip_smoke.py`` times both at every window
+    class).
+
+    Small: a cluster of up to :data:`CLUSTER_SMALL` blocks, one a
+    :data:`THREADS` rows, covers each feature group's window; 2 features
+    a block where that still gives a block per SM, else 1.  Large: the
+    groups of :func:`feature_group`, one wave of :data:`BLOCKS_PER_SM`
+    blocks a SM over all groups, no clusters."""
+    if path is None:
+        path = "small" if count <= SMALL_WINDOW_MAX_ROWS else "large"
+    if path not in ("small", "large"):
+        raise LightGBMError(f"digit_histogram: unknown path {path!r}")
+    F = max(F, 1)
+    fg = feature_group(F, max_bin)     # raises if one feature cannot fit
+    if path == "small":
+        cluster = min(CLUSTER_SMALL, max(1, -(-count // THREADS)))
+        fg = min(fg, 2 if -(-F // 2) * cluster >= sms else 1)
+        chunks = cluster
+    else:
+        cluster = 1
+        chunks = max(1, min(-(-count // THREADS),
+                            BLOCKS_PER_SM * sms // -(-F // fg)))
+    groups = -(-F // fg)
+    return Plan(path, fg, cluster, chunks, max(1, -(-count // chunks)),
+                groups, fg * NUM_STREAMS * max_bin * 4)
+
+
+def block_rows(p: Plan, count: int, chunk: int) -> Tuple[int, int]:
+    """Rows ``[lo, hi)`` of the window that chunk ``chunk`` of every
+    feature group scans, as the kernel computes them."""
+    lo = chunk * p.rows_per_block
+    return min(lo, count), min(lo + p.rows_per_block, count)
+
+
+_fn = None
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The SMs of card ``device_index`` (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = _build.load("leaf_hist").lgbt_digit_histogram
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.lgbt_digit_histogram.argtypes = [
-            p, i, p, ll, ll, i, i, i, ll, p, i, p]
-        lib.lgbt_digit_histogram.restype = i
-    return lib
+        fn.argtypes = [p, i, p, ll, ll, i, i, i, ll, ll, i, i, p, i, p]
+        fn.restype = i
+        _fn = fn
+    return _fn
 
 
 def digit_histogram(bins_rm: torch.Tensor, digits: torch.Tensor,
-                    max_bin: int, start: int = 0,
-                    count=None) -> torch.Tensor:
+                    max_bin: int, start: int = 0, count=None,
+                    path: Optional[str] = None) -> torch.Tensor:
     """[F, 9, max_bin] int32 digit sums over rows [start, start + count)
     of ``bins_rm`` [N, F] (uint8/uint16, contiguous) and ``digits``
     [N, 9] int8.  The window is passed to the kernel as the base
-    pointers plus a row offset and a count: no copy, no padding."""
+    pointers plus a row offset and a count: no copy, no padding.
+    ``path`` forces the small or large launch (:func:`plan`); it only
+    matters on a card."""
     start, count = _window(bins_rm, digits, start, count)
-    for t, name, dtypes in ((bins_rm, "bins_rm", (torch.uint8,
-                                                  torch.uint16)),
-                            (digits, "digits", (torch.int8,))):
-        if t.dtype not in dtypes:
-            raise LightGBMError(
-                f"digit_histogram: {name} has dtype {t.dtype}; expected "
-                f"one of {dtypes}")
-        if not t.is_contiguous():
-            raise LightGBMError(f"digit_histogram: {name} must be "
-                                f"contiguous")
-    if digits.device != bins_rm.device:
+    if bins_rm.dtype not in _BIN_DTYPES or digits.dtype != torch.int8:
+        raise LightGBMError(
+            f"digit_histogram: bins_rm has dtype {bins_rm.dtype} and "
+            f"digits {digits.dtype}; expected one of {_BIN_DTYPES} and "
+            f"torch.int8")
+    if not (bins_rm.is_contiguous() and digits.is_contiguous()):
+        raise LightGBMError("digit_histogram: bins_rm and digits must be "
+                            "contiguous")
+    dev = bins_rm.device
+    if digits.device != dev:
         raise LightGBMError("digit_histogram: bins_rm and digits are on "
                             "different devices")
-    dev = bins_rm.device
     if dev.type != "cuda":
         return digit_histogram_plain(bins_rm, digits, max_bin, start, count)
     F = bins_rm.shape[1]
-    out = torch.zeros((F, NUM_STREAMS, max_bin), dtype=torch.int32,
-                      device=dev)
-    fg = feature_group(F, max_bin)
-    groups = -(-F // fg) if F else 1
-    chunks = max(1, min(-(-count // THREADS), TARGET_BLOCKS // groups))
-    rows_per_block = max(1, -(-count // chunks))
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lgbt_digit_histogram(
-            bins_rm.data_ptr(), bins_rm.element_size(), digits.data_ptr(),
-            start, count, F, max_bin, fg, rows_per_block, out.data_ptr(),
-            THREADS, stream)
+    out = bins_rm.new_empty((F, NUM_STREAMS, max_bin), dtype=torch.int32)
+    if F == 0:
+        return out
+    p = plan(count, F, max_bin, sm_count(dev.index), path)
+    err = _build.launch(dev, _kernel(), bins_rm.data_ptr(),
+                        bins_rm.element_size(), digits.data_ptr(), start,
+                        count, F, max_bin, p.fg, p.rows_per_block, p.chunks,
+                        p.cluster, int(p.path == "large"), out.data_ptr(),
+                        THREADS)
     if err != 0:
         raise LightGBMError(
             f"digit_histogram kernel launch failed: CUDA error {err}")

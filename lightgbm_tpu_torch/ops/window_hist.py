@@ -172,8 +172,8 @@ def window_digit_histogram(bin_words, digits, window: torch.Tensor,
     with ``block_rows`` every block takes that many rows of the window
     (``ceil(N / block_rows)`` blocks a feature group, enough for a window
     of all N rows); without it, the window is split over at most
-    ``leafhist.TARGET_BLOCKS`` blocks as K1 splits a window of the same
-    size.  Blocks past the window return at once."""
+    ``leafhist.BLOCKS_PER_SM`` blocks a SM, as K1's large path splits a
+    window of the same size.  Blocks past the window return at once."""
     n = _check(bin_words, digits, window, num_features, max_bin)
     dev = bin_words[0].device
     if dev.type != "cuda":
@@ -189,7 +189,8 @@ def window_digit_histogram(bin_words, digits, window: torch.Tensor,
     groups = -(-F // fg)
     if block_rows is None:
         chunks = max(1, min(-(-n // leafhist.THREADS),
-                            leafhist.TARGET_BLOCKS // groups))
+                            leafhist.BLOCKS_PER_SM
+                            * leafhist.sm_count(dev.index) // groups))
     else:
         chunks = max(1, -(-n // block_rows))
     matrix = _is_matrix(digits)

@@ -314,17 +314,17 @@ def test_kernels_match_plain_on_card():
         fm = torch.ones(28, dtype=torch.bool, device=dev)
         args = (bins, g, h, w, leaf, 1, 3, totals, nb, cat, fm, B,
                 SplitParams(50, 1e-3))
-        k3 = ch.fused_split_candidates(*args)
         p3 = ch.fused_split_candidates_plain(*args)
-        torch.cuda.synchronize()
-        fin = torch.isfinite(p3[..., 0])
-        assert torch.equal(torch.isfinite(k3[..., 0]), fin)
-        same = (k3[..., 1] == p3[..., 1]) & fin
         t = p3[..., 1].long().clamp(min=0)[..., None, None].expand(
             -1, -1, 1, 3)
         at_t = scale.cumsum(dim=2).gather(2, t)[:, :, 0]      # [2, F, 3]
         tol = ch.gain_tolerance(p3[..., 2], p3[..., 3], totals[:, 0, None],
                                 totals[:, 1, None], at_t[..., 0],
                                 at_t[..., 1])
+        fin = torch.isfinite(p3[..., 0])
+        k3 = ch.fused_split_candidates(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isfinite(k3[..., 0]), fin)
+        same = (k3[..., 1] == p3[..., 1]) & fin
         assert bool(((k3[..., 0] - p3[..., 0]).abs()[same]
                      <= tol[same]).all())

@@ -160,7 +160,9 @@ def test_kernel_matches_plain_on_card():
         g, h, w = _gh(n, seed=6)
         td = torch.from_numpy(_both_digits(g, h, w)[3]).to(dev)
         for start, count in ((0, n), (5, 0), (3, 1), (11, 4097)):
-            got = tlh.digit_histogram(bins, td, b, start, count)
             want = tlh.digit_histogram_plain(bins, td, b, start, count)
-            torch.cuda.synchronize()
-            assert torch.equal(got, want)
+            for path in (None, "small", "large"):
+                got = tlh.digit_histogram(bins, td, b, start, count,
+                                          path=path)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (start, count, path)
