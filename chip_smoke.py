@@ -11,14 +11,18 @@ probes' own lines); any failure raises and exits non-zero.
    for ``sm_90a`` (one nvcc per source, all started together).
 2. ``kernels``: each kernel's wrapper on tensors on the card, held
    against its plain PyTorch version on the same inputs.  Forest walks
-   (raw scores to <= 1e-6 absolute; both fold f32 leaf values in one
-   Kahan order, so they are expected bit-equal): a small binary forest
-   (3 categorical and 5 numeric features, 10% NaN, f32-colliding cut
-   values, 31 leaves, 20 trees), a multiclass forest with a ragged number
-   of trees per class, and the Higgs forest below at the bucket sizes its
-   serving run uses.  The leaf histogram K1 (exact int32 sums, so
-   bit-equal, ``torch.equal``): uint8 and uint16 bins, F in {5, 28, 30},
-   windows of S in {0, 1, 4097, 65536, 1000000} rows at a row offset,
+   (bit-equal, ``torch.equal``: both fold the same f32 per-tree values in
+   one Kahan order): a small binary forest (3 categorical and 5 numeric
+   features, 10% NaN, f32-colliding cut values, 31 leaves, 20 trees), a
+   multiclass forest with a ragged number of trees per class, and the
+   Higgs forest below at the bucket sizes its serving run uses; then
+   every variant on the walk's edge cases (``walk_edges``: one tree, 37
+   trees, which the plan's chunk does not divide, and a chain tree 254
+   levels deep, each frozen with f32 and bf16, constant and linear
+   leaves) at B = 1, one tile - 1, one tile + 1 and 4096 rows.  The leaf
+   histogram K1 (exact int32 sums, so bit-equal, ``torch.equal``): uint8
+   and uint16 bins, F in {5, 28, 30}, windows of S in {0, 1, 4097,
+   65536, 1000000} rows at a row offset,
    on the wrapper's choice of path and on each of its two paths forced;
    and at every window class of the train phase (2^10 to 2^20 rows) on
    both paths.
@@ -37,11 +41,11 @@ probes' own lines); any failure raises and exits non-zero.
    N(0, 0.01) coefficients, ~10% of the slots -1 pads) with uint16 bins,
    the same at 250 cut values (uint8 bins), and a linear multiclass
    forest with a ragged tail, all on rows with 5% NaN; the linear walks
-   within 1e-6 of their plain versions (expected bit-equal: both sum the
-   slots in ascending order with one rounding per product and per add).
-   The bf16 variants, on the Higgs forests with leaf values scaled by
-   1e-2 (``serve_quantize_leaves`` keeps bf16 for them), bit-equal
-   (``torch.equal``) to the plain walk on the dequantized table.
+   bit-equal to their plain versions (both sum the slots in ascending
+   order with one rounding per product and per add).  The bf16 variants,
+   on the Higgs forests with leaf values scaled by 1e-2
+   (``serve_quantize_leaves`` keeps bf16 for them), bit-equal to the
+   plain walk on the dequantized table.
    The probe kernels (``compare_probes``): the roll chain P1 bit-equal
    to its plain version on the probe's seeded [12, 2048] input and two
    more seeds, and after the probe's 50-call ``^ 1`` chain; the
@@ -111,10 +115,13 @@ probes' own lines); any failure raises and exits non-zero.
    lightgbm_tpu_torch.tools.probe_roll`` and ``probe_dynhist`` (their
    ``main``) at the JAX probes' sizes, each with its launch counter set
    to 0 just before and read just after.
-6. ``timing``: CUDA-event medians of each kernel and its plain version on
-   the Higgs forest at B in {1, 256, 4096, 65536} (the linear and bf16
-   variants on their forests, beside the constant walk over the same
-   trees; their plain versions at B = 4096), of K1, K2 and K3
+6. ``timing``: each walk variant on the Higgs forest at B in {1, 256,
+   4096, 65536} (the linear and bf16 variants on their forests, beside
+   the constant walk over the same trees; plain versions at B = 4096, and
+   at every B for the constant f32 walks), timed four ways as ``timed``
+   does (single call, back to back, host enqueue, device time by kernel
+   name: pass 0, 1 and 2) with its launch plan; CUDA-event medians of
+   K1, K2 and K3
    at S in {4096, 65536, 500000, 1000000} beside their plain versions
    and the ``index_add_`` library call, and of P1 and P2 at the probes'
    shapes (P2 beside K1 on the same window and ``index_add_`` on the
@@ -128,11 +135,13 @@ probes' own lines); any failure raises and exits non-zero.
    crossover of the two paths.
    ``k3_occupancy``: K3 and K2 on the 1M-row full pass
    with 2^14, 2^17, 2^19 and all rows in the children, timed the same
-   ways.  Then ``rule2``: the
-   kernels in the order to redesign them, first those that lose to the
-   PyTorch call computing the same function at the sizes the main path
-   launches them (K1 timed at each window class the train phase
-   counted), then by launches x (ms - bound).
+   ways, beside the ``index_add_`` computing K2's function
+   (``library_ms``), and K2's root form (no leaf array).  Then ``rule2``:
+   the kernels in the order to redesign them, first those that lose to
+   the PyTorch call computing the same function at the sizes the main
+   path launches them (K1 timed at each window class the train phase
+   counted), then by launches x (ms - bound), each with the PR that
+   redesigned it.
 
 Then the kernels summary line, the card's name and power limit as
 ``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``.
@@ -171,6 +180,9 @@ REPLACES = {**{name: "lightgbm_tpu/ops/pallas_walk.py:"
                 "lightgbm_tpu/ops/pallas_histogram.py:232",
             "roll_chain": "tools/probe_roll.py:45",
             "window_digit_histogram": "tools/probe_dynhist.py:148"}
+# the PR of the port that redesigned a kernel after its first port
+REDESIGNED = {"digit_histogram": 6, "fused_split_candidates": 6,
+              "children_histograms": 7, **{name: 7 for name in WALKS}}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 TOL = 1e-6
@@ -442,15 +454,23 @@ def phase_build():
 
 def compare_kernels(cf, X, sizes, label, errs):
     """Both wrappers of ``cf``'s variant against their plain versions at
-    each size (a bf16 table bit-equal to the plain walk on its
-    dequantized values, the rest within TOL); each wrapper launch must
-    add exactly one to its variant's counter."""
+    each size, bit-equal (``torch.equal``; a bf16 table against the plain
+    walk on its dequantized values: both fold the same f32 values in one
+    Kahan order); each wrapper launch must add exactly one to its
+    variant's counter.  The plain versions run once on the largest batch
+    and are sliced to each size: a row's result depends on that row
+    alone."""
     from lightgbm_tpu_torch.ops import forest_walk as fw
     tables = cf.walk_tables
     bnd, cats, is_cat = cf.cut_tables()
     nb, nr = tables.variant(raw=False), tables.variant(raw=True)
-    exact = tables.leaves.dtype == torch.bfloat16
     out = {"variants": [nb, nr], "bin_dtype": cf.info()["bin_dtype"]}
+    top = X[:max(sizes)]
+    want_all = fw.forest_walk_plain(
+        tables, cf.device_bins(top),
+        cf.device_covariates(top) if tables.linear else None)
+    want_raw_all = fw.forest_walk_raw_plain(tables, bnd, cats, is_cat,
+                                            cf.device_rows(top))
     for B in sizes:
         bins = cf.device_bins(X[:B])
         rows = cf.device_rows(X[:B])
@@ -463,8 +483,7 @@ def compare_kernels(cf, X, sizes, label, errs):
         check(after[nb] == before[nb] + 1 and after[nr] == before[nr] + 1
               and sum(after.values()) == sum(before.values()) + 2,
               f"{label} B={B}: launch counters {before} -> {after}")
-        want = fw.forest_walk_plain(tables, bins, xt)
-        want_raw = fw.forest_walk_raw_plain(tables, bnd, cats, is_cat, rows)
+        want, want_raw = want_all[:, :B], want_raw_all[:, :B]
         d = float((got - want).abs().max())
         d_raw = float((got_raw - want_raw).abs().max())
         bit_equal = bool(torch.equal(got, want)
@@ -474,13 +493,112 @@ def compare_kernels(cf, X, sizes, label, errs):
         check(d <= TOL and d_raw <= TOL,
               f"{label} B={B}: kernel vs plain max_abs_diff binned={d} "
               f"raw={d_raw} (tolerance {TOL})")
-        check(bit_equal or not exact,
-              f"{label} B={B}: the bf16 walk is not bit-equal to the plain "
-              f"walk on the dequantized table")
+        check(bit_equal, f"{label} B={B}: the walk is not bit-equal to its "
+                         f"plain version")
         errs[nb] = max(errs[nb], d)
         errs[nr] = max(errs[nr], d_raw)
         out[str(B)] = {"binned": d, "raw": d_raw, "bit_equal": bit_equal}
     return out
+
+
+def chain_tree(rng, grid, num_leaves: int):
+    """A leaf-wise chain on feature 0: node i sends values up to cut i to
+    leaf i and the rest on, so a row above cut num_leaves - 2 walks
+    num_leaves - 1 levels (254 at 255 leaves)."""
+    from lightgbm_tpu_torch.models.tree import Tree
+    t = Tree(num_leaves)
+    for i in range(num_leaves - 1):
+        t.threshold[i] = grid[0, i]
+        t.left_child[i] = ~i
+        t.right_child[i] = i + 1 if i + 2 < num_leaves else ~(i + 1)
+        t.leaf_parent[i] = i
+    t.leaf_parent[num_leaves - 1] = num_leaves - 2
+    t.leaf_value[:] = rng.normal(0.0, 0.01, num_leaves)
+    return t
+
+
+def walk_edge_forests(seed):
+    """(label, GBDT, grid, rows) of the walk's edge cases, 28 features and
+    255 leaves as the Higgs forest: one tree; 37 trees (not a multiple of
+    the plan's chunk at B = 4096); a chain tree 254 levels deep before 3
+    random trees, with an eighth of the rows above every cut of feature
+    0.  Rows: 4096, 5% NaN."""
+    rng = np.random.RandomState(seed + 85)
+    one, g1 = random_model(seed + 80, 28, 1, 255, 255)
+    odd, g2 = random_model(seed + 81, 28, 37, 255, 255)
+    chain, g3 = random_model(seed + 82, 28, 3, 255, 255)
+    chain.models.insert(0, chain_tree(rng, g3, 255))
+    out = []
+    for label, g, grid in (("one_tree", one, g1), ("trees_37", odd, g2),
+                           ("chain_254", chain, g3)):
+        X = random_rows(rng, 4096, grid, nan_frac=0.05, tie_frac=0.05)
+        if label == "chain_254":
+            X[::8, 0] = 10.0
+        out.append((label, g, grid, X))
+    return out
+
+
+def compare_walk_edges(seed, dev, errs):
+    """All eight walk variants bit-equal to their plain versions on
+    ``walk_edge_forests``, each frozen four ways (f32 and bf16 leaves,
+    constant and linear), at B = 1, one tile - 1, one tile + 1 (the
+    plan's widest tile) and 4096 rows; and the 37-tree forest again with
+    the scratch capped at 1000 rows, so that 4096 rows take eight waves of
+    512 (a forest of many trees or classes takes waves at its own
+    size)."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import forest_walk as fw
+    tile = fw.WALK_TILES[0]
+    sizes = (1, tile - 1, tile + 1, 4096)
+    out = {}
+    for label, g, grid, X in walk_edge_forests(seed):
+        lin = make_linear(scaled(g, 1.0), seed + 86)
+        for kind, model, quantize in (
+                ("f32", g, False), ("bf16", scaled(g, TINY_LEAVES), True),
+                ("linear", lin, False),
+                ("linear_bf16", scaled(lin, TINY_LEAVES), True)):
+            cf = lt.CompiledForest.from_booster(model, device=dev,
+                                                quantize_leaves=quantize)
+            t = cf.walk_tables
+            check(t.linear == kind.startswith("linear")
+                  and (t.leaves.dtype == torch.bfloat16) == quantize,
+                  f"{label}/{kind}: froze as {cf.info()}")
+            plans = {B: fw.walk_plan(t, X.shape[1], B, raw=False)
+                     for B in sizes}
+            if label == "trees_37":
+                check(37 % plans[4096].chunk != 0,
+                      f"{label}/{kind}: 37 trees are whole chunks of "
+                      f"{plans[4096].chunk}")
+            if label == "chain_254" and kind == "f32":
+                leaf = fw.walk_plain(t, cf.device_bins(X))[1][0, 0]
+                check(int(leaf_depths(t)[0, 0].max()) == 254
+                      and bool((leaf == 254).any()),
+                      f"{label}/{kind}: no row walks 254 levels")
+            res = compare_kernels(cf, X, sizes, f"{label}/{kind}", errs)
+            res["plans"] = {str(B): p._asdict() for B, p in plans.items()}
+            out[f"{label}/{kind}"] = res
+            if label == "trees_37":
+                out[f"{label}/waves/{kind}"] = compare_waves(cf, X, errs)
+    return out
+
+
+def compare_waves(cf, X, errs):
+    """``compare_kernels`` at 1 and 4096 rows with the walk's scratch
+    capped at 1000 rows a wave (``WALK_SCRATCH_BYTES``)."""
+    from lightgbm_tpu_torch.ops import forest_walk as fw
+    t = cf.walk_tables
+    saved = fw.WALK_SCRATCH_BYTES
+    fw.WALK_SCRATCH_BYTES = 4 * t.num_class * t.trees_per_class * 1000
+    fw.plan_walk.cache_clear()
+    try:
+        p = fw.walk_plan(t, X.shape[1], 4096, raw=False)
+        check(p.wave < 4096, f"waves: one wave of {p.wave} rows")
+        res = compare_kernels(cf, X, (1, 4096), "waves", errs)
+        res["plan"] = p._asdict()
+    finally:
+        fw.WALK_SCRATCH_BYTES = saved
+        fw.plan_walk.cache_clear()
+    return res
 
 
 def linear_forests(seed, higgs_model, higgs_grid):
@@ -550,6 +668,7 @@ def phase_kernels(seed, dev, higgs_model, higgs_grid, linear_set, errs):
         X = random_rows(np.random.RandomState(seed + 60 + i), 4096, grid,
                         cat, ncat, nan_frac=0.05, tie_frac=0.02)
         results[label] = compare_kernels(cf, X, (1, 64, 4096), label, errs)
+    results["walk_edges"] = compare_walk_edges(seed, dev, errs)
     results["digit_histogram"] = compare_leaf_hist(seed, dev, errs)
     results["children_hist"] = compare_children_hist(seed, dev, errs)
     results["probes"] = compare_probes(seed, dev, errs)
@@ -1328,12 +1447,15 @@ class _window_classes:
     """Inside the block, count every histogram kernel call (K1, K2, K3)
     by the power-of-two class of the rows it scans (``2^k`` counts
     windows of ``2^(k-1) + 1`` to ``2^k`` rows): K1 its window, K2 and
-    K3 every row of the full pass (``root_histogram`` goes through
-    ``children_histograms``).  A printed count only."""
+    K3 every row of the full pass (``root_histogram``, K2's root form,
+    counts as K2).  A printed count only."""
 
-    WRAPPED = (("leafhist", "digit_histogram"),
-               ("children_hist", "children_histograms"),
-               ("children_hist", "fused_split_candidates"))
+    WRAPPED = (("leafhist", "digit_histogram", "digit_histogram"),
+               ("children_hist", "children_histograms",
+                "children_histograms"),
+               ("children_hist", "root_histogram", "children_histograms"),
+               ("children_hist", "fused_split_candidates",
+                "fused_split_candidates"))
 
     def __init__(self):
         self.counts = {}
@@ -1343,9 +1465,9 @@ class _window_classes:
         from lightgbm_tpu_torch.ops import leafhist as lh
         mods = {"leafhist": lh, "children_hist": ch}
         self._saved = [(mods[m], attr, getattr(mods[m], attr))
-                       for m, attr in self.WRAPPED]
-        for mod, attr, fn in self._saved:
-            setattr(mod, attr, self._wrap(attr, fn))
+                       for m, attr, _ in self.WRAPPED]
+        for (mod, attr, fn), (_, _, name) in zip(self._saved, self.WRAPPED):
+            setattr(mod, attr, self._wrap(name, fn))
         return self
 
     def _wrap(self, name, fn):
@@ -1539,7 +1661,7 @@ def profile_round(booster, name):
     spans = {}
 
     def wrap(fn, key):
-        spans[key] = []
+        spans.setdefault(key, [])
 
         def timed(*args, **kwargs):
             s = torch.cuda.Event(enable_timing=True)
@@ -1563,6 +1685,7 @@ def profile_round(booster, name):
                "fused": ((ch, "fused_split_candidates", "k3"),
                          (gr, "combine_feature_candidates", "split_scan")),
                "nocache": ((ch, "children_histograms", "k2"),
+                           (ch, "root_histogram", "k2"),
                            (gr, "find_best_split", "split_scan"))}[name]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
     for mod, attr, key in targets:
@@ -1607,7 +1730,9 @@ def cuda_ms(fn, reps: int) -> float:
 def phase_rule2(seed, dev, reps, at, windows, launches):
     """The order in which to redesign the kernels: first those that lose
     to the PyTorch call computing the same function at the sizes the
-    main path launches them, then by launches x (ms - bound_ms).  K1 is
+    main path launches them, then by launches x (ms - bound_ms); each
+    entry names the PR that redesigned the kernel (REDESIGNED), if one
+    did.  K1 is
     timed, beside ``index_add_`` and its bound, at each power-of-two
     window class the train phase counted (at the class's top size, the
     1M-row root for the largest); every other kernel at its kernels-line
@@ -1641,7 +1766,8 @@ def phase_rule2(seed, dev, reps, at, windows, launches):
                 else 0
         order.append({"kernel": name, "launches": launches[name],
                       "launches_losing_to_library": losing,
-                      "launch_ms_over_bound": gap})
+                      "launch_ms_over_bound": gap,
+                      "redesigned_in_pr": REDESIGNED.get(name)})
     order.sort(key=lambda o: (o["launches_losing_to_library"] == 0,
                               -o["launch_ms_over_bound"]))
     emit({"phase": "rule2", "k1_by_window_class": k1, "order": order})
@@ -1671,13 +1797,16 @@ def phase_timing(seed, dev, higgs_model, higgs_grid, lin_model, lin_grid,
     """Every walk variant at each B of TIMING_SIZES: the constant f32 and
     bf16 tables on the Higgs forest's trees, the linear f32 and bf16 ones
     on the linear Higgs forest's, beside the constant walk over the same
-    trees (``const_walk_ms``).  Plain versions at every B for the
-    constant f32 walks, at B = 4096 for the others.  Bound: bins (or
-    raw rows) plus the linear binned walk's covariates plus the output
-    plus the forest tables (nodes, leaves, affine tables) and the raw
-    walk's cut tables once, over 3.35 TB/s; ops: this data's node visits,
-    4 Kahan operations a tree a row, the raw walk's binary searches and,
-    for linear leaves, a multiply and an add a used slot plus one add."""
+    trees (``const_walk_ms``), each timed as ``timed`` does (``ms`` is
+    its ``single_ms``; ``device_us`` names pass 0, the raw rows'
+    bucketize, pass 1 and pass 2), with its launch plan.  Plain versions
+    at every B for the constant f32 walks, at B = 4096 for the others.
+    Bound: bins (or raw rows) plus the linear binned walk's covariates
+    plus the output plus the forest tables (nodes, leaves, affine
+    tables) and the raw walk's cut tables once, over 3.35 TB/s; ops: this
+    data's node visits, 4 Kahan operations a tree a row, the raw walk's
+    binary searches and, for linear leaves, a multiply and an add a used
+    slot plus one add."""
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import forest_walk as fw
 
@@ -1749,9 +1878,10 @@ def phase_timing(seed, dev, higgs_model, higgs_grid, lin_model, lin_grid,
                         B * F * search_steps if raw else 0)
                     if t.linear:
                         ops += int((2 * slots.gather(2, lv) + 1).sum())
-                    ms = cuda_ms(run, reps)
+                    t4 = timed(run, reps)
+                    ms = t4["single_ms"]
                     const_f32 = name in ("forest_walk", "forest_walk_raw")
-                    plain_ms = (cuda_ms(plain, 2) if const_f32 or B == 4096
+                    plain_ms = (cuda_ms(plain, 1) if const_f32 or B == 4096
                                 else None)
                     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
                     ops_ms = ops / F32_OPS_PER_S * 1e3
@@ -1765,6 +1895,8 @@ def phase_timing(seed, dev, higgs_model, higgs_grid, lin_model, lin_grid,
                            else "operations"}
                     if not const_f32:
                         row["const_walk_ms"] = const_ms[int(raw)]
+                    row.update(t4)
+                    row["plan"] = fw.walk_plan(t, F, B, raw)._asdict()
                     rows.append(row)
     rows += leaf_hist_timing(seed, dev, reps)
     rows += children_hist_timing(seed, dev, reps)
@@ -1878,25 +2010,32 @@ def host_enqueue_us(fn, calls: int = 200) -> float:
     return us
 
 
-def device_us(fn, calls: int = 10):
+def device_us(fn, calls: int = 10, tries: int = 5):
     """Device-only microseconds a call of ``fn`` by kernel name, from
     ``torch.profiler`` over ``calls`` calls, or "not measured" where the
-    profiler shows no device time."""
+    profiler shows no device time in ``tries`` attempts (0.2 s apart).  Each timed call
+    launches each of its kernels once, so a kernel's time a call is the
+    mean over the launches the profiler recorded (it does not always
+    record all of them, nor always any)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", None)
-        if t is None:
-            t = getattr(e, "cuda_time_total", 0)
-        if t and t > 0:
-            out[e.key[:120]] = t / calls
-    return out or "not measured"
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", None)
+            if t is None:
+                t = getattr(e, "cuda_time_total", 0)
+            if t and t > 0 and e.count > 0:
+                out[e.key[:120]] = t / e.count
+        if out:
+            return out
+        time.sleep(0.2)
+    return "not measured"
 
 
 def timed(fn, reps: int):
@@ -1963,10 +2102,32 @@ def k1_window_timing(seed, dev, reps):
             "small_window_max_rows": lh.SMALL_WINDOW_MAX_ROWS}
 
 
+def children_index_add(bins, g, h, w, leaf, max_bin: int):
+    """The one ``index_add_`` call that computes K2's function, as its
+    plain version builds it: (child, feature, bin) keys with a dump slot
+    for rows of neither child (leaf 1 left, leaf 2 right; its inputs built
+    outside the timed call)."""
+    F, N = bins.shape
+    dev = bins.device
+    child = (leaf == 2).long()
+    seg = (child[None, :] * (F * max_bin)
+           + torch.arange(F, device=dev)[:, None] * max_bin + bins.long())
+    seg = torch.where(((leaf == 1) | (leaf == 2))[None, :], seg,
+                      torch.full_like(seg, 2 * F * max_bin)).reshape(-1)
+    vals = torch.stack([g, h, w], dim=-1)[None].expand(F, N, 3) \
+        .reshape(-1, 3)
+    acc = torch.zeros((2 * F * max_bin + 1, 3), dtype=torch.float32,
+                      device=dev)
+    return lambda: acc.index_add_(0, seg, vals)
+
+
 def k3_occupancy_timing(seed, dev, reps):
     """K3 and K2 on the fused grower's 1M-row full pass
     (28 features, 255 bins, uint8) with OCCUPANCIES rows in the two
-    children (``occupancy_leaves``), each timed as ``timed`` does."""
+    children (``occupancy_leaves``), each timed as ``timed`` does, beside
+    the ``index_add_`` call computing K2's function (``library_ms``,
+    CUDA events); and K2's root form (``root_histogram``, no leaf
+    array) over all rows."""
     from lightgbm_tpu_torch.ops import children_hist as ch
     from lightgbm_tpu_torch.ops.split import SplitParams
     N, F, B = TRAIN_ROWS, 28, 255
@@ -1981,12 +2142,17 @@ def k3_occupancy_timing(seed, dev, reps):
         leaf = occupancy_leaves(seed, N, occ, dev)
         k3 = (bins, g, h, w, leaf, 1, 2, child_totals(g, h, w, leaf), nb,
               cat, fm, B, sp)
+        lib = children_index_add(bins, g, h, w, leaf, B)
         row = {"occupancy": min(occ, N), "rows": N,
                "k2": timed(lambda: ch.children_histograms(
                    bins, g, h, w, leaf, 1, 2, B), reps),
-               "k3": timed(lambda: ch.fused_split_candidates(*k3), reps)}
+               "k3": timed(lambda: ch.fused_split_candidates(*k3), reps),
+               "library_ms": cuda_ms(lib, 5)}
+        del lib
         rows.append(row)
-    return {"occupancies": rows}
+    return {"occupancies": rows,
+            "k2_root": timed(lambda: ch.root_histogram(bins, g, h, w, B),
+                             reps)}
 
 
 def probe_timing(dev, reps):

@@ -1,5 +1,6 @@
 // Both children's f32 histograms of a split in one pass (K2), and the same
-// pass fused with the per-feature split-gain scan (K3).
+// pass fused with the per-feature split-gain scan (K3): one kernel body,
+// `fused_split_kernel<BinT, SCAN>`, with SCAN = false for K2.
 //
 // Replaces the TPU kernels of lightgbm_tpu/ops/pallas_histogram.py:
 //   * `children_histograms_pallas` (`_hist_kernel`, reused by
@@ -15,20 +16,9 @@
 // the final grid step owns the whole accumulator.  Hopper has fast
 // shared-memory atomics, and its blocks run in parallel in no order.
 //
-// K2 (`accumulate`, as first ported): the grid is (row chunks) x (feature
-// groups), as in leaf_hist.cu.  A block zeroes a private [2][nf][B][3] f32
-// histogram in shared memory (2 * B * 3 * 4 bytes a feature: 6 KB at 255
-// bins, 24 KB at 1000; the wrapper sizes the group to a third of an SM),
-// each thread takes rows of the block's chunk in turn, reads the row's leaf
-// id, g, h, w once and, for each feature of the group, adds them into the
-// child's bin with shared atomicAdd; rows of neither child add nothing.
-// The block then adds its non-zero entries into the zeroed [2, F, B, 3]
-// output with global atomicAdd.
-//
-// K3 (`fused_split_kernel`) has its own accumulation, built for what the
-// fused grower launches: a full pass over all N rows where the two
-// children often hold few of them, so a fixed cost per launch weighs more
-// than the per-row work.
+// K2 and K3 share one accumulation, built for what the full-pass growers
+// launch: a pass over all N rows where the two children often hold few of
+// them, so a fixed cost per launch weighs more than the per-row work.
 //   * One pass over the rows for all features where shared memory allows:
 //     at F = 28, B = 255 both children's histograms take 171 KB of a
 //     block's 227 KB.  One persistent block of 1024 threads per SM strides
@@ -44,6 +34,9 @@
 //     child, g, h, w) and adds them one row a thread.  A dense tile keeps
 //     4 rows a thread: g, h, w in 16-byte loads, then 4 features' bins in
 //     flight before their adds.
+//   * The root form (K2's `root_histogram`): a null `leaf` pointer puts
+//     every row in the left child.  No leaf id is read, no row is counted
+//     or queued, and every tile takes the dense path.
 //   * Bins are read feature-major [F, N] as the dataset holds them, 4 rows
 //     in one 4- or 8-byte load (uint8, uint16) on dense tiles.  Every lane
 //     of a warp adds feature j at step j: a lane-staggered order (lane l
@@ -58,18 +51,18 @@
 //     from cudaOccupancyMaxActiveBlocksPerMultiprocessor), so a grid-wide
 //     barrier (`this_grid().sync()`) can follow.  Then every thread of the
 //     card sums entries of the [2, F, B, 3] histogram over the partials in
-//     slot order (a fixed order) into a reduced buffer, a second barrier,
-//     and one warp per (child, feature) runs the per-feature scan of
-//     ops/split.py `per_feature_scan` on the reduced histogram: an exact
-//     prefix over the bins (each lane sums a run of bins in f64, a warp
-//     scan joins the runs, each prefix is rounded once to f32, as
-//     torch.cumsum on the CPU does), the gain of `leaf_split_gain`, the
-//     validity mask, the max gain with ties to the largest threshold, and
-//     the left sums at that threshold.  It writes all of [2, F, 8] (gain,
-//     threshold, left g, h, count, 3 zeros), as the TPU kernel does.  The
-//     buffers come from the wrapper (PyTorch's caching allocator, in the
-//     order of the launch's stream) and are never zeroed: the kernel
-//     writes every slot it reads.
+//     slot order (a fixed order) into a reduced buffer: K2's output.  K2
+//     ends there.  K3 passes a second barrier, and one warp per (child,
+//     feature) runs the per-feature scan of ops/split.py
+//     `per_feature_scan` on the reduced histogram: an exact prefix over the
+//     bins (each lane sums a run of bins in f64, a warp scan joins the
+//     runs, each prefix is rounded once to f32, as torch.cumsum on the CPU
+//     does), the gain of `leaf_split_gain`, the validity mask, the max
+//     gain with ties to the largest threshold, and the left sums at that
+//     threshold.  It writes all of [2, F, 8] (gain, threshold, left g, h,
+//     count, 3 zeros), as the TPU kernel does.  The buffers come from the
+//     wrapper (PyTorch's caching allocator, in the order of the launch's
+//     stream) and are never zeroed: the kernel writes every slot it reads.
 //
 // The split leaf and the new right leaf (and K3's child totals) are read
 // from device memory, as the TPU kernel reads them from SMEM, so the grower
@@ -85,14 +78,17 @@
 // What bounds them on an H100: at the training root (1M rows, 28 features,
 // uint8) the pass reads 28 MB of bins and 16 MB of g, h, w and leaf ids,
 // about 0.013 ms at 3.35 TB/s; its 84M adds of 3 values are 0.0025 ms at
-// 67 TFLOP/s.  Both are bound by bytes; the shared atomics (3 per row and
-// feature) are what they pay in practice.  K2 still re-reads the row's 16
-// bytes of g, h, w and leaf id once per feature group and merges with
-// global atomics; moving it onto K3's accumulation is later work.
+// 67 TFLOP/s.  Both are bound by bytes.  What they pay in practice is the
+// shared atomics (3 per row and feature, each a compare-and-swap loop) and
+// a fixed part: the partials (132 slots of 171 KB) written and summed back,
+// and the grid barriers.  The first K2 (a grid of row chunks x feature
+// groups, a zeroed output merged into by global atomics, the row's 16
+// bytes re-read by every feature group) is gone: K2 is K3 less the scan.
 //
 // Launch rules: the kernels run on the stream they are given (PyTorch's
 // current stream), allocate nothing, and each C entry point returns
-// cudaGetLastError() right after the launch.
+// cudaGetLastError() right after the launch.  The shared-memory ceiling is
+// set once per kernel and device, not per launch.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -106,8 +102,8 @@ namespace {
 constexpr int kVals = 3;   // g, h, w
 constexpr int kOut = 8;    // gain, threshold, left g/h/count, 3 pad lanes
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRows = 4;   // K3: consecutive rows a thread takes per tile
-constexpr int kBatch = 4;  // K3: features whose bins a thread loads at once
+constexpr int kRows = 4;   // consecutive rows a thread takes per tile
+constexpr int kBatch = 4;  // features whose bins a thread loads at once
 constexpr int kMaxSmem = 232448;
 constexpr int kMaxDevices = 64;
 
@@ -117,74 +113,6 @@ struct ScanParams {
   float l1, l2;     // lambda_l1, lambda_l2
   float min_gain;   // min_gain_to_split
 };
-
-// Shared accumulation of K2 and K3: this block's rows into shared
-// [2][nf][B][3], then the non-zero entries into out [2, F, B, 3].
-template <typename BinT>
-__device__ void accumulate(const BinT* __restrict__ bins,
-                           const float* __restrict__ g,
-                           const float* __restrict__ h,
-                           const float* __restrict__ w,
-                           const int* __restrict__ leaf, int parent,
-                           int right, long long N, int F, int B, int fg,
-                           long long rows_per_block, float* s_hist,
-                           float* __restrict__ out) {
-  const int f0 = blockIdx.y * fg;
-  const int nf = min(fg, F - f0);
-  const int n_sh = 2 * nf * B * kVals;
-  for (int i = threadIdx.x; i < n_sh; i += blockDim.x) s_hist[i] = 0.f;
-  __syncthreads();
-
-  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
-  const long long r1 = min(r0 + rows_per_block, N);
-  for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    const int lf = leaf[r];
-    // the plain version's rule: right wins where both match
-    const int c = lf == right ? 1 : (lf == parent ? 0 : -1);
-    if (c < 0) continue;
-    const float vg = g[r], vh = h[r], vw = w[r];
-    float* base = s_hist + c * nf * B * kVals;
-    for (int j = 0; j < nf; ++j) {
-      const int bin = static_cast<int>(bins[static_cast<long long>(f0 + j) * N
-                                            + r]);
-      if (bin >= B) continue;
-      float* e = base + (j * B + bin) * kVals;
-      atomicAdd(e, vg);
-      atomicAdd(e + 1, vh);
-      atomicAdd(e + 2, vw);
-    }
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < n_sh; i += blockDim.x) {
-    const float v = s_hist[i];
-    if (v == 0.f) continue;
-    const int k = i % kVals;
-    int rest = i / kVals;
-    const int b = rest % B;
-    rest /= B;
-    const int j = rest % nf;
-    const int c = rest / nf;
-    atomicAdd(out + ((static_cast<long long>(c) * F + f0 + j) * B + b) * kVals
-                  + k,
-              v);
-  }
-}
-
-template <typename BinT>
-__global__ void children_hist_kernel(const BinT* __restrict__ bins,
-                                     const float* __restrict__ g,
-                                     const float* __restrict__ h,
-                                     const float* __restrict__ w,
-                                     const int* __restrict__ leaf,
-                                     const int* __restrict__ leaves,
-                                     long long N, int F, int B, int fg,
-                                     long long rows_per_block,
-                                     float* __restrict__ out) {
-  extern __shared__ float s_hist[];
-  accumulate<BinT>(bins, g, h, w, leaf, leaves[0], leaves[1], N, F, B, fg,
-                   rows_per_block, s_hist, out);
-}
 
 // GetLeafSplitGain (ops/split.py leaf_split_gain) with explicit
 // round-to-nearest f32 operations.  (r < 0 ? 0 : r) keeps a NaN as
@@ -353,15 +281,17 @@ __device__ __forceinline__ void add_queued_row(
   }
 }
 
-// K3.  Grid: `per_group` blocks per feature group; block b takes group
-// b / per_group (and every gridDim.x / per_group-th after it, when there
-// are more groups than blocks) and tiles (b % per_group) + k * per_group
-// of `tile` (= blockDim.x * kRows) rows.  ops/children_hist.py
-// `fused_block_rows` states the same walk for the CPU tests.
+// K2 (SCAN = false) and K3.  Grid: `per_group` blocks per feature group;
+// block b takes group b / per_group (and every gridDim.x / per_group-th
+// after it, when there are more groups than blocks) and tiles
+// (b % per_group) + k * per_group of `tile` (= blockDim.x * kRows) rows.
+// ops/children_hist.py `fused_block_rows` states the same walk for the
+// CPU tests.
 // Dynamic shared memory: the histogram [2][nf][B][3] f32, then a queue of
 // `queue_cap` child rows (row | child << 31, g, h, w), then 3 counters.
-// partials [per_group][2][F][B][3], reduced [2][F][B][3], out [2][F][8].
-template <typename BinT>
+// partials [per_group][2][F][B][3], reduced [2][F][B][3] (K2's output),
+// out [2][F][8] (K3 only).  A null `leaf`: every row in the left child.
+template <typename BinT, bool SCAN>
 __global__ void __launch_bounds__(1024)
 fused_split_kernel(const BinT* __restrict__ bins,
                    const float* __restrict__ g, const float* __restrict__ h,
@@ -379,6 +309,7 @@ fused_split_kernel(const BinT* __restrict__ bins,
   cg::grid_group grid = cg::this_grid();
   const int parent = parent_p ? *parent_p : parent_v;
   const int right = right_p ? *right_p : right_v;
+  const bool all_left = leaf == nullptr;
   const int lane = threadIdx.x & 31;
   const int pb = blockIdx.x % per_group;
   const long long ntiles = (N + tile - 1) / tile;
@@ -409,7 +340,10 @@ fused_split_kernel(const BinT* __restrict__ bins,
       // N % 4 == 0 and aligned bases (the wrapper checks them: vec_rows)
       const bool vec = vec_rows && r0 + kRows <= N;
       int c[kRows];
-      if (vec) {
+      if (all_left) {
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) c[i] = r0 + i < N ? 0 : -1;
+      } else if (vec) {
         const int4 l4 = __ldg(reinterpret_cast<const int4*>(leaf + r0));
         const int lf[kRows] = {l4.x, l4.y, l4.z, l4.w};
 #pragma unroll
@@ -424,24 +358,27 @@ fused_split_kernel(const BinT* __restrict__ bins,
           c[i] = r >= N ? -1 : (lf == right ? 1 : (lf == parent ? 0 : -1));
         }
       }
-      // this thread's child rows, their place among the warp's, and the
-      // warp's place among the tile's (one shared atomic a warp)
       int mine = 0;
 #pragma unroll
       for (int i = 0; i < kRows; ++i) mine += c[i] >= 0;
-      int before = mine;
-      for (int d = 1; d < 32; d <<= 1) {
-        const int o = __shfl_up_sync(kFull, before, d);
-        if (lane >= d) before += o;
+      // this thread's child rows, their place among the warp's, and the
+      // warp's place among the tile's (one shared atomic a warp); the
+      // root form (block-uniform) skips it: all its tiles are dense
+      int before = mine, base = 0, n = 0;
+      if (!all_left) {
+        for (int d = 1; d < 32; d <<= 1) {
+          const int o = __shfl_up_sync(kFull, before, d);
+          if (lane >= d) before += o;
+        }
+        if (lane == 31 && before > 0)
+          base = atomicAdd(&s_count[slot], before);
+        base = __shfl_sync(kFull, base, 31) + before - mine;
+        if (threadIdx.x == 0) s_count[slot == 2 ? 0 : slot + 1] = 0;
+        __syncthreads();
+        n = s_count[slot];
+        if (n == 0) continue;            // block-uniform: no child row
       }
-      int base = 0;
-      if (lane == 31 && before > 0) base = atomicAdd(&s_count[slot], before);
-      base = __shfl_sync(kFull, base, 31) + before - mine;
-      if (threadIdx.x == 0) s_count[slot == 2 ? 0 : slot + 1] = 0;
-      __syncthreads();
-      const int n = s_count[slot];
-      if (n == 0) continue;              // block-uniform: no child row
-      if (n <= queue_cap) {
+      if (!all_left && n <= queue_cap) {
         // sparse tile: queue the child rows, then one row a thread
 #pragma unroll
         for (int i = 0; i < kRows; ++i) {
@@ -532,6 +469,7 @@ fused_split_kernel(const BinT* __restrict__ bins,
     for (int q = 0; q < per_group; ++q) s += __ldcg(partials + q * E + e);
     reduced[e] = s;
   }
+  if constexpr (!SCAN) return;         // K2: the reduced sums are its output
   grid.sync();
 
   // one warp per (child, feature), dealt round the blocks
@@ -544,48 +482,6 @@ fused_split_kernel(const BinT* __restrict__ bins,
                  num_bin[f], is_cat[f] != 0,
                  feat_mask[f] != 0 && num_bin[f] > 1, p, out + task * kOut);
   }
-}
-
-template <typename Kernel>
-int prepare(Kernel kern, size_t smem) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  return 0;
-}
-
-dim3 grid_of(long long N, int F, int fg, long long rows_per_block) {
-  long long chunks = (N + rows_per_block - 1) / rows_per_block;
-  if (chunks < 1) chunks = 1;
-  const int groups = (F + fg - 1) / fg;
-  return dim3(static_cast<unsigned>(chunks), static_cast<unsigned>(groups));
-}
-
-bool bad_shape(int F, int B, int fg, long long rows_per_block, int threads) {
-  return F <= 0 || B <= 0 || fg <= 0 || rows_per_block <= 0 || threads <= 0
-         || threads % 32 != 0;
-}
-
-template <typename BinT>
-int launch_children(const void* bins, const float* g, const float* h,
-                    const float* w, const int* leaf, const int* leaves,
-                    long long N, int F, int B, int fg,
-                    long long rows_per_block, float* out, int threads,
-                    void* stream) {
-  if (bad_shape(F, B, fg, rows_per_block, threads))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(2) * fg * B * kVals * sizeof(float);
-  auto kern = children_hist_kernel<BinT>;
-  const int e = prepare(kern, smem);
-  if (e) return e;
-  kern<<<grid_of(N, F, fg, rows_per_block), threads, smem,
-         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const BinT*>(bins), g, h, w, leaf, leaves, N, F, B, fg,
-      rows_per_block, out);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Sets the kernel's dynamic shared-memory ceiling once per device: all
@@ -613,9 +509,9 @@ size_t fused_smem(int fg, int B, int queue_cap) {
          + static_cast<size_t>(queue_cap) * 4 * sizeof(float) + 16;
 }
 
-template <typename BinT>
+template <typename BinT, bool SCAN>
 int fused_resident(int smem, int threads, int* blocks_per_sm, int* sms) {
-  auto kern = fused_split_kernel<BinT>;
+  auto kern = fused_split_kernel<BinT, SCAN>;
   static bool ready[kMaxDevices] = {};
   const int e = prepare_once(kern, ready);
   if (e) return e;
@@ -629,7 +525,7 @@ int fused_resident(int smem, int threads, int* blocks_per_sm, int* sms) {
   return static_cast<int>(r);
 }
 
-template <typename BinT>
+template <typename BinT, bool SCAN>
 int launch_fused(const void* bins, const float* g, const float* h,
                  const float* w, const int* leaf, const int* parent_p,
                  const int* right_p, int parent_v, int right_v,
@@ -639,7 +535,7 @@ int launch_fused(const void* bins, const float* g, const float* h,
                  int per_group, int grid, long long tile, int queue_cap,
                  int smem, int vec_rows, float* partials, float* reduced,
                  float* out, int threads, cudaStream_t stream) {
-  auto kern = fused_split_kernel<BinT>;
+  auto kern = fused_split_kernel<BinT, SCAN>;
   static bool ready[kMaxDevices] = {};
   const int e = prepare_once(kern, ready);
   if (e) return e;
@@ -662,59 +558,94 @@ int launch_fused(const void* bins, const float* g, const float* h,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launch plan's fields a kernel refuses (ops/children_hist.py
+// plan_fused makes them).
+bool bad_plan(long long N, int F, int B, int fg, int groups, int per_group,
+              int grid, long long tile, int queue_cap, int smem,
+              int threads) {
+  return F <= 0 || B <= 0 || fg <= 0 || groups != (F + fg - 1) / fg
+         || per_group <= 0 || grid <= 0 || grid % per_group != 0
+         || (grid / per_group > groups) || threads <= 0 || threads > 1024
+         || threads % 32 != 0 || N >= (1LL << 31)
+         || tile != static_cast<long long>(threads) * kRows || queue_cap <= 0
+         || smem > kMaxSmem
+         || fused_smem(fg, B, queue_cap) > static_cast<size_t>(smem);
+}
+
 }  // namespace
 
 extern "C" {
 
-// bins [F, N] feature-major codes of `bin_bytes` bytes (1: uint8, 2:
-// uint16); g, h, w [N] f32; leaf [N] int32; leaves [2] int32 on the device
-// (split leaf, right leaf; -2 for no right child).  out [2, F, B, 3] f32
-// must be zero on entry.
+// K2.  bins [F, N] feature-major codes of `bin_bytes` bytes (1: uint8, 2:
+// uint16); g, h, w [N] f32; leaf [N] int32, or null for the root form
+// (every row in the left child).  The split leaf and the right leaf (-2
+// for none) are each a device int32 (parent_p, right_p) or, where that
+// pointer is null, the value given (parent_v, right_v).  A cooperative
+// launch of `grid` blocks (no more than can be resident), `per_group` of
+// them per feature group of `fg`; partials [per_group, 2, F, B, 3] f32 need
+// no initial value.  Each block strides over tiles of `tile` rows, which
+// must be threads * kRows (4 rows a thread), and queues up to `queue_cap`
+// child rows of a tile in its `smem` bytes of dynamic shared memory.
+// `vec_rows`: N % 4 == 0 and every base 16-byte aligned.  Writes out
+// [2, F, B, 3] f32 whole.
 int lgbt_children_histograms(const void* bins, int bin_bytes, const void* g,
                              const void* h, const void* w, const void* leaf,
-                             const void* leaves, long long N, int F, int B,
-                             int fg, long long rows_per_block, void* out,
-                             int threads, void* stream) {
+                             const void* parent_p, const void* right_p,
+                             int parent_v, int right_v, long long N, int F,
+                             int B, int fg, int groups, int per_group,
+                             int grid, long long tile, int queue_cap,
+                             int smem, int vec_rows, void* partials,
+                             void* out, int threads, void* stream) {
+  if (bad_plan(N, F, B, fg, groups, per_group, grid, tile, queue_cap, smem,
+               threads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ScanParams p{};
   const float* gf = static_cast<const float*>(g);
   const float* hf = static_cast<const float*>(h);
   const float* wf = static_cast<const float*>(w);
   const int* lf = static_cast<const int*>(leaf);
-  const int* lv = static_cast<const int*>(leaves);
+  const int* pp = static_cast<const int*>(parent_p);
+  const int* rp = static_cast<const int*>(right_p);
+  float* pa = static_cast<float*>(partials);
   float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bin_bytes == 1)
-    return launch_children<uint8_t>(bins, gf, hf, wf, lf, lv, N, F, B, fg,
-                                    rows_per_block, o, threads, stream);
+    return launch_fused<uint8_t, false>(
+        bins, gf, hf, wf, lf, pp, rp, parent_v, right_v, nullptr, nullptr,
+        nullptr, nullptr, p, N, F, B, fg, groups, per_group, grid, tile,
+        queue_cap, smem, vec_rows, pa, o, nullptr, threads, s);
   if (bin_bytes == 2)
-    return launch_children<uint16_t>(bins, gf, hf, wf, lf, lv, N, F, B, fg,
-                                     rows_per_block, o, threads, stream);
+    return launch_fused<uint16_t, false>(
+        bins, gf, hf, wf, lf, pp, rp, parent_v, right_v, nullptr, nullptr,
+        nullptr, nullptr, p, N, F, B, fg, groups, per_group, grid, tile,
+        queue_cap, smem, vec_rows, pa, o, nullptr, threads, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The most blocks of K3's kernel for `bin_bytes` with `smem` bytes of
-// dynamic shared memory (histogram and queue) and `threads` threads that
-// one SM holds at once, and the SM count: the wrapper's cooperative grid
-// never exceeds their product.
-int lgbt_fused_resident_blocks(int bin_bytes, int smem, int threads,
-                               int* blocks_per_sm, int* sms) {
+// The most blocks of the kernel for `bin_bytes`, with the scan (`scan`
+// != 0: K3) or without (K2), with `smem` bytes of dynamic shared memory
+// (histogram and queue) and `threads` threads that one SM holds at once,
+// and the SM count: the wrapper's cooperative grid never exceeds their
+// product.
+int lgbt_fused_resident_blocks(int bin_bytes, int scan, int smem,
+                               int threads, int* blocks_per_sm, int* sms) {
   if (bin_bytes == 1)
-    return fused_resident<uint8_t>(smem, threads, blocks_per_sm, sms);
+    return scan ? fused_resident<uint8_t, true>(smem, threads, blocks_per_sm,
+                                                sms)
+                : fused_resident<uint8_t, false>(smem, threads,
+                                                 blocks_per_sm, sms);
   if (bin_bytes == 2)
-    return fused_resident<uint16_t>(smem, threads, blocks_per_sm, sms);
+    return scan ? fused_resident<uint16_t, true>(smem, threads,
+                                                 blocks_per_sm, sms)
+                : fused_resident<uint16_t, false>(smem, threads,
+                                                  blocks_per_sm, sms);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// As lgbt_children_histograms, except that the split leaf and the right
-// leaf are each a device int32 (parent_p, right_p) or, where that pointer
-// is null, the value given (parent_v, right_v); plus totals [2, 3] f32 (g,
-// h, count of the left and right child) on the device, num_bin [F] int32,
-// is_cat and feat_mask [F] bool.  A cooperative launch of `grid` blocks (no more than
-// can be resident), `per_group` of them per feature group of `fg`;
-// partials [per_group, 2, F, B, 3] and reduced [2, F, B, 3] f32 need no
-// initial value.  Each block strides over tiles of `tile` rows, which must
-// be threads * kRows (4 rows a thread), and queues up to `queue_cap` child
-// rows of a tile in its `smem` bytes of dynamic shared memory.  `vec_rows`:
-// N % 4 == 0 and every base 16-byte aligned.  Writes out [2, F, 8] f32
-// whole.
+// K3.  As lgbt_children_histograms, plus totals [2, 3] f32 (g, h, count of
+// the left and right child) on the device, num_bin [F] int32, is_cat and
+// feat_mask [F] bool; reduced [2, F, B, 3] f32 needs no initial value.
+// Writes out [2, F, 8] f32 whole.
 int lgbt_fused_split_candidates(
     const void* bins, int bin_bytes, const void* g, const void* h,
     const void* w, const void* leaf, const void* parent_p,
@@ -724,13 +655,8 @@ int lgbt_fused_split_candidates(
     long long N, int F, int B, int fg, int groups, int per_group, int grid,
     long long tile, int queue_cap, int smem, int vec_rows, void* partials,
     void* reduced, void* out, int threads, void* stream) {
-  if (F <= 0 || B <= 0 || fg <= 0 || groups != (F + fg - 1) / fg
-      || per_group <= 0 || grid <= 0 || grid % per_group != 0
-      || (grid / per_group > groups) || threads <= 0 || threads > 1024
-      || threads % 32 != 0 || N >= (1LL << 31)
-      || tile != static_cast<long long>(threads) * kRows || queue_cap <= 0
-      || smem > kMaxSmem
-      || fused_smem(fg, B, queue_cap) > static_cast<size_t>(smem))
+  if (bad_plan(N, F, B, fg, groups, per_group, grid, tile, queue_cap, smem,
+               threads))
     return static_cast<int>(cudaErrorInvalidValue);
   const ScanParams p{min_data, min_hess, l1, l2, min_gain};
   const float* gf = static_cast<const float*>(g);
@@ -748,15 +674,17 @@ int lgbt_fused_split_candidates(
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bin_bytes == 1)
-    return launch_fused<uint8_t>(bins, gf, hf, wf, lf, pp, rp, parent_v,
-                                 right_v, tot, nb, cat, fm, p, N, F, B, fg,
-                                 groups, per_group, grid, tile, queue_cap,
-                                 smem, vec_rows, pa, re, o, threads, s);
+    return launch_fused<uint8_t, true>(bins, gf, hf, wf, lf, pp, rp,
+                                       parent_v, right_v, tot, nb, cat, fm,
+                                       p, N, F, B, fg, groups, per_group,
+                                       grid, tile, queue_cap, smem, vec_rows,
+                                       pa, re, o, threads, s);
   if (bin_bytes == 2)
-    return launch_fused<uint16_t>(bins, gf, hf, wf, lf, pp, rp, parent_v,
-                                  right_v, tot, nb, cat, fm, p, N, F, B, fg,
-                                  groups, per_group, grid, tile, queue_cap,
-                                  smem, vec_rows, pa, re, o, threads, s);
+    return launch_fused<uint16_t, true>(bins, gf, hf, wf, lf, pp, rp,
+                                        parent_v, right_v, tot, nb, cat, fm,
+                                        p, N, F, B, fg, groups, per_group,
+                                        grid, tile, queue_cap, smem,
+                                        vec_rows, pa, re, o, threads, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

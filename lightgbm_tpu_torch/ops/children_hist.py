@@ -10,24 +10,24 @@ or raises; on a CPU tensor it runs its plain version:
     ``histogram.build_children_histograms``;
   * :func:`root_histogram` (K2 with every row in the left child, replaces
     ``root_histogram_pallas``) -> [F, B, 3]; plain version
-    ``histogram.build_root_histogram``;
+    ``histogram.build_root_histogram``; the kernel gets no leaf array;
   * :func:`fused_split_candidates` (K3, replaces
     ``fused_children_split_candidates_pallas``) -> raw [2, F, 8] f32
     candidates (gain, threshold, left g, left h, left count, 3 zeros);
     plain version :func:`fused_split_candidates_plain`, the plain
     histogram and ``split.per_feature_candidates``.
 
-The split leaf, the right leaf and K3's child totals go to the kernels
-as device tensors, so a caller holding them as 0-dim device tensors
-never reads them to the host.  K2's output is allocated and zeroed here
-with ``torch.zeros``.  K3 writes its output whole (``torch.empty``); its
-launch is planned by the pure function :func:`plan_fused` (one
-persistent block per SM, as many features a block as shared memory
-holds, a cooperative grid no larger than the resident blocks), and its
-partials and reduced histogram are one ``torch.empty`` a call from
-PyTorch's caching allocator (stream-ordered, no device work), never
-zeroed: the kernel writes every slot it reads.  Kernel launches are
-counted in :data:`LAUNCHES`.
+K2 and K3 are one kernel body, K2 without the scan.  The split leaf,
+the right leaf and K3's child totals go to the kernels as device
+pointers or values, so a caller holding them as 0-dim device tensors
+never reads them to the host.  Both launches are planned by the pure
+function :func:`launch_plan` (:func:`plan_fused`: one persistent block
+per SM, as many features a block as shared memory holds, a cooperative
+grid no larger than the resident blocks).  Each writes its output whole
+(``torch.empty``); the partials (and K3's reduced histogram) are one
+``torch.empty`` a call from PyTorch's caching allocator
+(stream-ordered, no device work), never zeroed: the kernel writes every
+slot it reads.  Kernel launches are counted in :data:`LAUNCHES`.
 
 Tolerance.  Kernel and plain version both sum f32 values with atomics,
 in an order that changes from run to run, so they agree only up to
@@ -71,18 +71,13 @@ _count_lock = threading.Lock()
 HIST_RTOL = 1e-5
 HIST_ATOL = 1e-4
 
-#: shared memory one block may use (bytes): a third of an H100 SM's
-#: 227 KB, so three blocks can be resident on one SM
-SMEM_PER_BLOCK = 232448 // 3
+#: dynamic shared memory one block may use on Hopper (bytes)
 SMEM_LIMIT = 232448
-THREADS = 256
-#: blocks per feature group the wrapper aims for (132 SMs x 3)
-TARGET_BLOCKS = 396
-#: K3: threads a block, and consecutive rows a thread takes per tile (the
-#: kernel's 4-wide loads; its entry point refuses another tile)
+#: K2 and K3: threads a block, and consecutive rows a thread takes per
+#: tile (the kernel's 4-wide loads; its entry points refuse another tile)
 FUSED_THREADS = 1024
 FUSED_ROWS_PER_THREAD = 4
-#: K3's queue of a tile's child rows (row, g, h, w: 16 bytes each, one a
+#: the queue of a tile's child rows (row, g, h, w: 16 bytes each, one a
 #: thread) and its 3 counters (16 bytes), beside the histogram in shared
 #: memory
 FUSED_QUEUE_ROWS = FUSED_THREADS
@@ -105,20 +100,6 @@ def _count(name: str) -> None:
         LAUNCHES[name] += 1
 
 
-def feature_group(F: int, max_bin: int) -> int:
-    """Features per block: as many [2, B, 3] f32 histograms as fit in
-    :data:`SMEM_PER_BLOCK`, spread evenly over the groups (28 features at
-    255 bins: 3 groups of 10, 61 KB each; 30 at 1000 bins: 10 of 3)."""
-    per = 2 * max_bin * 3 * 4
-    if per > SMEM_LIMIT:
-        raise LightGBMError(
-            f"children histograms: max_bin={max_bin} needs {per} bytes of "
-            f"shared memory per feature, more than a block has")
-    most = max(1, min(F, SMEM_PER_BLOCK // per))
-    groups = -(-F // most)
-    return -(-F // groups)
-
-
 def gain_tolerance(left_g, left_h, total_g, total_h, abs_g, abs_h,
                    lambda_l2: float = 0.0):
     """How far a candidate's gain ``G_L^2/H_L + G_R^2/H_R`` may move, to
@@ -134,19 +115,12 @@ def gain_tolerance(left_g, left_h, total_g, total_h, abs_g, abs_h,
             + ((left_g / hl) ** 2 + (right_g / hr) ** 2) * eh)
 
 
-def _grid(F: int, N: int, max_bin: int):
-    fg = feature_group(F, max_bin)
-    groups = -(-F // fg)
-    chunks = max(1, min(-(-N // THREADS), TARGET_BLOCKS // groups))
-    return fg, groups, max(1, -(-N // chunks))
-
-
 class FusedPlan(NamedTuple):
-    """One launch of K3: ``fg`` features a block in ``groups`` groups,
-    ``per_group`` blocks a group (each writes one partial slot), ``grid``
-    blocks in all, ``tile`` rows a block takes at a time, ``queue`` child
-    rows its shared queue holds and ``smem`` shared bytes a block.  The
-    kernel takes every field from here."""
+    """One launch of K2 or K3: ``fg`` features a block in ``groups``
+    groups, ``per_group`` blocks a group (each writes one partial slot),
+    ``grid`` blocks in all, ``tile`` rows a block takes at a time,
+    ``queue`` child rows its shared queue holds and ``smem`` shared bytes
+    a block.  The kernel takes every field from here."""
     fg: int
     groups: int
     per_group: int
@@ -158,14 +132,15 @@ class FusedPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def fused_feature_group(F: int, max_bin: int) -> int:
-    """K3's features a block: as many ``[2, B, 3]`` f32 histograms as one
-    block's shared memory holds beside the child-row queue (all 28 at 255
-    bins, 171 KB + 16 KB), spread evenly over the groups."""
+    """K2's and K3's features a block: as many ``[2, B, 3]`` f32
+    histograms as one block's shared memory holds beside the child-row
+    queue (all 28 at 255 bins, 171 KB + 16 KB), spread evenly over the
+    groups."""
     per = 2 * max_bin * 3 * 4
     room = SMEM_LIMIT - FUSED_QUEUE_BYTES
     if per > room:
         raise LightGBMError(
-            f"fused_split_candidates: max_bin={max_bin} needs {per} bytes "
+            f"children histograms: max_bin={max_bin} needs {per} bytes "
             f"of shared memory per feature, more than a block has beside "
             f"its {FUSED_QUEUE_BYTES}-byte row queue")
     most = max(1, min(F, room // per))
@@ -175,9 +150,9 @@ def fused_feature_group(F: int, max_bin: int) -> int:
 @functools.lru_cache(maxsize=None)
 def plan_fused(F: int, max_bin: int, sms: int,
                blocks_per_sm: int) -> FusedPlan:
-    """K3's launch for ``F`` features at ``max_bin`` bins on a card of
-    ``sms`` SMs that holds ``blocks_per_sm`` blocks of this size at once
-    (the occupancy the kernel's launcher reports).  Features:
+    """K2's and K3's launch for ``F`` features at ``max_bin`` bins on a
+    card of ``sms`` SMs that holds ``blocks_per_sm`` blocks of this size
+    at once (the occupancy the kernel's launcher reports).  Features:
     :func:`fused_feature_group`.  Blocks: one a SM, and never more than
     can be resident (the cooperative launch's grid barrier needs every
     block resident); with more groups than blocks, each block takes
@@ -187,7 +162,7 @@ def plan_fused(F: int, max_bin: int, sms: int,
     per = 2 * max_bin * 3 * 4
     if blocks_per_sm < 1 or sms < 1:
         raise LightGBMError(
-            f"fused_split_candidates: no block of {fg * per} shared bytes "
+            f"children histograms: no block of {fg * per} shared bytes "
             f"is resident on this card")
     if groups <= sms:
         per_group = sms // groups
@@ -196,11 +171,27 @@ def plan_fused(F: int, max_bin: int, sms: int,
         per_group, grid = 1, sms
     return FusedPlan(fg, groups, per_group, grid,
                      FUSED_THREADS * FUSED_ROWS_PER_THREAD, FUSED_QUEUE_ROWS,
-                     fg * per + FUSED_QUEUE_BYTES)
+                     fused_smem(F, max_bin))
+
+
+def fused_smem(F: int, max_bin: int) -> int:
+    """Shared bytes a block of K2 or K3 takes: its features' histograms
+    beside the row queue."""
+    return 2 * max_bin * 3 * 4 * fused_feature_group(F, max_bin) \
+        + FUSED_QUEUE_BYTES
+
+
+def launch_plan(F: int, max_bin: int, occupancy) -> FusedPlan:
+    """The launch of K2 and K3 alike: :func:`plan_fused` for the blocks
+    one SM holds at :func:`fused_smem` bytes and the SM count, which
+    ``occupancy(smem)`` returns (the kernel launcher's query on the
+    card)."""
+    blocks_per_sm, sms = occupancy(fused_smem(F, max_bin))
+    return plan_fused(F, max_bin, sms, blocks_per_sm)
 
 
 def fused_block_rows(p: FusedPlan, N: int, block: int):
-    """(groups, row ranges) that block ``block`` of K3 scans, as the
+    """(groups, row ranges) that block ``block`` of K2 or K3 scans, as the
     kernel computes them (``fused_split_kernel``'s group and tile loops):
     each group it takes, the rows of its tiles."""
     step = p.grid // p.per_group
@@ -212,6 +203,7 @@ def fused_block_rows(p: FusedPlan, N: int, block: int):
 
 
 def _check(name, bins, grad, hess, weight, leaf_id):
+    """``leaf_id`` None: no leaf array (the root form)."""
     if bins.dim() != 2 or bins.shape[0] == 0:
         raise LightGBMError(f"{name}: bins {tuple(bins.shape)} must be "
                             f"[F, N] with F > 0")
@@ -219,40 +211,27 @@ def _check(name, bins, grad, hess, weight, leaf_id):
         raise LightGBMError(f"{name}: bins has dtype {bins.dtype}; expected "
                             f"uint8 or uint16")
     N = bins.shape[1]
-    for t, what, dtype in ((grad, "grad", torch.float32),
-                           (hess, "hess", torch.float32),
-                           (weight, "weight", torch.float32),
-                           (leaf_id, "leaf_id", torch.int32)):
+    rows = [(grad, "grad", torch.float32), (hess, "hess", torch.float32),
+            (weight, "weight", torch.float32)]
+    if leaf_id is not None:
+        rows.append((leaf_id, "leaf_id", torch.int32))
+    for t, what, dtype in rows:
         if t.dtype != dtype or tuple(t.shape) != (N,):
             raise LightGBMError(
                 f"{name}: {what} is {t.dtype} {tuple(t.shape)}; expected "
                 f"{dtype} ({N},)")
-    for t in (bins, grad, hess, weight, leaf_id):
+    for t in (bins, *(r[0] for r in rows)):
         if t.device != bins.device:
             raise LightGBMError(f"{name}: inputs are on different devices")
         if not t.is_contiguous():
             raise LightGBMError(f"{name}: inputs must be contiguous")
 
 
-def _leaves(parent_leaf, right_leaf, dev) -> torch.Tensor:
-    """[2] int32 on ``dev`` from ints or 0-dim tensors, without a host
-    read."""
-    out = []
-    for v in (parent_leaf, right_leaf):
-        if isinstance(v, torch.Tensor):
-            if v.numel() != 1 or v.device != dev:
-                raise LightGBMError("children histograms: a leaf index "
-                                    "must be one value on the bins' device")
-            out.append(v.reshape(()).to(torch.int32))
-        else:
-            out.append(torch.full((), int(v), dtype=torch.int32, device=dev))
-    return torch.stack(out)
-
-
 def _leaf_arg(v, dev):
     """(tensor to keep alive, device pointer or None, value) of a leaf
-    index for K3: a 0-dim int32 tensor on ``dev`` goes to the kernel as
-    its address (no host read, no launch), an int as its value."""
+    index for K2 and K3: a 0-dim int32 tensor on ``dev`` goes to the
+    kernel as its address (no host read, no launch), an int as its
+    value."""
     if isinstance(v, torch.Tensor):
         if v.numel() != 1 or v.device != dev:
             raise LightGBMError("children histograms: a leaf index must be "
@@ -269,36 +248,46 @@ def _lib():
         p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
         lib.lgbt_children_histograms.argtypes = [
-            p, i, p, p, p, p, p, ll, i, i, i, ll, p, i, p]
+            p, i, p, p, p, p, p, p, i, i, ll, i, i, i, i, i, i, ll, i, i, i,
+            p, p, i, p]
         lib.lgbt_children_histograms.restype = i
         lib.lgbt_fused_split_candidates.argtypes = [
             p, i, p, p, p, p, p, p, i, i, p, p, p, p, f, f, f, f, f,
             ll, i, i, i, i, i, i, ll, i, i, i, p, p, p, i, p]
         lib.lgbt_fused_split_candidates.restype = i
         lib.lgbt_fused_resident_blocks.argtypes = [
-            i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+            i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
         lib.lgbt_fused_resident_blocks.restype = i
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _resident(device_index: int, bin_bytes: int,
+def _resident(device_index: int, bin_bytes: int, scan: bool,
               smem: int) -> Tuple[int, int]:
-    """(blocks of K3 one SM holds at once, SMs) on the card."""
+    """(blocks of K3 (``scan``) or K2 one SM holds at once, SMs) on the
+    card."""
     bps, sms = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device_index):
         err = _lib().lgbt_fused_resident_blocks(
-            bin_bytes, smem, FUSED_THREADS, ctypes.byref(bps),
+            bin_bytes, int(scan), smem, FUSED_THREADS, ctypes.byref(bps),
             ctypes.byref(sms))
     if err != 0:
         raise LightGBMError(
-            f"fused_split_candidates: occupancy query failed: CUDA error "
-            f"{err}")
+            f"{'fused_split_candidates' if scan else 'children_histograms'}"
+            f": occupancy query failed: CUDA error {err}")
     return bps.value, sms.value
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+def _card_plan(bins, max_bin: int, scan: bool) -> FusedPlan:
+    return launch_plan(bins.shape[0], max_bin, functools.partial(
+        _resident, bins.device.index, bins.element_size(), scan))
+
+
+def _vec_rows(N: int, *tensors) -> int:
+    """1 where the kernel may take 4 rows in one 16-byte load: N % 4 == 0
+    and every base 16-byte aligned."""
+    return int(N % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors
+                                  if t is not None))
 
 
 def children_histograms(bins, grad, hess, weight, leaf_id, parent_leaf,
@@ -308,36 +297,48 @@ def children_histograms(bins, grad, hess, weight, leaf_id, parent_leaf,
     uint8/uint16, ``grad``/``hess``/``weight`` [N] f32 (already
     weighted), ``leaf_id`` [N] int32, all contiguous on one device."""
     _check("children_histograms", bins, grad, hess, weight, leaf_id)
-    dev = bins.device
-    if dev.type != "cuda":
+    if bins.device.type != "cuda":
         return build_children_histograms(bins, grad, hess, weight, leaf_id,
                                          parent_leaf, right_leaf, max_bin)
+    return _children_kernel(bins, grad, hess, weight, leaf_id, parent_leaf,
+                            right_leaf, max_bin)
+
+
+def root_histogram(bins, grad, hess, weight, max_bin: int) -> torch.Tensor:
+    """[F, max_bin, 3] over all rows: on a card, K2 in its root form (no
+    leaf array: every row in the left child)."""
+    _check("root_histogram", bins, grad, hess, weight, None)
+    if bins.device.type != "cuda":
+        return build_root_histogram(bins, grad, hess, weight, max_bin)
+    return _children_kernel(bins, grad, hess, weight, None, 0, -2,
+                            max_bin)[0]
+
+
+def _children_kernel(bins, grad, hess, weight, leaf_id, parent_leaf,
+                     right_leaf, max_bin: int) -> torch.Tensor:
+    dev = bins.device
     F, N = bins.shape
-    leaves = _leaves(parent_leaf, right_leaf, dev)
-    out = torch.zeros((2, F, max_bin, 3), dtype=torch.float32, device=dev)
-    fg, _, rows_per_block = _grid(F, N, max_bin)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.lgbt_children_histograms(
-            bins.data_ptr(), bins.element_size(), grad.data_ptr(),
-            hess.data_ptr(), weight.data_ptr(), leaf_id.data_ptr(),
-            leaves.data_ptr(), N, F, max_bin, fg, rows_per_block,
-            out.data_ptr(), THREADS, _stream(dev))
+    p = _card_plan(bins, max_bin, scan=False)
+    partials = torch.empty(p.per_group * 2 * F * max_bin * 3,
+                           dtype=torch.float32, device=dev)
+    (parent_t, parent_p, parent_v), (right_t, right_p, right_v) = (
+        _leaf_arg(v, dev) for v in (parent_leaf, right_leaf))
+    out = torch.empty((2, F, max_bin, 3), dtype=torch.float32, device=dev)
+    err = _build.launch(
+        dev, _lib().lgbt_children_histograms,
+        bins.data_ptr(), bins.element_size(), grad.data_ptr(),
+        hess.data_ptr(), weight.data_ptr(),
+        None if leaf_id is None else leaf_id.data_ptr(), parent_p, right_p,
+        parent_v, right_v, N, F, max_bin, p.fg, p.groups, p.per_group,
+        p.grid, p.tile, p.queue, p.smem,
+        _vec_rows(N, bins, grad, hess, weight, leaf_id),
+        partials.data_ptr(), out.data_ptr(), FUSED_THREADS)
+    del parent_t, right_t          # alive until the launch is enqueued
     if err != 0:
         raise LightGBMError(
             f"children_histograms kernel launch failed: CUDA error {err}")
     _count("children_histograms")
     return out
-
-
-def root_histogram(bins, grad, hess, weight, max_bin: int) -> torch.Tensor:
-    """[F, max_bin, 3] over all rows: K2 with every row in the left child
-    (leaf 0, right leaf -2) on a card."""
-    if bins.device.type != "cuda":
-        return build_root_histogram(bins, grad, hess, weight, max_bin)
-    leaf = torch.zeros(bins.shape[1], dtype=torch.int32, device=bins.device)
-    return children_histograms(bins, grad, hess, weight, leaf, 0, -2,
-                               max_bin)[0]
 
 
 def _raw_candidates(cand) -> torch.Tensor:
@@ -387,17 +388,11 @@ def fused_split_candidates(bins, grad, hess, weight, leaf_id, parent_leaf,
         return fused_split_candidates_plain(
             bins, grad, hess, weight, leaf_id, parent_leaf, right_leaf,
             totals, num_bin, is_cat, feat_mask, max_bin, params)
-    smem = (2 * max_bin * 3 * 4 * fused_feature_group(F, max_bin)
-            + FUSED_QUEUE_BYTES)
-    blocks_per_sm, sms = _resident(dev.index, bins.element_size(), smem)
-    p = plan_fused(F, max_bin, sms, blocks_per_sm)
+    p = _card_plan(bins, max_bin, scan=True)
     E = 2 * F * max_bin * 3
     # partials [per_group, 2, F, B, 3], then the reduced [2, F, B, 3]
     buf = torch.empty((p.per_group + 1) * E, dtype=torch.float32,
                       device=dev)
-    vec_rows = int(N % 4 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (bins, grad, hess, weight,
-                                         leaf_id)))
     (parent_t, parent_p, parent_v), (right_t, right_p, right_v) = (
         _leaf_arg(v, dev) for v in (parent_leaf, right_leaf))
     out = bins.new_empty((2, F, 8), dtype=torch.float32)
@@ -411,7 +406,8 @@ def fused_split_candidates(bins, grad, hess, weight, leaf_id, parent_leaf,
         float(params.min_sum_hessian_in_leaf), float(params.lambda_l1),
         float(params.lambda_l2), float(params.min_gain_to_split),
         N, F, max_bin, p.fg, p.groups, p.per_group, p.grid, p.tile, p.queue,
-        p.smem, vec_rows, buf.data_ptr(),
+        p.smem, _vec_rows(N, bins, grad, hess, weight, leaf_id),
+        buf.data_ptr(),
         buf.data_ptr() + 4 * p.per_group * E, out.data_ptr(), FUSED_THREADS)
     del parent_t, right_t          # alive until the launch is enqueued
     if err != 0:

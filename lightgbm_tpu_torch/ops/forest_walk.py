@@ -3,29 +3,33 @@
 Port of the JAX package's ops/pallas_walk.py (K4) with both of its
 optional parts: piece-wise linear forests (the affine leaf epilogue) and
 bf16 leaf tables.  The kernel itself is ``csrc/forest_walk.cu``, a
-direct walk with one thread per row (see the note at the top of that
-file); this module builds its node tables at freeze time and wraps its
-two C entry points:
+tree-parallel walk: blocks over (tree chunks) x (row tiles) write each
+tree's value of each row to a scratch, and a second pass folds them in
+tree order (see the note at the top of that file).  This module builds
+its node tables at freeze time, plans its launch (:func:`plan_walk`, a
+pure function) and wraps its two C entry points:
 
 - :func:`forest_walk` walks pre-binned rows ``bins`` [F, B] (uint8 or
   uint16 codes, categorical misses already mapped to ``nan_bin``); a
   linear forest also takes the NaN-imputed f32 covariates ``xt`` [F, B];
-- :func:`forest_walk_raw` bucketizes raw f32 rows ``X`` [F, B] inside
-  the kernel against the cut tables, then walks (a linear forest reads
-  its covariates from ``X``, NaN as 0.0).
+- :func:`forest_walk_raw` bucketizes raw f32 rows ``X`` [F, B] on the
+  card against the cut tables (the kernel's pass 0), then walks (a
+  linear forest reads its covariates from ``X``, NaN as 0.0).
 
 Both return [num_class, B] f32 raw scores.  On a CUDA tensor a wrapper
 launches the kernel or raises; on a CPU tensor it runs the plain version
 (:func:`bucketize_plain` + ``ops/predict.py``'s gather walk, the bf16
 table dequantized to f32, which is exact), which is also what
 ``chip_smoke.py`` holds the kernel against on the card.  Each wrapper
-counts its kernel launches in :data:`LAUNCHES`, one counter per variant:
-``forest_walk[_raw][_linear][_bf16]``.
+counts its kernel launches in :data:`LAUNCHES`, one counter per variant
+(``forest_walk[_raw][_linear][_bf16]``), one a call: the call's passes
+(two, three for raw rows; more for row waves) together.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Dict, NamedTuple, Optional
 
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from ..utils.log import LightGBMError
+from . import _build
 from .predict import predict_binned_forest, predict_binned_forest_linear
 
 #: the kernel's variants: binned or raw rows, constant or affine leaves,
@@ -43,9 +48,25 @@ VARIANTS = tuple(f"forest_walk{raw}{lin}{q}" for raw in ("", "_raw")
 LAUNCHES: Dict[str, int] = {name: 0 for name in VARIANTS}
 _count_lock = threading.Lock()
 
-#: dynamic shared memory one block may use on Hopper (bytes)
+#: dynamic shared memory one block may use on Hopper (bytes), and all of
+#: one SM's (a block's 1 KB of system use aside)
 SMEM_LIMIT = 232448
-BLOCK_SIZES = (128, 64, 32)
+SM_SMEM = 233472
+#: rows a pass-1 block walks, the widest first: the plan takes the first
+#: at which one tree's tables and the tile fit (the smallest, 32 rows as
+#: in the first port's walk, decides what is refused)
+WALK_TILES = (512, 256, 128, 64, 32)
+#: rows a thread walks at once (the kernel's ``kRows``; its entry points
+#: refuse another) and most threads a pass-1 block (at most the kernel's
+#: ``kWalkThreads``, 1024)
+WALK_ROWS_PER_THREAD = 4
+WALK_THREADS = 1024
+#: the most bytes of the [K*T, rows] f32 scratch of one wave of rows
+WALK_SCRATCH_BYTES = 256 << 20
+#: pass 2 folds with a warp a (class, row) up to this many pairs a wave
+#: (a thread a pair beyond)
+WALK_WARP_FOLD_MAX = 1024
+MAX_ROW_TILES = 65535
 
 
 def reset_launch_counts() -> None:
@@ -285,45 +306,192 @@ def _check_tables(tables: WalkTables, F: int) -> None:
                 f"have {F}")
 
 
-def smem_bytes(tables: WalkTables, F: int, block: int) -> int:
-    """Shared memory of one block (``csrc/forest_walk.cu``
-    ``smem_bytes``): nodes, the leaf table padded to 16 bytes, and the
-    [F][block] u16 bin tile; a linear forest adds one tree's affine
-    tables (8 bytes a slot) and the [F][block] f32 covariate tile."""
-    M, L = tables.nodes.shape[1], tables.leaves.shape[1]
-    leaf_bytes = -(-L * tables.leaves.element_size() // 16) * 16
-    b = 16 * M + leaf_bytes + 2 * F * block
-    if tables.linear:
-        b += 8 * L * tables.linear_k + 4 * F * block
+def walk_smem(chunk: int, M: int, L: int, leaf_bytes: int, Kf: int,
+              linear: bool, F: int, tile: int) -> int:
+    """Shared bytes of one pass-1 block (``csrc/forest_walk.cu``
+    ``smem_bytes``): ``chunk`` trees' nodes (16 bytes each), their leaf
+    table padded to 16 bytes and the [F][tile] u16 bin tile; a linear
+    forest adds the chunk's affine tables (8 bytes a slot) and the
+    [F][tile] f32 covariate tile."""
+    b = 16 * M * chunk + -(-chunk * L * leaf_bytes // 16) * 16 + 2 * F * tile
+    if linear:
+        b += 8 * L * Kf * chunk + 4 * F * tile
     return b
 
 
-def block_size(tables: WalkTables, F: int) -> int:
-    """The largest of :data:`BLOCK_SIZES` whose shared memory fits a
-    block; raises when not even the smallest does."""
-    for blk in BLOCK_SIZES:
-        if smem_bytes(tables, F, blk) <= SMEM_LIMIT:
-            return blk
-    raise LightGBMError(
-        f"forest walk needs more shared memory than a block has "
-        f"({F} features, {tables.num_leaves} leaves, "
-        f"{tables.linear_k} affine slots: "
-        f"{smem_bytes(tables, F, BLOCK_SIZES[-1])} bytes at "
-        f"{BLOCK_SIZES[-1]} rows > {SMEM_LIMIT})")
+class WalkPlan(NamedTuple):
+    """One call of the walk: ``tile`` rows a block, ``rows_per_thread``
+    rows a thread walks at once, ``chunk`` trees a block stages,
+    ``chunks`` x ``row_tiles`` blocks a wave (the first; the last may have
+    fewer row tiles), ``threads`` a block, ``smem`` shared bytes a block,
+    ``wave`` rows a pass-1/pass-2 pair covers (the scratch is [K*T, wave]
+    f32), ``fold_warps`` (pass 2 folds a (class, row) a warp, not a
+    thread) and ``bin_scratch`` bytes of pass 0's [F, B] u16 bins (raw
+    rows; 0 for binned).  The kernel takes every field from here."""
+    tile: int
+    rows_per_thread: int
+    chunk: int
+    chunks: int
+    row_tiles: int
+    threads: int
+    smem: int
+    wave: int
+    fold_warps: bool
+    bin_scratch: int
+
+    @property
+    def grid(self) -> int:
+        return self.chunks * self.row_tiles
+
+
+def _resident(smem: int, threads: int) -> int:
+    """Blocks of ``smem`` shared bytes and ``threads`` threads one SM
+    holds (its shared memory, 2048 threads, 32 blocks)."""
+    return max(1, min(SM_SMEM // (smem + 1024), 2048 // threads, 32))
+
+
+def _threads(chunk: int, tile: int) -> int:
+    slots = -(-tile // WALK_ROWS_PER_THREAD)
+    return min(WALK_THREADS, 32 * -(-chunk * slots // 32))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_walk(B: int, K: int, T: int, M: int, L: int, F: int, Kf: int,
+              leaf_bytes: int, linear: bool, raw: bool,
+              sms: int) -> WalkPlan:
+    """The walk's launch for ``B`` rows, ``K`` classes of ``T`` trees of
+    ``M`` nodes and ``L`` leaves (``leaf_bytes`` 4 or 2), ``F`` features,
+    ``Kf`` affine slots a leaf when ``linear``, raw rows or binned, on a
+    card of ``sms`` SMs.
+
+    Tile: the widest of :data:`WALK_TILES` at which one tree's tables fit
+    beside it, no wider than B; where even one tree a chunk leaves fewer
+    blocks than SMs, narrower tiles (B * K * T >= sms gives a grid of at
+    least ``sms``).  Chunk: as many trees as shared memory holds, fewer
+    where the grid would not fill the SMs; then, where the blocks take
+    several waves, the trees spread so that the last wave is full.
+    Refuses only a forest whose one tree's tables and a 32-row tile do not
+    fit a block, as the first port's walk did."""
+    KT = K * T
+    if B < 1 or KT < 1:
+        raise LightGBMError(f"forest walk: nothing to walk (B={B}, "
+                            f"K*T={KT})")
+
+    def smem(chunk, tile):
+        return walk_smem(chunk, M, L, leaf_bytes, Kf, linear, F, tile)
+
+    fits = [t for t in WALK_TILES if smem(1, t) <= SMEM_LIMIT]
+    if not fits:
+        raise LightGBMError(
+            f"forest walk needs more shared memory than a block has "
+            f"({F} features, {L} leaves, {Kf if linear else 0} affine "
+            f"slots: {smem(1, WALK_TILES[-1])} bytes at "
+            f"{WALK_TILES[-1]} rows > {SMEM_LIMIT})")
+    tile = min(fits[0], B)
+    if -(-B // tile) * KT < sms:
+        tile = max(1, B // -(-sms // KT))
+    cap = WALK_SCRATCH_BYTES // (4 * KT)
+    wave = min(B, max(tile, cap // tile * tile), MAX_ROW_TILES * tile)
+    row_tiles = -(-wave // tile)
+    per = 16 * M + L * leaf_bytes + (8 * L * Kf if linear else 0)
+    most = max(1, min(KT, (SMEM_LIMIT - smem(0, tile) - 15) // per))
+    while most < KT and smem(most + 1, tile) <= SMEM_LIMIT:
+        most += 1
+    want = -(-sms // row_tiles)            # chunks that fill the SMs
+    chunk = max(1, min(most, KT // want))
+    chunks = -(-KT // chunk)
+    slots = sms * _resident(smem(chunk, tile), _threads(chunk, tile))
+    if row_tiles * chunks > slots:
+        waves = -(-row_tiles * chunks // slots)
+        spread = waves * slots // row_tiles
+        if spread > chunks:
+            chunk = max(1, -(-KT // spread))
+            chunks = -(-KT // chunk)
+    return WalkPlan(tile, WALK_ROWS_PER_THREAD, chunk, chunks, row_tiles,
+                    _threads(chunk, tile), smem(chunk, tile), wave,
+                    K * wave <= WALK_WARP_FOLD_MAX, 2 * F * B if raw else 0)
+
+
+def walk_items(p: WalkPlan, KT: int, B: int):
+    """Every (tree, row, block, thread) the kernel walks, as the kernel
+    computes them (``walk_trees_kernel``'s tile and item loops): numpy
+    arrays over all waves, each (tree, row) of a slot a thread takes.
+    Block ids count (wave, row tile, chunk) in launch order."""
+    R = p.rows_per_thread
+    trees, rows, blocks, threads = [], [], [], []
+    block = 0
+    for r0 in range(0, B, p.wave):
+        nrows = min(p.wave, B - r0)
+        for y in range(-(-nrows // p.tile)):
+            t0 = y * p.tile
+            nr = min(p.tile, nrows - t0)
+            G = -(-nr // R)
+            for x in range(p.chunks):
+                c0 = x * p.chunk
+                nt = min(p.chunk, KT - c0)
+                item = np.arange(nt * G)
+                j, g = item // G, item % G
+                r = g[:, None] + np.arange(R)[None, :] * G
+                ok = r < nr
+                trees.append(np.broadcast_to((c0 + j)[:, None], r.shape)[ok])
+                rows.append((r0 + t0 + r)[ok])
+                threads.append(np.broadcast_to((item % p.threads)[:, None],
+                                               r.shape)[ok])
+                blocks.append(np.full(int(ok.sum()), block))
+                block += 1
+    cat = (lambda a: np.concatenate(a) if a else np.zeros(0, np.int64))
+    return cat(trees), cat(rows), cat(blocks), cat(threads)
+
+
+def _check_aligned(tables: WalkTables) -> None:
+    """The kernel copies node records 16 bytes at a time."""
+    if tables.nodes.data_ptr() % 16:
+        raise LightGBMError("tables.nodes must start on a 16-byte boundary")
 
 
 def _lib():
-    from . import _build
     lib = _build.load("forest_walk")
     if lib.lgbt_forest_walk_raw.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
+        plan = [i] * 7
         lib.lgbt_forest_walk_binned.argtypes = [
-            p, p, i, i, i, i, i, p, i, i, i, p, p, i, p, p, i, p]
+            p, p, i, i, i, i, i, p, i, i, i, p, p, i, p, *plan, p, p, p]
         lib.lgbt_forest_walk_binned.restype = i
         lib.lgbt_forest_walk_raw.argtypes = [
-            p, p, i, i, i, i, i, p, p, p, p, i, i, i, i, p, p, i, p, i, p]
+            p, p, i, i, i, i, i, p, p, p, p, i, i, i, i, p, p, i, *plan, p,
+            p, p, p]
         lib.lgbt_forest_walk_raw.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index) \
+        .multi_processor_count
+
+
+def walk_plan(tables: WalkTables, F: int, B: int, raw: bool) -> WalkPlan:
+    """:func:`plan_walk` for ``tables`` on their card: B rows of F
+    features, raw or binned."""
+    return plan_walk(B, tables.num_class, tables.trees_per_class,
+                     tables.nodes.shape[1], tables.num_leaves, F,
+                     tables.linear_k, tables.leaves.element_size(),
+                     tables.linear, raw, _sm_count(tables.nodes.device.index))
+
+
+def _plan_args(p: WalkPlan):
+    """The plan's fields in the C entry points' order."""
+    return (p.tile, p.rows_per_thread, p.chunk, p.threads, p.smem, p.wave,
+            int(p.fold_warps))
+
+
+def _scratch(tables: WalkTables, p: WalkPlan, dev):
+    """One ``torch.empty`` for the [K*T, wave] f32 scratch and pass 0's
+    bins: (buffer, scratch pointer, bins pointer)."""
+    n = tables.num_class * tables.trees_per_class * p.wave
+    buf = torch.empty(n + -(-p.bin_scratch // 4), dtype=torch.float32,
+                      device=dev)
+    return buf, buf.data_ptr(), buf.data_ptr() + 4 * n
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -361,17 +529,19 @@ def forest_walk(tables: WalkTables, bins: torch.Tensor,
     out = torch.empty((K, B), dtype=torch.float32, device=dev)
     if B == 0 or tables.trees_per_class == 0:
         return out.zero_()
-    lib = _lib()
+    _check_aligned(tables)
+    p = walk_plan(tables, F, B, raw=False)
+    buf, scratch, _ = _scratch(tables, p, dev)
     coeff, feat, kf = _affine_args(tables)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lgbt_forest_walk_binned(
-            tables.nodes.data_ptr(), tables.leaves.data_ptr(),
-            tables.leaves.element_size(), K, tables.trees_per_class,
-            tables.nodes.shape[1], tables.leaves.shape[1], bins.data_ptr(),
-            bins.element_size(), F, B, coeff, feat, kf,
-            xt.data_ptr() if tables.linear else None, out.data_ptr(),
-            block_size(tables, F), stream)
+    err = _build.launch(
+        dev, _lib().lgbt_forest_walk_binned, tables.nodes.data_ptr(),
+        tables.leaves.data_ptr(),
+        tables.leaves.element_size(), K, tables.trees_per_class,
+        tables.nodes.shape[1], tables.leaves.shape[1], bins.data_ptr(),
+        bins.element_size(), F, B, coeff, feat, kf,
+        xt.data_ptr() if tables.linear else None, *_plan_args(p), scratch,
+        out.data_ptr())
+    del buf                        # alive until the launch is enqueued
     name = tables.variant(raw=False)
     _raise_on(err, name)
     _count(name)
@@ -404,17 +574,19 @@ def forest_walk_raw(tables: WalkTables, bnd: torch.Tensor,
     out = torch.empty((K, B), dtype=torch.float32, device=dev)
     if B == 0 or tables.trees_per_class == 0:
         return out.zero_()
-    lib = _lib()
+    _check_aligned(tables)
+    p = walk_plan(tables, F, B, raw=True)
+    buf, scratch, bin_scratch = _scratch(tables, p, dev)
     coeff, feat, kf = _affine_args(tables)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lgbt_forest_walk_raw(
-            tables.nodes.data_ptr(), tables.leaves.data_ptr(),
-            tables.leaves.element_size(), K, tables.trees_per_class,
-            tables.nodes.shape[1], tables.leaves.shape[1], X.data_ptr(),
-            bnd.data_ptr(), cats.data_ptr(), is_cat_col.data_ptr(), C,
-            tables.nan_bin, F, B, coeff, feat, kf, out.data_ptr(),
-            block_size(tables, F), stream)
+    err = _build.launch(
+        dev, _lib().lgbt_forest_walk_raw, tables.nodes.data_ptr(),
+        tables.leaves.data_ptr(),
+        tables.leaves.element_size(), K, tables.trees_per_class,
+        tables.nodes.shape[1], tables.leaves.shape[1], X.data_ptr(),
+        bnd.data_ptr(), cats.data_ptr(), is_cat_col.data_ptr(), C,
+        tables.nan_bin, F, B, coeff, feat, kf, *_plan_args(p), bin_scratch,
+        scratch, out.data_ptr())
+    del buf                        # alive until the launch is enqueued
     name = tables.variant(raw=True)
     _raise_on(err, name)
     _count(name)

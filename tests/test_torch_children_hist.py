@@ -280,17 +280,39 @@ def test_wrappers_check_their_inputs():
             torch.ones(3, dtype=torch.bool), 16, SplitParams())
 
 
-def test_feature_groups_fit_shared_memory():
-    assert ch.feature_group(28, 255) == 10       # 3 groups of 10, 61 KB
-    assert ch.feature_group(30, 1000) == 3       # 10 groups of 3, 72 KB
-    assert ch.feature_group(5, 255) == 5
-    for F, B in ((28, 255), (30, 1000), (30, 255), (3, 4096)):
-        fg = ch.feature_group(F, B)
-        assert fg * 2 * B * 3 * 4 <= ch.SMEM_PER_BLOCK or fg == 1
-        assert fg * 2 * B * 3 * 4 <= ch.SMEM_LIMIT
-    assert ch.feature_group(3, 4096) == 1        # 98 KB: one a block
+def test_k2_launch_plan_is_k3s_and_refuses_what_cannot_fit():
+    # K2 and K3 share one kernel body and one plan: the occupancy query
+    # sees the plan's shared bytes, and the plan is plan_fused's
+    for F, B in ((28, 255), (30, 1000), (5, 255), (3, 4096)):
+        seen = []
+
+        def occupancy(smem):
+            seen.append(smem)
+            return 1, 132
+        p = ch.launch_plan(F, B, occupancy)
+        assert p == ch.plan_fused(F, B, 132, 1)
+        assert seen == [p.smem] and p.smem <= ch.SMEM_LIMIT
+    assert ch.launch_plan(28, 255, lambda smem: (1, 132)).grid == 132
+    too_wide = (ch.SMEM_LIMIT - ch.FUSED_QUEUE_BYTES) // 24 + 1
     with pytest.raises(LightGBMError, match="shared memory"):
-        ch.feature_group(4, 10000)
+        ch.launch_plan(4, too_wide, lambda smem: (1, 132))
+    with pytest.raises(LightGBMError, match="resident"):
+        ch.launch_plan(28, 255, lambda smem: (0, 132))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_root_form_without_leaf_array_equals_zero_leaf_form(dtype):
+    # root_histogram hands the kernel no leaf array (every row in the left
+    # child); on the plain path it equals the children histogram of an
+    # all-zeros leaf array with leaf 0 on the left and no right child
+    bins, g, h, w, _ = _t(*_rows(12, 3000, 6, 200, dtype))
+    zeros = torch.zeros(bins.shape[1], dtype=torch.int32)
+    got = ch.root_histogram(bins, g, h, w, 200)
+    two = ch.children_histograms(bins, g, h, w, zeros, 0, -2, 200)
+    torch.testing.assert_close(got, two[0], rtol=0, atol=0)
+    assert not bool(two[1].any())
+    with pytest.raises(LightGBMError, match="weight"):
+        ch.root_histogram(bins, g, h, w[:10], 200)
 
 
 @pytest.mark.cuda

@@ -340,27 +340,37 @@ def test_bf16_linear_forest_from_arrays(forests):
 
 
 def test_block_size_steps_down_then_refuses(forests):
-    t = forests["regression"]["tf"].walk_tables
-    assert fw.block_size(t, 28) == 128
-    # a 255-leaf linear forest takes 6 bytes a feature a row: up to 282
-    # features at 128 rows, 565 at 64, 1131 at 32; at 2000 features the
-    # covariate tile alone is 1 MB at 128 rows
+    # the walk's plan takes the widest tile at which one tree's tables fit
+    # (sms = 1: no narrower tile to fill more SMs)
+    def tile(tables, F, B=4096):
+        return fw.plan_walk(
+            B, tables.num_class, tables.trees_per_class,
+            tables.nodes.shape[1], tables.num_leaves, F, tables.linear_k,
+            tables.leaves.element_size(), tables.linear, False, 1).tile
+
+    assert tile(forests["regression"]["tf"].walk_tables, 28) == 512
+    # a 255-leaf linear forest takes 6 bytes a feature a row: up to 70
+    # features at 512 rows, 141 at 256, 282 at 128, 565 at 64, 1131 at
+    # 32; at 2000 features the covariate tile alone is 1 MB at 128 rows
     L, Kf = 255, 5
     wide = fw.WalkTables(
         torch.zeros((1, L - 1, 4), dtype=torch.int32),
         torch.zeros((1, L)), 1, 1, 256, torch.zeros((1, L, Kf)),
         torch.zeros((1, L, Kf), dtype=torch.int32), 0)
-    assert fw.smem_bytes(wide, 2000, 128) > 1 << 20
+    assert fw.walk_smem(1, L - 1, L, 4, Kf, True, 2000, 128) > 1 << 20
     with pytest.raises(lt.LightGBMError, match="more shared memory"):
-        fw.block_size(wide, 2000)
-    assert fw.block_size(wide, 282) == 128
-    assert fw.block_size(wide, 400) == 64
-    assert fw.block_size(wide, 600) == 32
+        tile(wide, 2000)
+    assert tile(wide, 70) == 512
+    assert tile(wide, 71) == tile(wide, 141) == 256
+    assert tile(wide, 282) == 128
+    assert tile(wide, 400) == 64
+    assert tile(wide, 600) == 32
+    assert tile(wide, 600, B=20) == 20          # never wider than B
     # constant f32 tables need no covariate tile: 2000 features fit at 32
     const = wide._replace(coeff=None, feat=None, max_feat=-1)
-    assert fw.block_size(const, 2000) == 32
-    bf16 = const._replace(leaves=const.leaves.to(torch.bfloat16))
-    assert fw.smem_bytes(bf16, 28, 128) < fw.smem_bytes(const, 28, 128)
+    assert tile(const, 2000) == 32
+    assert fw.walk_smem(1, L - 1, L, 2, 0, False, 28, 256) \
+        < fw.walk_smem(1, L - 1, L, 4, 0, False, 28, 256)
 
 
 def test_linear_wrappers_validate_inputs(forests):
