@@ -8,7 +8,9 @@ Every phase prints one JSON line (the probes phase first prints the
 probes' own lines); any failure raises and exits non-zero.
 
 1. ``build``: nvcc builds every kernel under ``lightgbm_tpu_torch/csrc/``
-   for ``sm_90a`` (one nvcc per source, all started together).
+   for ``sm_90a`` (one nvcc per source, all started together); every
+   instantiation of P2's kernel must show a 0-byte stack frame in the
+   ``-Xptxas -v`` report.
 2. ``kernels``: each kernel's wrapper on tensors on the card, held
    against its plain PyTorch version on the same inputs.  Forest walks
    (bit-equal, ``torch.equal``: both fold the same f32 per-tree values in
@@ -47,15 +49,18 @@ probes' own lines); any failure raises and exits non-zero.
    (``serve_quantize_leaves`` keeps bf16 for them), bit-equal to the
    plain walk on the dequantized table.
    The probe kernels (``compare_probes``): the roll chain P1 bit-equal
-   to its plain version on the probe's seeded [12, 2048] input and two
-   more seeds, and after the probe's 50-call ``^ 1`` chain; the
-   device-windowed digit histogram P2 on the probe's 2^20 rows
-   bit-equal to its plain version and to K1 on the same window, for
-   both digit layouts (packed words, [N, 9] matrix), every probe nb and
-   the default split, on the probe's window (5, N/2), an empty one, one
-   row, one ending at N, one whose offset is not a multiple of nb and
-   one clamped past N (bin 255 present); then the probe's 10-call loop,
-   each offset computed on the card from the last output, under
+   to its plain version on the probe's seeded [12, 2048] input, two
+   more seeds and four blocks of adversarial keys (all equal, only
+   INT_MIN and INT_MAX, sorted either way), and after the probe's
+   50-call ``^ 1`` chain; the device-windowed digit histogram P2 on the
+   probe's 2^20 rows bit-equal to its plain version and to K1 on the
+   same window, for both digit layouts (packed words, [N, 9] matrix), on
+   the probe's window (5, N/2), an empty one, one row, one ending at N,
+   one whose offset is not a multiple of any TPU nb and one clamped past
+   N (bin 255 present); a profiled P2 call records its one kernel and no
+   other device work (no memset, no fill; a profile that records nothing
+   fails); then the probe's 10-call loop for each of its five runs, each
+   offset computed on the card from the last output, under
    ``torch.cuda.set_sync_debug_mode("error")``, against a plain replay.
 3. ``serve``: the serving path at full width.  A Higgs-sized forest
    (binary, 28 features, 500 trees, 255 leaves, 255 cut values per
@@ -124,9 +129,11 @@ probes' own lines); any failure raises and exits non-zero.
    K1, K2 and K3
    at S in {4096, 65536, 500000, 1000000} beside their plain versions
    and the ``index_add_`` library call, and of P1 and P2 at the probes'
-   shapes (P2 beside K1 on the same window and ``index_add_`` on the
-   unpacked window), each beside its bound.  ``k1_windows``: K1's small
-   path, large path, the wrapper as the growers call it and
+   shapes (P1 beside three launch floors and a CUDA graph's replay; P2
+   at each of the probe's runs, beside K1 on the same window and
+   ``index_add_`` on the unpacked window; both timed four ways), each
+   beside its bound.  ``k1_windows``: K1's small path, large
+   path, the wrapper as the growers call it and
    ``index_add_`` at every window class the train phase counts (2^10 to
    2^20 rows), each alone (``single_ms``: events around one call, the
    host's enqueue included), back to back (``back_to_back_ms``), by its
@@ -182,7 +189,8 @@ REPLACES = {**{name: "lightgbm_tpu/ops/pallas_walk.py:"
             "window_digit_histogram": "tools/probe_dynhist.py:148"}
 # the PR of the port that redesigned a kernel after its first port
 REDESIGNED = {"digit_histogram": 6, "fused_split_candidates": 6,
-              "children_histograms": 7, **{name: 7 for name in WALKS}}
+              "children_histograms": 7, **{name: 7 for name in WALKS},
+              "roll_chain": 8, "window_digit_histogram": 8}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 TOL = 1e-6
@@ -438,7 +446,23 @@ def leaf_depths(tables) -> np.ndarray:
 # phases
 
 
+def stack_frames(log: str):
+    """{kernel: bytes of stack frame} from an ``nvcc -Xptxas -v`` report
+    (the line after each "Function properties for <kernel>")."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name = ln.rsplit("for", 1)[1].strip()
+        elif name is not None and "bytes stack frame" in ln:
+            out[name] = int(ln.split("bytes stack frame")[0].split()[-1])
+            name = None
+    return out
+
+
 def phase_build():
+    """Builds every kernel; P2's kernels (every ``window_hist``
+    instantiation) must show a stack frame of 0 bytes: no pointer table
+    in local memory."""
     from lightgbm_tpu_torch.ops import _build
     t0 = time.perf_counter()
     secs = _build.build_all()
@@ -446,9 +470,15 @@ def phase_build():
     report = [ln.strip() for name in secs
               for ln in _build.build_log(name).splitlines()
               if "registers" in ln or "spill" in ln]
+    frames = {name: stack_frames(_build.build_log(name)) for name in secs}
+    p2 = {k: v for k, v in frames["window_hist"].items()
+          if "window_hist_kernel" in k}
+    check(len(p2) >= 2 and not any(p2.values()),
+          f"window_hist: every instantiation needs a 0-byte stack frame; "
+          f"ptxas reports {p2}")
     smi = nvidia_smi_line()
     emit({"phase": "build", "seconds": wall, "per_source": secs,
-          "ptxas": report, "nvidia_smi": smi})
+          "ptxas": report, "stack_frames": frames, "nvidia_smi": smi})
     return smi
 
 
@@ -942,26 +972,75 @@ def probe_windows(n: int):
             (3001, 70_000), (n - 1000, 5000))
 
 
+def roll_inputs(seed):
+    """P1's inputs: the probe's seeded block, two more seeds, and keys
+    made to break a key-and-source formulation: all equal, only INT_MIN
+    and INT_MAX, already sorted ascending and descending."""
+    from lightgbm_tpu_torch.ops import roll_chain as rc
+    from lightgbm_tpu_torch.tools import probe_roll as pr
+
+    def seeded(k):
+        return np.random.RandomState(k).randint(
+            -2**31, 2**31 - 1, (rc.WORDS, rc.NB), np.int64).astype(np.int32)
+    out = {"probe_input": pr.make_input(),
+           **{f"seed{seed + k}": seeded(seed + k) for k in (1, 2)}}
+    base = seeded(seed + 3)
+    keys = {"keys_equal": np.full(rc.NB, 7, np.int32),
+            "keys_int_min_max": np.where(
+                np.random.RandomState(seed + 4).rand(rc.NB) < 0.5,
+                np.int32(-2**31), np.int32(2**31 - 1)).astype(np.int32),
+            "keys_ascending": np.arange(rc.NB, dtype=np.int32) * 1000 - 10**6,
+            "keys_descending": -np.arange(rc.NB, dtype=np.int32)}
+    for label, k in keys.items():
+        x = base.copy()
+        x[0] = k
+        out[label] = x
+    return out
+
+
+def device_activities(fn, tries: int = 10):
+    """{name: count} of the device activities (kernels, memsets, copies)
+    that ``torch.profiler`` records over one call of ``fn``, or None
+    where it records none in ``tries`` attempts."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", None)
+            if t is None:
+                t = getattr(e, "cuda_time_total", 0)
+            if t and t > 0:
+                out[e.key[:120]] = e.count
+        if out:
+            return out
+        time.sleep(0.2)
+    return None
+
+
 def compare_probes(seed, dev, errs):
-    """P1 bit-equal to its plain version on the probe's input and two
-    more seeds, and after the probe's 50-call chain.  P2 on the probe's
-    inputs (2^20 rows) bit-equal to its plain version and to K1 on the
-    same window, for both digit layouts and every probe nb (and the
-    default split), on PROBE_WINDOWS; then the probe's 10-call chained
-    loop under ``torch.cuda.set_sync_debug_mode("error")`` (a host read
-    in the wrapper raises), replayed through the plain version.  Each
-    call adds exactly one to its counter."""
+    """P1 bit-equal to its plain version on ``roll_inputs`` (the probe's
+    input, two more seeds, adversarial keys), and after the probe's
+    50-call chain.  P2 on the probe's inputs (2^20 rows) bit-equal to its
+    plain version and to K1 on the same window, for both digit layouts,
+    on ``probe_windows``; one call records its one kernel and no other
+    device activity (no memset, no fill; a profile that records nothing
+    fails); then the probe's 10-call chained loop
+    (every run: the TPU's nb sets nothing on the card) under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host read in the
+    wrapper raises), replayed through the plain version.  Each call adds
+    exactly one to its counter."""
     from lightgbm_tpu_torch.ops import leafhist as lh
     from lightgbm_tpu_torch.ops import roll_chain as rc
     from lightgbm_tpu_torch.ops import window_hist as wh
     from lightgbm_tpu_torch.tools import probe_dynhist as pd
     from lightgbm_tpu_torch.tools import probe_roll as pr
     out = {"roll_chain": {}, "window_digit_histogram": {}}
-    for label, x in (("probe_input", pr.make_input()),
-                     *((f"seed{seed + k}", np.random.RandomState(seed + k)
-                        .randint(-2**31, 2**31 - 1, (rc.WORDS, rc.NB),
-                                 np.int64).astype(np.int32))
-                       for k in (1, 2))):
+    for label, x in roll_inputs(seed).items():
         xt = torch.from_numpy(x).to(dev)
         before = rc.launch_counts()["roll_chain"]
         got = rc.roll_chain(xt)
@@ -984,7 +1063,6 @@ def compare_probes(seed, dev, errs):
     n = bins.shape[0]
     bw, dw, dmat = pd.device_inputs(bins, digits, dev)
     tb = torch.from_numpy(bins).to(dev)
-    nbs = sorted({nb for _, nb, _ in pd.RUNS})
     for off, count in probe_windows(n):
         win = torch.tensor([off, count], dtype=torch.int32, device=dev)
         lo, hi = wh.clamp_window(off, count, n)
@@ -993,18 +1071,27 @@ def compare_probes(seed, dev, errs):
             want = wh.window_digit_histogram_plain(bw, dig, win, pd.F, pd.B)
             check(torch.equal(want, k1), f"P2 plain {layout} ({off}, "
                                          f"{count}): not equal to K1")
-            for nb in [None] + nbs:
-                before = wh.launch_counts()["window_digit_histogram"]
-                got = wh.window_digit_histogram(bw, dig, win, pd.F, pd.B,
-                                                block_rows=nb)
-                torch.cuda.synchronize()
-                check(wh.launch_counts()["window_digit_histogram"]
-                      == before + 1, "P2: launch counter did not move by one")
-                check(torch.equal(got, want),
-                      f"P2 {layout} nb={nb} window ({off}, {count}): not "
-                      f"bit-equal to the plain version and K1")
-                out["window_digit_histogram"][
-                    f"{layout}/nb{nb}/{off}+{count}"] = 0.0
+            before = wh.launch_counts()["window_digit_histogram"]
+            got = wh.window_digit_histogram(bw, dig, win, pd.F, pd.B)
+            torch.cuda.synchronize()
+            check(wh.launch_counts()["window_digit_histogram"]
+                  == before + 1, "P2: launch counter did not move by one")
+            check(torch.equal(got, want),
+                  f"P2 {layout} window ({off}, {count}): not bit-equal to "
+                  f"the plain version and K1")
+            out["window_digit_histogram"][f"{layout}/{off}+{count}"] = 0.0
+    win = torch.tensor([pd.FIRST_OFF, n // 2], dtype=torch.int32, device=dev)
+    one_call = {}
+    for layout, dig in (("words", dw), ("matrix", dmat)):
+        acts = device_activities(lambda: wh.window_digit_histogram(
+            bw, dig, win, pd.F, pd.B))
+        check(acts is not None, f"P2 {layout}: the profiler recorded no "
+                                f"device activity in a call")
+        check(list(acts.values()) == [1]
+              and all("window_hist_kernel" in k for k in acts),
+              f"P2 {layout}: a call ran other than its one kernel: {acts}")
+        one_call[layout] = acts
+    out["one_call_device_activities"] = one_call
     count = torch.tensor(n // 2, dtype=torch.int32, device=dev)
     chained = {}
     for name, nb, matrix in pd.RUNS:
@@ -1014,7 +1101,7 @@ def compare_probes(seed, dev, errs):
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            win, acc = pd.loop(bw, dig, start, count, nb)
+            win, acc = pd.loop(bw, dig, start, count)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
@@ -1792,6 +1879,23 @@ def back_to_back_ms(fn, reps: int, per: int = 50) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, per: int = 50, reps: int = 10) -> float:
+    """Median over ``reps`` CUDA-event timings of one replay of a CUDA
+    graph that holds ``per`` calls of ``fn``, divided by ``per``: a
+    call's device time back to back, with no host launch path between
+    the calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per):
+            fn()
+    return cuda_ms(graph.replay, reps) / per
+
+
 def phase_timing(seed, dev, higgs_model, higgs_grid, lin_model, lin_grid,
                  reps):
     """Every walk variant at each B of TIMING_SIZES: the constant f32 and
@@ -2157,23 +2261,33 @@ def k3_occupancy_timing(seed, dev, reps):
 
 def probe_timing(dev, reps):
     """P1 on the probe's input: the kernel alone (launched back to back;
-    also as single launches, which include the host's launch cost), the
-    plain version and one call of the probe's 50-call chain (kernel +
-    ``^ 1``).  Bytes: the
-    block read once and written once; ops: per stage and column one
-    compare, one select per word and the 13 roll reads (the count the
-    JAX probe's comment implies), 2 x 13 a column.  No PyTorch call
-    computes a roll-select chain (library null).
+    also as single launches, which include the host's launch cost, and
+    by its host enqueue), the plain version and one call of the probe's
+    50-call chain (kernel + ``^ 1``) and a CUDA graph of 50 launches
+    replayed (``graph_ms``: the device's time a launch, no host path),
+    beside three launch floors: an empty kernel launched back to back
+    from one C loop (``launch_floor_ms``), from one Python call a launch
+    through the same host path as the wrapper
+    (``python_launch_floor_ms``) and in a replayed graph
+    (``graph_launch_floor_ms``).  Bytes: the block read once and
+    written once; ops: per stage and column one compare, one select per
+    word and the 13 roll reads (the count the JAX probe's comment
+    implies), 2 x 13 a column.  No PyTorch call computes a roll-select
+    chain (library null).
 
-    P2 on the probe's inputs and first window (5, N/2), every probe nb and
-    the default split, both digit layouts, beside K1 on the same window,
-    the plain version (which reads the window on the host and unpacks
-    it) and the ``index_add_`` its plain version is built on, on the
-    already unpacked window (the unpack not timed).  Bytes: the window's
-    bin and digit words (or matrix rows) read once, the window and the
-    output; ops: one add per non-zero digit per feature (this data's
-    count).  The kernels line takes laneconcat at nb = 2048, the
-    probe's first run."""
+    P2 on the probe's inputs and first window (5, N/2): each of the
+    probe's five runs as the probe calls it (the TPU's nb sets nothing on
+    the card, so the words runs and the matrix runs each time one call),
+    each timed as ``timed`` does (``ms`` is ``single_ms``: events around
+    one call), beside K1 on the same window timed the same ways in the
+    same run (``over_k1``: the ratios), the plain version (which reads
+    the window on the host and unpacks it) and the ``index_add_`` its
+    plain version is built on, on the already unpacked window (the unpack
+    not timed).
+    Bytes: the window's bin and digit words (or matrix rows) read once,
+    the window and the output; ops: one add per non-zero digit per
+    feature (this data's count).  The kernels line takes laneconcat at
+    nb = 2048, the probe's first run."""
     from lightgbm_tpu_torch.ops import leafhist as lh
     from lightgbm_tpu_torch.ops import roll_chain as rc
     from lightgbm_tpu_torch.ops import window_hist as wh
@@ -2188,16 +2302,25 @@ def probe_timing(dev, reps):
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
     x = torch.from_numpy(pr.make_input()).to(dev)
+    floor_calls = 1000
+    p1 = timed(lambda: rc.roll_chain(x), reps)
     rows = [{"kernel": "roll_chain", "stages": rc.STAGES,
              "words": rc.WORDS, "nb": rc.NB,
              "ms": back_to_back_ms(lambda: rc.roll_chain(x), reps),
-             "single_launch_ms": cuda_ms(lambda: rc.roll_chain(x), reps),
-             "plain_ms": cuda_ms(lambda: rc.roll_chain_plain(x), reps),
+             **p1, "plain_ms": cuda_ms(lambda: rc.roll_chain_plain(x), reps),
              "library_ms": None,
              "chain_ms_per_call": cuda_ms(lambda: pr.chain(x), 5) / pr.CHAIN,
-             # one SM's shared-memory traffic: per stage and column 2 key
-             # reads, 12 word reads and 12 word writes of 4 bytes
-             "smem_bytes": rc.STAGES * rc.NB * (2 + 2 * rc.WORDS) * 4,
+             "launch_floor_ms": cuda_ms(
+                 lambda: rc.empty_launches(dev, floor_calls), 5)
+             / floor_calls,
+             "python_launch_floor_ms": back_to_back_ms(
+                 lambda: rc.empty_launches(dev), reps),
+             "graph_ms": graph_ms(lambda: rc.roll_chain(x)),
+             "graph_launch_floor_ms": graph_ms(
+                 lambda: rc.empty_launches(dev)),
+             # one SM's shared-memory traffic: per stage and column one
+             # 8-byte (key, source) read and one 8-byte write
+             "smem_bytes": rc.STAGES * rc.NB * 16,
              **bound(2 * x.numel() * 4,
                      rc.STAGES * rc.NB * 2 * (rc.WORDS + 1)),
              "kernels_line": True}]
@@ -2208,8 +2331,7 @@ def probe_timing(dev, reps):
     off, count = pd.FIRST_OFF, n // 2
     win = torch.tensor([off, count], dtype=torch.int32, device=dev)
     tb = torch.from_numpy(bins).to(dev)
-    k1_ms = cuda_ms(lambda: lh.digit_histogram(tb, dmat, pd.B, off, count),
-                    reps)
+    k1 = timed(lambda: lh.digit_histogram(tb, dmat, pd.B, off, count), reps)
     ops = int((dmat[off:off + count] != 0).sum()) * pd.F
     seg = (torch.arange(pd.F, device=dev)[None, :] * pd.B
            + tb[off:off + count].long()).reshape(-1)
@@ -2221,21 +2343,29 @@ def probe_timing(dev, reps):
     plain = {m: cuda_ms(lambda: wh.window_digit_histogram_plain(
         bw, dmat if m else dw, win, pd.F, pd.B), 2) for m in (False, True)}
     out_bytes = 4 * pd.F * 9 * pd.B
-    for name, nb, matrix in pd.RUNS + (("default", None, False),
-                                       ("default", None, True)):
+
+    def p2_row(name, nb, matrix):
         dig = dmat if matrix else dw
-        ms = cuda_ms(lambda: wh.window_digit_histogram(
-            bw, dig, win, pd.F, pd.B, block_rows=nb), reps)
+        t = timed(lambda: wh.window_digit_histogram(
+            bw, dig, win, pd.F, pd.B), reps)
         nbytes = count * (len(bw) * 4 + (9 if matrix else 12)) + 8 \
             + out_bytes
-        rows.append({"kernel": "window_digit_histogram", "layout": name,
-                     "nb": nb, "digits": "matrix" if matrix else "words",
-                     "S": count, "F": pd.F, "max_bin": pd.B, "ms": ms,
-                     "plain_ms": plain[matrix], "library_ms": lib_ms,
-                     "k1_same_window_ms": k1_ms,
-                     "rows_per_s": count / (ms * 1e-3),
-                     **bound(nbytes, ops),
-                     "kernels_line": name == "laneconcat" and nb == 2048})
+        return {"kernel": "window_digit_histogram", "layout": name,
+                "nb": nb, "digits": "matrix" if matrix else "words",
+                "plan": wh.card_plan(bw, dig, pd.F, pd.B)._asdict(),
+                "S": count, "F": pd.F, "max_bin": pd.B,
+                "ms": t["single_ms"], **t,
+                "plain_ms": plain[matrix], "library_ms": lib_ms,
+                "k1_same_window": k1,
+                "over_k1": {k: t[k] / k1[k] for k in
+                            ("single_ms", "back_to_back_ms",
+                             "device_ms_total") if k in t and k in k1},
+                "rows_per_s": count / (t["single_ms"] * 1e-3),
+                **bound(nbytes, ops),
+                "kernels_line": name == "laneconcat" and nb == 2048}
+
+    for name, nb, matrix in pd.RUNS:
+        rows.append(p2_row(name, nb, matrix))
     return rows
 
 

@@ -72,22 +72,24 @@ def _read(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def pack_u8_words(x_u8: torch.Tensor):
-    """[N, C] uint8 -> tuple of ceil(C/4) contiguous [N] int32 words:
+def pack_u8_words(x_u8: torch.Tensor) -> torch.Tensor:
+    """[N, C] uint8 -> a contiguous [ceil(C/4), N] int32 buffer whose rows
+    are the words (the JAX package's tuple of [N] words, stacked):
     column ``c`` sits in word ``c // 4`` at bits ``8 * (c % 4)``
     (little-endian, as the JAX package's bitcast packs it)."""
     n, c = x_u8.shape
     w = -(-c // 4)
     if w * 4 != c:
         x_u8 = torch.nn.functional.pad(x_u8, (0, w * 4 - c))
-    words = x_u8.contiguous().view(torch.int32)          # [N, w]
-    return tuple(words.t().contiguous().unbind(0))
+    return x_u8.contiguous().view(torch.int32).t().contiguous()
 
 
-def unpack_words(words, c: int) -> torch.Tensor:
-    """tuple of W [N] int32 words -> [N, c] uint8 (inverse of
+def unpack_words(words: torch.Tensor, c: int) -> torch.Tensor:
+    """[W, N] int32 words -> [N, c] uint8 (inverse of
     :func:`pack_u8_words`)."""
-    stacked = torch.stack(tuple(words), dim=1)           # [N, W]
+    # clone, not contiguous(): an empty window's transpose counts as
+    # contiguous with its old strides, which view() refuses
+    stacked = words.t().clone(memory_format=torch.contiguous_format)
     return stacked.view(torch.uint8)[:, :c].contiguous()
 
 

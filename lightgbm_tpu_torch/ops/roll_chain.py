@@ -14,8 +14,11 @@ rolled column: every row of a column moves together.
 (which replaces the TPU kernel ``tools/probe_roll.py`` ``kernel``) for a
 CUDA tensor, or raises; for a CPU tensor it runs :func:`roll_chain_plain`
 (``torch.roll`` + ``torch.where``, stage for stage).  Both are exact
-integer selects, so they agree bit for bit.  Kernel launches are counted
-in :data:`LAUNCHES`.
+integer selects, so they agree bit for bit.  The kernel carries each
+column's key and source column through the stages and gathers the 12
+words once at the end (the stages compose into one permutation of the
+columns).  Kernel launches are counted in :data:`LAUNCHES`;
+:func:`empty_launches` gives the floor a launch stands on.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Dict
 import torch
 
 from ..utils.log import LightGBMError
+from . import _build
 
 STAGES = 28
 WORDS = 12
@@ -58,7 +62,7 @@ def roll_chain_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def _check(x: torch.Tensor) -> None:
-    if x.dtype != torch.int32 or tuple(x.shape) != (WORDS, NB):
+    if x.dtype != torch.int32 or x.shape != (WORDS, NB):
         raise LightGBMError(
             f"roll_chain: x is {tuple(x.shape)} {x.dtype}; expected "
             f"({WORDS}, {NB}) torch.int32")
@@ -67,12 +71,13 @@ def _check(x: torch.Tensor) -> None:
 
 
 def _lib():
-    from . import _build
     lib = _build.load("roll_chain")
     if lib.lgbt_roll_chain.argtypes is None:
         p = ctypes.c_void_p
         lib.lgbt_roll_chain.argtypes = [p, p, p]
         lib.lgbt_roll_chain.restype = ctypes.c_int
+        lib.lgbt_empty_launches.argtypes = [ctypes.c_int, p]
+        lib.lgbt_empty_launches.restype = ctypes.c_int
     return lib
 
 
@@ -80,16 +85,23 @@ def roll_chain(x: torch.Tensor) -> torch.Tensor:
     """The stage chain on ``x`` [WORDS, NB] int32 (contiguous) into a new
     tensor: the kernel on a card, the plain version on the CPU."""
     _check(x)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         return roll_chain_plain(x)
     out = torch.empty_like(x)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.lgbt_roll_chain(x.data_ptr(), out.data_ptr(), stream)
+    err = _build.launch(x.device, _lib().lgbt_roll_chain, x.data_ptr(),
+                        out.data_ptr())
     if err != 0:
         raise LightGBMError(
             f"roll_chain kernel launch failed: CUDA error {err}")
     with _count_lock:
         LAUNCHES["roll_chain"] += 1
     return out
+
+
+def empty_launches(device: torch.device, count: int = 1) -> None:
+    """``count`` launches of an empty kernel on ``device``'s current
+    stream, back to back from one C call (not counted): the floor under
+    any launch of :func:`roll_chain`."""
+    err = _build.launch(device, _lib().lgbt_empty_launches, count)
+    if err != 0:
+        raise LightGBMError(f"empty kernel launch failed: CUDA error {err}")

@@ -7,12 +7,15 @@ on the card from the last output (``out[0, 0, 0] % 128``, the first 5).
 
     python -m lightgbm_tpu_torch.tools.probe_dynhist [--device cpu] [--rows N]
 
-Runs the JAX probe's five (layout, nb) pairs, ``nb`` being the rows a
-block takes, and prints per run the build + first loop seconds, ms a
-call and ns a row, then one JSON line.  ``subconcat_T`` differs from
-``laneconcat`` only in a TPU tile's orientation, so it runs the same
-kernel (its JSON entry says ``"same_as": "laneconcat"``).  A failure
-raises.
+Runs the JAX probe's five (layout, nb) pairs and prints per run the
+build + first loop seconds, ms a call and ns a row, then one JSON line.
+On the TPU ``nb`` is the rows of a VMEM tile, which sets the grid.  On
+the card it sets nothing: the grid is ``window_hist.plan_window``'s,
+planned from the card and N (each run's ``plan``), and the words or
+matrix kernel runs the same for every ``nb``.  ``subconcat_T`` differs
+from ``laneconcat`` only in a TPU tile's orientation.  So each run whose
+kernel and plan an earlier run already timed says which
+(``"same_as": "laneconcat nb=2048"``).  A failure raises.
 """
 
 from __future__ import annotations
@@ -26,18 +29,18 @@ import torch
 
 from ..device import resolve_device
 from ..ops.ordered_grow import pack_u8_words
-from ..ops.window_hist import window_digit_histogram
+from ..ops.window_hist import card_plan, window_digit_histogram
 from . import clock_name, elapsed_ms, first_run_s
 
 N = 1 << 20
 F, B = 28, 256
 CALLS = 10
 FIRST_OFF = 5
-#: the JAX probe's runs: (layout, rows a block takes, digits as a matrix)
+#: the JAX probe's runs: (layout, the TPU's nb, digits as a matrix)
 RUNS = (("laneconcat", 2048, False), ("laneconcat", 4096, False),
         ("subconcat_T", 8192, False), ("digmat", 8192, True),
         ("digmat", 4096, True))
-SAME_AS = {"subconcat_T": "laneconcat"}
+NB_ON_CARD = "sets nothing on the card: the grid is plan_window's"
 
 
 def make_inputs(rows: int = N):
@@ -50,22 +53,23 @@ def make_inputs(rows: int = N):
 
 
 def device_inputs(bins: np.ndarray, digits: np.ndarray, dev):
-    """(bin words, digit words, digit matrix) on ``dev``."""
+    """(bin words [7, rows] int32, digit words [3, rows] int32, digit
+    matrix [rows, 9] int8) on ``dev``: each kind of word stacked as the
+    rows of one buffer, as ``window_digit_histogram`` takes them."""
     b = torch.from_numpy(bins).to(dev)
     d = torch.from_numpy(digits).to(dev)
     return pack_u8_words(b), pack_u8_words(d.view(torch.uint8)), d
 
 
 def loop(bin_words, digits, window: torch.Tensor, count: torch.Tensor,
-         block_rows: int, calls: int = CALLS):
+         calls: int = CALLS):
     """The JAX probe's loop: ``calls`` calls, each window's offset
     ``out[0, 0, 0] % 128`` of the call before, on the device; returns the
     last window and the sum of ``out[0, 0, 1]``.  Reads nothing on the
     host."""
     acc = torch.zeros((), dtype=torch.int32, device=window.device)
     for _ in range(calls):
-        o = window_digit_histogram(bin_words, digits, window, F, B,
-                                   block_rows=block_rows)
+        o = window_digit_histogram(bin_words, digits, window, F, B)
         window = torch.stack([torch.remainder(o[0, 0, 0], 128), count])
         acc = acc + o[0, 0, 1]
     return window, acc
@@ -76,26 +80,32 @@ def run(device=None, rows: int = N) -> dict:
     bw, dw, dmat = device_inputs(*make_inputs(rows), dev)
     count = torch.tensor(rows // 2, dtype=torch.int32, device=dev)
     out = []
+    first = {}
     for name, nb, matrix in RUNS:
         digits = dmat if matrix else dw
         start = torch.tensor([FIRST_OFF, rows // 2], dtype=torch.int32,
                              device=dev)
         (win, _), build_s = first_run_s(
-            lambda: loop(bw, digits, start, count, nb), dev)
+            lambda: loop(bw, digits, start, count), dev)
         (win, acc), ms = elapsed_ms(
-            lambda: loop(bw, digits, win, count, nb), dev)
+            lambda: loop(bw, digits, win, count), dev)
         per_call = ms / CALLS
         entry = {"name": name, "nb": nb,
                  "digits": "matrix" if matrix else "words",
                  "build_run_s": build_s, "ms_per_call": per_call,
                  "ns_per_row": per_call * 1e6 / (rows // 2),
-                 "last_off": int(win[0]), "acc": int(acc)}
-        if name in SAME_AS:
-            entry["same_as"] = SAME_AS[name]
+                 "last_off": int(win[0]), "acc": int(acc),
+                 "plan": card_plan(bw, digits, F, B)._asdict()
+                 if dev.type == "cuda" else None}
+        if matrix in first:
+            entry["same_as"] = first[matrix]
+        else:
+            first[matrix] = f"{name} nb={nb}"
         out.append(entry)
     return {"probe": "window_digit_histogram", "device": str(dev),
             "clock": clock_name(dev), "rows": rows, "features": F,
-            "max_bin": B, "window": rows // 2, "calls": CALLS, "runs": out}
+            "max_bin": B, "window": rows // 2, "calls": CALLS,
+            "nb": NB_ON_CARD, "runs": out}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:

@@ -11,12 +11,15 @@ it, at N = 2^14 rows and nb = 2048, on windows whose blocks lie inside
 N.  The same numpy inputs go to both sides and every comparison is exact
 (int32 digit sums, int32 words).  The plain version is also held against
 K1's plain version on the unpacked window at the edges (a window ending
-at N, one clamped past N or below 0, bin 255).  The CUDA kernel is held
-against the plain version and K1 by the ``cuda``-marked test, which
-skips on a host without a card.
+at N, one clamped past N or below 0, bin 255).  The words of each kind
+go to the port stacked as the rows of one buffer.  The CUDA kernel is
+held against the plain version and K1, with one kernel launch a call and
+nothing zero-filled before it, by the ``cuda``-marked test, which skips
+on a host without a card.
 """
 
 import json
+import time
 
 import numpy as np
 import pytest
@@ -93,6 +96,8 @@ def test_pack_words_bit_equal_to_jax(c):
     x = rng.randint(0, 256, size=(1000, c)).astype(np.uint8)
     want = [np.asarray(w) for w in jog.pack_u8_words(jnp.asarray(x))]
     got = tog.pack_u8_words(torch.from_numpy(x))
+    # the [W, N] buffer window_digit_histogram takes, no stacking
+    assert got.shape == (len(want), 1000) and got.is_contiguous()
     assert len(got) == len(want) == -(-c // 4)
     for g, w in zip(got, want):
         assert g.dtype == torch.int32 and g.is_contiguous()
@@ -176,7 +181,7 @@ def test_wrapper_on_cpu_counts_nothing_and_checks_inputs(inputs):
     bw, dw, dmat = inputs["bw"], inputs["dw"], inputs["dmat"]
     win = _window(5, 100)
     wh.reset_launch_counts()
-    wh.window_digit_histogram(bw, dw, win, F, B, block_rows=2048)
+    wh.window_digit_histogram(bw, dw, win, F, B)
     assert wh.launch_counts() == {"window_digit_histogram": 0}
     with pytest.raises(LightGBMError, match="window must be"):
         wh.window_digit_histogram(bw, dw, win.to(torch.int64), F, B)
@@ -191,8 +196,11 @@ def test_wrapper_on_cpu_counts_nothing_and_checks_inputs(inputs):
     with pytest.raises(LightGBMError, match="max_bin"):
         wh.window_digit_histogram(bw, dw, win, F, 257)
     with pytest.raises(LightGBMError, match="contiguous"):
-        wh.window_digit_histogram(bw, (dw[0], dw[1], dw[2].to(torch.int64)),
-                                  win, F, B)
+        wh.window_digit_histogram(bw, dw.to(torch.int64), win, F, B)
+    with pytest.raises(LightGBMError, match="contiguous"):
+        wh.window_digit_histogram(bw.t().contiguous().t(), dw, win, F, B)
+    with pytest.raises(LightGBMError, match="contiguous"):
+        wh.window_digit_histogram(bw, dw.t().contiguous().t(), win, F, B)
 
 
 def test_cpu_entry_point_prints_its_json_line(capsys, inputs):
@@ -203,8 +211,13 @@ def test_cpu_entry_point_prints_its_json_line(capsys, inputs):
     assert res["device"] == "cpu" and res["window"] == N // 2
     assert [(r["name"], r["nb"]) for r in res["runs"]] == [
         (name, nb) for name, nb, _ in tprobe.RUNS]
+    # the TPU's nb sets nothing on the card: the words runs time one
+    # kernel, the matrix runs another
+    assert res["nb"] == tprobe.NB_ON_CARD
     assert [r.get("same_as") for r in res["runs"]] == [
-        None, None, "laneconcat", None, None]
+        None, "laneconcat nb=2048", "laneconcat nb=2048", None,
+        "digmat nb=8192"]
+    assert all(r["plan"] is None for r in res["runs"])
     # the chained offsets, replayed on the host: every layout agrees
     # (the second loop starts from the first one's last window and sums
     # out[0, 0, 1] over its calls)
@@ -232,6 +245,7 @@ def test_entry_point_needs_a_card_unless_told_cpu():
 def test_kernel_matches_plain_and_k1_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
+    from torch.profiler import ProfilerActivity, profile
     dev = torch.device("cuda", 0)
     n = 1 << 17
     bins, digits = tprobe.make_inputs(n)
@@ -239,19 +253,37 @@ def test_kernel_matches_plain_and_k1_on_card():
     bw, dw, dmat = tprobe.device_inputs(bins, digits, dev)
     tb = torch.from_numpy(bins).to(dev)
     for off, count in ((5, n // 2), (0, 0), (4097, 1), (n - 3000, 3000),
-                       (n - 10, 500), (1000, 70000)):
+                       (n - 10, 500), (1000, 70000), (-50, 100)):
         win = torch.tensor([off, count], dtype=torch.int32, device=dev)
         lo = min(max(off, 0), n)
         hi = min(max(off + count, lo), n)
         k1 = tlh.digit_histogram(tb, dmat, B, lo, hi - lo)
         for digits_in in (dw, dmat):
-            for block_rows in (None, 2048, 8192):
-                wh.reset_launch_counts()
-                got = wh.window_digit_histogram(bw, digits_in, win, F, B,
-                                                block_rows=block_rows)
+            want = wh.window_digit_histogram_plain(bw, digits_in, win, F, B)
+            wh.reset_launch_counts()
+            got = wh.window_digit_histogram(bw, digits_in, win, F, B)
+            torch.cuda.synchronize()
+            assert wh.launch_counts() == {"window_digit_histogram": 1}
+            assert torch.equal(got, want), (off, count)
+            assert torch.equal(got, k1)
+    # one call: its kernel once and no other device work (no memset, no
+    # fill); the profiler does not record every call, so it is asked up
+    # to ten times, and a call it never records fails the test
+    win = torch.tensor([5, n // 2], dtype=torch.int32, device=dev)
+    for digits_in in (dw, dmat):
+        wh.window_digit_histogram(bw, digits_in, win, F, B)
+        torch.cuda.synchronize()
+        acts = {}
+        for _ in range(10):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                wh.window_digit_histogram(bw, digits_in, win, F, B)
                 torch.cuda.synchronize()
-                assert wh.launch_counts() == {"window_digit_histogram": 1}
-                want = wh.window_digit_histogram_plain(bw, digits_in, win,
-                                                       F, B)
-                assert torch.equal(got, want), (off, count, block_rows)
-                assert torch.equal(got, k1)
+            acts = {e.key: e.count for e in prof.key_averages()
+                    if (getattr(e, "device_time_total", None)
+                        or getattr(e, "cuda_time_total", 0)) > 0}
+            if acts:
+                break
+            time.sleep(0.2)
+        assert acts, "the profiler recorded no device activity"
+        assert list(acts.values()) == [1], acts
+        assert all("window_hist_kernel" in k for k in acts), acts

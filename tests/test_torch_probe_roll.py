@@ -9,7 +9,8 @@ words): the probe's seeded input and two more seeds, and a 3-call chain
 of the probe's loop body ``call(acc) ^ 1``.  The roll direction is pinned
 on a hand-made input and against ``np.roll``.  The CUDA kernel is held
 against the plain version by the ``cuda``-marked test, which skips on a
-host without a card.
+host without a card, also on adversarial keys (all equal, only INT_MIN
+and INT_MAX, sorted either way).
 """
 
 import json
@@ -149,8 +150,19 @@ def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     dev = torch.device("cuda", 0)
-    for seed in (0, 1, 2):
-        x = torch.from_numpy(_seeded(seed)).to(dev)
+    rng = np.random.RandomState(7)
+    keys = (np.full(rc.NB, 3, np.int32),                      # all equal
+            np.where(rng.rand(rc.NB) < 0.5, np.int32(-2**31),
+                     np.int32(2**31 - 1)).astype(np.int32),
+            np.arange(rc.NB, dtype=np.int32),                 # sorted
+            -np.arange(rc.NB, dtype=np.int32))
+    inputs = [_seeded(seed) for seed in (0, 1, 2)]
+    for k in keys:
+        x = _seeded(9)
+        x[0] = k
+        inputs.append(x)
+    for x in inputs:
+        x = torch.from_numpy(x).to(dev)
         rc.reset_launch_counts()
         got = rc.roll_chain(x)
         torch.cuda.synchronize()
@@ -162,3 +174,8 @@ def test_kernel_matches_plain_on_card():
         acc = rc.roll_chain(acc) ^ 1
         want = rc.roll_chain_plain(want) ^ 1
     assert torch.equal(acc, want)
+    # the floor's empty kernel launches and counts nothing
+    rc.reset_launch_counts()
+    rc.empty_launches(dev, 10)
+    torch.cuda.synchronize()
+    assert rc.launch_counts() == {"roll_chain": 0}
