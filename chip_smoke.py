@@ -23,7 +23,7 @@ probes' own lines); any failure raises and exits non-zero.
    levels deep, each frozen with f32 and bf16, constant and linear
    leaves) at B = 1, one tile - 1, one tile + 1 and 4096 rows.  The leaf
    histogram K1 (exact int32 sums, so bit-equal, ``torch.equal``): uint8
-   and uint16 bins, F in {5, 28, 30}, windows of S in {0, 1, 4097,
+   and uint16 bins, F in {5, 28, 30, 136}, windows of S in {0, 1, 4097,
    65536, 1000000} rows at a row offset,
    on the wrapper's choice of path and on each of its two paths forced;
    and at every window class of the train phase (2^10 to 2^20 rows) on
@@ -116,6 +116,39 @@ probes' own lines); any failure raises and exits non-zero.
    part (1e-5), AUC rising, and the fit's share of a round.  Every run
    also counts its histogram kernel's launches by the power-of-two
    class of the rows each scans (``train_windows``: printed only).
+   ``examples``: each of the repo's four example confs
+   (``examples/{binary_classification,regression,multiclass_classification,
+   lambdarank}/train.conf``) through ``lightgbm_tpu_torch.cli.main`` in a
+   copy of its directory, once with ``device=cuda`` and once with
+   ``device=cpu``, 10 rounds, then its ``predict.conf`` (raw scores) on
+   the test file with each model and the card once more with the CPU's
+   model: the binary conf loads ``binary.train.weight``, the lambdarank
+   conf reads LibSVM with its ``.query`` files and ``ndcg_at=1,3,5``,
+   the multiclass conf trains 5 classes, and the regression conf runs
+   with ``bagging_fraction``, ``bagging_freq`` and ``feature_fraction``
+   taken out (refused until bagging and feature fraction are ported; its
+   line says so).  K1 launches Σ over trees of (1 + splits) in the
+   card's run and K4 in every card prediction; the card's trees equal
+   the CPU's up to a reported f32 near-tie, every round's metrics agree
+   within 1e-4 (a ranking metric beyond it only at a near-tie of scores,
+   shown by recomputing it from both models), the card's predictions of
+   the CPU model within 1e-5 of the CPU's, and of its own model too
+   unless a near-tie flipped a split.
+   ``objectives``: every objective the port added, at the train phase's
+   operating point (``num_leaves=63``, ``max_bin=255``): multiclass (5
+   classes, labels the quintiles of a seeded latent over
+   ``make_higgs_like(1000000)`` features) and LambdaRank (MSLR-WEB10K's
+   shape: 136 dense features, relevance 0-4, query sizes from the seed
+   in [1, 1024], mean ~120, 1M rows), 10 rounds each; regression,
+   regression_l1, huber and fair on the same latent and poisson on
+   counts from it, 5 rounds each.  Each run: K1's launches equal Σ over
+   trees of (1 + splits); the first tree of each class re-grown through
+   the plain versions from the same gradients is bit-identical; the
+   saved model through K4 equals the score buffer within 1e-5; the
+   training metric improves; the card's gradients on the final scores
+   equal the same function's on the CPU within 1e-6 relative (of each
+   value plus the largest; LambdaRank's too); and each round's seconds and the gradient's share of it (CUDA
+   events) are printed.
 5. ``probes``: the probes' own entry points, ``python -m
    lightgbm_tpu_torch.tools.probe_roll`` and ``probe_dynhist`` (their
    ``main``) at the JAX probes' sizes, each with its launch counter set
@@ -156,7 +189,12 @@ Without a CUDA card the script exits non-zero before printing a result.
 """
 
 import argparse
+import contextlib
+import io
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -232,6 +270,36 @@ GROWERS = (("ordered", {**CONST}, "digit_histogram"),
            ("nocache", {**CONST, "histogram_pool_size": 1,
                         "memory_policy": "degrade"}, "children_histograms"),
            ("linear", LINEAR_PARAMS, "digit_histogram"))
+REPO = os.path.dirname(os.path.abspath(__file__))
+# the examples phase: (name, folder of examples/), the rounds, and the
+# keys taken out of a conf because the port refuses them (bagging and
+# feature_fraction are not ported yet)
+EXAMPLES = (("binary", "binary_classification"), ("regression", "regression"),
+            ("multiclass", "multiclass_classification"),
+            ("lambdarank", "lambdarank"))
+EXAMPLE_ROUNDS = 10
+EXAMPLE_DROPPED = {"regression": ("bagging_fraction", "bagging_freq",
+                                  "feature_fraction")}
+# card against CPU, a leaf value within this share of its tree's largest:
+# f32 sums in another order (an H100 read 5.0e-5 at most, PERF.md)
+EXAMPLE_LEAF_RTOL = 2e-4
+# the objectives phase: the train phase's operating point, the MSLR-like
+# width, and (objective, extra params, rounds, labels) for each run
+OBJ_ROWS = 1_000_000
+OBJ_PARAMS = {"num_leaves": 63, "max_bin": 255, "learning_rate": 0.1,
+              "min_data_in_leaf": 50}
+RANK_FEATURES = 136
+OBJECTIVE_RUNS = (
+    ("multiclass", {"num_class": 5}, 10, "multiclass"),
+    ("lambdarank", {"ndcg_eval_at": "1,3,5,10"}, 10, "rank"),
+    ("regression", {}, 5, "continuous"),
+    ("regression_l1", {}, 5, "continuous"),
+    ("huber", {}, 5, "continuous"),
+    ("fair", {}, 5, "continuous"),
+    ("poisson", {}, 5, "counts"))
+# the card's gradients against the CPU's, relative to each value plus
+# the largest (LambdaRank's pair sums associate otherwise on the card)
+GRAD_RTOL = 1e-6
 
 
 def emit(obj) -> None:
@@ -709,11 +777,11 @@ def phase_kernels(seed, dev, higgs_model, higgs_grid, linear_set, errs):
 
 
 def compare_leaf_hist(seed, dev, errs):
-    """K1 against its plain version: bit-equal at every dtype, width and
-    window size, on the wrapper's own choice of path and on each path
-    forced; then at every window class the train phase counts (2^10 to
-    2^20 rows, uint8, 28 features, 255 bins) on both paths.  One launch
-    per call."""
+    """K1 against its plain version: bit-equal at every dtype, width (F
+    in HIST_FEATURES and RANK_FEATURES) and window size, on the
+    wrapper's own choice of path and on each path forced; then at every
+    window class the train phase counts (2^10 to 2^20 rows, uint8, 28
+    features, 255 bins) on both paths.  One launch per call."""
     from lightgbm_tpu_torch.ops import leafhist as lh
     rng = np.random.RandomState(seed + 14)
     out = {}
@@ -732,8 +800,10 @@ def compare_leaf_hist(seed, dev, errs):
         errs["digit_histogram"] = max(errs["digit_histogram"], d)
         out[label] = d
 
+    # the K2/K3 widths, and the objectives phase's LambdaRank width (the
+    # LambdaRank example's 30 features are among them)
     for dtype, max_bin in ((np.uint8, 255), (np.uint16, 1000)):
-        for F in HIST_FEATURES:
+        for F in HIST_FEATURES + (RANK_FEATURES,):
             bins, dig = hist_inputs(rng, max(HIST_SIZES) + 3, F, max_bin,
                                     dtype, dev)
             for S in HIST_SIZES:
@@ -1408,10 +1478,10 @@ class _timed_updates:
         self._orig = orig = Booster.update
         rec = self.seconds
 
-        def update(booster):
+        def update(booster, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = orig(booster)
+            out = orig(booster, **kwargs)
             torch.cuda.synchronize()
             rec.append(time.perf_counter() - t0)
             return out
@@ -1795,6 +1865,510 @@ def profile_round(booster, name):
                     "share": ms * 1e-3 / wall}
     out["rest"] = {"ms": rest, "share": rest * 1e-3 / wall}
     return out
+
+
+# ---------------------------------------------------------------------------
+# the repo's example confs through the CLI, card against CPU
+
+
+@contextlib.contextmanager
+def in_dir(path):
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+def run_main(main, argv) -> str:
+    """``main(argv)`` (a CLI's entry point) with its log captured; it
+    must exit 0.  Returns the log."""
+    buf = io.StringIO()
+    with contextlib.redirect_stderr(buf):
+        check(main(argv) == 0, f"cli {argv}: exit code")
+    return buf.getvalue()
+
+
+def _cli(argv) -> str:
+    from lightgbm_tpu_torch import cli
+    return run_main(cli.main, argv)
+
+
+def copy_example(name: str, folder: str, work: str) -> str:
+    """The files of ``examples/<folder>`` copied into ``work``; returns
+    the train conf to run, ``train.conf`` less EXAMPLE_DROPPED[name]."""
+    shutil.copytree(os.path.join(REPO, "examples", folder), work,
+                    dirs_exist_ok=True)
+    if name not in EXAMPLE_DROPPED:
+        return "train.conf"
+    with open(f"{work}/train.conf") as fh:
+        keep = [ln for ln in fh.read().splitlines()
+                if ln.split("#", 1)[0].split("=", 1)[0].strip()
+                not in EXAMPLE_DROPPED[name]]
+    with open(f"{work}/train_port.conf", "w") as fh:
+        fh.write("\n".join(keep) + "\n")
+    return "train_port.conf"
+
+
+_ROUND_LINE = re.compile(r"Iteration:(\d+), (\S+) (\S+) : (\S+)")
+
+
+def round_metrics(log_text: str) -> dict:
+    """{(round, data, metric): value} of the port's round lines."""
+    return {(int(m.group(1)), m.group(2), m.group(3)): float(m.group(4))
+            for m in _ROUND_LINE.finditer(log_text)}
+
+
+def tree_sections(text: str):
+    """[{field: value}] of every tree of a model text."""
+    out, cur = [], None
+    for ln in text.splitlines():
+        if ln.startswith("Tree="):
+            cur = {}
+            out.append(cur)
+        elif ln.startswith("feature importances"):
+            cur = None
+        elif cur is not None and "=" in ln:
+            k, v = ln.split("=", 1)
+            cur[k] = v
+    return out
+
+
+def _field(tree, name):
+    return np.array(tree[name].split(), dtype=np.float64) \
+        if tree.get(name) else np.zeros(0)
+
+
+def compare_model_texts(a_text: str, b_text: str, label: str,
+                        names=("card", "cpu"), tie_rtol=TREE_TIE_RTOL,
+                        leaf_rtol=EXAMPLE_LEAF_RTOL):
+    """Trees of model ``a`` against the reference ``b``: structure-equal
+    (thresholds to 1e-9 relative), leaf values within ``leaf_rtol`` of
+    the tree's largest, up to the first split where the two choices
+    differ, which must be an f32 near-tie (gains within ``tie_rtol``,
+    the nodes before it equal; reported under ``names``, and no later
+    tree compared: every later score depends on it).  Returns (trees
+    compared, the flip or None, the largest leaf-value difference over
+    the tree's largest leaf)."""
+    ta, tb = tree_sections(a_text), tree_sections(b_text)
+    check(len(ta) == len(tb) > 0, f"{label}: {len(ta)} vs {len(tb)} trees")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(ta, tb)):
+        fa, fb = _field(a, "split_feature"), _field(b, "split_feature")
+        ha, hb = _field(a, "threshold"), _field(b, "threshold")
+        n = min(len(fa), len(fb))
+        differ = [k for k in range(n) if fa[k] != fb[k]
+                  or not np.isclose(ha[k], hb[k], rtol=1e-9, atol=0)]
+        if differ or len(fa) != len(fb):
+            k = differ[0] if differ else n
+            check(k < n, f"{label} tree {i}: leaf counts differ with no "
+                         f"split that does")
+            ga, gb = _field(a, "split_gain")[k], _field(b, "split_gain")[k]
+            flip = {"tree": i, "node": k,
+                    names[0]: {"feature": int(fa[k]), "gain": float(ga)},
+                    names[1]: {"feature": int(fb[k]), "gain": float(gb)}}
+            for name in ("left_child", "right_child", "decision_type"):
+                check(_field(a, name)[:k].tolist()
+                      == _field(b, name)[:k].tolist(),
+                      f"{label}: {name} before the flip {flip}")
+            check(abs(ga - gb) <= tie_rtol * max(abs(ga), abs(gb)),
+                  f"{label}: split differs beyond a near-tie: {flip}")
+            print(f"{label}: near-tie flip {flip}", file=sys.stderr)
+            return i, flip, worst
+        for name in ("num_leaves", "left_child", "right_child",
+                     "decision_type", "leaf_count", "internal_count"):
+            check(a.get(name) == b.get(name), f"{label} tree {i}: {name}")
+        la, lb = _field(a, "leaf_value"), _field(b, "leaf_value")
+        rel = float(np.abs(la - lb).max() / max(np.abs(lb).max(), 1e-12))
+        check(rel <= leaf_rtol, f"{label} tree {i}: leaf values {rel}")
+        worst = max(worst, rel)
+    return len(ta), None, worst
+
+
+def rank_metric_from_models(work, conf, key, models, digits=None):
+    """The ranking metric ``key`` = (round, data, name) recomputed on the
+    CPU from each model's raw scores after ``round`` rounds (scores
+    rounded to ``digits`` significant digits first, when given), by the
+    port's metric on the port's reading of the data file."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.config import Config, parse_config_file
+    from lightgbm_tpu_torch.io.parser import parse_file
+    from lightgbm_tpu_torch.metric import create_metric
+    rnd, data, name = key
+    with in_dir(work):
+        params = parse_config_file(conf)
+        cfg = Config(params)
+        path = cfg.data if data == "training" else \
+            cfg.valid_data[int(data.split("_")[1]) - 1]
+        ds = lt.Dataset(path, params=params).construct()._binned
+        X = parse_file(path, cfg.has_header, 0, ds.num_total_features)[1]
+        out = []
+        for model in models:
+            raw = lt.Booster(model_file=model, device="cpu").predict(
+                X, num_iteration=rnd, raw_score=True).reshape(1, -1)
+            if digits is not None:
+                raw = np.array([[float(f"{v:.{digits}g}") for v in raw[0]]])
+            m = create_metric(name.split("@")[0], cfg)
+            m.init(ds.metadata, ds.num_data)
+            out.append(dict(zip(m.names, m.eval(raw)))[name])
+    return out
+
+
+def compare_round_metrics(a, b, work, conf, label, models,
+                          names=("card", "cpu")):
+    """Every round's every metric of log ``a`` against the reference
+    ``b`` (``round_metrics`` dicts) within 1e-4.  A ranking metric (auc,
+    ndcg, map) jumps where two scores tie, and rows that score alike in
+    exact arithmetic tie or not by the last bit of f32 sums summed in
+    another order; such a metric beyond 1e-4 passes only when its
+    recomputation from the two ``models`` (a's, b's) gives the two
+    logged values (1e-5) and agrees within 1e-4 once the scores are
+    rounded to 6 significant digits, which merges such ties.  Returns
+    (max difference within 1e-4, the ties so explained)."""
+    check(set(a) == set(b) and b, f"{label}: metric sets differ")
+    worst, ties = 0.0, []
+    for key in sorted(b):
+        d = abs(a[key] - b[key])
+        if d <= 1e-4:
+            worst = max(worst, d)
+            continue
+        check(key[2].split("@")[0] in ("auc", "ndcg", "map"),
+              f"{label}: {key} {names[0]} {a[key]} {names[1]} {b[key]}")
+        exact = rank_metric_from_models(work, conf, key, models)
+        check(abs(exact[0] - a[key]) <= 1e-5
+              and abs(exact[1] - b[key]) <= 1e-5,
+              f"{label}: {key} recomputed {exact}")
+        rounded = rank_metric_from_models(work, conf, key, models, 6)
+        check(abs(rounded[0] - rounded[1]) <= 1e-4,
+              f"{label}: {key} beyond 1e-4 after rounding: {rounded}")
+        ties.append({"metric": list(key), names[0]: a[key],
+                     names[1]: b[key], "rounded_6_digits": rounded})
+        print(f"{label}: ranking metric at a near-tie of scores "
+              f"{ties[-1]}", file=sys.stderr)
+    return worst, ties
+
+
+def phase_examples(workdir):
+    """Each example conf through ``lightgbm_tpu_torch.cli.main``, on the
+    card and on the CPU, in a copy of its directory: EXAMPLE_ROUNDS
+    rounds, then the conf's ``predict.conf`` (raw scores) on its test
+    file with each model, and the card once more with the CPU's model.
+    K1 must launch Σ over trees of (1 + splits) times in the card's
+    training run, and K4 in every card prediction.  Returns the
+    launches."""
+    from lightgbm_tpu_torch.ops import forest_walk as fw
+    from lightgbm_tpu_torch.ops import leafhist as lh
+    total = {}
+    for name, folder in EXAMPLES:
+        work = f"{workdir}/example_{name}"
+        conf = copy_example(name, folder, work)
+        runs = {}
+        with in_dir(work):
+            for dev in ("cuda", "cpu"):
+                lh.reset_launch_counts()
+                t0 = time.perf_counter()
+                text = _cli([f"config={conf}", f"num_trees={EXAMPLE_ROUNDS}",
+                             f"device={dev}", f"output_model=model_{dev}.txt"])
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+                with open(f"model_{dev}.txt") as fh:
+                    model = fh.read()
+                trees = tree_sections(model)
+                runs[dev] = {
+                    "text": model, "trees": len(trees), "train_s": train_s,
+                    "leaves": sum(int(t["num_leaves"]) for t in trees),
+                    "k1": lh.launch_counts()["digit_histogram"],
+                    "metrics": round_metrics(text),
+                    "preds": {}}
+            for dev, model_dev in (("cuda", "cuda"), ("cuda", "cpu"),
+                                   ("cpu", "cpu")):
+                fw.reset_launch_counts()
+                out = f"pred_{dev}_on_{model_dev}.txt"
+                _cli(["config=predict.conf", f"device={dev}",
+                      f"input_model=model_{model_dev}.txt",
+                      "is_predict_raw_score=true", f"output_result={out}"])
+                runs[dev]["preds"][model_dev] = (
+                    np.loadtxt(out, ndmin=1),
+                    sum(fw.launch_counts().values()))
+        card, cpu = runs["cuda"], runs["cpu"]
+        check(card["k1"] == card["leaves"],
+              f"{name}: K1 launches {card['k1']} != {card['leaves']}")
+        check(cpu["k1"] == 0, f"{name}: K1 launched in the CPU run")
+        check(all(n > 0 for _, n in card["preds"].values()),
+              f"{name}: a card prediction launched no K4")
+        check(all(n == 0 for _, n in cpu["preds"].values()),
+              f"{name}: K4 launched in the CPU prediction")
+        compared, flip, leaf_rel = compare_model_texts(
+            card["text"], cpu["text"], f"examples {name}")
+        worst, ties = compare_round_metrics(
+            card["metrics"], cpu["metrics"], work, conf, f"examples {name}",
+            ("model_cuda.txt", "model_cpu.txt"))
+        # the card's predict path on the CPU's model always; the two
+        # models' own predictions unless a near-tie flipped a split
+        want = cpu["preds"]["cpu"][0]
+        same_model = float(np.abs(card["preds"]["cpu"][0] - want).max())
+        check(np.allclose(card["preds"]["cpu"][0], want, rtol=1e-5,
+                          atol=1e-5),
+              f"{name}: card predict of the CPU model: {same_model}")
+        own = float(np.abs(card["preds"]["cuda"][0] - want).max())
+        if flip is None:
+            check(np.allclose(card["preds"]["cuda"][0], want, rtol=1e-5,
+                              atol=1e-5), f"{name}: predictions {own}")
+        check(np.isfinite(card["preds"]["cuda"][0]).all(),
+              f"{name}: non-finite predictions")
+        emit({"phase": "examples", "conf": f"examples/{folder}/train.conf",
+              "dropped_keys": list(EXAMPLE_DROPPED.get(name, ())),
+              "dropped_because": "refused until bagging and "
+                                 "feature_fraction are ported"
+              if name in EXAMPLE_DROPPED else None,
+              "rounds": EXAMPLE_ROUNDS, "trees": card["trees"],
+              "train_s": {"cuda": card["train_s"], "cpu": cpu["train_s"]},
+              "k1_launches": card["k1"],
+              "k4_launches": {m: n for m, (_, n) in card["preds"].items()},
+              "trees_structure_equal": compared, "near_tie_flip": flip,
+              "max_leaf_value_diff_of_tree_max": leaf_rel,
+              "metrics_compared": len(cpu["metrics"]),
+              "max_metric_diff": worst, "ranking_metric_ties": ties,
+              "final_metrics": {f"{k[1]} {k[2]}": v for k, v in
+                                card["metrics"].items()
+                                if k[0] == EXAMPLE_ROUNDS},
+              "max_pred_diff_card_vs_cpu": own,
+              "max_pred_diff_same_model": same_model,
+              "predictions": int(want.shape[0])})
+        total["digit_histogram"] = total.get("digit_histogram", 0) \
+            + card["k1"]
+        total["forest_walk"] = total.get("forest_walk", 0) + sum(
+            n for _, n in card["preds"].values())
+    return total
+
+
+# ---------------------------------------------------------------------------
+# the new objectives at full width on the card
+
+
+def mslr_like(num_data: int, seed: int):
+    """A stand-in for MSLR-WEB10K at its published shape: 136 dense
+    features, relevance labels 0-4, and query sizes drawn from ``seed``
+    between 1 and 1024 with a mean of about 120 (a clipped log-normal);
+    a few features carry the relevance."""
+    rng = np.random.RandomState(seed)
+    sizes = np.clip(np.round(np.exp(rng.normal(4.5, 0.75, size=num_data))),
+                    1, 1024).astype(np.int64)
+    sizes = sizes[:np.searchsorted(np.cumsum(sizes), num_data) + 1]
+    sizes[-1] -= sizes.sum() - num_data
+    sizes = sizes[sizes > 0]
+    X = rng.normal(size=(num_data, RANK_FEATURES)).astype(np.float32)
+    latent = X[:, :8] @ rng.uniform(0.2, 1.0, size=8) \
+        + rng.normal(scale=1.5, size=num_data)
+    label = np.digitize(latent, np.quantile(latent, [0.45, 0.7, 0.88,
+                                                     0.97]))
+    return X.astype(np.float64), label.astype(np.float64), sizes
+
+
+def objective_data(seed):
+    """{kind: (Dataset, X)} of the objectives phase: the Higgs-like
+    features with multiclass, continuous and count labels from one
+    seeded latent, and the MSLR-like ranking set."""
+    import lightgbm_tpu_torch as lt
+    X, _ = make_higgs_like(OBJ_ROWS, seed=seed + 60)
+    rng = np.random.RandomState(seed + 61)
+    latent = 0.8 * X[:, 0] - 0.6 * X[:, 1] + 0.5 * X[:, 14] \
+        + 0.3 * X[:, 7] * X[:, 2] + rng.normal(scale=0.8, size=OBJ_ROWS)
+    labels = {
+        "multiclass": np.digitize(latent, np.quantile(
+            latent, [0.2, 0.4, 0.6, 0.8])).astype(np.float64),
+        "continuous": latent,
+        "counts": rng.poisson(np.exp(0.4 * latent)).astype(np.float64)}
+    t0 = time.perf_counter()
+    higgs = lt.Dataset(X, labels["continuous"],
+                       params=dict(OBJ_PARAMS)).construct()
+    Xr, yr, sizes = mslr_like(OBJ_ROWS, seed + 62)
+    rank = lt.Dataset(Xr, yr, group=sizes,
+                      params=dict(OBJ_PARAMS)).construct()
+    emit({"phase": "objectives_data", "rows": OBJ_ROWS,
+          "higgs_features": X.shape[1], "rank_features": RANK_FEATURES,
+          "queries": int(len(sizes)), "query_size_mean": float(sizes.mean()),
+          "query_size_max": int(sizes.max()),
+          "relevance_counts": np.bincount(yr.astype(int)).tolist(),
+          "binning_s": time.perf_counter() - t0})
+    return higgs, X, labels, rank, Xr
+
+
+class _timed_gradients:
+    """CUDA events around every ``gradients_with`` of ``objective``
+    inside the block."""
+
+    def __init__(self, objective):
+        self.objective, self.spans = objective, []
+
+    def __enter__(self):
+        fn = self.objective.gradients_with
+
+        def timed(arrays, score):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(arrays, score)
+            e.record()
+            self.spans.append((s, e))
+            return out
+        self.objective.gradients_with = timed
+        return self
+
+    def __exit__(self, *exc):
+        del self.objective.gradients_with
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.spans]
+
+
+def k1_on_run(gbdt, grad, hess, label):
+    """K1 on a training run's own card bins and digits (``grad``/``hess``
+    of one class, the row weights), held bit-equal to its plain version:
+    the root window (all rows), and windows of the rows ordered by the
+    last feature, which carries no signal in the objectives phase's sets,
+    as the ordered grower orders a leaf's rows, at sizes that take each
+    of the wrapper's paths.  Returns the windows."""
+    from lightgbm_tpu_torch.ops import leafhist as lh
+    bins, w = gbdt.train_data.bins_rm, gbdt._row_weight
+    g, h = grad * w, hess * w
+    dig = lh.quantize_digits(g, h, w, lh.compute_scales(g, h, w))
+    B = gbdt.grow_params.max_bin
+    N, F = bins.shape
+    order = torch.sort(bins[:, F - 1].to(torch.int32), stable=True).indices
+    store = bins.view(torch.int16) if bins.dtype == torch.uint16 else bins
+    ordered = store.index_select(0, order).view(bins.dtype)
+    ordered_dig = dig.index_select(0, order)
+    windows = [("root", bins, dig, 0, N)] + [
+        ("ordered", ordered, ordered_dig, start, min(S, N - start))
+        for start, S in ((N // 2 - 3, 4097), (5, lh.SMALL_WINDOW_MAX_ROWS),
+                         (7, lh.SMALL_WINDOW_MAX_ROWS + 1),
+                         (N - N // 3 - 1, N // 3))]
+    for kind, b, d, start, S in windows:
+        before = lh.launch_counts()["digit_histogram"]
+        got = lh.digit_histogram(b, d, B, start, S)
+        torch.cuda.synchronize()
+        check(lh.launch_counts()["digit_histogram"] == before + 1,
+              f"{label}: K1 on the run's bins launched no kernel")
+        want = lh.digit_histogram_plain(b, d, B, start, S)
+        check(torch.equal(got, want),
+              f"{label}: K1 on the run's bins, {kind} window "
+              f"[{start}, {start + S}) of {F} features, not bit-equal to "
+              f"the plain version")
+    return [[kind, start, S] for kind, _, _, start, S in windows]
+
+
+def objective_run(name, extra, rounds, train_set, X, workdir):
+    """``rounds`` rounds of one objective on the card: K1's launches,
+    the first tree of each class re-grown through the plain versions
+    (bit-identical), K1 on the run's own bins bit-equal to its plain
+    version (``k1_on_run``), the saved model through K4 against the score
+    buffer, the training metric's direction, the card's gradients
+    against the same function on the CPU, and each round's seconds and
+    gradient share."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import forest_walk as fw
+    from lightgbm_tpu_torch.ops import leafhist as lh
+    params = {**OBJ_PARAMS, "objective": name, **extra}
+    booster = lt.Booster(params=params, train_set=train_set)
+    gbdt = booster._booster
+    lh.reset_launch_counts()
+    evals = []
+    seconds = []
+    with _timed_gradients(gbdt.objective) as grads:
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            booster.update()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            evals.append(booster.eval_train())
+        grad_ms = grads.ms()
+    k1 = lh.launch_counts()["digit_histogram"]
+    grown = list(gbdt.tree_arrays)
+    K = gbdt.num_class
+    check(len(grown) == rounds * K, f"{name}: {len(grown)} trees")
+    want = sum(int(ta.num_leaves) for ta in grown)
+    check(k1 == want, f"{name}: K1 launches {k1} != {want}")
+
+    # (b) the first tree of each class from the round-0 gradients
+    score = torch.zeros_like(gbdt.train_data.score)
+    grad, hess = gbdt.objective.gradients_with(gbdt._grad_arrays, score)
+    for c in range(K):
+        with _plain_kernels():
+            ta, _, _ = gbdt._grow(grad[c], hess[c])
+        compare_regrown(grown[c], ta, f"{name} class {c} tree 1", exact=True)
+    k1_windows = k1_on_run(gbdt, grad[0], hess[0], name)
+    # the card's gradients against the CPU's on the final scores
+    cpu_arrays = gbdt.objective.gradient_arrays(torch.device("cpu"))
+    final = gbdt.train_data.score
+    g_card, h_card = gbdt.objective.gradients_with(gbdt._grad_arrays, final)
+    g_cpu, h_cpu = gbdt.objective.gradients_with(cpu_arrays, final.cpu())
+    tol = GRAD_RTOL
+    grad_err = {}
+    for what, a, b in (("grad", g_card, g_cpu), ("hess", h_card, h_cpu)):
+        a, b = a.double().cpu(), b.double()
+        err = float(((a - b).abs() / (b.abs() + b.abs().max())).max())
+        check(bool(((a - b).abs() <= tol * b.abs()
+                    + tol * b.abs().max()).all()),
+              f"{name}: card {what} against the CPU's: {err}")
+        grad_err[what] = err
+
+    path = f"{workdir}/objective_{name}.txt"
+    booster.save_model(path)
+    fw.reset_launch_counts()
+    pred = lt.Booster(model_file=path).predict(X[:4096], raw_score=True)
+    k4 = sum(fw.launch_counts().values())
+    check(k4 > 0, f"{name}: the saved model's prediction launched no K4")
+    buf = gbdt.train_data.score[:, :4096].double().cpu().numpy()
+    pred = pred.T if pred.ndim == 2 else pred[None]
+    d_pred = float(np.abs(pred - buf).max())
+    check(np.isfinite(pred).all() and d_pred <= 1e-5,
+          f"{name}: saved model vs score buffer: {d_pred}")
+
+    curve = {}
+    for per_round in evals:
+        for _, metric, value, bigger in per_round:
+            curve.setdefault(metric, ([], bigger))[0].append(value)
+    for metric, (values, bigger) in curve.items():
+        check(all(np.isfinite(values))
+              and (values[-1] > values[0] if bigger
+                   else values[-1] < values[0]),
+              f"{name}: training {metric} {values} does not improve")
+    round_ms = [s * 1e3 for s in seconds]
+    share = [g / r for g, r in zip(grad_ms, round_ms)]
+    emit({"phase": "objectives", "objective": name, "params": params,
+          "rows": train_set.num_data(), "features": X.shape[1],
+          "rounds": rounds, "trees": len(grown),
+          "leaves_per_tree": [int(ta.num_leaves) for ta in grown],
+          "k1_launches": k1, "k4_launches": k4,
+          "k1_bit_equal_on_run_bins": k1_windows,
+          "round_s": seconds,
+          "round_s_median_after_2": float(np.median(seconds[2:])),
+          "gradient_ms": grad_ms,
+          "gradient_share_median": float(np.median(share)),
+          "gradient_vs_cpu_max_rel_err": grad_err,
+          "saved_model_vs_score_buffer": d_pred,
+          "training_metric": {m: v for m, (v, _) in curve.items()}})
+    return {"digit_histogram": k1, "forest_walk": k4}
+
+
+def phase_objectives(seed, workdir):
+    """Every objective the port added, at full width on the card
+    (OBJECTIVE_RUNS); returns the launches."""
+    higgs, X, labels, rank, Xr = objective_data(seed)
+    total = {}
+    for name, extra, rounds, kind in OBJECTIVE_RUNS:
+        if kind == "rank":
+            ds, rows = rank, Xr
+        else:
+            ds, rows = higgs.set_label(labels[kind]), X
+        got = objective_run(name, extra, rounds, ds, rows, workdir)
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -2400,6 +2974,9 @@ def main(argv=None) -> int:
                                            errs))
         trained, windows = phase_train(args.seed, dev, workdir)
         launches.update(trained)
+        for name, n in [*phase_examples(workdir).items(),
+                        *phase_objectives(args.seed, workdir).items()]:
+            launches[name] += n
     launches.update(phase_probes(args.timing_reps))
     timing = phase_timing(args.seed, dev, higgs_model, higgs_grid,
                           lin_model, lin_grid, args.timing_reps)

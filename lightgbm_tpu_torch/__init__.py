@@ -3,7 +3,8 @@
 Two paths.  Serving: model text -> frozen forest -> the hand-written
 forest-walk CUDA kernel (``csrc/forest_walk.cu``; constant or affine
 leaves, f32 or bf16 leaf tables) -> micro-batcher and HTTP server.
-Training (serial, binary): ``train(params, Dataset(X, y))`` -> objective
+Training (serial; every objective of the JAX package, a custom ``fobj``
+too): ``train(params, Dataset(X or a data file, y))`` -> objective
 gradients -> the grower ``serial_grow`` selects -> (``linear_tree``: the
 per-leaf affine fit, ``models/linear.py``) -> score update.  ``ordered``
 (default) and ``cached`` run the hand-written leaf-histogram kernel

@@ -2,7 +2,8 @@
 tasks.
 
     python -m lightgbm_tpu_torch task=train data=train.csv \\
-        objective=binary output_model=model.txt [valid_data=valid.csv] \\
+        objective=<objective> output_model=model.txt \\
+        [valid_data=valid.csv] [config=train.conf] \\
         [num_iterations=100 num_leaves=63 ...] [device=cuda|cpu] \\
         [serial_grow=ordered|cached|fused] \\
         [histogram_pool_size=<MB> memory_policy=fail_fast|degrade]
@@ -14,11 +15,13 @@ tasks.
 Parameters parse as in the JAX CLI (``key=value`` tokens, ``config=``
 file first, command line wins, the same aliases); keys this port does not
 read are ignored with one warning each, and keys that would change the
-answer are refused (``config.py``).  Data files are dense CSV/TSV with
-the label in the first column; ``task=train`` refuses a data or valid
-file with ``.weight``, ``.init`` or ``.query`` side files beside it,
-which the JAX CLI would load.  ``python -m lightgbm_tpu_torch
-serve ...`` is sugar for ``task=serve``.
+answer are refused (``config.py``).  Data files are CSV, TSV or LibSVM
+(io/parser.py), with the label in ``label_column`` (default the first
+column); ``.weight``, ``.query`` and ``.init`` side files beside a data
+or valid file are loaded, and the column roles (``weight_column``,
+``group_column``, ``ignore_column``, ``categorical_column``) are taken.
+Every objective of the JAX package trains.  ``python -m
+lightgbm_tpu_torch serve ...`` is sugar for ``task=serve``.
 """
 
 from __future__ import annotations
@@ -26,98 +29,15 @@ from __future__ import annotations
 import os
 import sys
 import time
-from typing import Dict, Iterator, List
+from typing import Dict
 
 import numpy as np
 
 from .basic import Booster, Dataset
 from .config import Config, parse_cli_args
+from .io.column_roles import resolve_label_idx
+from .io.parser import parse_file_chunks, read_header
 from .utils import log
-from .utils.log import LightGBMError
-
-_CHUNK_ROWS = 1 << 16
-#: side files the JAX CLI loads beside a data file (weights, query
-#: boundaries, initial scores); the port does not load them yet
-SIDE_FILES = (".weight", ".init", ".query")
-_NA = {"", "na", "nan", "null", "none"}
-
-
-def _value(tok: str) -> float:
-    tok = tok.strip()
-    if tok.lower() in _NA:
-        return float("nan")
-    return float(tok)
-
-
-def _parse_lines(lines: List[str], numbers: List[int], delim: str,
-                 path: str) -> np.ndarray:
-    rows = []
-    width = None
-    for ln, no in zip(lines, numbers):
-        parts = ln.strip().split(delim)
-        if width is None:
-            width = len(parts)
-        elif len(parts) != width:
-            raise LightGBMError(
-                f"{path}:{no}: ragged_row: {len(parts)} fields where the "
-                f"file has {width}")
-        try:
-            rows.append([_value(p) for p in parts])
-        except ValueError:
-            raise LightGBMError(f"{path}:{no}: unparseable_token in "
-                                f"{ln.strip()[:80]!r}")
-    return np.asarray(rows, np.float64).reshape(len(rows), width or 0)
-
-
-def _split_label(mat: np.ndarray, label_idx: int, with_label: bool):
-    label = None
-    if 0 <= label_idx < mat.shape[1]:
-        label = mat[:, label_idx].copy()
-        mat = np.delete(mat, label_idx, axis=1)
-    return (mat, label) if with_label else mat
-
-
-def read_rows(path: str, has_header: bool, label_idx: int,
-              with_label: bool = False) -> Iterator:
-    """Dense CSV/TSV feature rows of ``path`` in chunks (the label
-    column ``label_idx`` dropped; blank lines skipped; NA -> NaN).  With
-    ``with_label`` each chunk is ``(rows, labels)``."""
-    delim = None
-    lines: List[str] = []
-    numbers: List[int] = []
-    with open(path, "r", errors="replace") as fh:
-        for no, line in enumerate(fh, start=1):
-            if has_header and no == 1:
-                continue
-            if not line.strip():
-                continue
-            if delim is None:
-                if ":" in line and line.count(":") >= max(
-                        line.count(","), line.count("\t")):
-                    raise LightGBMError(
-                        f"{path}: LibSVM input is not supported by the "
-                        f"torch port yet (use CSV or TSV)")
-                delim = "\t" if line.count("\t") >= line.count(",") \
-                    and "\t" in line else ","
-            lines.append(line)
-            numbers.append(no)
-            if len(lines) >= _CHUNK_ROWS:
-                yield _split_label(_parse_lines(lines, numbers, delim, path),
-                                   label_idx, with_label)
-                lines, numbers = [], []
-    if lines:
-        yield _split_label(_parse_lines(lines, numbers, delim, path),
-                           label_idx, with_label)
-
-
-def read_labeled(path: str, has_header: bool):
-    """The whole of a training file: ([N, F] rows, [N] labels from the
-    first column)."""
-    parts = list(read_rows(path, has_header, 0, with_label=True))
-    if not parts:
-        raise LightGBMError(f"{path}: no data rows")
-    return (np.concatenate([p[0] for p in parts], axis=0),
-            np.concatenate([p[1] for p in parts]))
 
 
 def _write_prediction_rows(fh, part: np.ndarray) -> None:
@@ -132,8 +52,10 @@ def _write_prediction_rows(fh, part: np.ndarray) -> None:
 
 
 def run_predict(config: Config, params: Dict[str, str]) -> None:
-    """task=predict: score ``data`` with ``input_model`` through the
-    forest-walk kernel; results stream to ``output_result``."""
+    """task=predict: score ``data`` (CSV, TSV or LibSVM, densified to the
+    model's width) with ``input_model`` through the forest-walk kernel;
+    results stream to ``output_result``.  The label column is
+    ``label_column`` when given, else the model's."""
     if not config.input_model:
         log.fatal("No model file specified (input_model=...)")
     if not config.data:
@@ -141,16 +63,18 @@ def run_predict(config: Config, params: Dict[str, str]) -> None:
     booster = Booster(model_file=config.input_model, params=dict(params),
                       device=config.device)
     b = booster._booster
+    label_idx = b.label_idx
+    if config.label_column:
+        label_idx = resolve_label_idx(
+            config.label_column,
+            read_header(config.data)[0] if config.has_header else None)
     start = time.monotonic()
     out = config.output_result or "LightGBM_predict_result.txt"
     tmp = f"{out}.tmp{os.getpid()}"
     n_rows = 0
     with open(tmp, "w") as fh:
-        for X in read_rows(config.data, config.has_header, b.label_idx):
-            if X.shape[1] < b.max_feature_idx + 1:
-                pad = np.zeros((X.shape[0], b.max_feature_idx + 1))
-                pad[:, :X.shape[1]] = X
-                X = pad
+        for _, X in parse_file_chunks(config.data, config.has_header,
+                                      label_idx, b.max_feature_idx + 1):
             part = booster.predict(
                 X, num_iteration=config.num_iteration_predict,
                 raw_score=config.is_predict_raw_score)
@@ -163,27 +87,20 @@ def run_predict(config: Config, params: Dict[str, str]) -> None:
 
 
 def run_train(config: Config, params: Dict[str, str]) -> None:
-    """task=train: bin ``data`` (and each ``valid_data`` file against its
-    mappers), boost ``num_iterations`` rounds on ``device``, log the
-    metrics each ``output_freq`` rounds, save ``output_model``."""
+    """task=train: bin ``data`` (with its side files and column roles)
+    and each ``valid_data`` file against its mappers, boost
+    ``num_iterations`` rounds on ``device``, log the metrics each
+    ``output_freq`` rounds, save ``output_model``."""
     if not config.data:
         log.fatal("No training data specified (data=...)")
     config.check_trainable()          # before reading a large file
-    for path in [config.data, *config.valid_data]:
-        for ext in SIDE_FILES:
-            if os.path.exists(path + ext):
-                raise LightGBMError(
-                    f"{path + ext} sits beside {path}: the torch port does "
-                    f"not load {', '.join(SIDE_FILES)} side files yet, and "
-                    f"would train without it")
     start = time.monotonic()
-    X, y = read_labeled(config.data, config.has_header)
-    train_set = Dataset(X, y, params=dict(params))
+    train_set = Dataset(config.data, params=dict(params))
     booster = Booster(params=dict(params), train_set=train_set,
                       device=config.device)
     for i, path in enumerate(config.valid_data):
-        Xv, yv = read_labeled(path, config.has_header)
-        booster.add_valid(train_set.create_valid(Xv, yv), f"valid_{i + 1}")
+        booster.add_valid(train_set.create_valid(path, params=dict(params)),
+                          f"valid_{i + 1}")
     log.info("Finished loading data in %f seconds",
              time.monotonic() - start)
     for it in range(config.num_iterations):
@@ -212,11 +129,15 @@ def run_serve(config: Config, params: Dict[str, str]) -> None:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
-        print("usage: python -m lightgbm_tpu_torch task=train "
-              "data=<csv> objective=binary [output_model=<file>] "
-              "[valid_data=<csv>] [device=cuda|cpu]\n"
+        print("usage: python -m lightgbm_tpu_torch config=<conf> "
+              "[key=value ...]\n"
+              "       python -m lightgbm_tpu_torch task=train "
+              "data=<csv|tsv|libsvm> objective=<regression|regression_l1|"
+              "huber|fair|poisson|binary|multiclass|lambdarank> "
+              "[output_model=<file>] [valid_data=<file>] "
+              "[device=cuda|cpu]\n"
               "       python -m lightgbm_tpu_torch task=predict "
-              "input_model=<model> data=<csv> [output_result=<file>] "
+              "input_model=<model> data=<file> [output_result=<file>] "
               "[device=cuda|cpu]\n"
               "       python -m lightgbm_tpu_torch serve "
               "input_model=<model> [serve_port=<p> serve_max_batch=<n> "

@@ -7,11 +7,16 @@ runs here unchanged.  Any other key is accepted and ignored with one
 warning per key, when it cannot change a tree or a prediction
 (``num_threads``, ``metric_freq``).  Keys that would change the answer
 and are not ported yet are refused with a ``LightGBMError`` naming them,
-under their aliases too (:data:`REFUSED`: the data-column roles, and
-``is_predict_leaf_index`` for predict).  Training settings the port has
-not ported yet (bagging, feature fraction, GOSS, DART, distributed
-learners, objectives other than binary, early stopping, continued
-training from ``input_model``) raise in :meth:`Config.check_trainable`.
+under their aliases too: ``is_predict_leaf_index`` for predict, a
+``bad_data_policy`` other than ``fail_fast`` and
+``use_two_round_loading=true`` (the JAX loader's quarantine and
+streaming paths).  Training settings the port has not ported yet
+(bagging, feature fraction, GOSS, DART, distributed learners, early
+stopping, continued training from ``input_model``) raise in
+:meth:`Config.check_trainable`; every objective of the JAX package
+trains (``regression``, ``regression_l1``, ``huber``, ``fair``,
+``poisson``, ``binary``, ``multiclass``, ``lambdarank``, and ``none``
+for a custom objective).
 """
 
 from __future__ import annotations
@@ -50,6 +55,10 @@ PARAM_ALIASES: Dict[str, str] = {
     "enable_sparse": "is_enable_sparse",
     "tranining_metric": "is_training_metric",
     "train_metric": "is_training_metric",
+    "ndcg_at": "ndcg_eval_at",
+    "eval_at": "ndcg_eval_at",
+    "two_round_loading": "use_two_round_loading",
+    "two_round": "use_two_round_loading",
     "min_data_per_leaf": "min_data_in_leaf",
     "min_data": "min_data_in_leaf",
     "min_child_samples": "min_data_in_leaf",
@@ -75,12 +84,13 @@ PARAM_ALIASES: Dict[str, str] = {
     "reg_lambda": "lambda_l2",
     "num_classes": "num_class",
     "unbalanced_sets": "is_unbalance",
-    # keys the port refuses (REFUSED, check_trainable), so that an alias
+    # keys the port refuses (_check, check_trainable), so that an alias
     # is refused too rather than warned about
     "early_stopping_rounds": "early_stopping_round",
     "early_stopping": "early_stopping_round",
     "predict_leaf_index": "is_predict_leaf_index",
     "leaf_index": "is_predict_leaf_index",
+    # column roles (io/column_roles.py)
     "label": "label_column",
     "weight": "weight_column",
     "group": "group_column",
@@ -93,12 +103,6 @@ PARAM_ALIASES: Dict[str, str] = {
     "cat_feature": "categorical_column",
 }
 
-#: keys that change a tree or a prediction and are not ported yet: a
-#: non-empty value is refused, whatever the task (ROADMAP Queue A item 1:
-#: the port reads column 0 as the label and every other column as a
-#: feature)
-REFUSED = ("label_column", "weight_column", "group_column", "ignore_column",
-           "categorical_column")
 _PREDICT_TASKS = ("predict", "prediction", "test")
 
 _DEFAULTS: Dict[str, Any] = {
@@ -150,6 +154,14 @@ _DEFAULTS: Dict[str, Any] = {
     "sigmoid": 1.0,
     "is_unbalance": False,
     "scale_pos_weight": 1.0,
+    # the objectives' and metrics' parameters
+    "huber_delta": 1.0,
+    "fair_c": 1.0,
+    "gaussian_eta": 1.0,
+    "poisson_max_delta_step": 0.7,
+    "label_gain": [],
+    "max_position": 20,
+    "ndcg_eval_at": [1, 2, 3, 4, 5],
     "is_training_metric": False,
     "output_freq": 1,
     "bagging_fraction": 1.0,
@@ -166,21 +178,25 @@ _DEFAULTS: Dict[str, Any] = {
     # degrade: drop the cache for the full-pass grower)
     "histogram_pool_size": -1.0,
     "memory_policy": "fail_fast",
-    # read only to be refused (REFUSED, _check, check_trainable)
-    "early_stopping_round": 0,
-    "is_predict_leaf_index": False,
+    # in-data column roles of a data file (io/column_roles.py)
     "label_column": "",
     "weight_column": "",
     "group_column": "",
     "ignore_column": "",
     "categorical_column": "",
+    # read only to be refused (_check, check_trainable)
+    "early_stopping_round": 0,
+    "is_predict_leaf_index": False,
+    "bad_data_policy": "fail_fast",
+    "use_two_round_loading": False,
 }
 
 _BOOL_KEYS = {k for k, v in _DEFAULTS.items() if isinstance(v, bool)}
 _INT_KEYS = {k for k, v in _DEFAULTS.items()
              if isinstance(v, int) and not isinstance(v, bool)}
 _FLOAT_KEYS = {k for k, v in _DEFAULTS.items() if isinstance(v, float)}
-_LIST_KEYS = {"predict_buckets", "metric", "valid_data"}
+_LIST_KEYS = {"predict_buckets", "metric", "valid_data", "label_gain",
+              "ndcg_eval_at"}
 
 _OBJECTIVE_ALIASES = {
     "regression": "regression", "regression_l2": "regression",
@@ -203,6 +219,11 @@ _METRIC_ALIASES = {
     "multi_error": "multi_error", "ndcg": "ndcg",
     "map": "map", "mean_average_precision": "map",
 }
+
+#: the objectives the port trains (``none``: gradients from a custom
+#: ``fobj``)
+OBJECTIVES = ("regression", "regression_l1", "huber", "fair", "poisson",
+              "binary", "multiclass", "lambdarank", "none")
 
 _DEFAULT_METRIC = {
     "regression": ["l2"], "regression_l1": ["l1"], "huber": ["huber"],
@@ -260,6 +281,8 @@ class Config:
                     if n not in ("", "none", "null", "na")]
         if key == "valid_data":
             return _coerce_list(value)
+        if key == "label_gain":
+            return _coerce_list(value, float)
         if key in _LIST_KEYS:
             return _coerce_list(value, int)
         if key == "objective":
@@ -275,13 +298,21 @@ class Config:
 
     def _check(self) -> None:
         v = self._values
-        given = [f"{k}={v[k]}" for k in REFUSED if str(v[k]).strip()]
-        if given:
+        if v["bad_data_policy"] not in ("fail_fast", "quarantine"):
+            raise ValueError(
+                f"Unknown bad_data_policy {v['bad_data_policy']} "
+                "(expected fail_fast or quarantine)")
+        if v["bad_data_policy"] != "fail_fast":
+            raise LightGBMError(
+                "not ported yet to the torch package: bad_data_policy="
+                f"{v['bad_data_policy']} (the torch port reads data files "
+                "fail-fast: the first malformed line raises)")
+        if v["use_two_round_loading"]:
             raise LightGBMError(
                 "not ported yet to the torch package: "
-                + ", ".join(given) + " (the torch port reads column 0 of "
-                "the data as the label and every other column as a "
-                "feature; it does not take column roles)")
+                "use_two_round_loading=true (the JAX package's streaming "
+                "loader samples the rows it bins from differently; the "
+                "torch port loads the whole file)")
         if v["is_predict_leaf_index"] and v["task"] in _PREDICT_TASKS:
             raise LightGBMError(
                 "not ported yet to the torch package: "
@@ -313,12 +344,17 @@ class Config:
             raise ValueError(
                 f"Unknown memory_policy {v['memory_policy']} "
                 "(expected fail_fast or degrade)")
-        if v["objective"] != "multiclass" and v["num_class"] != 1 \
-                and v["task"] == "train":
+        obj = v["objective"]
+        if obj == "multiclass":
+            if v["num_class"] <= 2:
+                raise ValueError(
+                    "Number of classes should be specified and greater "
+                    "than 2 for multiclass training")
+        elif obj != "none" and v["num_class"] != 1 and v["task"] == "train":
             raise ValueError(
                 "Number of classes must be 1 for non-multiclass training")
-        for metric in v["metric"]:
-            if (v["objective"] == "multiclass") != (
+        for metric in v["metric"] if obj != "none" else ():
+            if (obj == "multiclass") != (
                     metric in ("multi_logloss", "multi_error")):
                 raise ValueError("Objective and metrics don't match")
         if not v["metric"]:
@@ -337,13 +373,14 @@ class Config:
 
     def check_trainable(self) -> None:
         """Raise for every training setting outside the ported slice
-        (serial binary GBDT with any ``serial_grow``, constant or linear
-        leaves, without row or feature sampling, early stopping or
-        continued training); nothing here is silently ignored."""
+        (serial GBDT of any objective with any ``serial_grow``, constant
+        or linear leaves, without row or feature sampling, early stopping
+        or continued training); nothing here is silently ignored."""
         v = self._values
         unported = []
-        if v["objective"] != "binary":
-            unported.append(f"objective={v['objective']} (binary is)")
+        if v["objective"] not in OBJECTIVES:
+            raise LightGBMError(
+                f"Unknown objective type name: {v['objective']}")
         if v["boosting_type"] != "gbdt":
             unported.append(f"boosting_type={v['boosting_type']} "
                             "(GOSS and DART)")

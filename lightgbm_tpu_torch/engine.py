@@ -2,9 +2,11 @@
 
 Port of the JAX package's engine.py ``train`` for the training slice: a
 Booster on ``device`` (default ``cuda``), valid sets attached in order,
-one ``update()`` per round, and per-round metric logging.  There are no
-callbacks besides that logging; ``evals_result`` records the metric
-history as the JAX ``record_evaluation`` callback does.
+one ``update()`` per round (from a custom objective ``fobj`` when given,
+which sets ``objective=none``), and per-round metric logging, a custom
+metric ``feval`` included.  There are no callbacks besides that
+logging; ``evals_result`` records the metric history as the JAX
+``record_evaluation`` callback does.
 """
 
 from __future__ import annotations
@@ -21,17 +23,21 @@ _ROUND_ALIASES = ("num_boost_round", "num_iterations", "num_iteration",
 
 
 def train(params, train_set: Dataset, num_boost_round: int = 100,
-          valid_sets=None, valid_names=None, device: DeviceLike = None,
-          evals_result: Optional[dict] = None,
+          valid_sets=None, valid_names=None, fobj=None, feval=None,
+          device: DeviceLike = None, evals_result: Optional[dict] = None,
           verbose_eval: bool = True) -> Booster:
-    """Train a binary GBDT; returns the Booster.
+    """Train a GBDT; returns the Booster.
 
     ``valid_sets`` may include ``train_set`` itself (its metrics are then
     reported under the training name, as in the JAX package).  A round
     count in ``params`` (``num_iterations`` and its aliases) overrides
-    ``num_boost_round``.  Training stops early when a tree cannot
-    split."""
+    ``num_boost_round``.  ``fobj(preds, train_set) -> (grad, hess)`` and
+    ``feval(preds, dataset) -> (name, value, bigger is better)`` are a
+    custom objective and metric (``Booster.update``, ``eval_*``).
+    Training stops early when a tree cannot split."""
     params = dict(params or {})
+    if fobj is not None:
+        params["objective"] = "none"
     for alias in _ROUND_ALIASES:
         if alias in params:
             num_boost_round = int(params.pop(alias))
@@ -58,11 +64,12 @@ def train(params, train_set: Dataset, num_boost_round: int = 100,
         evals_result.clear()
 
     for i in range(num_boost_round):
-        finished = booster.update()
+        finished = booster.update(fobj=fobj)
         results = []
         if with_train:
-            results += [(train_name,) + r[1:] for r in booster.eval_train()]
-        results += booster.eval_valid()
+            results += [(train_name,) + r[1:]
+                        for r in booster.eval_train(feval)]
+        results += booster.eval_valid(feval)
         for data_name, metric, value, _ in results:
             if evals_result is not None:
                 evals_result.setdefault(

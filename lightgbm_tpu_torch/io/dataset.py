@@ -1,7 +1,9 @@
 """Binned training matrix and its metadata, on the host.
 
 Port of the JAX package's io/dataset.py for the training slice:
-``Metadata`` (labels, weights, init scores), the FindBin stage
+``Metadata`` (labels, weights, query boundaries and query weights, init
+scores, and the ``.weight`` / ``.query`` / ``.init`` side files beside a
+data file), the FindBin stage
 (``build_mappers_from_sample``) and ``BinnedDataset.from_matrix`` /
 ``create_valid``.  Rows are sampled for binning from
 ``data_random_seed`` with numpy exactly as the JAX package samples them,
@@ -18,6 +20,7 @@ differently.  The drift fingerprint is not ported either.
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -25,6 +28,7 @@ import numpy as np
 from ..utils import log
 from ..utils.log import LightGBMError
 from .binning import CATEGORICAL, NUMERICAL, BinMapper
+from .column_roles import qid_to_query_sizes
 
 # EFB candidates must be at least this sparse (the JAX io/bundling.py
 # MIN_BUNDLE_SPARSE_RATE)
@@ -32,12 +36,15 @@ MIN_BUNDLE_SPARSE_RATE = 0.8
 
 
 class Metadata:
-    """Labels, weights and init scores (reference dataset.h:35-247)."""
+    """Labels, weights, query boundaries and their weights, init scores
+    (reference dataset.h:35-247)."""
 
     def __init__(self, num_data: int = 0):
         self.num_data = num_data
         self.label: Optional[np.ndarray] = None
         self.weights: Optional[np.ndarray] = None
+        self.query_boundaries: Optional[np.ndarray] = None
+        self.query_weights: Optional[np.ndarray] = None
         self.init_score: Optional[np.ndarray] = None
 
     def set_label(self, label) -> None:
@@ -46,26 +53,77 @@ class Metadata:
     def set_weights(self, weights) -> None:
         self.weights = (None if weights is None
                         else np.asarray(weights, dtype=np.float32).ravel())
+        self._update_query_weights()
 
     def set_init_score(self, init_score) -> None:
         self.init_score = (None if init_score is None else
                            np.asarray(init_score, dtype=np.float64).ravel())
+
+    def set_query(self, group) -> None:
+        """``group``: the size of each query, in row order."""
+        if group is None:
+            self.query_boundaries = None
+        else:
+            sizes = np.asarray(group, dtype=np.int64).ravel()
+            self.query_boundaries = np.concatenate(
+                [[0], np.cumsum(sizes)]).astype(np.int64)
+        self._update_query_weights()
+
+    def set_query_id(self, qid) -> None:
+        """A query id per row; each run of one id is a query."""
+        self.set_query(qid_to_query_sizes(np.asarray(qid).ravel()))
+
+    def _update_query_weights(self) -> None:
+        """The mean row weight of each query (metadata.cpp), in f32."""
+        if self.query_boundaries is None or self.weights is None:
+            self.query_weights = None
+            return
+        qb = self.query_boundaries
+        qw = np.zeros(len(qb) - 1, dtype=np.float32)
+        for i in range(len(qb) - 1):
+            a, b = qb[i], qb[i + 1]
+            qw[i] = self.weights[a:b].sum() / max(1, b - a)
+        self.query_weights = qw
+
+    def load_side_files(self, data_path: str) -> None:
+        """``<data>.weight``, ``<data>.query`` (query sizes) and
+        ``<data>.init`` beside a data file, where they exist."""
+        wpath = data_path + ".weight"
+        if os.path.exists(wpath):
+            self.set_weights(np.loadtxt(wpath, dtype=np.float64).ravel())
+            log.info("Loading weights from %s", wpath)
+        qpath = data_path + ".query"
+        if os.path.exists(qpath):
+            self.set_query(np.loadtxt(qpath, dtype=np.int64).ravel())
+            log.info("Loading query boundaries from %s", qpath)
+        ipath = data_path + ".init"
+        if os.path.exists(ipath):
+            self.set_init_score(np.loadtxt(ipath, dtype=np.float64).ravel())
+            log.info("Loading initial scores from %s", ipath)
+
+    def num_queries(self) -> int:
+        return (0 if self.query_boundaries is None
+                else len(self.query_boundaries) - 1)
 
 
 def build_mappers_from_sample(sample: np.ndarray, num_data: int, *,
                               max_bin: int, min_data_in_bin: int,
                               min_data_in_leaf: int,
                               categorical_features=frozenset(),
+                              ignore_features=frozenset(),
                               predefined_mappers=None):
-    """Per-feature BinMapper list from a row sample (the FindBin stage,
-    reference dataset_loader.cpp:656-722).  The trivial-feature filter
-    count is scaled to the sample: 0.95 * min_data_in_leaf / num_data *
-    sample_cnt."""
+    """Per-feature BinMapper list (None for an ignored feature) from a
+    row sample (the FindBin stage, reference dataset_loader.cpp:656-722).
+    The trivial-feature filter count is scaled to the sample: 0.95 *
+    min_data_in_leaf / num_data * sample_cnt."""
     total_sample_cnt = sample.shape[0]
     filter_cnt = int(0.95 * min_data_in_leaf / max(1, num_data)
                      * total_sample_cnt)
-    out: List[BinMapper] = []
+    out: List[Optional[BinMapper]] = []
     for f in range(sample.shape[1]):
+        if f in ignore_features:
+            out.append(None)
+            continue
         if predefined_mappers is not None \
                 and predefined_mappers[f] is not None:
             out.append(predefined_mappers[f])
@@ -137,6 +195,7 @@ class BinnedDataset:
                     min_data_in_leaf: int = 100,
                     bin_construct_sample_cnt: int = 200000,
                     categorical_features: Sequence[int] = (),
+                    ignore_features: Sequence[int] = (),
                     feature_names: Optional[Sequence[str]] = None,
                     data_random_seed: int = 1,
                     predefined_mappers=None,
@@ -146,7 +205,9 @@ class BinnedDataset:
                     keep_raw: bool = False) -> "BinnedDataset":
         """Bin a raw [N, F] float matrix: sample rows -> per-feature
         FindBin -> extract features (dataset_loader.cpp:656-820).
-        ``keep_raw`` also keeps the used features' raw values."""
+        ``ignore_features`` (the ignored, weight and group columns) get
+        no mapper and are not used; ``keep_raw`` also keeps the used
+        features' raw values."""
         data = np.ascontiguousarray(np.asarray(data, dtype=np.float64))
         if data.ndim != 2:
             raise ValueError("data must be 2-D [num_data, num_features]")
@@ -168,11 +229,12 @@ class BinnedDataset:
             min_data_in_bin=min_data_in_bin,
             min_data_in_leaf=min_data_in_leaf,
             categorical_features={int(c) for c in categorical_features},
+            ignore_features={int(c) for c in ignore_features},
             predefined_mappers=predefined_mappers)
         self.real_to_inner = np.full(num_features, -1, dtype=np.int64)
         used = []
         for f, mapper in enumerate(per_real):
-            if not mapper.is_trivial:
+            if mapper is not None and not mapper.is_trivial:
                 self.real_to_inner[f] = len(used)
                 used.append(f)
         self.used_feature_map = used

@@ -7,14 +7,17 @@ header field, tree section and the footer with the JAX loader's checks
 and error texts; text after the ``feature importances`` block (the drift
 fingerprint section) is kept verbatim and written back on save.
 
-The training half is the serial binary slice: the device state of
-``_DeviceData`` (feature-major and row-major bins, the [1, N] f32
-score), one boosting round as plain torch calls (gradients -> the
-grower that ``serial_grow`` selects -> ``score[cls] += delta``, the JAX
+The training half is serial GBDT for every objective: the device state
+of ``_DeviceData`` (feature-major and row-major bins, the
+[num_class, N] f32 score), one boosting round as plain torch calls
+(the objective's gradients, or a custom objective's from
+``train_one_iter(grad, hess)`` -> for each class, the grower that
+``serial_grow`` selects -> ``score[cls] += delta``, the JAX
 ``_build_shared_train_step``), valid-set scoring through
 ``ops/predict.py``, the saturation pop of the JAX ``_flush_pending``
-(gbdt.cpp:362-378) and the metrics.  Rounds run synchronously, with no
-pipelining; the score buffers are updated in place.
+(gbdt.cpp:362-378) and the metrics.  Tree i belongs to class
+i % num_class.  Rounds run synchronously, with no pipelining; the score
+buffers are updated in place.
 
 ``linear_tree=true`` (models/linear.py, docs/LINEAR_TREES.md) fits an
 affine model in every leaf after any grower: the fit's intercepts
@@ -169,7 +172,9 @@ class GBDT:
         self.max_feature_idx = train_set.num_total_features - 1
         self.feature_names = list(train_set.feature_names)
         self.feature_infos_ = train_set.feature_infos()
-        self.sigmoid = config.sigmoid
+        # the model text's sigmoid transform belongs to binary only
+        self.sigmoid = (config.sigmoid if config.objective == "binary"
+                        else -1.0)
         self.grow_params = GrowParams(
             num_leaves=config.num_leaves, max_bin=config.max_bin,
             min_data_in_leaf=config.min_data_in_leaf,
@@ -200,9 +205,9 @@ class GBDT:
                                       device=device)
         self._feat_mask = torch.ones(train_set.num_features,
                                      dtype=torch.bool, device=device)
-        # TreeArrays (host) of every tree grown, a popped saturated one
-        # included, and beside each its LeafModels (None for constant
-        # leaves): valid sets added later replay them
+        # TreeArrays (host) of every tree in ``models`` and beside each
+        # its LeafModels (None for constant leaves): valid sets added
+        # later replay them, as the JAX package replays ``models``
         self.tree_arrays: list = []
         self.tree_linear: list = []
         self.linear_fallbacks = 0
@@ -382,12 +387,21 @@ class GBDT:
         return (ta, LeafModels(coeff, feat),
                 (coeff_host, feat_host.reshape(L, K)), delta)
 
-    def train_one_iter(self) -> bool:
-        """One boosting round (gbdt.cpp:295-382).  Returns True when no
-        class's tree could split (saturation): the round's trees are
-        popped, as the reference pops them, and training should stop."""
+    def train_one_iter(self, grad=None, hess=None) -> bool:
+        """One boosting round (gbdt.cpp:295-382), from the objective's
+        gradients or, for a custom objective, from ``grad`` and ``hess``
+        (class-major, ``num_class * num_data`` values each, moved to the
+        device once).  Returns True when no class's tree could split
+        (saturation): the round's trees are popped, as the reference
+        pops them, and training should stop."""
         score = self.train_data.score
-        grad, hess = self.objective.gradients_with(self._grad_arrays, score)
+        if grad is None or hess is None:
+            grad, hess = self.objective.gradients_with(self._grad_arrays,
+                                                       score)
+        else:
+            grad, hess = (_to_device(torch.from_numpy(np.ascontiguousarray(
+                a, np.float32).reshape(self.num_class, -1)), self.device)
+                for a in (grad, hess))
         trees = []
         for cls in range(self.num_class):
             ta, leaf_id, delta = self._grow(grad[cls], hess[cls])
@@ -412,6 +426,8 @@ class GBDT:
         if all(t.num_leaves <= 1 for t in trees):
             log.warning("Stopped training because there are no more "
                         "leaves that meet the split requirements.")
+            del self.tree_arrays[-self.num_class:]
+            del self.tree_linear[-self.num_class:]
             return True
         self.models.extend(trees)
         self.iter_ += 1

@@ -1,13 +1,14 @@
 """What the torch port refuses instead of silently giving another answer
 than the JAX package (lightgbm_tpu_torch/config.py, cli.py).
 
-The JAX package loads ``<data>.weight``, ``.init`` and ``.query`` beside a
-data file, continues training from ``input_model``, stops early on
-``early_stopping_round``, writes leaf indices on
-``is_predict_leaf_index`` and takes column roles (``label_column`` ...).
-The port does none of these yet, so each is refused with a
-``LightGBMError`` that names it, under the JAX config's aliases too.
-Keys that cannot change a tree or a prediction keep one warning.
+The JAX package continues training from ``input_model``, stops early on
+``early_stopping_round`` and writes leaf indices on
+``is_predict_leaf_index``.  The port does none of these yet, so each is
+refused with a ``LightGBMError`` that names it, under the JAX config's
+aliases too.  Keys that cannot change a tree or a prediction keep one
+warning.  (Side files and column roles are loaded since they were
+ported: tests/test_torch_data_in.py holds them against the JAX
+package.)
 """
 
 import numpy as np
@@ -33,23 +34,6 @@ def _train_args(tmp_path, data, *extra):
     return ["task=train", f"data={data}", "objective=binary", "device=cpu",
             "num_iterations=1", "num_leaves=4", "min_data_in_leaf=5",
             f"output_model={tmp_path / 'm.txt'}", *extra]
-
-
-@pytest.mark.parametrize("ext", [".weight", ".init", ".query"])
-def test_side_file_beside_data_is_refused(tmp_path, ext):
-    data = _csv(tmp_path / "train.csv")
-    (tmp_path / f"train.csv{ext}").write_text("1\n" * 60)
-    with pytest.raises(LightGBMError, match=f"train.csv{ext}"):
-        cli.main(_train_args(tmp_path, data))
-    assert not (tmp_path / "m.txt").exists()
-
-
-def test_side_file_beside_valid_data_is_refused(tmp_path):
-    data = _csv(tmp_path / "train.csv")
-    valid = _csv(tmp_path / "valid.csv", seed=1)
-    (tmp_path / "valid.csv.weight").write_text("1\n" * 60)
-    with pytest.raises(LightGBMError, match="valid.csv.weight"):
-        cli.main(_train_args(tmp_path, data, f"valid_data={valid}"))
 
 
 def test_train_without_side_files_still_trains(tmp_path):
@@ -83,16 +67,6 @@ REFUSED = [
     ("is_predict_leaf_index", "true", "predict", "is_predict_leaf_index"),
     ("predict_leaf_index", "true", "predict", "is_predict_leaf_index"),
     ("leaf_index", "true", "predict", "is_predict_leaf_index"),
-    ("label_column", "0", "train", "label_column"),
-    ("label", "name:y", "train", "label_column"),
-    ("weight_column", "1", "train", "weight_column"),
-    ("weight", "2", "train", "weight_column"),
-    ("group_column", "1", "train", "group_column"),
-    ("query", "1", "train", "group_column"),
-    ("ignore_column", "2", "train", "ignore_column"),
-    ("blacklist", "2", "predict", "ignore_column"),
-    ("categorical_column", "1", "train", "categorical_column"),
-    ("cat_feature", "1", "predict", "categorical_column"),
 ]
 
 
@@ -110,9 +84,6 @@ def test_answer_changing_key_is_refused_by_the_cli(tmp_path, key, value,
 def test_answer_changing_key_is_refused_by_the_api():
     rng = np.random.RandomState(0)
     X = rng.normal(size=(60, 3))
-    with pytest.raises(LightGBMError, match="label_column"):
-        lt.Dataset(X, (X[:, 0] > 0).astype(float),
-                   params={"label_column": "0"}).construct()
     with pytest.raises(LightGBMError, match="early_stopping_round"):
         lt.train({"objective": "binary", "early_stopping_rounds": 2},
                  lt.Dataset(X, (X[:, 0] > 0).astype(float)), 1,

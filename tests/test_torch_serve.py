@@ -384,8 +384,9 @@ def test_cli_serve_token_and_unported_task(monkeypatch):
                      "predict_buckets=16,64"]) == 0
     assert seen == {"task": "serve", "port": 12345, "buckets": [16, 64],
                     "device": "cuda"}
+    # a training setting the port refuses, before the data is read
     with pytest.raises(lt.LightGBMError, match="not ported"):
-        cli.main(["task=train", "data=x.csv"])
+        cli.main(["task=train", "data=x.csv", "bagging_fraction=0.5"])
 
 
 def test_config_defaults_and_aliases_match_jax(tmp_path):
