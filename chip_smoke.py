@@ -149,6 +149,34 @@ probes' own lines); any failure raises and exits non-zero.
    equal the same function's on the CPU within 1e-6 relative (of each
    value plus the largest; LambdaRank's too); and each round's seconds and the gradient's share of it (CUDA
    events) are printed.
+   ``engine``: the engine on the train phase's datasets (the Higgs
+   training cell: 1M rows, 28 features, 63 leaves, 255 bins, the
+   ordered grower, the 100k-row valid set).  An early-stopped run
+   (learning rate 1.0, patience 3) must stop, its ``best_iteration`` the
+   best round of its recorded valid logloss; a 5-fold stratified ``cv``
+   of 10 rounds, timed.  Then 10 rounds saved and continued 10 more
+   from the file and from the in-memory Booster (and the same with
+   ``linear_tree=true``, 5 + 5): the init scores come from K4 (the
+   linear variant for the linear model; launches counted) within 1e-5
+   of the f64 host walk on 200k rows, the carried trees' text is
+   byte-equal to the init model's, every tree structure-equal to an
+   uninterrupted 20-round (10-round) run's up to a reported near-tie, K1
+   launched once per leaf grown, and the saved model predicts the score
+   buffer to 1e-5.  ``pred_leaf`` of the file-continued run (the f64
+   host walk) equals the card's plain binned walk's leaves on the valid
+   rows; 12 ``rollback_one_iter`` from its round 20, two of them into
+   the init model's rounds, leave each score buffer within 1e-6 of the
+   largest of the buffer recorded at that round (or of the init model's
+   K4 prediction); ``merge(shrinkage_decay=0.5)`` of the base and the
+   uninterrupted model predicts base + 0.5 * other (1e-5).  On the
+   binary example conf's data, the card against the CPU: a 5-fold
+   stratified ``cv`` (means and stdvs within 1e-4; a ranking metric
+   beyond it only at a near-tie of scores, shown by recomputing it from
+   both runs' fold scores, as the examples phase does) and the conf through
+   the CLI with ``early_stopping_round=3`` (the same stop and best
+   round, metrics as the examples phase holds them).  Prints the
+   seconds a round of the continued runs beside the base runs', the
+   init-score ms, the K1 and K4 launches and the ``cv`` seconds.
 5. ``probes``: the probes' own entry points, ``python -m
    lightgbm_tpu_torch.tools.probe_roll`` and ``probe_dynhist`` (their
    ``main``) at the JAX probes' sizes, each with its launch counter set
@@ -200,6 +228,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
 
 import numpy as np
@@ -300,6 +329,23 @@ OBJECTIVE_RUNS = (
 # the card's gradients against the CPU's, relative to each value plus
 # the largest (LambdaRank's pair sums associate otherwise on the card)
 GRAD_RTOL = 1e-6
+# the engine phase (on the train phase's datasets): base rounds and as
+# many continued ones (constant; linear), the rollbacks from the end of
+# the continued run (into the init model's rounds), the early-stopped
+# run (a learning rate that overfits within a few rounds, its round cap
+# and patience), the cv folds, the prefix of the training rows held
+# against the f64 host walk, and the binary example conf's early-stopped
+# CLI run's learning rate (so that it stops within ~30 rounds)
+ENGINE_ROUNDS, ENGINE_LINEAR_ROUNDS, ENGINE_ROLLBACKS = 10, 5, 12
+# two linear runs of the same data differ in the fit's f32 atomic sums:
+# their leaf values are held to 1e-3 of the tree's largest, as
+# ``compare_regrown`` holds a re-fit (a card read 3.2e-4)
+LINEAR_LEAF_RTOL = 1e-3
+ES_PARAMS = {"learning_rate": 1.0, "metric": "binary_logloss"}
+ES_ROUNDS, ES_PATIENCE = 40, 3
+CV_FOLDS = 5
+HOST_WALK_ROWS = 200_000
+EXAMPLE_ES_LR = 0.3
 
 
 def emit(obj) -> None:
@@ -1466,51 +1512,65 @@ def phase_serve_linear(seed, dev, lin_model, lin_grid, higgs_model,
     return launches
 
 
-class _timed_updates:
-    """Record the synchronized wall time of every ``Booster.update`` call
-    made inside the block (one boosting round each)."""
+class _timed_calls:
+    """Record the synchronized wall time of every call of the ``Booster``
+    method ``name`` made inside the block: ``update`` (one boosting round
+    each), ``predict`` (``train(init_model=)``'s init scores)."""
 
-    def __init__(self):
+    def __init__(self, name="update"):
+        self.name = name
         self.seconds = []
 
     def __enter__(self):
         from lightgbm_tpu_torch.basic import Booster
-        self._orig = orig = Booster.update
+        self._orig = orig = getattr(Booster, self.name)
         rec = self.seconds
 
-        def update(booster, **kwargs):
+        def timed(booster, *args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = orig(booster, **kwargs)
+            out = orig(booster, *args, **kwargs)
             torch.cuda.synchronize()
             rec.append(time.perf_counter() - t0)
             return out
-        Booster.update = update
+        setattr(Booster, self.name, timed)
         return self
 
     def __exit__(self, *exc):
         from lightgbm_tpu_torch.basic import Booster
-        Booster.update = self._orig
+        setattr(Booster, self.name, self._orig)
 
 
-def phase_train(seed, dev, workdir):
-    """The training path at full width, once per grower of GROWERS on
-    the same constructed datasets; returns the launches of each kernel
-    summed over the runs that have it on their path."""
+def train_datasets(seed):
+    """The training cell's datasets from ``seed``: (the training set, its
+    valid set, the training rows, the valid rows)."""
     import lightgbm_tpu_torch as lt
     t0 = time.perf_counter()
     X, y = make_higgs_like(TRAIN_ROWS, seed=seed + 40)
     Xv, yv = make_higgs_like(VALID_ROWS, seed=seed + 41)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    # raw values kept for the linear run (the constant runs ignore them)
+    # raw values kept for the linear run (the constant runs ignore them);
+    # the raw rows kept for the engine phase, whose init models bin them
+    # again
     train_set = lt.Dataset(X, y, params={**TRAIN_PARAMS,
-                                         "linear_tree": True}).construct()
+                                         "linear_tree": True},
+                           free_raw_data=False).construct()
     valid_set = lt.Dataset(Xv, yv, reference=train_set).construct()
     binning_s = time.perf_counter() - t0
     emit({"phase": "train_data", "rows": TRAIN_ROWS,
           "valid_rows": VALID_ROWS, "features": X.shape[1], "seed": seed,
           "generate_s": gen_s, "binning_s": binning_s})
+    return train_set, valid_set, X, Xv
+
+
+def phase_train(seed, dev, workdir):
+    """The training path at full width, once per grower of GROWERS on
+    the same constructed datasets; returns the launches of each kernel
+    summed over the runs that have it on their path, the launches by
+    window class, and (the datasets, the training and valid rows) for
+    the engine phase."""
+    train_set, valid_set, X, Xv = datasets = train_datasets(seed)
     launches, windows = {}, {}
     ordered = None
     for name, extra, kernel in GROWERS:
@@ -1526,7 +1586,7 @@ def phase_train(seed, dev, workdir):
                for k, v in windows.items()}
     emit({"phase": "train_windows", "runs": [g[0] for g in GROWERS],
           "launches_by_window_rows": windows})
-    return launches, windows
+    return launches, windows, datasets
 
 
 class _plain_kernels:
@@ -1678,7 +1738,7 @@ def train_run(name, extra, kernel, train_set, valid_set, X, workdir,
     og.reset_host_syncs()
     gr.reset_host_syncs()
     t0 = time.perf_counter()
-    with _timed_updates() as rounds, _window_classes() as windows:
+    with _timed_calls() as rounds, _window_classes() as windows:
         booster = lt.train(params, train_set, TRAIN_ROUNDS,
                            valid_sets=[train_set, valid_set],
                            valid_names=["train", "valid"],
@@ -1721,9 +1781,11 @@ def train_run(name, extra, kernel, train_set, valid_set, X, workdir,
             ta = gbdt._fit_linear(ta, leaf_id, grad[0], hess[0])[0]
             # the next gradients from the run's own fitted tree (its delta
             # bit for bit), so the re-fit's atomic sums do not compound
-            delta = gbdt._tree_delta(gbdt.train_data, grown[i],
-                                     gbdt.tree_linear[i])
-        score[0] += delta
+            gbdt._add_host_tree_to(types.SimpleNamespace(
+                score=score, bins=gbdt.train_data.bins,
+                raw=gbdt.train_data.raw), gbdt.models[i], 0)
+        else:
+            score[0] += delta
         flip, rel = compare_regrown(grown[i], ta, f"{name} tree {i}",
                                     exact=name in ("ordered", "cached"))
         regrow.append({"tree": i, "near_tie_flip": flip,
@@ -1911,13 +1973,23 @@ def copy_example(name: str, folder: str, work: str) -> str:
     return "train_port.conf"
 
 
-_ROUND_LINE = re.compile(r"Iteration:(\d+), (\S+) (\S+) : (\S+)")
+_ROUND_LINE = re.compile(r"\[(\d+)\]\t(.*)")
 
 
 def round_metrics(log_text: str) -> dict:
-    """{(round, data, metric): value} of the port's round lines."""
-    return {(int(m.group(1)), m.group(2), m.group(3)): float(m.group(4))
-            for m in _ROUND_LINE.finditer(log_text)}
+    """{(round, data, metric): value} of a CLI's round lines
+    (``print_evaluation``'s ``[i]\t<data>'s <metric>: <value>\t...``,
+    the same in both packages)."""
+    out = {}
+    for ln in log_text.splitlines():
+        m = _ROUND_LINE.search(ln)
+        if m is None:
+            continue
+        for part in m.group(2).split("\t"):
+            who, value = part.rsplit(": ", 1)
+            data, metric = who.split("'s ")
+            out[(int(m.group(1)), data, metric)] = float(value)
+    return out
 
 
 def tree_sections(text: str):
@@ -1933,6 +2005,14 @@ def tree_sections(text: str):
             k, v = ln.split("=", 1)
             cur[k] = v
     return out
+
+
+def trees_text(model_text: str, first: int, last: int) -> str:
+    """The text of trees ``first`` to ``last - 1`` of a model."""
+    start = model_text.index(f"Tree={first}\n")
+    end = (model_text.index(f"Tree={last}\n") if f"Tree={last}\n"
+           in model_text else model_text.index("\nfeature importances"))
+    return model_text[start:end]
 
 
 def _field(tree, name):
@@ -2369,6 +2449,456 @@ def phase_objectives(seed, workdir):
         for k, v in got.items():
             total[k] = total.get(k, 0) + v
     return total
+
+# ---------------------------------------------------------------------------
+# the engine: continued training, rollback, early stopping, leaf-index
+# predict, merge and cv on the train phase's datasets
+
+
+class _score_snapshots:
+    """Callbacks for ``train``: a copy of every score buffer (training,
+    then each valid set) at the start and after each round, by the
+    model's iteration count."""
+
+    def __init__(self):
+        self.at = {}
+
+    def _take(self, env, it):
+        gb = env.model._booster
+        self.at[it] = [dd.score.clone()
+                       for dd in [gb.train_data] + gb.valid_data]
+
+    def callbacks(self):
+        def start(env):
+            if env.iteration == env.begin_iteration:
+                self._take(env, env.iteration)
+        start.before_iteration = True
+
+        def after(env):
+            self._take(env, env.iteration + 1)
+        return [start, after]
+
+
+def _launches():
+    """(K1 launches, K4 launches by variant) since the last reset."""
+    from lightgbm_tpu_torch.ops import forest_walk as fw
+    from lightgbm_tpu_torch.ops import leafhist as lh
+    return lh.launch_counts()["digit_histogram"], fw.launch_counts()
+
+
+def _reset_launches():
+    from lightgbm_tpu_torch.ops import forest_walk as fw
+    from lightgbm_tpu_torch.ops import leafhist as lh
+    lh.reset_launch_counts()
+    fw.reset_launch_counts()
+
+
+def engine_base(name, params, rounds, train_set, valid_set, workdir):
+    """``rounds`` rounds (kept in memory, and saved) and an uninterrupted
+    ``2 * rounds`` run (saved), on a training set without init scores.
+    Returns (the base Booster, its file, the long run's file, the
+    base's seconds a round)."""
+    import lightgbm_tpu_torch as lt
+    common = dict(valid_sets=[valid_set], valid_names=["valid"],
+                  verbose_eval=False)
+    with _timed_calls() as base_rounds:
+        base = lt.train(params, train_set, rounds, **common)
+    base_path = f"{workdir}/engine_{name}_base.txt"
+    base.save_model(base_path)
+    full_path = f"{workdir}/engine_{name}_full.txt"
+    lt.train(params, train_set, 2 * rounds, **common).save_model(full_path)
+    return base, base_path, full_path, base_rounds.seconds
+
+
+def engine_continued(name, params, rounds, train_set, valid_set, X,
+                     workdir, bases):
+    """``rounds`` more rounds from the base's saved file and from the
+    in-memory base Booster (``bases``: ``engine_base``'s result).  Each
+    continued run: its init scores from K4 (the variant of the model's
+    leaves) within 1e-5 of the f64 host walk on the first HOST_WALK_ROWS
+    rows, its carried trees' text byte-equal to the init model's, every
+    tree structure-equal to the uninterrupted run's up to a reported
+    near-tie, K1 launched once per leaf grown, and its saved model
+    against its score buffer (1e-5).  Returns (the continued Boosters
+    and their score snapshots by source, the summed K1 and K4 launches,
+    the phase line's fields)."""
+    import lightgbm_tpu_torch as lt
+    base, base_path, full_path, base_round_s = bases
+    with open(base_path) as fh:
+        base_file = fh.read()
+    with open(full_path) as fh:
+        full_text = fh.read()
+    variant = "forest_walk_linear" if params.get("linear_tree") \
+        else "forest_walk"
+    k1_total, k4_total, runs, boosters = 0, {}, {}, {}
+    for src, init, init_text in (("file", base_path, base_file),
+                                 ("booster", base, base.model_to_string())):
+        snaps = _score_snapshots()
+        _reset_launches()
+        with _timed_calls() as cont_rounds, \
+                _timed_calls("predict") as init_s:
+            booster = lt.train(params, train_set, rounds, init_model=init,
+                               valid_sets=[valid_set], valid_names=["valid"],
+                               verbose_eval=False,
+                               callbacks=snaps.callbacks())
+        torch.cuda.synchronize()
+        k1, k4 = _launches()
+        gb = booster._booster
+        new = gb.models[rounds:]
+        check(booster.num_trees() == 2 * rounds
+              and booster.current_iteration() == 2 * rounds,
+              f"engine {name} {src}: {booster.num_trees()} trees")
+        check(k1 == sum(t.num_leaves for t in new),
+              f"engine {name} {src}: K1 launches {k1} != the "
+              f"{sum(t.num_leaves for t in new)} leaves grown")
+        check(k4[variant] > 0 and sum(k4.values()) == k4[variant],
+              f"engine {name} {src}: init scores launched {k4}")
+        predictor = (lt.Booster(model_file=base_path) if src == "file"
+                     else base)
+        init = np.asarray(train_set.get_init_score(), np.float64)
+        host = predictor._booster.predict_raw(X[:HOST_WALK_ROWS])[0]
+        d_init = float(np.abs(init[:HOST_WALK_ROWS] - host).max())
+        check(d_init <= 1e-5, f"engine {name} {src}: init scores vs the f64 "
+                              f"host walk: {d_init}")
+        text = booster.model_to_string()
+        check(trees_text(text, 0, rounds) == trees_text(init_text, 0, rounds),
+              f"engine {name} {src}: carried trees' text differs")
+        compared, flip, leaf_rel = compare_model_texts(
+            text, full_text, f"engine {name} {src}",
+            names=("continued", "uninterrupted"),
+            leaf_rtol=LINEAR_LEAF_RTOL if params.get("linear_tree")
+            else EXAMPLE_LEAF_RTOL)
+        path = f"{workdir}/engine_{name}_{src}.txt"
+        booster.save_model(path)
+        pred = lt.Booster(model_file=path).predict(X[:4096], raw_score=True)
+        buf = gb.train_data.score[0, :4096].double().cpu().numpy()
+        d_pred = float(np.abs(pred - buf).max())
+        check(d_pred <= 1e-5, f"engine {name} {src}: saved model vs score "
+                              f"buffer: {d_pred}")
+        k1_total += k1
+        for k, v in k4.items():
+            k4_total[k] = k4_total.get(k, 0) + v
+        boosters[src] = (booster, snaps)
+        runs[src] = {
+            "round_s": cont_rounds.seconds,
+            "round_s_median": float(np.median(cont_rounds.seconds)),
+            "init_score_ms": [t * 1e3 for t in init_s.seconds],
+            "k1_launches": k1,
+            "k4_launches": {k: v for k, v in k4.items() if v},
+            "init_vs_host_f64": d_init, "trees_compared": compared,
+            "near_tie_flip": flip, "max_leaf_value_diff_of_tree_max":
+            leaf_rel, "saved_model_vs_score_buffer": d_pred}
+    fields = {"base_round_s": base_round_s,
+              "base_round_s_median": float(np.median(base_round_s)),
+              "continued": runs}
+    return boosters, k1_total, k4_total, fields
+
+
+def engine_rollback(booster, snaps, base_path, X, Xv, rounds):
+    """ENGINE_ROLLBACKS rollbacks from the end of a continued run of
+    ``rounds`` + ``rounds``: each score buffer within 1e-6 of the largest
+    of the buffers that run recorded at that round, or, inside the init
+    model's rounds, of the init model's own predictions (K4) on the first
+    HOST_WALK_ROWS training rows and on the valid rows."""
+    import lightgbm_tpu_torch as lt
+    gb = booster._booster
+    init = lt.Booster(model_file=base_path)
+    worst = 0.0
+    for _ in range(ENGINE_ROLLBACKS):
+        booster.rollback_one_iter()
+        it = gb.iter_
+        got = [gb.train_data.score, gb.valid_data[0].score]
+        if it in snaps.at:
+            want = snaps.at[it]
+        else:
+            want = [torch.from_numpy(init.predict(
+                rows, num_iteration=it, raw_score=True)).float()[None]
+                for rows in (X[:HOST_WALK_ROWS], Xv)]
+            got = [got[0][:, :HOST_WALK_ROWS], got[1]]
+        for g, w in zip(got, want):
+            w = w.to(g.device)
+            d = float((g - w).abs().max() / w.abs().max())
+            check(d <= 1e-6, f"engine rollback to round {it}: {d} of the "
+                             f"largest score")
+            worst = max(worst, d)
+    check(gb.iter_ == 2 * rounds - ENGINE_ROLLBACKS < rounds
+          and booster.num_trees() == gb.iter_,
+          f"engine rollback: at round {gb.iter_}")
+    return {"rollbacks": ENGINE_ROLLBACKS, "to_round": gb.iter_,
+            "into_init_model_rounds": rounds - gb.iter_,
+            "max_diff_of_largest_score": worst}
+
+
+def engine_pred_leaf(booster, Xv):
+    """``predict(pred_leaf=True)`` (the f64 host walk) on the valid rows
+    ``Xv`` against the card's plain binned walk of each tree on the
+    booster's valid set's bins: equal leaf ids."""
+    from lightgbm_tpu_torch.ops.predict import predict_binned_tree
+    gb = booster._booster
+    leaves = booster.predict(Xv, pred_leaf=True)
+    check(leaves.shape == (Xv.shape[0], booster.num_trees())
+          and leaves.dtype == np.int32, f"pred_leaf shape {leaves.shape}")
+    bins = gb.valid_data[0].bins
+    ts = gb.train_set
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(bins.device)
+    for i, tree in enumerate(gb.models):
+        check(tree.ensure_inner(ts.real_to_inner, ts.mappers),
+              f"pred_leaf tree {i}: no bins")
+        _, leaf = predict_binned_tree(
+            dev(tree.split_feature_inner.astype(np.int64)),
+            dev(tree.threshold_in_bin), dev(tree.decision_type == 1),
+            dev(tree.left_child), dev(tree.right_child),
+            dev(tree.leaf_value.astype(np.float32)), bins, tree.num_leaves)
+        check(np.array_equal(leaf.cpu().numpy(), leaves[:, i]),
+              f"pred_leaf tree {i}: the host walk's leaves differ from the "
+              f"binned walk's")
+    return {"rows": int(leaves.shape[0]), "trees": int(leaves.shape[1])}
+
+
+def engine_merge(base_path, other_path, Xv):
+    """``merge(shrinkage_decay=0.5)`` predicts base + 0.5 * other (1e-5),
+    through K4."""
+    import lightgbm_tpu_torch as lt
+    base = lt.Booster(model_file=base_path)
+    other = lt.Booster(model_file=other_path)
+    want = base.predict(Xv, raw_score=True) \
+        + 0.5 * other.predict(Xv, raw_score=True)
+    got = base.merge(other, shrinkage_decay=0.5).predict(Xv, raw_score=True)
+    d = float(np.abs(got - want).max())
+    check(d <= 1e-5 and np.isfinite(got).all(),
+          f"merge: base + 0.5 * other off by {d}")
+    return {"trees": base.num_trees(), "max_diff": d}
+
+
+def engine_early_stop(train_set, valid_set):
+    """A run that stops: its stop round and ``best_iteration``, the best
+    round of its recorded valid history, ES_PATIENCE rounds before the
+    last."""
+    import lightgbm_tpu_torch as lt
+    ev = {}
+    booster = lt.train({**TRAIN_PARAMS, **CONST, **ES_PARAMS}, train_set,
+                       ES_ROUNDS, valid_sets=[valid_set],
+                       valid_names=["valid"],
+                       early_stopping_rounds=ES_PATIENCE, evals_result=ev,
+                       verbose_eval=False)
+    hist = ev["valid"]["binary_logloss"]
+    stop = booster.num_trees()
+    check(stop < ES_ROUNDS and len(hist) == stop,
+          f"early stopping: no stop in {ES_ROUNDS} rounds")
+    best = 1 + int(np.argmin(hist))
+    check(booster.best_iteration == best and stop - best == ES_PATIENCE,
+          f"early stopping: best_iteration {booster.best_iteration}, best "
+          f"recorded round {best}, stop round {stop}")
+    return {"params": {**TRAIN_PARAMS, **CONST, **ES_PARAMS},
+            "patience": ES_PATIENCE, "stop_round": stop,
+            "best_iteration": booster.best_iteration,
+            "valid_logloss": hist}
+
+
+def engine_cv(seed, train_set):
+    """5-fold stratified ``cv`` at 1M rows, 10 rounds, timed; K1 in every
+    fold's rounds."""
+    import lightgbm_tpu_torch as lt
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = lt.cv({**TRAIN_PARAMS, **CONST}, train_set, ENGINE_ROUNDS,
+                nfold=CV_FOLDS, stratified=True, seed=seed)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k1, k4 = _launches()
+    auc = res["valid auc-mean"]
+    check(len(auc) == ENGINE_ROUNDS and np.all(np.isfinite(auc))
+          and auc[-1] > auc[0] > 0.5, f"cv: AUC means {auc}")
+    check(k1 >= CV_FOLDS * ENGINE_ROUNDS and sum(k4.values()) == 0,
+          f"cv: K1 {k1}, K4 {k4}")
+    return {"folds": CV_FOLDS, "rounds": ENGINE_ROUNDS, "seconds": secs,
+            "k1_launches": k1, "auc_mean": auc,
+            "auc_stdv": res["valid auc-stdv"]}, k1
+
+
+class _fold_scores:
+    """A ``cv`` callback keeping each round's valid scores of every fold
+    and the folds' Boosters."""
+
+    def __init__(self):
+        self.rounds = []
+        self.boosters = None
+
+    def __call__(self, env):
+        self.boosters = env.model.boosters
+        self.rounds.append([b._booster.valid_data[0].host_score()
+                            for b in self.boosters])
+
+
+def cv_ranking_metric(folds, rnd, name, digits=None):
+    """(mean, stdv) over the folds of the ranking metric ``name`` from
+    the valid scores the folds had after round ``rnd`` (1-based),
+    rounded to ``digits`` significant digits first when given, as
+    ``cv`` aggregates it."""
+    from lightgbm_tpu_torch.metric import create_metric
+    values = []
+    for b, score in zip(folds.boosters, folds.rounds[rnd - 1]):
+        if digits is not None:
+            score = np.array([[float(f"{v:.{digits}g}") for v in score[0]]])
+        vs = b._valid_sets[0].construct()._binned
+        m = create_metric(name.split("@")[0], b.config)
+        m.init(vs.metadata, vs.num_data)
+        values.append(dict(zip(m.names, m.eval(score)))[name])
+    return float(np.mean(values)), float(np.std(values))
+
+
+def compare_cv(a, b, folds_a, folds_b, label):
+    """Every round's mean and stdv of ``cv`` result ``a`` (the card's)
+    against ``b`` (the CPU's) within 1e-4.  As in
+    ``compare_round_metrics``, a ranking metric beyond it passes only
+    when its recomputation from each run's fold scores gives the two
+    results (1e-9) and the two agree within 1e-4 once the scores are
+    rounded to 6 significant digits, which merges scores that tie in
+    exact arithmetic.  Returns (max difference within 1e-4, the ties so
+    explained)."""
+    check(a.keys() == b.keys() and b, f"{label}: keys {a.keys()}")
+    worst, ties = 0.0, []
+    for key in sorted(b):
+        for r, (x, z) in enumerate(zip(a[key], b[key]), start=1):
+            d = abs(x - z)
+            if d <= 1e-4:
+                worst = max(worst, d)
+                continue
+            name, stat = key.split(" ", 1)[1].rsplit("-", 1)
+            check(name.split("@")[0] in ("auc", "ndcg", "map"),
+                  f"{label}: {key} round {r}: card {x}, CPU {z}")
+            idx = 0 if stat == "mean" else 1
+            exact = [cv_ranking_metric(f, r, name)[idx]
+                     for f in (folds_a, folds_b)]
+            check(abs(exact[0] - x) <= 1e-9 and abs(exact[1] - z) <= 1e-9,
+                  f"{label}: {key} round {r} recomputed {exact}")
+            rounded = [cv_ranking_metric(f, r, name, 6)[idx]
+                       for f in (folds_a, folds_b)]
+            check(abs(rounded[0] - rounded[1]) <= 1e-4,
+                  f"{label}: {key} round {r} beyond 1e-4 after rounding: "
+                  f"{rounded}")
+            ties.append({"key": key, "round": r, "card": x, "cpu": z,
+                         "rounded_6_digits": rounded})
+            print(f"{label}: ranking metric at a near-tie of scores "
+                  f"{ties[-1]}", file=sys.stderr)
+    return worst, ties
+
+
+def engine_example(workdir):
+    """On the binary example conf's data, the card against the CPU: a
+    5-fold stratified ``cv`` of the conf's parameters (10 rounds; every
+    mean and stdv as ``compare_cv`` holds them) and the conf through the
+    CLI with ``early_stopping_round=3`` (learning rate EXAMPLE_ES_LR):
+    the same stop round and best round, every round's metrics as
+    ``compare_round_metrics`` holds them, the trees structure-equal up
+    to a reported near-tie.  Returns (K1 launches on the card, fields)."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.config import parse_config_file
+    work = f"{workdir}/engine_example"
+    conf = copy_example("binary", "binary_classification", work)
+    out, k1_card = {}, 0
+    with in_dir(work):
+        params = {k: v for k, v in parse_config_file(conf).items()
+                  if k not in ("task", "data", "valid_data", "output_model",
+                               "num_trees", "metric_freq",
+                               "is_training_metric")}
+        cvs, folds, logs, best = {}, {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            _reset_launches()
+            folds[dev] = _fold_scores()
+            cvs[dev] = lt.cv(params, lt.Dataset("binary.train",
+                                                params=params),
+                             ENGINE_ROUNDS, nfold=CV_FOLDS, stratified=True,
+                             device=dev, callbacks=[folds[dev]])
+            logs[dev] = _cli([f"config={conf}", f"device={dev}",
+                              "early_stopping_round=3",
+                              f"learning_rate={EXAMPLE_ES_LR}",
+                              f"output_model=es_{dev}.txt"])
+            k1, _ = _launches()
+            check((k1 > 0) == (dev == "cuda"),
+                  f"example engine: K1 launches {k1} on {dev}")
+            k1_card += k1 if dev == "cuda" else 0
+            lines = logs[dev].splitlines()
+            at = [i for i, ln in enumerate(lines) if "Early stopping" in ln]
+            check(len(at) == 1, f"example engine: no early stop on {dev}")
+            best[dev] = int(lines[at[0] + 1].split("]")[0].lstrip("["))
+        d_cv, cv_ties = compare_cv(cvs["cuda"], cvs["cpu"], folds["cuda"],
+                                   folds["cpu"], "example cv")
+        metrics = {d: round_metrics(logs[d]) for d in logs}
+        stop = {d: max(k[0] for k in metrics[d]) for d in metrics}
+        check(stop["cuda"] == stop["cpu"] and best["cuda"] == best["cpu"],
+              f"example early stop: stop {stop}, best {best}")
+        worst, ties = compare_round_metrics(
+            metrics["cuda"], metrics["cpu"], work, conf,
+            "example early stop", ("es_cuda.txt", "es_cpu.txt"))
+        with open("es_cuda.txt") as a, open("es_cpu.txt") as b:
+            compared, flip, _ = compare_model_texts(
+                a.read(), b.read(), "example early stop")
+    out = {"cv_max_diff_card_vs_cpu": d_cv, "cv_ranking_metric_ties": cv_ties,
+           "cv_auc_mean": cvs["cuda"]["valid auc-mean"],
+           "es_stop_round": stop["cuda"], "es_best_round": best["cuda"],
+           "es_max_metric_diff": worst, "es_ranking_metric_ties": ties,
+           "es_trees_compared": compared, "es_near_tie_flip": flip}
+    return k1_card, out
+
+
+def phase_engine(seed, datasets, workdir):
+    """The engine on the train phase's datasets (the Higgs training
+    cell): the early-stopped run, ``cv`` and the base runs first (the
+    training set has no init scores yet), then continued training
+    (constant 10 + 10, linear 5 + 5; ``engine_continued``), ``pred_leaf``
+    of the file-continued constant run, 12 rollbacks from its round 20,
+    ``merge``, and the binary example conf card against CPU.  The launch counters are set to
+    0 before each counted run and read after it.  Returns the launches."""
+    train_set, valid_set, X, Xv = datasets
+    k1_total, k4_total = 0, {}
+    t0 = time.perf_counter()
+    early = engine_early_stop(train_set, valid_set)
+    cv_fields, k1 = engine_cv(seed, train_set)
+    k1_total += k1
+    configs = (("constant", {**TRAIN_PARAMS, **CONST}, ENGINE_ROUNDS),
+               ("linear", {**TRAIN_PARAMS, **LINEAR_PARAMS},
+                ENGINE_LINEAR_ROUNDS))
+    # every run from scratch before the first continued one bins the
+    # training set again with its init model's scores
+    bases = {name: engine_base(name, params, rounds, train_set, valid_set,
+                               workdir)
+             for name, params, rounds in configs}
+    runs = {}
+    for name, params, rounds in configs:
+        boosters, k1, k4, fields = engine_continued(
+            name, params, rounds, train_set, valid_set, X, workdir,
+            bases[name])
+        k1_total += k1
+        for k, v in k4.items():
+            k4_total[k] = k4_total.get(k, 0) + v
+        runs[name] = fields
+        if name == "constant":
+            _, base_path, full_path, _ = bases[name]
+            booster, snaps = boosters["file"]
+            leaf = engine_pred_leaf(booster, Xv)
+            rollback = engine_rollback(booster, snaps, base_path, X, Xv,
+                                       rounds)
+            _reset_launches()
+            merged = engine_merge(base_path, full_path, Xv)
+            k4 = _launches()[1]
+            check(k4["forest_walk"] > 0, f"merge: K4 launches {k4}")
+            merged["k4_launches"] = k4["forest_walk"]
+            k4_total["forest_walk"] += k4["forest_walk"]
+    k1, example = engine_example(workdir)
+    k1_total += k1
+    emit({"phase": "engine", "rows": train_set.num_data(),
+          "valid_rows": valid_set.num_data(), "params": TRAIN_PARAMS,
+          "runs": runs, "rollback": rollback, "pred_leaf": leaf,
+          "merge": merged, "early_stopping": early, "cv": cv_fields,
+          "binary_example": example, "k1_launches": k1_total,
+          "k4_launches": k4_total,
+          "seconds": time.perf_counter() - t0})
+    return {"digit_histogram": k1_total, **k4_total}
+
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -2972,11 +3502,14 @@ def main(argv=None) -> int:
         launches.update(phase_serve_linear(args.seed, dev, lin_model,
                                            lin_grid, higgs_model, workdir,
                                            errs))
-        trained, windows = phase_train(args.seed, dev, workdir)
+        trained, windows, datasets = phase_train(args.seed, dev, workdir)
         launches.update(trained)
         for name, n in [*phase_examples(workdir).items(),
-                        *phase_objectives(args.seed, workdir).items()]:
+                        *phase_objectives(args.seed, workdir).items(),
+                        *phase_engine(args.seed, datasets,
+                                      workdir).items()]:
             launches[name] += n
+        del datasets
     launches.update(phase_probes(args.timing_reps))
     timing = phase_timing(args.seed, dev, higgs_model, higgs_grid,
                           lin_model, lin_grid, args.timing_reps)

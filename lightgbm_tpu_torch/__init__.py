@@ -10,16 +10,21 @@ per-leaf affine fit, ``models/linear.py``) -> score update.  ``ordered``
 (default) and ``cached`` run the hand-written leaf-histogram kernel
 (``csrc/leaf_hist.cu``); ``fused`` and the ``nocache`` grower of the
 ``hist_cache`` degrade step run the hand-written full-pass kernels of
-``csrc/children_hist.cu``.  Entry points run on the first CUDA card
-unless the caller passes ``device="cpu"``.
+``csrc/children_hist.cu``.  ``train`` continues from ``init_model``,
+stops early, takes callbacks and per-round learning rates; ``cv``
+cross-validates.  Entry points run on the first CUDA card unless the
+caller passes ``device="cpu"``.
 """
 
 from .basic import Booster, Dataset
-from .engine import train
+from .callback import (early_stopping, print_evaluation, record_evaluation,
+                       reset_parameter)
+from .engine import CVBooster, cv, train
 from .serve.forest import CompiledForest
 from .utils.log import LightGBMError
 
 __version__ = "0.4.0"
 
-__all__ = ["Booster", "CompiledForest", "Dataset", "LightGBMError",
-           "__version__", "train"]
+__all__ = ["Booster", "CVBooster", "CompiledForest", "Dataset",
+           "LightGBMError", "__version__", "cv", "early_stopping", "print_evaluation", "record_evaluation",
+           "reset_parameter", "train"]

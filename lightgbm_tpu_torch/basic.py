@@ -4,14 +4,19 @@ Port of the JAX package's basic.py for the slices ported so far.
 ``Dataset`` bins an in-memory matrix or a data file lazily
 (``from_matrix``, or ``create_valid`` against a ``reference``), with its
 metadata: weights, query sizes and initial scores from arguments, side
-files or the file's own columns.  ``Booster`` either loads a model
+files or the file's own columns, or a row ``subset`` of another
+Dataset on its mappers (the folds of ``cv``); with a predictor (an init
+model, ``engine.train``) its init scores are the predictor's raw
+predictions.  ``Booster`` either loads a model
 (``model_file=`` / ``model_str=``) or trains one (``params=``,
 ``train_set=``; ``update()`` runs one boosting round, from a custom
 ``fobj`` too, ``add_valid()`` attaches a valid set, ``eval_*`` take a
-custom ``feval``).  ``predict`` bins rows on the host
-in f64 and walks them through the forest-walk kernel
+custom ``feval``, ``reset_parameter`` / ``rollback_one_iter`` /
+``merge`` change the model between rounds).  ``predict`` bins rows on
+the host in f64 and walks them through the forest-walk kernel
 (``serve/forest.py`` ``CompiledForest``), so on a card every prediction
-runs the kernel.
+runs the kernel; ``pred_leaf=True`` gives each row's leaf in every tree
+by the f64 host walk, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -50,12 +55,14 @@ class Dataset:
     ``weight``, ``group`` (query sizes) and ``init_score`` (class-major)
     set the metadata of a matrix; for a file, its side files override
     them, as in the JAX package.  ``categorical_feature`` lists column
-    indices, or names of ``feature_name``."""
+    indices, or names of ``feature_name``.  ``free_raw_data`` drops
+    ``data`` once binned; a constructed Dataset can then take no init
+    model (``train(init_model=)``), as in the JAX package."""
 
     def __init__(self, data, label=None, reference: "Dataset" = None,
                  weight=None, group=None, init_score=None,
                  feature_name="auto", categorical_feature="auto",
-                 params=None):
+                 params=None, free_raw_data: bool = True):
         self.data = data
         self.label = label
         self.reference = reference
@@ -65,11 +72,30 @@ class Dataset:
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
         self.params = dict(params or {})
+        self.free_raw_data = free_raw_data
+        self.used_indices: Optional[np.ndarray] = None
         self._binned = None
+        self._predictor = None
 
     def _update_params(self, params) -> "Dataset":
         if self._binned is None:
             self.params.update(params)
+        return self
+
+    def _set_predictor(self, predictor) -> "Dataset":
+        """Continued training: the init scores become ``predictor``'s raw
+        predictions at construction.  On a constructed Dataset the rows
+        are binned again, which needs the raw data kept
+        (``free_raw_data=False``), as in the JAX package."""
+        if self._binned is not None and predictor is not None \
+                and predictor is not self._predictor:
+            if self.data is None or self.free_raw_data:
+                raise LightGBMError(
+                    "Cannot set predictor after construction (set "
+                    "free_raw_data=False to allow continued training on "
+                    "a constructed Dataset)")
+            self._binned = None
+        self._predictor = predictor
         return self
 
     def _read_file(self, cfg: Config):
@@ -119,6 +145,12 @@ class Dataset:
 
     def construct(self) -> "Dataset":
         if self._binned is not None:
+            return self
+        if self.used_indices is not None:
+            # a subset of a constructed reference (reference subset(),
+            # basic.py:820-837): its metadata comes with the rows
+            self._binned = self.reference.construct()._binned.subset(
+                self.used_indices)
             return self
         cfg = Config({**self.params, "task": "train"})
         roles = None
@@ -178,7 +210,22 @@ class Dataset:
                 md.set_weights(data[:, roles.weight_idx])
             if roles.group_idx >= 0 and self.group is None:
                 md.set_query_id(data[:, roles.group_idx])
+        if self._predictor is not None:
+            # continued training (dataset_loader.cpp:10): the init model's
+            # raw predictions, class-major for multiclass
+            raw = np.asarray(self._predictor.predict(data, raw_score=True))
+            md.set_init_score(raw.reshape(-1, order="F"))
+        if self.free_raw_data:
+            self.data = None
         return self
+
+    def subset(self, used_indices) -> "Dataset":
+        """The rows ``used_indices`` of this Dataset on its mappers."""
+        sub = Dataset(None, reference=self, feature_name=self.feature_name,
+                      categorical_feature=self.categorical_feature,
+                      params=self.params)
+        sub.used_indices = np.asarray(used_indices)
+        return sub
 
     def create_valid(self, data, label=None, weight=None, group=None,
                      init_score=None, params=None) -> "Dataset":
@@ -194,6 +241,30 @@ class Dataset:
             self._binned.metadata.set_label(label)
         return self
 
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = init_score
+        if self._binned is not None and init_score is not None:
+            self._binned.metadata.set_init_score(init_score)
+        return self
+
+    def set_feature_name(self, feature_name) -> "Dataset":
+        self.feature_name = feature_name
+        if self._binned is not None and feature_name not in (None, "auto"):
+            self._binned.feature_names = list(feature_name)
+        return self
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        """``"auto"`` keeps the Dataset's own (as the reference package
+        does; the JAX package's ``train`` resets it)."""
+        if categorical_feature == "auto":
+            return self
+        if self._binned is not None and \
+                categorical_feature != self.categorical_feature:
+            raise LightGBMError(
+                "Cannot set categorical feature after construction")
+        self.categorical_feature = categorical_feature
+        return self
+
     def get_label(self):
         return self.construct()._binned.metadata.label
 
@@ -203,6 +274,9 @@ class Dataset:
     def get_group(self):
         qb = self.construct()._binned.metadata.query_boundaries
         return None if qb is None else np.diff(qb)
+
+    def get_init_score(self):
+        return self.construct()._binned.metadata.init_score
 
     def num_data(self) -> int:
         return self.construct()._binned.num_data
@@ -232,6 +306,8 @@ class Booster:
                             "train_set")
         self.device = resolve_device(device)
         self._forest = None          # (num_iteration, CompiledForest)
+        self.best_iteration = -1
+        self._train_data_name = "training"
         self._train_set = train_set
         self._valid_sets: List[Dataset] = []
         self._name_valid_sets: List[str] = []
@@ -253,6 +329,10 @@ class Booster:
         self._booster = GBDT.from_string(model_str)
 
     # -- training --------------------------------------------------------
+    def set_train_data_name(self, name: str) -> "Booster":
+        self._train_data_name = name
+        return self
+
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         if self._train_set is None:
             raise LightGBMError("add_valid needs a Booster built from a "
@@ -288,6 +368,40 @@ class Booster:
                 f"don't match training data ({n})")
         return self._booster.train_one_iter(grad, hess)
 
+    def reset_parameter(self, params) -> "Booster":
+        """New parameters between rounds (``GBDT.reset_config``): a
+        learning rate, or grower settings, which rebuild the grower."""
+        self.config = Config({**self.config.raw, **params})
+        self._booster.reset_config(self.config)
+        self._forest = None
+        return self
+
+    def rollback_one_iter(self) -> "Booster":
+        """Undo the last round (into an init model's rounds too)."""
+        self._booster.rollback_one_iter()
+        self._forest = None
+        return self
+
+    def merge(self, other: "Booster",
+              shrinkage_decay: Optional[float] = None) -> "Booster":
+        """Append ``other``'s trees with their outputs scaled by
+        ``shrinkage_decay`` (default: the ``shrinkage_decay`` parameter,
+        1.0), so the merged model predicts ``self + decay * other`` in raw
+        scores; refuses models of other class counts, feature widths or
+        objectives.  ``other`` is not touched.  Returns self."""
+        if not isinstance(other, Booster):
+            raise TypeError(
+                f"Booster.merge expects a Booster, got {type(other).__name__}")
+        if shrinkage_decay is None:
+            shrinkage_decay = self.config.shrinkage_decay
+        self._booster.merge_from(other._booster,
+                                 shrinkage_decay=float(shrinkage_decay))
+        self._forest = None
+        return self
+
+    def _to_predictor(self) -> "Booster":
+        return self
+
     def current_iteration(self) -> int:
         return self._booster.iter_
 
@@ -311,11 +425,21 @@ class Booster:
                 out.append((name,) + tuple(ret))
         return out
 
+    def eval(self, data: Dataset, name: str, feval=None) -> List[tuple]:
+        """The metrics of ``data``, the training set or a valid set,
+        under ``name``."""
+        for i, vs in enumerate(self._valid_sets):
+            if vs is data:
+                return self._eval_at(i + 1, name, feval)
+        if data is self._train_set:
+            return self.eval_train(feval)
+        raise LightGBMError("Data should be either train or a valid set")
+
     def eval_train(self, feval=None) -> List[tuple]:
         """[(data name, metric name, value, bigger is better)] on the
         training set; ``feval(preds, dataset)`` adds a custom metric's
         (name, value, bigger is better), or a list of them."""
-        return self._eval_at(0, "training", feval)
+        return self._eval_at(0, self._train_data_name, feval)
 
     def eval_valid(self, feval=None) -> List[tuple]:
         return [r for i, name in enumerate(self._name_valid_sets)
@@ -352,14 +476,18 @@ class Booster:
         return self._forest[1]
 
     def predict(self, data, num_iteration: int = -1,
-                raw_score: bool = False) -> np.ndarray:
+                raw_score: bool = False, pred_leaf: bool = False) -> np.ndarray:
         """``[N]`` for one class, ``[N, K]`` for multiclass: host f64
         binning, the binned forest-walk kernel, then the objective's
-        transform in f64 unless ``raw_score``."""
+        transform in f64 unless ``raw_score``.  ``pred_leaf``: ``[N,
+        num_trees]`` int32, each row's leaf in each tree, by the f64 host
+        walk (the JAX package's ``predict_leaf_index``)."""
         X = np.asarray(data, np.float64)
         if X.ndim == 1:
             X = X.reshape(1, -1)
         b = self._booster
+        if pred_leaf:
+            return b.predict_leaf_index(X, num_iteration)
         if b.num_trees() == 0:
             raw = np.zeros((b.num_class, X.shape[0]), np.float64)
         else:

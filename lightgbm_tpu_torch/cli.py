@@ -4,11 +4,13 @@ tasks.
     python -m lightgbm_tpu_torch task=train data=train.csv \\
         objective=<objective> output_model=model.txt \\
         [valid_data=valid.csv] [config=train.conf] \\
+        [input_model=init.txt] [early_stopping_round=10] \\
         [num_iterations=100 num_leaves=63 ...] [device=cuda|cpu] \\
         [serial_grow=ordered|cached|fused] \\
         [histogram_pool_size=<MB> memory_policy=fail_fast|degrade]
     python -m lightgbm_tpu_torch task=predict input_model=model.txt \\
-        data=rows.csv output_result=preds.txt [device=cuda|cpu]
+        data=rows.csv output_result=preds.txt [device=cuda|cpu] \\
+        [is_predict_leaf_index=true]
     python -m lightgbm_tpu_torch task=serve input_model=model.txt \\
         serve_port=8080 [serve_max_batch=8192 serve_max_delay_ms=5]
 
@@ -20,7 +22,12 @@ answer are refused (``config.py``).  Data files are CSV, TSV or LibSVM
 column); ``.weight``, ``.query`` and ``.init`` side files beside a data
 or valid file are loaded, and the column roles (``weight_column``,
 ``group_column``, ``ignore_column``, ``categorical_column``) are taken.
-Every objective of the JAX package trains.  ``python -m
+Every objective of the JAX package trains.  Training goes through
+``engine.train`` as in the JAX CLI: it continues from ``input_model``,
+stops early after ``early_stopping_round`` rounds without a better valid
+metric (and still saves every round it trained), and logs the metrics
+every ``output_freq`` rounds.  ``is_predict_leaf_index=true`` writes
+each row's leaf in every tree instead of scores.  ``python -m
 lightgbm_tpu_torch serve ...`` is sugar for ``task=serve``.
 """
 
@@ -35,14 +42,15 @@ import numpy as np
 
 from .basic import Booster, Dataset
 from .config import Config, parse_cli_args
+from .engine import train as engine_train
 from .io.column_roles import resolve_label_idx
 from .io.parser import parse_file_chunks, read_header
 from .utils import log
 
 
 def _write_prediction_rows(fh, part: np.ndarray) -> None:
-    """``[n]`` or ``[n, K]`` predictions -> ``%g`` lines (tab-joined
-    per row for multiclass)."""
+    """``[n]`` or ``[n, K]`` predictions (or ``[n, num_trees]`` leaf
+    indices) -> ``%g`` lines, tab-joined per row when 2-D."""
     if part.ndim == 1:
         for v in part:
             fh.write(f"{v:g}\n")
@@ -53,9 +61,10 @@ def _write_prediction_rows(fh, part: np.ndarray) -> None:
 
 def run_predict(config: Config, params: Dict[str, str]) -> None:
     """task=predict: score ``data`` (CSV, TSV or LibSVM, densified to the
-    model's width) with ``input_model`` through the forest-walk kernel;
-    results stream to ``output_result``.  The label column is
-    ``label_column`` when given, else the model's."""
+    model's width) with ``input_model`` through the forest-walk kernel,
+    or with ``is_predict_leaf_index`` write each row's leaf in every
+    tree (the host walk); results stream to ``output_result``.  The
+    label column is ``label_column`` when given, else the model's."""
     if not config.input_model:
         log.fatal("No model file specified (input_model=...)")
     if not config.data:
@@ -77,7 +86,8 @@ def run_predict(config: Config, params: Dict[str, str]) -> None:
                                       label_idx, b.max_feature_idx + 1):
             part = booster.predict(
                 X, num_iteration=config.num_iteration_predict,
-                raw_score=config.is_predict_raw_score)
+                raw_score=config.is_predict_raw_score,
+                pred_leaf=config.is_predict_leaf_index)
             _write_prediction_rows(fh, np.asarray(part))
             n_rows += X.shape[0]
     os.replace(tmp, out)
@@ -87,32 +97,33 @@ def run_predict(config: Config, params: Dict[str, str]) -> None:
 
 
 def run_train(config: Config, params: Dict[str, str]) -> None:
-    """task=train: bin ``data`` (with its side files and column roles)
-    and each ``valid_data`` file against its mappers, boost
-    ``num_iterations`` rounds on ``device``, log the metrics each
-    ``output_freq`` rounds, save ``output_model``."""
+    """task=train (Application::InitTrain + Train): bin ``data`` (with
+    its side files and column roles) and each ``valid_data`` file
+    against its mappers, then ``engine.train`` on ``device`` as the JAX
+    CLI calls it: the training set first among the evaluated sets when
+    ``is_training_metric``, ``valid_<i>`` names, metrics logged every
+    ``output_freq`` rounds, early stopping when ``early_stopping_round``
+    > 0, continued from ``input_model``.  Saves every trained round to
+    ``output_model``."""
     if not config.data:
         log.fatal("No training data specified (data=...)")
     config.check_trainable()          # before reading a large file
     start = time.monotonic()
     train_set = Dataset(config.data, params=dict(params))
-    booster = Booster(params=dict(params), train_set=train_set,
-                      device=config.device)
+    valid_sets, valid_names = [], []
+    if config.is_training_metric:
+        valid_sets.append(train_set)
+        valid_names.append("training")
     for i, path in enumerate(config.valid_data):
-        booster.add_valid(train_set.create_valid(path, params=dict(params)),
-                          f"valid_{i + 1}")
-    log.info("Finished loading data in %f seconds",
-             time.monotonic() - start)
-    for it in range(config.num_iterations):
-        finished = booster.update()
-        if (it + 1) % max(config.output_freq, 1) == 0:
-            results = (booster.eval_train() if config.is_training_metric
-                       else []) + booster.eval_valid()
-            for name, metric, value, _ in results:
-                log.info("Iteration:%d, %s %s : %g", it + 1, name, metric,
-                         value)
-        if finished:
-            break
+        valid_sets.append(train_set.create_valid(path, params=dict(params)))
+        valid_names.append(f"valid_{i + 1}")
+    booster = engine_train(
+        dict(params), train_set, num_boost_round=config.num_iterations,
+        valid_sets=valid_sets or None, valid_names=valid_names or None,
+        verbose_eval=max(config.output_freq, 1),
+        early_stopping_rounds=(config.early_stopping_round
+                               if config.early_stopping_round > 0 else None),
+        init_model=config.input_model or None, device=config.device)
     booster.save_model(config.output_model)
     log.info("%f seconds elapsed, finished training",
              time.monotonic() - start)

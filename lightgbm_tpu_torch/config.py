@@ -7,13 +7,14 @@ runs here unchanged.  Any other key is accepted and ignored with one
 warning per key, when it cannot change a tree or a prediction
 (``num_threads``, ``metric_freq``).  Keys that would change the answer
 and are not ported yet are refused with a ``LightGBMError`` naming them,
-under their aliases too: ``is_predict_leaf_index`` for predict, a
-``bad_data_policy`` other than ``fail_fast`` and
-``use_two_round_loading=true`` (the JAX loader's quarantine and
+under their aliases too: a ``bad_data_policy`` other than ``fail_fast``
+and ``use_two_round_loading=true`` (the JAX loader's quarantine and
 streaming paths).  Training settings the port has not ported yet
-(bagging, feature fraction, GOSS, DART, distributed learners, early
-stopping, continued training from ``input_model``) raise in
-:meth:`Config.check_trainable`; every objective of the JAX package
+(bagging, feature fraction, GOSS, DART, distributed learners) raise in
+:meth:`Config.check_trainable`.  ``early_stopping_round``,
+``input_model`` with ``task=train`` (continued training) and
+``is_predict_leaf_index`` are the CLI's, as in the JAX package
+(``cli.py``); every objective of the JAX package
 trains (``regression``, ``regression_l1``, ``huber``, ``fair``,
 ``poisson``, ``binary``, ``multiclass``, ``lambdarank``, and ``none``
 for a custom objective).
@@ -84,8 +85,7 @@ PARAM_ALIASES: Dict[str, str] = {
     "reg_lambda": "lambda_l2",
     "num_classes": "num_class",
     "unbalanced_sets": "is_unbalance",
-    # keys the port refuses (_check, check_trainable), so that an alias
-    # is refused too rather than warned about
+    # the CLI's early stopping and leaf-index predict (cli.py)
     "early_stopping_rounds": "early_stopping_round",
     "early_stopping": "early_stopping_round",
     "predict_leaf_index": "is_predict_leaf_index",
@@ -102,8 +102,6 @@ PARAM_ALIASES: Dict[str, str] = {
     "cat_column": "categorical_column",
     "cat_feature": "categorical_column",
 }
-
-_PREDICT_TASKS = ("predict", "prediction", "test")
 
 _DEFAULTS: Dict[str, Any] = {
     "task": "train",
@@ -184,9 +182,12 @@ _DEFAULTS: Dict[str, Any] = {
     "group_column": "",
     "ignore_column": "",
     "categorical_column": "",
-    # read only to be refused (_check, check_trainable)
+    # the CLI's early stopping and leaf-index predict (cli.py)
     "early_stopping_round": 0,
     "is_predict_leaf_index": False,
+    # the leaf-output decay Booster.merge applies by default
+    "shrinkage_decay": 1.0,
+    # read only to be refused (_check)
     "bad_data_policy": "fail_fast",
     "use_two_round_loading": False,
 }
@@ -313,11 +314,9 @@ class Config:
                 "use_two_round_loading=true (the JAX package's streaming "
                 "loader samples the rows it bins from differently; the "
                 "torch port loads the whole file)")
-        if v["is_predict_leaf_index"] and v["task"] in _PREDICT_TASKS:
-            raise LightGBMError(
-                "not ported yet to the torch package: "
-                "is_predict_leaf_index=true (task=predict writes scores, "
-                "not leaf indices)")
+        if not (0.0 < v["shrinkage_decay"] <= 1.0):
+            raise ValueError("shrinkage_decay must be in (0, 1] — 0 would "
+                             "merge dead trees, > 1 would amplify them")
         if v["serve_max_batch"] <= 0:
             raise ValueError("serve_max_batch must be > 0")
         if v["serve_max_delay_ms"] < 0:
@@ -374,8 +373,8 @@ class Config:
     def check_trainable(self) -> None:
         """Raise for every training setting outside the ported slice
         (serial GBDT of any objective with any ``serial_grow``, constant
-        or linear leaves, without row or feature sampling, early stopping
-        or continued training); nothing here is silently ignored."""
+        or linear leaves, without row or feature sampling); nothing here
+        is silently ignored."""
         v = self._values
         unported = []
         if v["objective"] not in OBJECTIVES:
@@ -391,12 +390,6 @@ class Config:
             unported.append("bagging_fraction<1 (bagging)")
         if v["feature_fraction"] < 1.0:
             unported.append("feature_fraction<1")
-        if v["early_stopping_round"] > 0:
-            unported.append(f"early_stopping_round="
-                            f"{v['early_stopping_round']} (early stopping)")
-        if v["input_model"]:
-            unported.append(f"input_model={v['input_model']} with "
-                            "task=train (continued training)")
         if unported:
             raise LightGBMError(
                 "not ported yet to the torch package: "

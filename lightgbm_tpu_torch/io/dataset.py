@@ -5,7 +5,8 @@ Port of the JAX package's io/dataset.py for the training slice:
 scores, and the ``.weight`` / ``.query`` / ``.init`` side files beside a
 data file), the FindBin stage
 (``build_mappers_from_sample``) and ``BinnedDataset.from_matrix`` /
-``create_valid``.  Rows are sampled for binning from
+``create_valid`` / ``subset`` (a row subset on the same mappers: the
+folds of ``cv``).  Rows are sampled for binning from
 ``data_random_seed`` with numpy exactly as the JAX package samples them,
 trivial features are dropped, and the bins are stored dense and
 feature-major, ``[F_used, N]`` uint8 (uint16 when some feature needs more
@@ -287,6 +288,45 @@ class BinnedDataset:
         valid.metadata.set_label(label if label is not None
                                  else np.zeros(data.shape[0], np.float32))
         return valid
+
+    def subset(self, indices) -> "BinnedDataset":
+        """The rows ``indices`` on the same mappers (CopySubset,
+        dataset.cpp:210-230): bins and raw values gathered, label,
+        weights and every class's init scores subset, query boundaries
+        rebuilt from the runs of each query's rows (indices that leave a
+        query's rows out of order are fatal, metadata.cpp)."""
+        indices = np.asarray(indices, dtype=np.int64)
+        sub = BinnedDataset()
+        sub.num_total_features = self.num_total_features
+        sub.max_bin = self.max_bin
+        sub.feature_names = list(self.feature_names)
+        sub.used_feature_map = list(self.used_feature_map)
+        sub.real_to_inner = self.real_to_inner.copy()
+        sub.mappers = self.mappers
+        sub.bins = np.ascontiguousarray(self.bins[:, indices])
+        if self.raw is not None:
+            sub.raw = np.ascontiguousarray(self.raw[:, indices])
+        sub.metadata = Metadata(len(indices))
+        md, smd = self.metadata, sub.metadata
+        if md.label is not None:
+            smd.set_label(md.label[indices])
+        if md.weights is not None:
+            smd.set_weights(md.weights[indices])
+        if md.init_score is not None and md.num_data:
+            # class-major [num_class * num_data]
+            per_class = md.init_score.reshape(-1, md.num_data)
+            smd.set_init_score(per_class[:, indices].ravel())
+        if md.query_boundaries is not None:
+            qid = np.searchsorted(md.query_boundaries, indices,
+                                  side="right") - 1
+            if np.any(np.diff(qid) < 0):
+                log.fatal("Data partition in subset is not aligned with "
+                          "query boundaries")
+            change = np.nonzero(np.diff(qid))[0] + 1
+            smd.query_boundaries = np.concatenate(
+                [[0], change, [len(indices)]]).astype(np.int64)
+            smd._update_query_weights()
+        return sub
 
     @property
     def num_data(self) -> int:

@@ -19,6 +19,15 @@ of ``_DeviceData`` (feature-major and row-major bins, the
 i % num_class.  Rounds run synchronously, with no pipelining; the score
 buffers are updated in place.
 
+Continued training puts the init model's trees first in ``models``
+(``num_init_iteration`` rounds of them) and the training scores start
+from its predictions (the dataset's init scores); every valid set
+replays every tree of ``models``, loaded ones through ``Tree.ensure_inner``
+against the training mappers.  ``rollback_one_iter`` replays the last
+round's trees negated, also into the loaded ones; ``reset_config``
+takes new parameters between rounds; ``merge_from`` appends another
+model's trees scaled; ``predict_leaf_index`` is the host walk.
+
 ``linear_tree=true`` (models/linear.py, docs/LINEAR_TREES.md) fits an
 affine model in every leaf after any grower: the fit's intercepts
 replace the grown leaf values, its delta replaces the grower's, valid
@@ -47,33 +56,41 @@ import torch
 
 from ..metric import create_metric
 from ..objective import create_objective
-from ..ops.grow import (GrowParams, SerialComm, _read, grow_tree,
-                        pack_tree_arrays, unpack_tree_arrays)
+from ..ops.grow import GrowParams, SerialComm, _read, grow_tree
 from ..ops.ordered_grow import grow_tree_ordered
 from ..ops.predict import predict_binned_tree
 from ..utils import log, resource
 from ..utils.log import LightGBMError
-from .linear import (LeafModels, LinearParams, affine_epilogue,
-                     attach_linear, fit_leaf_models)
+from .linear import (LinearParams, affine_epilogue, attach_linear,
+                     fit_leaf_models)
 from .tree import Tree
 
 
 def estimate_train_memory(num_data: int, num_features: int, num_leaves: int,
                           max_bin: int, num_models: int,
                           bin_itemsize: int = 1, *,
-                          leaf_cache: bool = True) -> Dict[str, int]:
+                          leaf_cache: bool = True,
+                          linear_k: int = 0) -> Dict[str, int]:
     """Rough device footprint (bytes) of training, by component: the
     column- and row-major bin copies, the score, gradient, hessian and
-    delta buffers, and the [L, F, 9, B] int32 per-leaf histogram cache
+    delta buffers, the [L, F, 9, B] int32 per-leaf histogram cache
     (zero without ``leaf_cache``: the fused grower and the
-    ``hist_cache`` degrade step).  The JAX version's terms for packed
-    word lanes, score donation and linear fits are not ported."""
+    ``hist_cache`` degrade step) and, with ``linear_k`` affine slots a
+    leaf (``linear_tree``), the linear fit's: the [F, N] f32 raw copy,
+    two [N, K+1] f32 per-row gathers and three [L, K+1, K+1] f32 normal
+    equation copies (the JAX ``linear_fit`` term).  The JAX version's
+    terms for packed word lanes and score donation are not ported."""
     n, f = num_data, num_features
     bins = 2 * n * f * bin_itemsize
     scores = num_models * n * 4 * 4
     cache = num_leaves * f * 9 * max_bin * 4 if leaf_cache else 0
+    linear = 0
+    if linear_k > 0:
+        m = linear_k + 1
+        linear = n * f * 4 + 2 * n * m * 4 + 3 * num_leaves * m * m * 4
     return {"bins_device": bins, "scores_and_gradients": scores,
-            "histogram_cache": cache, "total": bins + scores + cache}
+            "histogram_cache": cache, "linear_fit": linear,
+            "total": bins + scores + cache + linear}
 
 
 class _PredictionObjective:
@@ -154,6 +171,9 @@ class GBDT:
         self.models: List[Tree] = []
         self._footer_tail = ""
         self.iter_ = 0
+        # rounds carried in from an init model (continued training) or
+        # loaded from a model file
+        self.num_init_iteration = 0
         if train_set is not None:
             self._setup(config, train_set, device)
 
@@ -175,13 +195,7 @@ class GBDT:
         # the model text's sigmoid transform belongs to binary only
         self.sigmoid = (config.sigmoid if config.objective == "binary"
                         else -1.0)
-        self.grow_params = GrowParams(
-            num_leaves=config.num_leaves, max_bin=config.max_bin,
-            min_data_in_leaf=config.min_data_in_leaf,
-            min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
-            lambda_l1=config.lambda_l1, lambda_l2=config.lambda_l2,
-            min_gain_to_split=config.min_gain_to_split,
-            max_depth=config.max_depth)
+        self.grow_params = self._make_grow_params(config)
         self.shrinkage_rate = config.learning_rate
         self._degrade_steps: tuple = ()
         self._degrade_leaf_cache_off = False
@@ -205,12 +219,42 @@ class GBDT:
                                       device=device)
         self._feat_mask = torch.ones(train_set.num_features,
                                      dtype=torch.bool, device=device)
-        # TreeArrays (host) of every tree in ``models`` and beside each
-        # its LeafModels (None for constant leaves): valid sets added
-        # later replay them, as the JAX package replays ``models``
+        # TreeArrays (host) of each tree this booster grew: the last
+        # len(tree_arrays) trees of ``models`` (a rollback pops them; a
+        # merge, which appends other trees, drops them)
         self.tree_arrays: list = []
-        self.tree_linear: list = []
         self.linear_fallbacks = 0
+
+    @staticmethod
+    def _make_grow_params(config) -> GrowParams:
+        return GrowParams(
+            num_leaves=config.num_leaves, max_bin=config.max_bin,
+            min_data_in_leaf=config.min_data_in_leaf,
+            min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
+            lambda_l1=config.lambda_l1, lambda_l2=config.lambda_l2,
+            min_gain_to_split=config.min_gain_to_split,
+            max_depth=config.max_depth)
+
+    def reset_config(self, config) -> None:
+        """Booster::ResetConfig (c_api.cpp:96-134) between rounds: the
+        new learning rate, the grower rebuilt only when its parameters
+        really change (so a per-round learning-rate schedule rebuilds
+        nothing), and the metrics anew.  A setting ``check_trainable``
+        refuses is refused here too.  A loaded model only keeps the
+        config."""
+        if getattr(self, "train_set", None) is None:
+            self.config = config
+            return
+        config.check_trainable()
+        self.config = config
+        self.shrinkage_rate = config.learning_rate
+        params = self._make_grow_params(config)
+        if params != self.grow_params:
+            self.grow_params = params
+            self._grow = self._make_grow_fn()
+        self.train_metrics = self._make_metrics(self.train_set)
+        self.valid_metrics = [self._make_metrics(dd.dataset)
+                              for dd in self.valid_data]
 
     def _setup_linear(self, cfg, train_set) -> Optional[LinearParams]:
         """The linear-leaf settings, or None when ``linear_tree`` is off
@@ -258,7 +302,9 @@ class GBDT:
             train_set.num_data, train_set.num_features, cfg.num_leaves,
             cfg.max_bin, self.num_class,
             bin_itemsize=train_set.bins.dtype.itemsize,
-            leaf_cache=cfg.serial_grow != "fused")
+            leaf_cache=cfg.serial_grow != "fused",
+            linear_k=(int(cfg.linear_max_leaf_features)
+                      if cfg.linear_tree else 0))
         pool_mb = float(cfg.histogram_pool_size)
         if pool_mb <= 0 or est["histogram_cache"] <= pool_mb * (1 << 20):
             return
@@ -338,36 +384,71 @@ class GBDT:
                       "reference=train from an in-memory matrix")
         dd = _DeviceData(valid_set, self.num_class, self.device,
                          with_raw=self._linear is not None)
-        # tree i belongs to class i % num_class (the JAX add_valid_dataset)
-        for i, (ta, lin) in enumerate(zip(self.tree_arrays,
-                                          self.tree_linear)):
-            dd.score[i % self.num_class] += self._tree_delta(dd, ta, lin)
+        # every tree of ``models``, loaded ones too; tree i belongs to
+        # class i % num_class (the JAX add_valid_dataset)
+        for i, tree in enumerate(self.models):
+            self._add_host_tree_to(dd, tree, i % self.num_class)
         self.valid_data.append(dd)
         self.valid_metrics.append(self._make_metrics(valid_set))
 
-    def _tree_delta(self, dd: _DeviceData, ta,
-                    lin: Optional[LeafModels] = None) -> torch.Tensor:
-        """One tree's f32 leaf values on every row of ``dd``, through the
-        plain binned walk, plus the affine part of linear leaves (the JAX
-        ``_device_tree_delta``)."""
-        L = self.grow_params.num_leaves
-        ints, flts = pack_tree_arrays(ta)
-        t = unpack_tree_arrays(_to_device(ints, self.device),
-                               _to_device(flts, self.device), L)
+    def _add_host_tree_to(self, dd: _DeviceData, tree: Tree,
+                          cls: int) -> None:
+        """Add a host ``Tree`` (grown, loaded or negated) to class ``cls``
+        of ``dd``'s scores: its bin-space splits against the training
+        mappers (``ensure_inner``), the plain binned walk, then the
+        affine part of linear leaves (the JAX ``_add_host_tree_to``).
+        A grown tree adds its leaf values and slopes, f32 values held in
+        f64, so exactly what its fit added to the training scores.  A
+        tree that splits on a feature trivial in the training data, or
+        whose affine part reads one, or a linear tree on a set without
+        raw values, is fatal."""
+        if tree.num_leaves <= 1:
+            dd.score[cls] += float(tree.leaf_value[0]) \
+                if tree.num_leaves else 0.0
+            return
+        ts = self.train_set
+        if not tree.ensure_inner(ts.real_to_inner, ts.mappers):
+            log.fatal("Cannot replay a loaded tree on this dataset: it "
+                      "splits on a feature the dataset binned as trivial")
+        dev = self.device
+        sf = torch.from_numpy(tree.split_feature_inner.astype(np.int64))
+        dt = torch.from_numpy(tree.decision_type == 1)
         delta, leaf = predict_binned_tree(
-            t.split_feature, t.split_bin,
-            self.is_cat[t.split_feature.clamp(min=0).long()],
-            t.left_child, t.right_child, t.leaf_value, dd.bins, L)
-        if lin is not None:
-            delta = delta + affine_epilogue(leaf, lin.coeff, lin.feat,
-                                            dd.raw)
-        return delta
+            _to_device(sf, dev),
+            _to_device(torch.from_numpy(tree.threshold_in_bin), dev),
+            _to_device(dt, dev),
+            _to_device(torch.from_numpy(tree.left_child), dev),
+            _to_device(torch.from_numpy(tree.right_child), dev),
+            _to_device(torch.from_numpy(
+                tree.leaf_value.astype(np.float32)), dev),
+            dd.bins, int(tree.num_leaves))
+        if tree.has_linear():
+            if dd.raw is None:
+                log.fatal("Cannot replay a linear tree on this dataset: "
+                          "no raw feature values are resident (build the "
+                          "booster with linear_tree=true so the raw "
+                          "values are kept)")
+            r2i = np.asarray(ts.real_to_inner, np.int64)
+            lf = np.asarray(tree.leaf_feat, np.int64)
+            inner = np.where(lf >= 0, r2i[np.maximum(lf, 0)], -1)
+            bad = (lf >= 0) & (inner < 0) & (tree.leaf_coeff != 0.0)
+            if np.any(bad):
+                log.fatal("Cannot replay a linear tree on this dataset: a "
+                          "leaf's affine model reads feature(s) %s, which "
+                          "the dataset binned as trivial",
+                          sorted(set(lf[bad].tolist())))
+            delta = delta + affine_epilogue(
+                leaf, _to_device(torch.from_numpy(
+                    tree.leaf_coeff.astype(np.float32)), dev),
+                _to_device(torch.from_numpy(inner.astype(np.int32)), dev),
+                dd.raw)
+        dd.score[cls] += delta
 
     def _fit_linear(self, ta, leaf_id, grad, hess):
         """The per-leaf affine fit of one grown tree: (TreeArrays with the
-        fitted intercepts, its LeafModels, the host (coeff, feat) tables,
-        the train-score delta).  One host read brings the intercepts,
-        slopes and fallback count back for the model text."""
+        fitted intercepts, the host (coeff, feat) tables, the train-score
+        delta).  One host read brings the intercepts, slopes and fallback
+        count back for the model text."""
         td = self.train_data
         const, coeff, feat, delta, fb = fit_leaf_models(
             ta, td.bins, self._is_cat_host, td.raw, grad, hess,
@@ -384,8 +465,7 @@ class GBDT:
         ta = ta._replace(leaf_value=torch.from_numpy(host[:L].copy()))
         coeff_host = host[L:L + L * K].reshape(L, K)
         feat_host = host[L + L * K:L + 2 * L * K].astype(np.int32)
-        return (ta, LeafModels(coeff, feat),
-                (coeff_host, feat_host.reshape(L, K)), delta)
+        return ta, (coeff_host, feat_host.reshape(L, K)), delta
 
     def train_one_iter(self, grad=None, hess=None) -> bool:
         """One boosting round (gbdt.cpp:295-382), from the objective's
@@ -405,29 +485,27 @@ class GBDT:
         trees = []
         for cls in range(self.num_class):
             ta, leaf_id, delta = self._grow(grad[cls], hess[cls])
-            lin = host_lin = None
+            host_lin = None
             if self._linear is not None:
                 # the grower's leaf of every row is the leaf a re-walk of
                 # the grown structure over the bins finds (tested)
-                ta, lin, host_lin, delta = self._fit_linear(
+                ta, host_lin, delta = self._fit_linear(
                     ta, leaf_id, grad[cls], hess[cls])
             score[cls] += delta
-            for dd in self.valid_data:
-                dd.score[cls] += self._tree_delta(dd, ta, lin)
-            self.tree_arrays.append(ta)
-            self.tree_linear.append(lin)
             tree = Tree.from_arrays(ta, self.train_set.mappers,
                                     self.train_set.used_feature_map,
                                     self.shrinkage_rate)
             if host_lin is not None:
                 attach_linear(tree, *host_lin,
                               self.train_set.used_feature_map)
+            for dd in self.valid_data:
+                self._add_host_tree_to(dd, tree, cls)
+            self.tree_arrays.append(ta)
             trees.append(tree)
         if all(t.num_leaves <= 1 for t in trees):
             log.warning("Stopped training because there are no more "
                         "leaves that meet the split requirements.")
             del self.tree_arrays[-self.num_class:]
-            del self.tree_linear[-self.num_class:]
             return True
         self.models.extend(trees)
         self.iter_ += 1
@@ -454,6 +532,75 @@ class GBDT:
         """Every metric of the training set and each valid set."""
         return {k: {name: v for name, v, _ in self.eval_set(k)}
                 for k, _, metrics in self._metric_sets() if metrics}
+
+    def rollback_one_iter(self) -> None:
+        """GBDT::RollbackOneIter (gbdt.cpp:384-402): pop the last round's
+        ``num_class`` trees and add each one negated to the training and
+        valid scores (a one-leaf tree adds nothing, as in the JAX
+        package).  It may go back into an init model's trees."""
+        if self.iter_ <= 0:
+            return
+        for cls in reversed(range(self.num_class)):
+            tree = self.models.pop()
+            if self.tree_arrays:
+                self.tree_arrays.pop()
+            if tree.num_leaves > 1:
+                neg = tree.scaled_copy(-1.0)
+                for dd in [self.train_data] + self.valid_data:
+                    self._add_host_tree_to(dd, neg, cls)
+        self.iter_ -= 1
+
+    def _merge_identity(self):
+        """(num_class, feature width, objective name) of a merge check;
+        the name is '' when unknown (a bare loaded model) or ``none``,
+        and then that check abstains."""
+        name = getattr(self.objective, "name", "") or self.objective_name
+        return self.num_class, self.max_feature_idx, \
+            "" if name == "none" else name
+
+    def merge_from(self, other: "GBDT",
+                   shrinkage_decay: float = 1.0) -> None:
+        """Append ``other``'s trees with their outputs scaled by
+        ``shrinkage_decay`` (Boosting::MergeFrom with decay); refuses
+        two models of different class counts, feature widths or
+        objectives.  ``other`` is not touched."""
+        d = float(shrinkage_decay)
+        if not (0.0 < d <= 1.0) or d != d:
+            raise LightGBMError(
+                f"Cannot merge: shrinkage_decay must be in (0, 1], "
+                f"got {shrinkage_decay!r}")
+        nc_a, fw_a, obj_a = self._merge_identity()
+        nc_b, fw_b, obj_b = other._merge_identity()
+        if nc_a != nc_b:
+            raise LightGBMError(
+                f"Cannot merge: num_class mismatch "
+                f"(base={nc_a}, other={nc_b})")
+        if fw_a != fw_b:
+            raise LightGBMError(
+                f"Cannot merge: feature width mismatch "
+                f"(base max_feature_idx={fw_a}, other={fw_b})")
+        if obj_a and obj_b and obj_a != obj_b:
+            raise LightGBMError(
+                f"Cannot merge: objective mismatch "
+                f"(base={obj_a!r}, other={obj_b!r})")
+        self.models = list(self.models) + [t.scaled_copy(d)
+                                           for t in other.models]
+        self.iter_ = len(self.models) // max(self.num_class, 1)
+        # the grown trees are no longer the last of ``models``
+        self.tree_arrays = []
+
+    def predict_leaf_index(self, X: np.ndarray,
+                           num_iteration: int = -1) -> np.ndarray:
+        """[n, num_trees] int32 leaf of every row in every tree, by the
+        f64 host walk (GBDT::PredictLeafIndex)."""
+        X = np.asarray(X, np.float64)
+        n_models = len(self.models)
+        if num_iteration > 0:
+            n_models = min(n_models, num_iteration * self.num_class)
+        if n_models == 0:
+            return np.zeros((X.shape[0], 0), np.int32)
+        return np.stack([self.models[i].predict_leaf_index(X)
+                         for i in range(n_models)], axis=1)
 
     @classmethod
     def from_string(cls, text: str) -> "GBDT":
@@ -588,6 +735,8 @@ class GBDT:
             log.fatal("Model file: %d tree(s) is not a multiple of "
                       "num_class=%d — trees missing; truncated model "
                       "file?", len(self.models), self.num_class)
+        self.num_init_iteration = len(self.models) // self.num_class
+        self.iter_ = self.num_init_iteration
         self.objective = _PredictionObjective(
             self.objective_name, self.sigmoid, self.num_class)
         # the importance lines end at the first blank line; what follows

@@ -50,14 +50,6 @@ class LinearParams(NamedTuple):
     lambda_l2: float        # ridge on the intercept (the grower's lambda_l2)
 
 
-class LeafModels(NamedTuple):
-    """One tree's fitted affine tables on the training device: ``coeff``
-    [L, K] f32 (learning-rate scaled) and ``feat`` [L, K] int32 inner
-    feature indices (-1 pad)."""
-    coeff: torch.Tensor
-    feat: torch.Tensor
-
-
 def path_features(tree_arrays, is_cat, max_features: int) -> torch.Tensor:
     """[L, K] int32 per-leaf path features (inner indices, -1 pad).
 

@@ -1,8 +1,9 @@
 """Host-side decision tree: flat arrays + reference-compatible text.
 
 The port's copy of the JAX package's models/tree.py, cut to what loading,
-saving, host prediction and building a tree from a grower's arrays
-(``from_arrays``) need.  Leaves are encoded as ``~leaf_index``
+saving, host prediction, building a tree from a grower's arrays
+(``from_arrays``), replaying a tree on a binned dataset
+(``ensure_inner``) and scaling its outputs (rollback, merge) need.  Leaves are encoded as ``~leaf_index``
 in the child arrays; decision_type 0 is numerical ``value <= threshold``
 and 1 is categorical ``int(value) == int(threshold)``; the ``Tree=``
 text block is the reference layout (tree.cpp:295-338).
@@ -10,6 +11,7 @@ text block is the reference layout (tree.cpp:295-338).
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, Optional
 
 import numpy as np
@@ -42,6 +44,12 @@ class Tree:
     def __init__(self, num_leaves: int):
         self.num_leaves = num_leaves
         n = max(num_leaves - 1, 0)
+        # the bin-space form of the splits (inner feature index, bin
+        # threshold) against the mappers in ``_inner_mappers``: a grown
+        # tree's own, or those ``ensure_inner`` rebuilt it for
+        self.split_feature_inner = np.zeros(n, dtype=np.int32)
+        self.threshold_in_bin = np.zeros(n, dtype=np.int32)
+        self._inner_mappers = None
         self.split_feature = np.zeros(n, dtype=np.int32)
         self.split_gain = np.zeros(n, dtype=np.float64)
         self.threshold = np.zeros(n, dtype=np.float64)
@@ -68,6 +76,9 @@ class Tree:
         t = cls(num_leaves)
         n = num_leaves - 1
         sf, sb = ta.split_feature[:n], ta.split_bin[:n]
+        t.split_feature_inner = sf.astype(np.int32)
+        t.threshold_in_bin = sb.astype(np.int32)
+        t._inner_mappers = mappers
         t.split_feature = np.asarray(
             [used_feature_map[f] for f in sf], dtype=np.int32)
         t.split_gain = ta.split_gain[:n].astype(np.float64)
@@ -85,6 +96,57 @@ class Tree:
         t.internal_count = ta.internal_count[:n].astype(np.int32)
         t.shrinkage = learning_rate
         return t
+
+    def ensure_inner(self, real_to_inner, mappers) -> bool:
+        """Make ``split_feature_inner`` / ``threshold_in_bin`` valid for a
+        dataset with these ``mappers``: each real threshold's bin by
+        ``value_to_bin`` (the reference's threshold_in_bin_ of a loaded
+        model).  False when a split feature is trivial in that dataset
+        (no bins to walk).  A grown tree keeps its own bins on its own
+        mappers; on other mappers (a dataset binned again) it is rebuilt
+        like a loaded one."""
+        if self._inner_mappers is mappers:
+            return True
+        n = self.num_leaves - 1
+        if n <= 0:
+            self._inner_mappers = mappers
+            return True
+        inner = np.asarray([int(real_to_inner[f])
+                            for f in self.split_feature], np.int32)
+        if (inner < 0).any():
+            return False
+        self.threshold_in_bin = np.asarray(
+            [int(mappers[inner[i]].value_to_bin(
+                np.asarray([self.threshold[i]]))[0]) for i in range(n)],
+            np.int32)
+        self.split_feature_inner = inner
+        self._inner_mappers = mappers
+        return True
+
+    def scale_leaf_outputs(self, factor: float) -> "Tree":
+        """Scale every leaf output by ``factor`` in place (Tree::Shrinkage):
+        the constant values and the affine coefficients together, the
+        internal values and the recorded ``shrinkage``.  Returns self."""
+        f = float(factor)
+        if f == 1.0:
+            return self
+        self.leaf_value = np.asarray(self.leaf_value, np.float64) * f
+        if self.leaf_coeff is not None:
+            self.leaf_coeff = np.asarray(self.leaf_coeff, np.float64) * f
+        self.internal_value = np.asarray(self.internal_value,
+                                         np.float64) * f
+        self.shrinkage = float(self.shrinkage) * f
+        return self
+
+    def scaled_copy(self, factor: float) -> "Tree":
+        """A copy with every leaf output scaled by ``factor`` (merge
+        decay, the negated tree of a rollback); the tree itself is not
+        touched."""
+        out = copy.copy(self)
+        for key, value in vars(self).items():
+            if isinstance(value, np.ndarray):
+                setattr(out, key, value.copy())
+        return out.scale_leaf_outputs(factor)
 
     def has_linear(self) -> bool:
         """True when some leaf carries a non-zero affine coefficient."""

@@ -29,8 +29,6 @@ card's run against the CPU's the same way):
   models against each other unless a near-tie flipped a split.
 """
 
-import re
-
 import numpy as np
 
 import chip_smoke as cs
@@ -42,23 +40,6 @@ TIE_RTOL = 1e-5
 LEAF_RTOL = 1e-5
 NAMES = ("torch", "jax")
 MODELS = ("torch_model.txt", "jax_model.txt")
-_JAX_ROUND = re.compile(r"\[(\d+)\]\t(.*)")
-
-
-def jax_metrics(text: str) -> dict:
-    """{(round, data, metric): value} of the JAX CLI's round lines."""
-    out = {}
-    for ln in text.splitlines():
-        m = _JAX_ROUND.search(ln)
-        if m is None:
-            continue
-        for part in m.group(2).split("\t"):
-            who, value = part.rsplit(": ", 1)
-            data, metric = who.split("'s ")
-            out[(int(m.group(1)), data, metric)] = float(value)
-    return out
-
-
 def run_conf(name: str, example: str, tmp_path_factory) -> dict:
     """Train and predict one example conf with both CLIs; returns the
     work directory, both logs' metrics and the prediction arrays."""
@@ -82,7 +63,7 @@ def run_conf(name: str, example: str, tmp_path_factory) -> dict:
                                      "input_model=jax_model.txt",
                                      "output_result=torch_on_jax_pred.txt"])
     return {"work": work, "conf": conf, "jax_log": jlog, "torch_log": tlog,
-            "jax_metrics": jax_metrics(jlog),
+            "jax_metrics": cs.round_metrics(jlog),
             "torch_metrics": cs.round_metrics(tlog),
             **{k: np.loadtxt(work / f"{k}.txt", ndmin=1) for k in
                ("jax_pred", "torch_pred", "torch_on_jax_pred")}}
