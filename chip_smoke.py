@@ -125,9 +125,8 @@ probes' own lines); any failure raises and exits non-zero.
    model: the binary conf loads ``binary.train.weight``, the lambdarank
    conf reads LibSVM with its ``.query`` files and ``ndcg_at=1,3,5``,
    the multiclass conf trains 5 classes, and the regression conf runs
-   with ``bagging_fraction``, ``bagging_freq`` and ``feature_fraction``
-   taken out (refused until bagging and feature fraction are ported; its
-   line says so).  K1 launches Σ over trees of (1 + splits) in the
+   as written, its ``bagging_fraction``, ``bagging_freq`` and
+   ``feature_fraction`` too.  K1 launches Σ over trees of (1 + splits) in the
    card's run and K4 in every card prediction; the card's trees equal
    the CPU's up to a reported f32 near-tie, every round's metrics agree
    within 1e-4 (a ranking metric beyond it only at a near-tie of scores,
@@ -149,6 +148,31 @@ probes' own lines); any failure raises and exits non-zero.
    equal the same function's on the CPU within 1e-6 relative (of each
    value plus the largest; LambdaRank's too); and each round's seconds and the gradient's share of it (CUDA
    events) are printed.
+   ``sampling``: row and feature sampling, GOSS and DART on the train
+   phase's datasets (before the engine phase gives them init scores),
+   through ``Booster.update``, the launch counters set to 0 before each
+   run: bagging at the regression example conf's settings
+   (``bagging_fraction=0.8``, ``bagging_freq=5``,
+   ``feature_fraction=0.9``), 10 rounds of the ordered grower and 3 each
+   of the fused and nocache growers (K3 and K2 under a bag mask); GOSS
+   (``top_rate=0.2``, ``other_rate=0.1``, 15 rounds: 10 of warmup, 5
+   sampled); DART at the JAX defaults, 10 rounds; and the objectives
+   phase's 5-class set with ``feature_fraction=0.7``, 3 rounds (the
+   per-class draw order).  Each run: (a) every bag mask, GOSS draw
+   (mask and amplified gradients, from the card's gradients copied to
+   the host) and feature mask equal to the same draw on the CPU, bit
+   for bit; (b) the histogram kernel's launches (Σ over trees of the
+   leaves for the ordered grower, rounds x L for the fixed-trip ones);
+   (c) the ordered grower's root window is each tree's sample and no
+   window is larger (launches by window class printed); (d) the first
+   sampled tree re-grown through the plain versions from its gradients,
+   mask and shrinkage (bit-identical for the ordered grower); (e) DART's
+   drops and shrinkage equal a host replay from ``drop_seed``; (f) the
+   saved model through K4 equals the score buffer within 1e-5 (for DART
+   the normalised trees); (g) the training metric improves.  Prints
+   each run's seconds a round beside the train phase's unsampled
+   ordered round, and the CUDA-event ms of one bag draw and one GOSS
+   draw.
    ``engine``: the engine on the train phase's datasets (the Higgs
    training cell: 1M rows, 28 features, 63 leaves, 255 bins, the
    ordered grower, the 100k-row valid set).  An early-stopped run
@@ -300,15 +324,12 @@ GROWERS = (("ordered", {**CONST}, "digit_histogram"),
                         "memory_policy": "degrade"}, "children_histograms"),
            ("linear", LINEAR_PARAMS, "digit_histogram"))
 REPO = os.path.dirname(os.path.abspath(__file__))
-# the examples phase: (name, folder of examples/), the rounds, and the
-# keys taken out of a conf because the port refuses them (bagging and
-# feature_fraction are not ported yet)
+# the examples phase: (name, folder of examples/) and the rounds; each
+# conf runs as written
 EXAMPLES = (("binary", "binary_classification"), ("regression", "regression"),
             ("multiclass", "multiclass_classification"),
             ("lambdarank", "lambdarank"))
 EXAMPLE_ROUNDS = 10
-EXAMPLE_DROPPED = {"regression": ("bagging_fraction", "bagging_freq",
-                                  "feature_fraction")}
 # card against CPU, a leaf value within this share of its tree's largest:
 # f32 sums in another order (an H100 read 5.0e-5 at most, PERF.md)
 EXAMPLE_LEAF_RTOL = 2e-4
@@ -346,6 +367,18 @@ ES_ROUNDS, ES_PATIENCE = 40, 3
 CV_FOLDS = 5
 HOST_WALK_ROWS = 200_000
 EXAMPLE_ES_LR = 0.3
+# the sampling phase: the regression example conf's bagging and feature
+# fraction, GOSS (0.2 + 0.1 of the rows after int(1 / 0.1) = 10 warmup
+# rounds), DART at the JAX defaults, the 5-class set's feature fraction,
+# and each run's rounds
+SAMPLING_BAG = {"bagging_fraction": 0.8, "bagging_freq": 5,
+                "feature_fraction": 0.9}
+SAMPLING_GOSS = {"boosting_type": "goss", "top_rate": 0.2,
+                 "other_rate": 0.1, "learning_rate": 0.1}
+SAMPLING_MULTICLASS = {"objective": "multiclass", "num_class": 5,
+                       "feature_fraction": 0.7}
+SAMPLING_ROUNDS, SAMPLING_SHORT_ROUNDS = 10, 3
+SAMPLING_GOSS_ROUNDS, SAMPLING_MULTICLASS_ROUNDS = 15, 3
 
 
 def emit(obj) -> None:
@@ -1568,8 +1601,9 @@ def phase_train(seed, dev, workdir):
     """The training path at full width, once per grower of GROWERS on
     the same constructed datasets; returns the launches of each kernel
     summed over the runs that have it on their path, the launches by
-    window class, and (the datasets, the training and valid rows) for
-    the engine phase."""
+    window class, (the datasets, the training and valid rows) for the
+    sampling and engine phases, and the ordered run's median seconds a
+    round."""
     train_set, valid_set, X, Xv = datasets = train_datasets(seed)
     launches, windows = {}, {}
     ordered = None
@@ -1586,7 +1620,7 @@ def phase_train(seed, dev, workdir):
                for k, v in windows.items()}
     emit({"phase": "train_windows", "runs": [g[0] for g in GROWERS],
           "launches_by_window_rows": windows})
-    return launches, windows, datasets
+    return launches, windows, datasets, ordered["round_s_median"]
 
 
 class _plain_kernels:
@@ -1842,7 +1876,8 @@ def train_run(name, extra, kernel, train_set, valid_set, X, workdir,
            **beside, "profile_round": phases}
     emit(out)
     return {"launches": launches, "auc": auc, "trees": grown,
-            "windows": windows.counts}
+            "windows": windows.counts,
+            "round_s_median": out["round_s_median_3_10"]}
 
 
 def same_trees(trees, ref):
@@ -1959,18 +1994,10 @@ def _cli(argv) -> str:
 
 def copy_example(name: str, folder: str, work: str) -> str:
     """The files of ``examples/<folder>`` copied into ``work``; returns
-    the train conf to run, ``train.conf`` less EXAMPLE_DROPPED[name]."""
+    the train conf to run, ``train.conf`` as written."""
     shutil.copytree(os.path.join(REPO, "examples", folder), work,
                     dirs_exist_ok=True)
-    if name not in EXAMPLE_DROPPED:
-        return "train.conf"
-    with open(f"{work}/train.conf") as fh:
-        keep = [ln for ln in fh.read().splitlines()
-                if ln.split("#", 1)[0].split("=", 1)[0].strip()
-                not in EXAMPLE_DROPPED[name]]
-    with open(f"{work}/train_port.conf", "w") as fh:
-        fh.write("\n".join(keep) + "\n")
-    return "train_port.conf"
+    return "train.conf"
 
 
 _ROUND_LINE = re.compile(r"\[(\d+)\]\t(.*)")
@@ -2198,10 +2225,6 @@ def phase_examples(workdir):
         check(np.isfinite(card["preds"]["cuda"][0]).all(),
               f"{name}: non-finite predictions")
         emit({"phase": "examples", "conf": f"examples/{folder}/train.conf",
-              "dropped_keys": list(EXAMPLE_DROPPED.get(name, ())),
-              "dropped_because": "refused until bagging and "
-                                 "feature_fraction are ported"
-              if name in EXAMPLE_DROPPED else None,
               "rounds": EXAMPLE_ROUNDS, "trees": card["trees"],
               "train_s": {"cuda": card["train_s"], "cpu": cpu["train_s"]},
               "k1_launches": card["k1"],
@@ -2437,7 +2460,8 @@ def objective_run(name, extra, rounds, train_set, X, workdir):
 
 def phase_objectives(seed, workdir):
     """Every objective the port added, at full width on the card
-    (OBJECTIVE_RUNS); returns the launches."""
+    (OBJECTIVE_RUNS); returns the launches and (the Higgs-like Dataset
+    with its 5-class labels, its rows) for the sampling phase."""
     higgs, X, labels, rank, Xr = objective_data(seed)
     total = {}
     for name, extra, rounds, kind in OBJECTIVE_RUNS:
@@ -2448,7 +2472,350 @@ def phase_objectives(seed, workdir):
         got = objective_run(name, extra, rounds, ds, rows, workdir)
         for k, v in got.items():
             total[k] = total.get(k, 0) + v
+    return total, (higgs.set_label(labels["multiclass"]), X)
+
+# ---------------------------------------------------------------------------
+# row and feature sampling, GOSS and DART at full width on the card
+
+
+class _draw_recorder:
+    """Inside the block, record what one booster's sampling drew on the
+    card: every bag mask (``device_bag_mask``'s inputs and output), every
+    GOSS draw (its gradients, key and outputs, copied to the host), every
+    DART drop selection, and for every tree the feature mask and row
+    weight it grew with and the rows of each K1 window.  ``capture(gbdt)``
+    picks the first tree whose inputs (gradients, mask, shrinkage) are
+    kept for the plain re-grow."""
+
+    def __init__(self, gbdt, capture):
+        self.gbdt, self.capture = gbdt, capture
+        self.bags, self.goss, self.drops = [], [], []
+        self.trees, self.k1_rows, self.kept = [], [], None
+
+    def __enter__(self):
+        from lightgbm_tpu_torch.models import dart as dart_mod
+        from lightgbm_tpu_torch.models import gbdt as gbdt_mod
+        from lightgbm_tpu_torch.models import goss as goss_mod
+        from lightgbm_tpu_torch.ops import leafhist as lh
+        g = self.gbdt
+        self._saved = [(gbdt_mod, "device_bag_mask"),
+                       (lh, "digit_histogram"),
+                       (goss_mod.GOSS, "_sample"),
+                       (dart_mod.DART, "_select_dropping_trees")]
+        self._saved = [(m, a, getattr(m, a)) for m, a in self._saved]
+        bag, k1, sample, select = (fn for _, _, fn in self._saved)
+
+        def bag_mask(key, n, cnt, n_real, device):
+            out = bag(key, n, cnt, n_real, device)
+            self.bags.append((key, n, cnt, n_real, out.cpu()))
+            return out
+
+        def k1_counted(bins, digits, max_bin, start=0, count=None, **kw):
+            self.k1_rows.append(bins.shape[0] - start if count is None
+                                else int(count))
+            return k1(bins, digits, max_bin, start, count, **kw)
+
+        def goss_sample(booster, grad, hess):
+            key = booster._goss_key
+            out = sample(booster, grad, hess)
+            self.goss.append((key, grad.cpu(), hess.cpu(),
+                              *(t.cpu() for t in out)))
+            return out
+
+        def drop_select(booster):
+            select(booster)
+            self.drops.append((list(booster.drop_index),
+                               booster.shrinkage_rate))
+
+        gbdt_mod.device_bag_mask = bag_mask
+        lh.digit_histogram = k1_counted
+        goss_mod.GOSS._sample = goss_sample
+        dart_mod.DART._select_dropping_trees = drop_select
+        grow = self._grow = g._grow
+
+        def grow_recorded(grad, hess):
+            self.trees.append({"round": g.iter_,
+                               "feat_mask": g._feat_mask.cpu(),
+                               "weight": g._round_weight,
+                               "k1_first": len(self.k1_rows)})
+            if self.kept is None and self.capture(g):
+                self.kept = {"tree": len(self.trees) - 1,
+                             "grad": grad.clone(), "hess": hess.clone(),
+                             "weight": g._round_weight,
+                             "feat_mask": g._feat_mask,
+                             "lr": g.shrinkage_rate}
+            return grow(grad, hess)
+        g._grow = grow_recorded
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+        self.gbdt._grow = self._grow
+
+
+def goss_cpu_replay(gbdt, key, grad, hess):
+    """The GOSS draw of ``gbdt`` (a card booster) recomputed on the CPU
+    from the same key and host gradients."""
+    from lightgbm_tpu_torch.models.goss import GOSS
+    ns = types.SimpleNamespace(
+        num_data=gbdt.num_data, top_rate=gbdt.top_rate,
+        other_rate=gbdt.other_rate, _padded_rows=gbdt._padded_rows,
+        _goss_key=key, _ones_weight=torch.ones(gbdt.num_data))
+    return GOSS._sample(ns, grad, hess)
+
+
+def dart_cpu_replay(cfg, rounds):
+    """(drop index, shrinkage) of each of ``rounds`` DART rounds and the
+    final tree weights, replayed on the host from ``drop_seed``: the
+    drop selection of ``DART`` on a fresh generator, and the
+    reference's weight bookkeeping (dart.hpp Normalize)."""
+    from lightgbm_tpu_torch.models.dart import DART
+    ns = types.SimpleNamespace(
+        drop_rate=cfg.drop_rate, max_drop=cfg.max_drop,
+        skip_drop=cfg.skip_drop, uniform_drop=cfg.uniform_drop,
+        xgboost_dart_mode=cfg.xgboost_dart_mode, config=cfg,
+        _drop_rng=np.random.RandomState(cfg.drop_seed), tree_weights=[],
+        sum_weight=0.0, drop_index=[], iter_=0)
+    lr, out = cfg.learning_rate, []
+    for _ in range(rounds):
+        DART._select_dropping_trees(ns)
+        out.append((list(ns.drop_index), ns.shrinkage_rate))
+        ns.tree_weights.append(ns.shrinkage_rate)
+        ns.sum_weight += ns.shrinkage_rate
+        k = float(len(ns.drop_index))
+        plus = lr if cfg.xgboost_dart_mode else 1.0
+        for it in ns.drop_index:
+            if not cfg.uniform_drop:
+                ns.sum_weight -= ns.tree_weights[it] / (k + plus)
+                ns.tree_weights[it] *= k / (k + plus)
+        ns.iter_ += 1
+    return out, ns.tree_weights
+
+
+def sampling_run(name, params, rounds, kind, kernel, train_set, X, workdir,
+                 capture):
+    """``rounds`` rounds of one sampled configuration through
+    ``Booster.update`` on the card, the launch counters set to 0 first.
+    Checks (a) every bag mask, GOSS draw (mask and amplified gradients)
+    and feature mask against the same draw on the CPU, bit for bit;
+    (b) the histogram kernel's launches (the ordered grower: Σ over
+    trees of the leaves; a fixed-trip grower: rounds × L); (c) for the
+    ordered grower, each tree's root window is its sample (compacted)
+    and no window is larger; (d) the first tree ``capture`` picks,
+    re-grown from its gradients, mask and shrinkage through the plain
+    versions (bit-identical for the ordered grower; the fixed-trip
+    growers as the train phase holds them); (e) DART's drops and
+    shrinkage against the host replay; (f) the saved model through K4
+    against the score buffer; (g) the training metric improves.
+    Returns (the fields to print, the launches)."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.models.gbdt import device_bag_mask
+    from lightgbm_tpu_torch.ops import children_hist as ch
+    from lightgbm_tpu_torch.ops import forest_walk as fw
+    from lightgbm_tpu_torch.ops import leafhist as lh
+    booster = lt.Booster(params=params, train_set=train_set)
+    gbdt = booster._booster
+    check(gbdt.grow_kind == kind, f"{name}: grew with {gbdt.grow_kind}")
+    N, K, L = gbdt.num_data, gbdt.num_class, params["num_leaves"]
+    lh.reset_launch_counts()
+    ch.reset_launch_counts()
+    fw.reset_launch_counts()
+    seconds, evals = [], []
+    with _draw_recorder(gbdt, capture) as rec:
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            booster.update()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            evals.append(booster.eval_train())
+    launches = {**lh.launch_counts(), **ch.launch_counts()}
+    grown = list(gbdt.tree_arrays)
+    check(len(grown) == rounds * K == len(rec.trees),
+          f"{name}: {len(grown)} trees grown, {len(rec.trees)} recorded")
+
+    # (a) the draws against the CPU's
+    for key, n, cnt, n_real, got in rec.bags:
+        want = device_bag_mask(key, n, cnt, n_real, "cpu")
+        check(torch.equal(got, want) and int(got.sum()) == cnt,
+              f"{name}: a bag mask differs from its CPU draw")
+    for key, g, h, mask, g2, h2 in rec.goss:
+        want = goss_cpu_replay(gbdt, key, g, h)
+        check(all(torch.equal(a, b) for a, b in zip((mask, g2, h2), want)),
+              f"{name}: a GOSS draw differs from its CPU draw")
+    frac = gbdt.config.feature_fraction
+    rng = np.random.RandomState(gbdt.config.feature_fraction_seed)
+    F = gbdt.num_features
+    for t in rec.trees:
+        want = torch.ones(F, dtype=torch.bool)
+        if frac < 1.0:
+            want = torch.zeros(F, dtype=torch.bool)
+            want[torch.from_numpy(rng.choice(F, max(1, int(F * frac)),
+                                             replace=False))] = True
+        check(torch.equal(t["feat_mask"], want),
+              f"{name}: round {t['round']}'s feature mask differs from "
+              f"the CPU's draw order")
+
+    # (b) launches
+    leaves = [int(ta.num_leaves) for ta in grown]
+    want = sum(leaves) if kind == "ordered" else len(grown) * L
+    check(launches[kernel] == want and len(rec.k1_rows)
+          == launches["digit_histogram"],
+          f"{name}: {kernel} launches {launches[kernel]} != {want}")
+    check(all(v == 0 for k, v in launches.items() if k != kernel),
+          f"{name}: another histogram kernel ran: {launches}")
+
+    # (c) the ordered grower's windows
+    for t in rec.trees:
+        t["sample_rows"] = int((t.pop("weight") > 0).sum())
+    classes, roots = {}, []
+    for rows in rec.k1_rows:
+        cls = str(1 << (rows - 1).bit_length()) if rows > 0 else "0"
+        classes[cls] = classes.get(cls, 0) + 1
+    if kind == "ordered":
+        ends = [t["k1_first"] for t in rec.trees[1:]] + [len(rec.k1_rows)]
+        for t, end in zip(rec.trees, ends):
+            root = rec.k1_rows[t["k1_first"]]
+            roots.append(root)
+            check(root == t["sample_rows"]
+                  and max(rec.k1_rows[t["k1_first"]:end]) <= root,
+                  f"{name}: round {t['round']}'s root window {root} is not "
+                  f"its sample of {t['sample_rows']} rows")
+
+    # (d) the captured tree re-grown through the plain versions
+    kept = rec.kept
+    check(kept is not None, f"{name}: no tree was captured")
+    saved = (gbdt._round_weight, gbdt._feat_mask, gbdt.shrinkage_rate)
+    gbdt._round_weight, gbdt._feat_mask, gbdt.shrinkage_rate = (
+        kept["weight"], kept["feat_mask"], kept["lr"])
+    with _plain_kernels():
+        ta, _, _ = gbdt._grow(kept["grad"], kept["hess"])
+    gbdt._round_weight, gbdt._feat_mask, gbdt.shrinkage_rate = saved
+    flip, rel = compare_regrown(grown[kept["tree"]], ta,
+                                f"{name} tree {kept['tree']}",
+                                exact=kind == "ordered")
+
+    # (e) DART's drops
+    dart = {}
+    if rec.drops:
+        replay, weights = dart_cpu_replay(gbdt.config, rounds)
+        check(rec.drops == replay and weights == gbdt.tree_weights,
+              f"{name}: drops {rec.drops} differ from the CPU replay "
+              f"{replay}")
+        dart = {"drops": [d for d, _ in rec.drops],
+                "shrinkage": [s for _, s in rec.drops],
+                "tree_weights": gbdt.tree_weights}
+
+    # (f) the saved model through K4
+    path = f"{workdir}/sampling_{name}.txt"
+    booster.save_model(path)
+    fw.reset_launch_counts()
+    pred = lt.Booster(model_file=path).predict(X[:4096], raw_score=True)
+    k4 = sum(fw.launch_counts().values())
+    pred = pred.T if pred.ndim == 2 else pred[None]
+    buf = gbdt.train_data.score[:, :4096].double().cpu().numpy()
+    d_pred = float(np.abs(pred - buf).max())
+    check(k4 > 0 and np.isfinite(pred).all() and d_pred <= 1e-5,
+          f"{name}: saved model vs score buffer: {d_pred} ({k4} K4 "
+          f"launches)")
+
+    # (g) the training metric
+    curve = {}
+    for per_round in evals:
+        for _, metric, value, bigger in per_round:
+            curve.setdefault(metric, ([], bigger))[0].append(value)
+    for metric, (values, bigger) in curve.items():
+        check(all(np.isfinite(values))
+              and (values[-1] > values[0] if bigger
+                   else values[-1] < values[0]),
+              f"{name}: training {metric} {values} does not improve")
+    fields = {
+        "run": name, "grower": kind, "rounds": rounds, "trees": len(grown),
+        "params": {k: v for k, v in params.items()
+                   if k not in TRAIN_PARAMS or TRAIN_PARAMS[k] != v},
+        "round_s": seconds,
+        "round_s_median_after_2": float(np.median(seconds[2:])),
+        "leaves_per_tree": leaves, "launches": launches,
+        "k4_launches": k4, "bag_draws": len(rec.bags),
+        "goss_draws": len(rec.goss), "sample_rows_per_tree":
+        [t["sample_rows"] for t in rec.trees], "root_windows": roots,
+        "k1_launches_by_window_rows": dict(
+            sorted(classes.items(), key=lambda kv: int(kv[0]))),
+        "regrown_tree": kept["tree"], "regrown_near_tie_flip": flip,
+        "regrown_max_value_diff_of_field_max": rel, **dart,
+        "saved_model_vs_score_buffer": d_pred,
+        "training_metric": {m: v for m, (v, _) in curve.items()}}
+    return fields, {**launches, "forest_walk": k4}, gbdt
+
+
+def phase_sampling(seed, datasets, multiclass, workdir, ordered_round_s,
+                   reps):
+    """Row and feature sampling, GOSS and DART on the card, at the train
+    phase's width (1M Higgs-like rows, 28 features, 63 leaves, 255 bins):
+    bagging at the regression example conf's settings (ordered, then a
+    few rounds of the fused and nocache growers, so that K3 and K2 see a
+    bag mask), GOSS (its warmup of int(1 / learning_rate) rounds, then
+    sampling rounds), DART with the JAX defaults, and the objectives
+    phase's 5-class set with a feature fraction (the per-class draw
+    order).  Prints each run's seconds a round beside the train phase's
+    unsampled ordered round, and the CUDA-event ms of one bag draw and
+    one GOSS draw.  Returns the launches."""
+    from lightgbm_tpu_torch.models.gbdt import device_bag_mask
+    from lightgbm_tpu_torch.utils import random as jrandom
+    train_set, _, X, _ = datasets
+    mc_set, mc_rows = multiclass
+    base = {**TRAIN_PARAMS, **CONST}
+    N = train_set.num_data()
+    runs = (
+        ("bagging", {**base, **SAMPLING_BAG}, SAMPLING_ROUNDS, "ordered",
+         "digit_histogram", train_set, X, lambda g: g._bag_cnt < N),
+        ("bagging_fused", {**base, **SAMPLING_BAG, "serial_grow": "fused"},
+         SAMPLING_SHORT_ROUNDS, "fused", "fused_split_candidates",
+         train_set, X, lambda g: g._bag_cnt < N),
+        ("bagging_nocache", {**base, **SAMPLING_BAG,
+                             "histogram_pool_size": 1,
+                             "memory_policy": "degrade"},
+         SAMPLING_SHORT_ROUNDS, "nocache", "children_histograms",
+         train_set, X, lambda g: g._bag_cnt < N),
+        ("goss", {**base, **SAMPLING_GOSS}, SAMPLING_GOSS_ROUNDS, "ordered",
+         "digit_histogram", train_set, X, lambda g: g._bag_cnt < N),
+        ("dart", {**base, "boosting_type": "dart"}, SAMPLING_ROUNDS,
+         "ordered", "digit_histogram", train_set, X,
+         lambda g: bool(g.drop_index)),
+        ("multiclass", {**OBJ_PARAMS, **SAMPLING_MULTICLASS},
+         SAMPLING_MULTICLASS_ROUNDS, "ordered", "digit_histogram", mc_set,
+         mc_rows, lambda g: True))
+    total, out, boosters = {}, [], {}
+    t0 = time.perf_counter()
+    for name, params, rounds, kind, kernel, ds, rows, capture in runs:
+        fields, launches, gbdt = sampling_run(
+            name, params, rounds, kind, kernel, ds, rows, workdir, capture)
+        fields["unsampled_ordered_round_s"] = ordered_round_s
+        emit({"phase": "sampling", **fields})
+        out.append(fields)
+        boosters[name] = gbdt
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    # one draw of each, by CUDA events
+    dev = torch.device("cuda", 0)
+    bag = boosters["bagging"]
+    cnt = int(bag.config.bagging_fraction * N)
+    key = jrandom.split(jrandom.prng_key(seed))[1]
+    bag_ms = cuda_ms(lambda: device_bag_mask(key, bag._padded_rows, cnt, N,
+                                             dev), reps)
+    goss = boosters["goss"]
+    g, h = goss.objective.gradients_with(goss._grad_arrays,
+                                         goss.train_data.score)
+    goss_ms = cuda_ms(lambda: goss._sample(g, h), reps)
+    emit({"phase": "sampling_summary", "rows": N,
+          "round_s_median_after_2": {f["run"]: f["round_s_median_after_2"]
+                                     for f in out},
+          "unsampled_ordered_round_s": ordered_round_s,
+          "bag_draw_ms": bag_ms, "goss_draw_ms": goss_ms,
+          "launches": total, "seconds": time.perf_counter() - t0})
     return total
+
 
 # ---------------------------------------------------------------------------
 # the engine: continued training, rollback, early stopping, leaf-index
@@ -3502,10 +3869,18 @@ def main(argv=None) -> int:
         launches.update(phase_serve_linear(args.seed, dev, lin_model,
                                            lin_grid, higgs_model, workdir,
                                            errs))
-        trained, windows, datasets = phase_train(args.seed, dev, workdir)
+        trained, windows, datasets, ordered_round_s = phase_train(
+            args.seed, dev, workdir)
         launches.update(trained)
-        for name, n in [*phase_examples(workdir).items(),
-                        *phase_objectives(args.seed, workdir).items(),
+        examples = phase_examples(workdir)
+        objectives, multiclass = phase_objectives(args.seed, workdir)
+        # sampling before the engine phase, whose continued runs give the
+        # training set init scores
+        sampled = phase_sampling(args.seed, datasets, multiclass, workdir,
+                                 ordered_round_s, args.timing_reps)
+        del multiclass
+        for name, n in [*examples.items(), *objectives.items(),
+                        *sampled.items(),
                         *phase_engine(args.seed, datasets,
                                       workdir).items()]:
             launches[name] += n

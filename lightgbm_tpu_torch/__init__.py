@@ -10,7 +10,9 @@ per-leaf affine fit, ``models/linear.py``) -> score update.  ``ordered``
 (default) and ``cached`` run the hand-written leaf-histogram kernel
 (``csrc/leaf_hist.cu``); ``fused`` and the ``nocache`` grower of the
 ``hist_cache`` degrade step run the hand-written full-pass kernels of
-``csrc/children_hist.cu``.  ``train`` continues from ``init_model``,
+``csrc/children_hist.cu``.  ``boosting_type`` is ``gbdt``, ``goss`` or
+``dart``, with bagging and ``feature_fraction`` drawn as the JAX package
+draws them.  ``train`` continues from ``init_model``,
 stops early, takes callbacks and per-round learning rates; ``cv``
 cross-validates.  Entry points run on the first CUDA card unless the
 caller passes ``device="cpu"``.

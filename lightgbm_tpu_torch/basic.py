@@ -31,7 +31,7 @@ from .device import DeviceLike, resolve_device
 from .io.column_roles import resolve_label_idx, resolve_roles
 from .io.dataset import BinnedDataset
 from .io.parser import parse_file, read_header
-from .models.gbdt import GBDT
+from .models import create_boosting
 from .utils import log
 from .utils.log import LightGBMError
 
@@ -254,10 +254,8 @@ class Dataset:
         return self
 
     def set_categorical_feature(self, categorical_feature) -> "Dataset":
-        """``"auto"`` keeps the Dataset's own (as the reference package
-        does; the JAX package's ``train`` resets it)."""
-        if categorical_feature == "auto":
-            return self
+        """As in the JAX package, ``train``'s argument replaces the
+        Dataset's own, its default ``"auto"`` too."""
         if self._binned is not None and \
                 categorical_feature != self.categorical_feature:
             raise LightGBMError(
@@ -319,14 +317,14 @@ class Booster:
             train_set._update_params(params).construct()
             self.config = Config({**train_set.params, **params,
                                   "task": "train"})
-            self._booster = GBDT(self.config, train_set._binned,
-                                 self.device)
+            self._booster = create_boosting(self.config, train_set._binned,
+                                            self.device)
             return
         self.config = Config({**dict(params or {}), "task": "predict"})
         if model_file is not None:
             with open(model_file) as fh:
                 model_str = fh.read()
-        self._booster = GBDT.from_string(model_str)
+        self._booster = create_boosting(self.config, model_str=model_str)
 
     # -- training --------------------------------------------------------
     def set_train_data_name(self, name: str) -> "Booster":

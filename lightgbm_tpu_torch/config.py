@@ -1,23 +1,28 @@
 """Parameter surface of the port: defaults, aliases, coercion.
 
-The JAX package's config.py holds every training and serving key; the
-port carries only the keys its train/predict/serve paths read, with the
-same names, aliases and defaults, so a conf file written for the JAX CLI
-runs here unchanged.  Any other key is accepted and ignored with one
-warning per key, when it cannot change a tree or a prediction
-(``num_threads``, ``metric_freq``).  Keys that would change the answer
-and are not ported yet are refused with a ``LightGBMError`` naming them,
-under their aliases too: a ``bad_data_policy`` other than ``fail_fast``
-and ``use_two_round_loading=true`` (the JAX loader's quarantine and
-streaming paths).  Training settings the port has not ported yet
-(bagging, feature fraction, GOSS, DART, distributed learners) raise in
-:meth:`Config.check_trainable`.  ``early_stopping_round``,
-``input_model`` with ``task=train`` (continued training) and
-``is_predict_leaf_index`` are the CLI's, as in the JAX package
-(``cli.py``); every objective of the JAX package
-trains (``regression``, ``regression_l1``, ``huber``, ``fair``,
-``poisson``, ``binary``, ``multiclass``, ``lambdarank``, and ``none``
-for a custom objective).
+The JAX package's config.py holds every training and serving key, with
+the same aliases as here, so a conf file written for the JAX CLI runs
+here unchanged.  Every key of the JAX package's defaults lands in
+exactly one of three tables (pinned by a test):
+
+* :data:`_DEFAULTS` less :data:`REFUSED`: the keys the port reads, with
+  the JAX names, defaults and coercion;
+* :data:`REFUSED`: keys whose value away from the JAX default would
+  change a tree, a prediction, a file the run writes or the run's
+  outcome, and which the port has not ported: such a value raises a
+  ``LightGBMError`` naming the key when the ``Config`` is built (under
+  the key's aliases too);
+* :data:`INERT`: keys that cannot change a tree, a prediction or the
+  run's outcome (thread counts, the serving fleet's knobs, telemetry,
+  compile caches, and the keys only the refused features read): each
+  is accepted with one warning.
+
+A key of neither package is ignored with one warning too.
+:meth:`Config.check_trainable` refuses what is still unported in
+training: ``tree_learner`` other than ``serial``.  The rest of
+training (every objective, ``gbdt``, ``goss`` and ``dart``, bagging,
+feature fraction, ``nan_policy``, continued training, early stopping)
+is ported.
 """
 
 from __future__ import annotations
@@ -29,37 +34,34 @@ from .utils import coerce_bool as _coerce_bool
 from .utils import log
 from .utils.log import LightGBMError
 
-# alias -> canonical name (the JAX config's table, cut to these keys)
+# alias -> canonical name (the JAX config's table)
 PARAM_ALIASES: Dict[str, str] = {
     "config": "config_file",
+    "nthread": "num_threads",
+    "num_thread": "num_threads",
+    "random_seed": "seed",
+    "boosting": "boosting_type",
+    "boost": "boosting_type",
+    "application": "objective",
+    "app": "objective",
     "train_data": "data",
     "train": "data",
+    "model_output": "output_model",
+    "model_out": "output_model",
     "model_input": "input_model",
     "model_in": "input_model",
     "predict_result": "output_result",
     "prediction_result": "output_result",
-    "predict_raw_score": "is_predict_raw_score",
-    "raw_score": "is_predict_raw_score",
-    "header": "has_header",
-    "verbosity": "verbose",
-    # training keys
-    "application": "objective",
-    "app": "objective",
-    "boosting": "boosting_type",
-    "boost": "boosting_type",
-    "model_output": "output_model",
-    "model_out": "output_model",
     "valid": "valid_data",
     "test_data": "valid_data",
     "test": "valid_data",
     "is_sparse": "is_enable_sparse",
     "enable_sparse": "is_enable_sparse",
+    "pre_partition": "is_pre_partition",
     "tranining_metric": "is_training_metric",
     "train_metric": "is_training_metric",
     "ndcg_at": "ndcg_eval_at",
     "eval_at": "ndcg_eval_at",
-    "two_round_loading": "use_two_round_loading",
-    "two_round": "use_two_round_loading",
     "min_data_per_leaf": "min_data_in_leaf",
     "min_data": "min_data_in_leaf",
     "min_child_samples": "min_data_in_leaf",
@@ -80,17 +82,17 @@ PARAM_ALIASES: Dict[str, str] = {
     "subsample_freq": "bagging_freq",
     "shrinkage_rate": "learning_rate",
     "tree": "tree_learner",
-    "min_split_gain": "min_gain_to_split",
-    "reg_alpha": "lambda_l1",
-    "reg_lambda": "lambda_l2",
-    "num_classes": "num_class",
-    "unbalanced_sets": "is_unbalance",
-    # the CLI's early stopping and leaf-index predict (cli.py)
+    "num_machine": "num_machines",
+    "local_port": "local_listen_port",
+    "two_round_loading": "use_two_round_loading",
+    "two_round": "use_two_round_loading",
+    "mlist": "machine_list_file",
+    "is_save_binary": "is_save_binary_file",
+    "save_binary": "is_save_binary_file",
     "early_stopping_rounds": "early_stopping_round",
     "early_stopping": "early_stopping_round",
-    "predict_leaf_index": "is_predict_leaf_index",
-    "leaf_index": "is_predict_leaf_index",
-    # column roles (io/column_roles.py)
+    "verbosity": "verbose",
+    "header": "has_header",
     "label": "label_column",
     "weight": "weight_column",
     "group": "group_column",
@@ -101,6 +103,17 @@ PARAM_ALIASES: Dict[str, str] = {
     "categorical_feature": "categorical_column",
     "cat_column": "categorical_column",
     "cat_feature": "categorical_column",
+    "save_period": "snapshot_freq",
+    "predict_raw_score": "is_predict_raw_score",
+    "predict_leaf_index": "is_predict_leaf_index",
+    "raw_score": "is_predict_raw_score",
+    "leaf_index": "is_predict_leaf_index",
+    "min_split_gain": "min_gain_to_split",
+    "topk": "top_k",
+    "reg_alpha": "lambda_l1",
+    "reg_lambda": "lambda_l2",
+    "num_classes": "num_class",
+    "unbalanced_sets": "is_unbalance",
 }
 
 _DEFAULTS: Dict[str, Any] = {
@@ -162,9 +175,27 @@ _DEFAULTS: Dict[str, Any] = {
     "ndcg_eval_at": [1, 2, 3, 4, 5],
     "is_training_metric": False,
     "output_freq": 1,
+    # row and feature sampling (models/gbdt.py), GOSS (models/goss.py)
+    # and DART (models/dart.py)
     "bagging_fraction": 1.0,
     "bagging_freq": 0,
+    "bagging_seed": 3,
     "feature_fraction": 1.0,
+    "feature_fraction_seed": 2,
+    "top_rate": 0.2,
+    "other_rate": 0.1,
+    "drop_rate": 0.1,
+    "max_drop": 50,
+    "skip_drop": 0.5,
+    "xgboost_dart_mode": False,
+    "uniform_drop": False,
+    "drop_seed": 4,
+    # the JAX package's padded row count, which sets how many words a
+    # bagging or GOSS draw takes (utils/random.bucket_rows)
+    "row_buckets": True,
+    # NaN/Inf containment of a boosting round: none | fail_fast |
+    # skip_tree (GBDT._contain_poisoned_iter)
+    "nan_policy": "none",
     # piece-wise linear trees (models/linear.py): affine leaf models fitted
     # by a batched ridge solve after growth
     "linear_tree": False,
@@ -187,10 +218,88 @@ _DEFAULTS: Dict[str, Any] = {
     "is_predict_leaf_index": False,
     # the leaf-output decay Booster.merge applies by default
     "shrinkage_decay": 1.0,
-    # read only to be refused (_check)
+    # read only to be refused (REFUSED)
     "bad_data_policy": "fail_fast",
     "use_two_round_loading": False,
+    "feature_screen_ratio": 0.0,
+    "snapshot_dir": "",
+    "num_machines": 1,
+    "is_pre_partition": False,
+    "is_save_binary_file": False,
+    "serve_canary_model": "",
+    "serve_canary_weight": 0.0,
+    "serve_shadow": 0.0,
+    "serve_state_file": "",
 }
+
+#: key -> (refused(value), what the JAX package does with it): a value
+#: for which ``refused`` holds raises when the Config is built
+REFUSED: Dict[str, tuple] = {
+    "bad_data_policy": (
+        lambda v: v != "fail_fast",
+        "the JAX loader quarantines malformed rows; the torch port reads "
+        "data files fail-fast: the first malformed line raises"),
+    "use_two_round_loading": (
+        bool,
+        "the JAX package's streaming loader samples the rows it bins "
+        "from differently; the torch port loads the whole file"),
+    "feature_screen_ratio": (
+        lambda v: v > 0.0,
+        "gain-informed feature screening masks features out of rounds, "
+        "which changes the trees"),
+    "snapshot_dir": (
+        bool,
+        "the JAX package writes snapshots there and resumes training "
+        "from the newest one"),
+    "num_machines": (
+        lambda v: v > 1,
+        "distributed training over several machines"),
+    "is_pre_partition": (
+        bool, "pre-partitioned data of distributed training"),
+    "is_save_binary_file": (
+        bool, "the JAX package writes the binned dataset to a binary file"),
+    "serve_canary_model": (
+        bool, "a second model answers a share of the serving traffic"),
+    "serve_canary_weight": (
+        lambda v: v > 0.0,
+        "a canary model answers a share of the serving traffic"),
+    "serve_shadow": (
+        lambda v: v > 0.0, "serving traffic mirrored onto a canary model"),
+    "serve_state_file": (
+        bool, "the server restores its last-good model from that file"),
+}
+
+#: keys that cannot change a tree, a prediction, a file the run writes
+#: or its outcome in the port: accepted with one warning each.  The
+#: ``feature_screen_*`` tuning keys and the distributed keys act only
+#: under a setting :data:`REFUSED` or ``check_trainable`` refuses; the
+#: quarantine budgets only under ``bad_data_policy=quarantine``;
+#: ``snapshot_freq`` / ``snapshot_keep`` only with a ``snapshot_dir``;
+#: ``top_k`` only in the voting learner; ``seed``,
+#: ``enable_load_from_binary_file``, ``tpu_histogram_impl`` and
+#: ``tpu_double_hist`` are read by nothing in the JAX package's
+#: training (the first through its aliases only).
+INERT = frozenset({
+    "seed", "num_threads", "enable_load_from_binary_file",
+    "feature_screen_refresh", "feature_screen_warmup",
+    "feature_screen_decay", "top_k", "local_listen_port", "time_out",
+    "machine_list_file", "tpu_histogram_impl", "tpu_double_hist",
+    "snapshot_freq", "snapshot_keep", "sink_error_policy",
+    "events_flush_every", "max_bad_rows", "max_bad_row_fraction",
+    "distributed_init_retries", "distributed_init_backoff",
+    "distributed_heartbeat_ms", "collective_timeout_s",
+    "distributed_consistency_check", "desync_policy",
+    "serve_replicas", "serve_queue_depth", "serve_max_inflight",
+    "serve_retry_limit", "serve_error_threshold", "serve_watchdog_ms",
+    "serve_stall_ms", "serve_latency_outlier", "lifecycle_window_s",
+    "lifecycle_max_window_s", "lifecycle_min_samples",
+    "lifecycle_latency_ratio", "lifecycle_error_rate",
+    "lifecycle_cooldown_s", "events_file", "trace_dir",
+    "trace_start_iter", "trace_num_iters", "metrics_port",
+    "metrics_host", "compile_ledger_file", "memwatch", "devprof",
+    "trace_events_file", "compile_cache_dir", "drift", "drift_window",
+    "drift_top_k", "lifecycle_drift_threshold",
+})
 
 _BOOL_KEYS = {k for k, v in _DEFAULTS.items() if isinstance(v, bool)}
 _INT_KEYS = {k for k, v in _DEFAULTS.items()
@@ -225,6 +334,9 @@ _METRIC_ALIASES = {
 #: ``fobj``)
 OBJECTIVES = ("regression", "regression_l1", "huber", "fair", "poisson",
               "binary", "multiclass", "lambdarank", "none")
+
+#: the boosting types the port trains (models/__init__.create_boosting)
+BOOSTING_TYPES = ("gbdt", "goss", "dart")
 
 _DEFAULT_METRIC = {
     "regression": ["l2"], "regression_l1": ["l1"], "huber": ["huber"],
@@ -267,10 +379,14 @@ class Config:
         self._values: Dict[str, Any] = copy.deepcopy(_DEFAULTS)
         for key, value in params.items():
             if key not in self._values:
-                if key != "config_file":
-                    log.warn_once(f"config:{key}",
-                                  "parameter %r is not read by the torch "
-                                  "port; ignored", key)
+                if key == "config_file":
+                    continue
+                why = ("cannot change a tree or a prediction"
+                       if key in INERT else "is not a parameter of the "
+                       "JAX package")
+                log.warn_once(f"config:{key}", "parameter %r is not read "
+                              "by the torch port (it %s); ignored", key,
+                              why)
                 continue
             self._values[key] = self._coerce(key, value)
         self._check()
@@ -303,17 +419,23 @@ class Config:
             raise ValueError(
                 f"Unknown bad_data_policy {v['bad_data_policy']} "
                 "(expected fail_fast or quarantine)")
-        if v["bad_data_policy"] != "fail_fast":
-            raise LightGBMError(
-                "not ported yet to the torch package: bad_data_policy="
-                f"{v['bad_data_policy']} (the torch port reads data files "
-                "fail-fast: the first malformed line raises)")
-        if v["use_two_round_loading"]:
-            raise LightGBMError(
-                "not ported yet to the torch package: "
-                "use_two_round_loading=true (the JAX package's streaming "
-                "loader samples the rows it bins from differently; the "
-                "torch port loads the whole file)")
+        if not (0.0 <= v["feature_screen_ratio"] < 1.0):
+            raise ValueError(
+                "feature_screen_ratio must be in [0, 1) (0 disables "
+                "gain-informed feature screening; 1 would mask every "
+                "feature)")
+        if v["nan_policy"] not in ("none", "fail_fast", "skip_tree"):
+            raise ValueError(
+                f"Unknown nan_policy {v['nan_policy']} "
+                "(expected none, fail_fast, or skip_tree)")
+        for key, (refused, why) in REFUSED.items():
+            if refused(v[key]):
+                value = v[key]
+                if isinstance(value, bool):
+                    value = str(value).lower()
+                raise LightGBMError(
+                    f"not ported yet to the torch package: {key}={value} "
+                    f"({why})")
         if not (0.0 < v["shrinkage_decay"] <= 1.0):
             raise ValueError("shrinkage_decay must be in (0, 1] — 0 would "
                              "merge dead trees, > 1 would amplify them")
@@ -356,6 +478,9 @@ class Config:
             if (obj == "multiclass") != (
                     metric in ("multi_logloss", "multi_error")):
                 raise ValueError("Objective and metrics don't match")
+        if v["boosting_type"] == "goss" and (
+                v["bagging_fraction"] < 1.0 and v["bagging_freq"] > 0):
+            raise ValueError("cannot use bagging in GOSS")
         if not v["metric"]:
             v["metric"] = list(_DEFAULT_METRIC.get(v["objective"], []))
         if v["num_leaves"] <= 1:
@@ -371,29 +496,21 @@ class Config:
             v["num_leaves"] = min(v["num_leaves"], 2 ** v["max_depth"])
 
     def check_trainable(self) -> None:
-        """Raise for every training setting outside the ported slice
-        (serial GBDT of any objective with any ``serial_grow``, constant
-        or linear leaves, without row or feature sampling); nothing here
-        is silently ignored."""
+        """Raise for every training setting outside the ported slice:
+        an unknown objective or boosting type, or a distributed tree
+        learner; nothing here is silently ignored (the refused keys of
+        :data:`REFUSED` raise when the Config is built, EFB bundles when
+        the dataset is binned)."""
         v = self._values
-        unported = []
         if v["objective"] not in OBJECTIVES:
             raise LightGBMError(
                 f"Unknown objective type name: {v['objective']}")
-        if v["boosting_type"] != "gbdt":
-            unported.append(f"boosting_type={v['boosting_type']} "
-                            "(GOSS and DART)")
+        if v["boosting_type"] not in BOOSTING_TYPES:
+            log.fatal("Unknown boosting type %s", v["boosting_type"])
         if v["tree_learner"] != "serial":
-            unported.append(f"tree_learner={v['tree_learner']} "
-                            "(distributed learners)")
-        if v["bagging_fraction"] < 1.0:
-            unported.append("bagging_fraction<1 (bagging)")
-        if v["feature_fraction"] < 1.0:
-            unported.append("feature_fraction<1")
-        if unported:
             raise LightGBMError(
                 "not ported yet to the torch package: "
-                + "; ".join(unported))
+                f"tree_learner={v['tree_learner']} (distributed learners)")
 
     def __getattr__(self, name: str) -> Any:
         values = object.__getattribute__(self, "_values")

@@ -19,6 +19,17 @@ of ``_DeviceData`` (feature-major and row-major bins, the
 i % num_class.  Rounds run synchronously, with no pipelining; the score
 buffers are updated in place.
 
+Sampling draws what the JAX package draws, from the same seeds: the bag
+mask (``bagging_fraction`` every ``bagging_freq`` rounds) on the device
+from the threefry stream of ``bagging_seed`` (``utils/random.py``,
+``device_bag_mask``, as many words as the JAX package's padded rows),
+the feature masks (``feature_fraction``) from
+``np.random.RandomState(feature_fraction_seed)`` on the host, in the
+order the JAX round would take (``_masks_before_gradients``); GOSS
+(models/goss.py) and DART (models/dart.py) are subclasses.
+``nan_policy`` checks each round's gradients and scores and rolls a
+non-finite round back (``_contain_poisoned_iter``).
+
 Continued training puts the init model's trees first in ``models``
 (``num_init_iteration`` rounds of them) and the training scores start
 from its predictions (the dataset's init scores); every valid set
@@ -60,6 +71,7 @@ from ..ops.grow import GrowParams, SerialComm, _read, grow_tree
 from ..ops.ordered_grow import grow_tree_ordered
 from ..ops.predict import predict_binned_tree
 from ..utils import log, resource
+from ..utils import random as jrandom
 from ..utils.log import LightGBMError
 from .linear import (LinearParams, affine_epilogue, attach_linear,
                      fit_leaf_models)
@@ -150,6 +162,36 @@ class _DeviceData:
         return self.score.cpu().numpy().astype(np.float64)
 
 
+def _all_finite(*tensors) -> bool:
+    """Every element of every tensor is finite (one host read)."""
+    ok = torch.ones((), dtype=torch.bool, device=tensors[0].device)
+    for t in tensors:
+        ok = ok & torch.isfinite(t).all()
+    return bool(ok)
+
+
+def device_bag_mask(key, n: int, bag_cnt: int, n_real: int,
+                    device) -> torch.Tensor:
+    """[n_real] f32 0/1 mask of exactly ``bag_cnt`` rows drawn without
+    replacement (reference bag_data_cnt_; the JAX ``_device_bag_mask``).
+
+    The JAX package draws ``n`` 32-bit words for its ``n`` padded rows,
+    pad words forced to the largest, and keeps the rows whose (word,
+    index) pair sorts among the first ``bag_cnt``: the pair is unique,
+    so exactly ``bag_cnt`` rows are kept.  Every real pair sorts before
+    every pad pair, so the port draws the same ``n`` words, keeps the
+    first ``n_real`` and ranks those alone."""
+    if bag_cnt <= 0:
+        return torch.zeros(n_real, dtype=torch.float32, device=device)
+    r = jrandom.bits(key, n, device)[:n_real]
+    r_sorted, i_sorted = torch.sort(r, stable=True)
+    thr_r = r_sorted[bag_cnt - 1]
+    thr_i = i_sorted[bag_cnt - 1]
+    iota = torch.arange(n_real, dtype=torch.int64, device=device)
+    keep = (r < thr_r) | ((r == thr_r) & (iota <= thr_i))
+    return keep.to(torch.float32)
+
+
 class GBDT:
     """A boosted forest: class-major ``models`` plus the header.
 
@@ -157,9 +199,18 @@ class GBDT:
     ``GBDT(config, train_set, device)`` sets up serial training on
     ``device`` from a ``BinnedDataset``."""
 
+    submodel_name = "gbdt"
+    #: the JAX package's fused round (an objective's gradients, and a
+    #: booster whose per-round hooks are the base's) draws the bag mask
+    #: and every class's feature mask before it grows; its per-stage
+    #: round (a custom objective's gradients, GOSS) computes the
+    #: gradients first and draws one feature mask per class in the class
+    #: loop.  The port has one round that keeps whichever order the JAX
+    #: package would take.
+    _masks_before_gradients = True
+
     def __init__(self, config=None, train_set=None,
                  device: Optional[torch.device] = None):
-        self.submodel_name = "gbdt"
         self.num_class = 1
         self.label_idx = 0
         self.max_feature_idx = 0
@@ -215,10 +266,25 @@ class GBDT:
         self.valid_metrics: List[list] = []
         self.train_metrics = self._make_metrics(train_set)
         self._grad_arrays = self.objective.gradient_arrays(device)
-        self._row_weight = torch.ones(self.num_data, dtype=torch.float32,
-                                      device=device)
-        self._feat_mask = torch.ones(train_set.num_features,
-                                     dtype=torch.bool, device=device)
+        self.num_features = train_set.num_features
+        self._ones_weight = torch.ones(self.num_data, dtype=torch.float32,
+                                       device=device)
+        # the bagging mask of the last draw (JAX _row_weight), and the
+        # row weight and feature mask the grower takes this round
+        self._row_weight = self._ones_weight
+        self._round_weight = self._ones_weight
+        self._full_feat_mask = torch.ones(self.num_features,
+                                          dtype=torch.bool, device=device)
+        self._feat_mask = self._full_feat_mask
+        # the JAX package's draws cover its padded rows (row_buckets)
+        self._padded_rows = (jrandom.bucket_rows(self.num_data)
+                             if config.row_buckets else self.num_data)
+        self._bag_cnt = self.num_data
+        self._bag_key = jrandom.prng_key(config.bagging_seed)
+        self._feature_rng = np.random.RandomState(
+            config.feature_fraction_seed)
+        self._nan_policy = config.nan_policy
+        self._nan_skips = 0
         # TreeArrays (host) of each tree this booster grew: the last
         # len(tree_arrays) trees of ``models`` (a rollback pops them; a
         # merge, which appends other trees, drops them)
@@ -227,19 +293,30 @@ class GBDT:
 
     @staticmethod
     def _make_grow_params(config) -> GrowParams:
+        # bagging and GOSS leave zero-weight rows every round: the
+        # ordered grower compacts them out of its layout (GOSS only when
+        # it can sample; its warmup rounds pay the sort on an all-ones
+        # mask, as in the JAX package)
+        goss_samples = (config.boosting_type == "goss"
+                        and config.top_rate + config.other_rate < 1.0)
+        subsampled = goss_samples or (config.bagging_freq > 0
+                                      and config.bagging_fraction < 1.0)
         return GrowParams(
             num_leaves=config.num_leaves, max_bin=config.max_bin,
             min_data_in_leaf=config.min_data_in_leaf,
             min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
             lambda_l1=config.lambda_l1, lambda_l2=config.lambda_l2,
             min_gain_to_split=config.min_gain_to_split,
-            max_depth=config.max_depth)
+            max_depth=config.max_depth, compact_inactive=subsampled)
 
     def reset_config(self, config) -> None:
         """Booster::ResetConfig (c_api.cpp:96-134) between rounds: the
         new learning rate, the grower rebuilt only when its parameters
         really change (so a per-round learning-rate schedule rebuilds
-        nothing), and the metrics anew.  A setting ``check_trainable``
+        nothing), and the metrics anew.  The sampling keys are read from
+        the config each round, so a new bagging or feature fraction
+        takes effect at once, from the generators as they stand (the
+        JAX package resets neither).  A setting ``check_trainable``
         refuses is refused here too.  A loaded model only keeps the
         config."""
         if getattr(self, "train_set", None) is None:
@@ -348,7 +425,7 @@ class GBDT:
         def grow(grad, hess):
             td = self.train_data
             args = (self.num_bin, self.is_cat, self._feat_mask, grad, hess,
-                    self._row_weight, self.shrinkage_rate, params)
+                    self._round_weight, self.shrinkage_rate, params)
             if kind == "ordered":
                 return grow_tree_ordered(td.bins_rm, *args)
             # fused: each split's pass is K3 (per-feature candidates);
@@ -452,7 +529,7 @@ class GBDT:
         td = self.train_data
         const, coeff, feat, delta, fb = fit_leaf_models(
             ta, td.bins, self._is_cat_host, td.raw, grad, hess,
-            self._row_weight, self.shrinkage_rate, self._linear,
+            self._round_weight, self.shrinkage_rate, self._linear,
             leaf=leaf_id)
         L, K = coeff.shape
         # feature indices and the count are small integers, exact in f32
@@ -467,23 +544,91 @@ class GBDT:
         feat_host = host[L + L * K:L + 2 * L * K].astype(np.int32)
         return ta, (coeff_host, feat_host.reshape(L, K)), delta
 
+    # -- row and feature sampling --------------------------------------
+    def _bagging_mask(self, iter_: int) -> torch.Tensor:
+        """Bagging (gbdt.cpp:201-280): ``bagging_fraction * N`` rows
+        without replacement, drawn anew every ``bagging_freq`` rounds on
+        the device (the JAX ``_bagging_mask``); the mask of the last
+        draw in between."""
+        cfg = self.config
+        if cfg.bagging_freq <= 0 or cfg.bagging_fraction >= 1.0:
+            self._bag_cnt = self.num_data
+            return self._ones_weight
+        if iter_ % cfg.bagging_freq == 0:
+            bag_cnt = int(cfg.bagging_fraction * self.num_data)
+            self._bag_key, sub = jrandom.split(self._bag_key)
+            self._row_weight = device_bag_mask(
+                sub, self._padded_rows, bag_cnt, self.num_data, self.device)
+            self._bag_cnt = bag_cnt
+        return self._row_weight
+
+    def _feature_mask(self) -> torch.Tensor:
+        """``feature_fraction`` of the used features for one tree
+        (serial_tree_learner.cpp:226+), from the host generator of
+        ``feature_fraction_seed`` as the JAX package draws it."""
+        frac = self.config.feature_fraction
+        if frac >= 1.0:
+            return self._full_feat_mask
+        used = max(1, int(self.num_features * frac))
+        idx = self._feature_rng.choice(self.num_features, used,
+                                       replace=False)
+        mask = np.zeros(self.num_features, bool)
+        mask[idx] = True
+        return _to_device(torch.from_numpy(mask), self.device)
+
+    def _gradients(self):
+        return self.objective.gradients_with(self._grad_arrays,
+                                             self.train_data.score)
+
+    def _transform_gradients(self, grad, hess):
+        """Hook for boosters that sample or scale the gradients of either
+        source (GOSS); the identity here."""
+        return grad, hess
+
     def train_one_iter(self, grad=None, hess=None) -> bool:
         """One boosting round (gbdt.cpp:295-382), from the objective's
         gradients or, for a custom objective, from ``grad`` and ``hess``
         (class-major, ``num_class * num_data`` values each, moved to the
-        device once).  Returns True when no class's tree could split
-        (saturation): the round's trees are popped, as the reference
-        pops them, and training should stop."""
-        score = self.train_data.score
-        if grad is None or hess is None:
-            grad, hess = self.objective.gradients_with(self._grad_arrays,
-                                                       score)
+        device once).  The bag mask and the feature masks are drawn in
+        the JAX package's order (``_masks_before_gradients``).  Returns
+        True when no class's tree could split (saturation): the round's
+        trees are popped, as the reference pops them, and training
+        should stop.
+
+        ``nan_policy`` other than ``none`` checks the gradients before
+        growing and the training scores after: a non-finite round is
+        rolled back (``_contain_poisoned_iter``)."""
+        it = self.iter_
+        guard = self._nan_policy != "none"
+        if guard:
+            score0 = self.train_data.score.clone()
+            vscores0 = [dd.score.clone() for dd in self.valid_data]
+        poisoned = None
+        feat_masks = None
+        if grad is None and hess is None and self._masks_before_gradients:
+            row_weight = self._bagging_mask(it)
+            feat_masks = [self._feature_mask()
+                          for _ in range(self.num_class)]
+            grad, hess = self._gradients()
         else:
-            grad, hess = (_to_device(torch.from_numpy(np.ascontiguousarray(
-                a, np.float32).reshape(self.num_class, -1)), self.device)
-                for a in (grad, hess))
+            if grad is None or hess is None:
+                grad, hess = self._gradients()
+            else:
+                grad, hess = (_to_device(torch.from_numpy(
+                    np.ascontiguousarray(a, np.float32).reshape(
+                        self.num_class, -1)), self.device)
+                    for a in (grad, hess))
+            grad, hess = self._transform_gradients(grad, hess)
+        if guard and not _all_finite(grad, hess):
+            # caught before growing: the round grows nothing
+            poisoned = "gradients/hessians"
+        if feat_masks is None:
+            row_weight = self._bagging_mask(it)
+        self._round_weight = row_weight
         trees = []
-        for cls in range(self.num_class):
+        for cls in range(self.num_class) if poisoned is None else ():
+            self._feat_mask = (feat_masks[cls] if feat_masks is not None
+                               else self._feature_mask())
             ta, leaf_id, delta = self._grow(grad[cls], hess[cls])
             host_lin = None
             if self._linear is not None:
@@ -491,7 +636,7 @@ class GBDT:
                 # the grown structure over the bins finds (tested)
                 ta, host_lin, delta = self._fit_linear(
                     ta, leaf_id, grad[cls], hess[cls])
-            score[cls] += delta
+            self.train_data.score[cls] += delta
             tree = Tree.from_arrays(ta, self.train_set.mappers,
                                     self.train_set.used_feature_map,
                                     self.shrinkage_rate)
@@ -502,6 +647,15 @@ class GBDT:
                 self._add_host_tree_to(dd, tree, cls)
             self.tree_arrays.append(ta)
             trees.append(tree)
+        if guard and poisoned is None \
+                and not _all_finite(self.train_data.score):
+            # finite gradients can still give a non-finite tree
+            poisoned = "scores"
+        if poisoned is not None:
+            if trees:
+                del self.tree_arrays[-len(trees):]
+            return self._contain_poisoned_iter(it, poisoned, score0,
+                                               vscores0)
         if all(t.num_leaves <= 1 for t in trees):
             log.warning("Stopped training because there are no more "
                         "leaves that meet the split requirements.")
@@ -509,6 +663,30 @@ class GBDT:
             return True
         self.models.extend(trees)
         self.iter_ += 1
+        return False
+
+    def _contain_poisoned_iter(self, it: int, what: str, score0,
+                               vscores0) -> bool:
+        """NaN/Inf containment (``nan_policy``; the JAX
+        ``_contain_poisoned_iter``): the scores go back to their values
+        before round ``it``, then ``fail_fast`` raises and ``skip_tree``
+        drops the round (nothing was committed to ``models``); the next
+        call retries the same round index."""
+        self.train_data.score = score0
+        for dd, s0 in zip(self.valid_data, vscores0):
+            dd.score = s0
+        obj = getattr(self.objective, "name", "?")
+        if self._nan_policy == "fail_fast":
+            log.fatal(
+                "non-finite %s at boosting iteration %d (objective=%s).  "
+                "The model up to iteration %d is intact; inspect the "
+                "objective/labels (or a custom fobj), or set "
+                "nan_policy=skip_tree to drop poisoned iterations and "
+                "continue.", what, it, obj, it)
+        self._nan_skips += 1
+        log.warning("nan_policy=skip_tree: dropping boosting iteration %d "
+                    "(non-finite %s, objective=%s); %d iteration(s) "
+                    "dropped so far", it, what, obj, self._nan_skips)
         return False
 
     def _metric_sets(self):

@@ -47,9 +47,10 @@ from .split import (BestSplit, FeatureCandidates, SplitParams, K_MIN_SCORE,
 
 
 class GrowParams(NamedTuple):
-    """Tree-growth configuration.  The JAX version's
-    ``compact_inactive`` (bagging/GOSS row compaction) is not ported:
-    row sampling raises in ``Config.check_trainable``."""
+    """Tree-growth configuration.  ``compact_inactive`` (bagging and
+    GOSS): the leaf-ordered grower moves the zero-weight rows out of its
+    layout once per tree, so its windows cover the sample only; the
+    fixed-trip growers take the row weight as it is."""
     num_leaves: int = 31
     max_bin: int = 255
     min_data_in_leaf: int = 100
@@ -58,6 +59,7 @@ class GrowParams(NamedTuple):
     lambda_l2: float = 0.0
     min_gain_to_split: float = 0.0
     max_depth: int = -1
+    compact_inactive: bool = False
 
     def split_params(self) -> SplitParams:
         return SplitParams(self.min_data_in_leaf, self.min_sum_hessian_in_leaf,

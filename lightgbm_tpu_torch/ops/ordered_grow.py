@@ -1,7 +1,7 @@
 """Leaf-ordered (DataPartition-style) serial tree growth.
 
-Port of the JAX package's ops/ordered_grow.py ``grow_tree_ordered``
-(without its bagging row compaction).  The grower keeps the reference's
+Port of the JAX package's ops/ordered_grow.py ``grow_tree_ordered``.
+The grower keeps the reference's
 DataPartition invariant (data_partition.hpp) on the data itself: a
 row-major ``[N, F]`` bin tensor, an ``[N, 9]`` int8 digit tensor and a
 row-id permutation in which every leaf's rows are one contiguous
@@ -18,18 +18,30 @@ segment.  Splitting a leaf touches only its segment:
   * the sibling by exact int32 subtraction from the parent's cached sums;
   * ``find_best_split`` on both children in one batched call.
 
+With ``compact_inactive`` (bagging, GOSS) the grower first moves the
+rows of zero weight out of its layout, stably (the JAX version sorts
+them behind the active segment; the port keeps only the active rows):
+the root histogram and every later window cover the sample only, and
+the rows out of the sample take their leaf from a walk of the grown
+tree over their bins (``ops/predict.predict_binned_tree``), as the
+reference scores its out-of-bag rows.
+
 The per-leaf bookkeeping (best split, totals, segment start and count)
 lives on the host in numpy f32/int32, with the same f32 operations as
 the JAX version's packed device buffers; the device holds the rows, the
 digits and the histogram cache.  The left child's row count is the
-best split's ``left_count``: the w digit stream is the row weight, all
-ones in this slice, so the count is exact and the host needs no read of
-the partition to place the child windows.  Every count is checked
-against the partition once per tree.
+best split's ``left_count``: the w digit stream is the row weight, 0 or
+1, so the count is exact when every row of the layout has weight 1 (no
+sampling, or a compacted sample), and the host needs no read of the
+partition to place the child windows.  Every such count is checked
+against the partition once per tree.  A row weight with zeros left in
+the layout (sampling without ``compact_inactive``) reads each split's
+count from the partition instead.
 
 Host syncs per tree: one to read the root sums and split, one per split
 to read the two children's best splits, one at the end to check the
-partition counts; :func:`host_syncs` counts them.
+partition counts, and with ``compact_inactive`` one for the sample's
+size; :func:`host_syncs` counts them.
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ import torch
 from ..utils.log import LightGBMError
 from . import leafhist
 from .grow import GrowParams, TreeArrays
+from .predict import predict_binned_tree
 from .split import K_MIN_SCORE, find_best_split, leaf_output
 
 # columns of the host per-leaf buffers (the JAX version's packed layout)
@@ -159,7 +172,22 @@ def grow_tree_ordered(bins_rm: torch.Tensor, num_bin: torch.Tensor,
     root_tot = torch.stack([torch.sum(g), torch.sum(h),
                             torch.sum(row_weight)])
 
-    sums_root = histogram(bins_rm, digits, B)
+    row_ord = torch.arange(N, dtype=torch.int64, device=dev)
+    n_act, inactive = N, None
+    if params.compact_inactive:
+        # one stable sort a tree puts the sample first; the layout keeps
+        # only its rows
+        perm = torch.argsort((row_weight <= 0.0).to(torch.uint8),
+                             stable=True)
+        n_act = int(_read(torch.sum(row_weight > 0.0)))
+        row_ord, inactive = perm[:n_act], perm[n_act:]
+        store = _storage(bins_rm).index_select(0, row_ord)
+        digits = digits.index_select(0, row_ord)
+    else:
+        store = _storage(bins_rm.clone())
+    work_bins = store.view(bins_rm.dtype)
+
+    sums_root = histogram(work_bins, digits, B)
     root_split = find_best_split(
         leafhist.combine_digit_sums(sums_root, scales), root_tot[0],
         root_tot[1], root_tot[2], num_bin, is_cat, feat_mask,
@@ -176,7 +204,10 @@ def grow_tree_ordered(bins_rm: torch.Tensor, num_bin: torch.Tensor,
                    root[2], 0.0]
     leaf_i32[0, _LI["best_feat"]] = int(root[4])
     leaf_i32[0, _LI["best_bin"]] = int(root[5])
-    leaf_i32[0, _LI["cnt"]] = N
+    leaf_i32[0, _LI["cnt"]] = n_act
+    # the histogram's count is the rows of the layout when each has
+    # weight 1; else each split reads its count from the partition
+    host_counts = params.compact_inactive or float(root[2]) == N
     n_nodes = max(L - 1, 0)
     node_feat = np.full(n_nodes, -1, np.int32)
     node_bin = np.zeros(n_nodes, np.int32)
@@ -186,9 +217,6 @@ def grow_tree_ordered(bins_rm: torch.Tensor, num_bin: torch.Tensor,
     node_value = np.zeros(n_nodes, np.float32)
     node_count = np.zeros(n_nodes, np.int32)
 
-    store = _storage(bins_rm.clone())
-    work_bins = store.view(bins_rm.dtype)
-    row_ord = torch.arange(N, dtype=torch.int64, device=dev)
     counts_dev, counts_host = [], []
     num_leaves = 1
     for node in range(L - 1):
@@ -203,10 +231,14 @@ def grow_tree_ordered(bins_rm: torch.Tensor, num_bin: torch.Tensor,
         s, c = int(rb_i[_LI["start"]]), int(rb_i[_LI["cnt"]])
         depth, parent_node = int(rb_i[_LI["depth"]]), int(rb_i[_LI["parent"]])
 
-        cnt_l = int(rb_f[_LF["best_left_c"]])
-        counts_dev.append(_partition(store, digits, row_ord, s, c, feat,
-                                     tbin, is_cat[feat]))
-        counts_host.append(cnt_l)
+        cnt_dev = _partition(store, digits, row_ord, s, c, feat, tbin,
+                             is_cat[feat])
+        if host_counts:
+            cnt_l = int(rb_f[_LF["best_left_c"]])
+            counts_dev.append(cnt_dev)
+            counts_host.append(cnt_l)
+        else:
+            cnt_l = int(_read(cnt_dev))
         small_left = cnt_l <= c - cnt_l
         sums_small = histogram(work_bins, digits, B,
                                s if small_left else s + cnt_l,
@@ -287,10 +319,25 @@ def grow_tree_ordered(bins_rm: torch.Tensor, num_bin: torch.Tensor,
     order = np.argsort(leaf_i32[:num_leaves, _LI["start"]], kind="stable")
     seg = _upload(np.stack([order, leaf_i32[order, _LI["cnt"]]]).astype(
         np.int64), dev)
-    leaf_of_pos = torch.repeat_interleave(seg[0], seg[1], output_size=N)
+    leaf_of_pos = torch.repeat_interleave(seg[0], seg[1],
+                                          output_size=n_act)
     leaf_id = torch.empty(N, dtype=torch.int32, device=dev)
     leaf_id[row_ord] = leaf_of_pos.to(torch.int32)
-    output_delta = _upload(shrunk, dev)[leaf_id.long()]
+    shrunk_dev = _upload(shrunk, dev)
+    if inactive is not None and inactive.numel() and num_leaves > 1:
+        # the rows out of the sample: the grown tree walked over their
+        # bins (the reference's out-of-bag AddPredictionToScore)
+        sf = _upload(node_feat.astype(np.int64), dev)
+        out_bins = _storage(bins_rm).index_select(0, inactive).to(
+            torch.int32) & 0xFFFF
+        _, leaf_out = predict_binned_tree(
+            sf, _upload(node_bin, dev), is_cat[sf.clamp(min=0)],
+            _upload(node_left, dev), _upload(node_right, dev), shrunk_dev,
+            out_bins.t(), L)
+        leaf_id[inactive] = leaf_out.to(torch.int32)
+    elif inactive is not None:
+        leaf_id[inactive] = 0
+    output_delta = shrunk_dev[leaf_id.long()]
     return tree, leaf_id, output_delta
 
 

@@ -281,8 +281,8 @@ def test_a_rate_schedule_rebuilds_no_grower():
     assert bt._booster._grow is grow and bt._booster.shrinkage_rate == 0.2
     bt.reset_parameter({"num_leaves": 5})
     assert bt._booster._grow is not grow
-    with pytest.raises(LightGBMError, match="bagging"):
-        bt.reset_parameter({"bagging_fraction": 0.5})
+    with pytest.raises(LightGBMError, match="tree_learner"):
+        bt.reset_parameter({"tree_learner": "data"})
 
 
 def test_unresettable_keys_and_short_lists_raise_as_in_jax():

@@ -52,8 +52,12 @@ def _train(kind: str):
         X[:, 1] = rng.randint(0, 8, size=700)
         y = ((X[:, 0] > 0) ^ (X[:, 1] >= 4)).astype(np.float64)
         cat = [1]
+    # train() applies its own categorical_feature (default "auto")
     bst = lgb.train(params, lgb.Dataset(X, label=y, categorical_feature=cat),
-                    num_boost_round=4)
+                    num_boost_round=4, categorical_feature=cat)
+    if cat != "auto":
+        assert any((t.decision_type == 1).any()
+                   for t in bst._booster.models)
     Xq = X.copy()
     if kind == "categorical":
         Xq[rng.rand(*Xq.shape) < 0.1] = np.nan   # missing values

@@ -63,9 +63,13 @@ def _train(kind: str):
         y = np.digitize(X[:, 0] + 0.5 * (X[:, 2] >= 3), [-0.3, 0.6])
         params.update({"objective": "multiclass", "num_class": 3})
         cat = [2]
+    # train() applies its own categorical_feature (default "auto")
     bst = lgb.train(params, lgb.Dataset(X, label=y.astype(np.float64),
                                         categorical_feature=cat),
-                    num_boost_round=4)
+                    num_boost_round=4, categorical_feature=cat)
+    if cat != "auto":
+        assert any((t.decision_type == 1).any()
+                   for t in bst._booster.models)
     Xq = X.copy()
     Xq[rng.rand(*Xq.shape) < 0.05] = np.nan          # missing values
     if kind == "multiclass_ragged":
@@ -138,7 +142,8 @@ def test_forests_cover_the_hazards(forests):
     mc = forests["multiclass_ragged"]
     assert mc["tf"].trees_per_class * 3 > len(mc["tb"].models)
     assert any((t.decision_type == 1).any() for t in mc["tb"].models)
-    assert bool((mc["tf"].walk_tables.feat == 2).any())
+    # the categorical column splits the trees and is never a covariate
+    assert not bool((mc["tf"].walk_tables.feat == 2).any())
     assert mc["tf"].info()["max_cuts"] >= 1 and 2 in mc["tf"]._cuts_cat
 
 

@@ -44,7 +44,11 @@ def _train(kind: str):
     elif kind == "categorical":
         X[:, 1] = rng.randint(0, 8, size=600)
         y = ((X[:, 0] > 0) ^ (X[:, 1] >= 4)).astype(np.float64)
-        X[rng.rand(*X.shape) < 0.05] = np.nan
+        # missing values off the categorical column, which the JAX
+        # package bins without a NaN category
+        nan = rng.rand(*X.shape) < 0.05
+        nan[:, 1] = False
+        X[nan] = np.nan
         cat = [1]
     elif kind == "dart":
         params.update({"boosting": "dart", "drop_rate": 0.4,
@@ -53,9 +57,14 @@ def _train(kind: str):
         y = X[:, 0] * 2.0 + np.abs(X[:, 1])
         params.update({"objective": "regression", "linear_tree": True,
                        "linear_lambda": 0.01})
-    return lgb.train(params, lgb.Dataset(X, label=y,
-                                         categorical_feature=cat),
-                     num_boost_round=4)
+    # train() applies its own categorical_feature (default "auto")
+    bst = lgb.train(params, lgb.Dataset(X, label=y,
+                                        categorical_feature=cat),
+                    num_boost_round=4, categorical_feature=cat)
+    if cat != "auto":
+        assert any((t.decision_type == 1).any()
+                   for t in bst._booster.models)
+    return bst
 
 
 @pytest.fixture(scope="module")

@@ -59,8 +59,12 @@ def _train(kind: str):
         X[:, 1] = rng.randint(0, 8, size=800)
         y = ((X[:, 0] > 0) ^ (X[:, 1] >= 4)).astype(np.float64)
         cat = [1]
+    # train() applies its own categorical_feature (default "auto")
     bst = lgb.train(params, lgb.Dataset(X, label=y, categorical_feature=cat),
-                    num_boost_round=6)
+                    num_boost_round=6, categorical_feature=cat)
+    if cat != "auto":
+        assert any((t.decision_type == 1).any()
+                   for t in bst._booster.models)
     Xq = rng.normal(size=(300, 6))
     Xq[:, 3] = np.round(Xq[:, 3] * 4) / 4
     if kind == "categorical":
@@ -386,7 +390,7 @@ def test_cli_serve_token_and_unported_task(monkeypatch):
                     "device": "cuda"}
     # a training setting the port refuses, before the data is read
     with pytest.raises(lt.LightGBMError, match="not ported"):
-        cli.main(["task=train", "data=x.csv", "bagging_fraction=0.5"])
+        cli.main(["task=train", "data=x.csv", "tree_learner=data"])
 
 
 def test_config_defaults_and_aliases_match_jax(tmp_path):

@@ -28,7 +28,7 @@ from lightgbm_tpu.io.dataset import BinnedDataset as JaxBinned
 
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch import cli
-from lightgbm_tpu_torch.config import Config
+from lightgbm_tpu_torch.config import Config, parse_cli_args
 from lightgbm_tpu_torch.io.binning import BinMapper
 from lightgbm_tpu_torch.io.dataset import BinnedDataset
 
@@ -167,10 +167,10 @@ def test_categorical_feature_trains_like_jax():
     y = ((X[:, 0] + 0.5 * rng.normal(size=2500) > 0)
          ^ np.isin(X[:, 1], [2, 5])).astype(np.float64)
     params = {**PARAMS, "metric": "binary_logloss", "num_leaves": 7}
-    # (the JAX train() applies its own categorical_feature argument)
+    # (train() applies its own categorical_feature argument, in both)
     bj = lgb.train(params, lgb.Dataset(X, y), 3, categorical_feature=[1],
                    verbose_eval=False)
-    bt = lt.train(params, lt.Dataset(X, y, categorical_feature=[1]), 3,
+    bt = lt.train(params, lt.Dataset(X, y), 3, categorical_feature=[1],
                   device="cpu", verbose_eval=False)
     assert any((t.decision_type == 1).any() for t in bt._booster.models)
     for a, b in zip(bj._booster.models, bt._booster.models):
@@ -291,10 +291,12 @@ def test_train_without_device_raises_here(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,what", [
-    ({"bagging_fraction": 0.5, "bagging_freq": 1}, "bagging"),
-    ({"feature_fraction": 0.8}, "feature_fraction"),
-    ({"boosting_type": "goss"}, "GOSS"),
-    ({"boosting": "dart"}, "DART"),
+    ({"feature_screen_ratio": 0.5}, "feature_screen_ratio"),
+    # the JAX config has no alias for it: the CLI's --key=value spelling
+    (parse_cli_args(["--feature-screen-ratio=0.5"]),
+     "feature_screen_ratio"),
+    ({"bad_data_policy": "quarantine"}, "bad_data_policy=quarantine"),
+    ({"num_machines": 2}, "num_machines"),
     ({"tree_learner": "data"}, "tree_learner"),
 ])
 def test_unported_training_settings_raise(extra, what):

@@ -2,10 +2,9 @@
 ``examples/`` through the JAX CLI and through the port's CLI
 (``device=cpu``), 3 rounds each, in a copy of the example's directory.
 
-``run_conf`` trains with ``train.conf`` (minus
-``chip_smoke.EXAMPLE_DROPPED``: the regression conf's sampling keys,
-refused by the port until bagging and feature fraction are ported),
-logs each round's metrics, then runs
+``run_conf`` trains with ``train.conf`` as written (the regression
+conf's bagging and feature fraction too), logs each round's metrics,
+then runs
 ``predict.conf`` on the example's test file with each model, and the
 port's CLI once more on the JAX model.  (The JAX CLI reads the files
 with its native loader, whose decimal conversion can differ from the
