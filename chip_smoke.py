@@ -201,6 +201,43 @@ probes' own lines); any failure raises and exits non-zero.
    round, metrics as the examples phase holds them).  Prints the
    seconds a round of the continued runs beside the base runs', the
    init-score ms, the K1 and K4 launches and the ``cv`` seconds.
+   ``sparse``: the JAX package's wide-sparse operating point
+   (``bench.py:505-531``: ``make_ctr_like`` of 2000 features in blocks
+   of 20 exclusive ones, ~97% zeros; binary, 63 leaves, 255 bins, a
+   binning sample of 50k rows), cut to 250k rows with a 50k-row valid
+   set from the same draw, fed to ``Dataset`` as a scipy CSR matrix and
+   binned twice: with the default ``enable_bundle=true`` (100 columns,
+   one bundle of 20 features each, no sample conflict: checked) and
+   without (2000 columns).  Runs, the launch counters set to 0 before
+   each: the cached grower unbundled (15 rounds) and bundled (10): trees
+   bit-identical, score buffers and the trees' model text equal, K1 over
+   100 columns against 2000; ``serial_grow=ordered`` bundled falls back
+   to cached with the JAX package's warning, the same trees; nocache and
+   fused, unbundled (K2, K3 over 2000 columns) and bundled (K2 over the
+   100 columns, no K3), 3 rounds each, rounds x L launches: the first
+   two trees re-grown from the same gradients through the plain
+   versions with f32 histograms and with histograms added in f64, the
+   first bit-identical to both (its sums are exact in f32), the second
+   held against the f64 re-grow up to a near-tie; where the f32 re-grow
+   splits otherwise, both choices are scored in f64 on their leaf's
+   rows and the kernel run's must score no worse; bagging
+   (0.8 every 5), GOSS (learning rate 0.5: 2 warmup rounds, 3 sampled)
+   and DART bundled, 5 rounds each, bit-identical to unbundled twins;
+   linear leaves (3 rounds) within 1e-3 of a tree's largest leaf of the
+   unbundled linear run; screening (``feature_screen_ratio=0.3``,
+   warmup 6, refresh 4; 15 rounds): the active columns of each period
+   equal a CPU replay of the screener on the run's trees, K1 over the 70
+   active columns in screened rounds and 100 otherwise, the final valid
+   AUC within 0.002 of the unbundled run's.  Also: the bundled model's
+   predictions through K4 equal the unbundled model's, with the second
+   round's gradients K1 on the run's own bundled bins (bit-equal) and K2
+   on its bundled and unbundled bins (within its tolerance of its plain
+   version added in f64; the plain f32 scatter's distance printed), the
+   bundled set
+   through ``save_binary`` and ``Dataset(path)`` trains the same first
+   tree, and CUDA-event medians of K1 at the root over 100 and over 2000
+   columns and of the two expansions.  Prints the host seconds of
+   binning and planning and each run's seconds a round.
 5. ``probes``: the probes' own entry points, ``python -m
    lightgbm_tpu_torch.tools.probe_roll`` and ``probe_dynhist`` (their
    ``main``) at the JAX probes' sizes, each with its launch counter set
@@ -242,6 +279,7 @@ Without a CUDA card the script exits non-zero before printing a result.
 
 import argparse
 import contextlib
+import copy
 import io
 import json
 import os
@@ -379,6 +417,28 @@ SAMPLING_MULTICLASS = {"objective": "multiclass", "num_class": 5,
                        "feature_fraction": 0.7}
 SAMPLING_ROUNDS, SAMPLING_SHORT_ROUNDS = 10, 3
 SAMPLING_GOSS_ROUNDS, SAMPLING_MULTICLASS_ROUNDS = 15, 3
+# the sparse phase: the JAX package's wide-sparse operating point
+# (bench.py:505-531, docs/SPARSE.md's bench recipe): make_ctr_like of
+# 2000 features (blocks of 20 exclusive features), binary, 63 leaves,
+# 255 bins, a binning sample of 50k rows; cut from 500k rows to 250k
+# (the phase took 215 s at 500k, 125 s of it host binning), with a
+# 50k-row valid set from the same draw; 10 rounds, 3 for ordered (the
+# cached fallback), nocache, fused and linear, 5 for the sampled twins,
+# 15 for screening (docs/SPARSE.md's recipe: ratio 0.3, 6 warmup rounds,
+# a refresh every 4) and its unbundled reference, whose final valid AUC
+# the screened run's is held to within the JAX package's pin; GOSS at
+# learning rate 0.5, so that its 5 rounds sample after int(1 / 0.5) = 2
+# warmup rounds
+SPARSE_ROWS, SPARSE_VALID_ROWS, SPARSE_FEATURES = 250_000, 50_000, 2000
+SPARSE_PARAMS = {"objective": "binary", "metric": "auc", "num_leaves": 63,
+                 "max_bin": 255, "learning_rate": 0.1,
+                 "min_data_in_leaf": 50, "bin_construct_sample_cnt": 50_000}
+SPARSE_ROUNDS, SPARSE_SHORT_ROUNDS, SPARSE_SAMPLED_ROUNDS = 10, 3, 5
+SPARSE_SCREEN = {"feature_screen_ratio": 0.3, "feature_screen_warmup": 6,
+                 "feature_screen_refresh": 4}
+SPARSE_SCREEN_ROUNDS = 15
+SPARSE_AUC_PIN = 0.002
+SPARSE_GOSS_LR = {"learning_rate": 0.5}
 
 
 def emit(obj) -> None:
@@ -1546,32 +1606,34 @@ def phase_serve_linear(seed, dev, lin_model, lin_grid, higgs_model,
 
 
 class _timed_calls:
-    """Record the synchronized wall time of every call of the ``Booster``
-    method ``name`` made inside the block: ``update`` (one boosting round
-    each), ``predict`` (``train(init_model=)``'s init scores)."""
+    """Record the synchronized wall time of every call of ``owner``'s
+    attribute ``name`` made inside the block; ``owner`` defaults to
+    ``Booster``: ``update`` (one boosting round each), ``predict``
+    (``train(init_model=)``'s init scores)."""
 
-    def __init__(self, name="update"):
-        self.name = name
+    def __init__(self, name="update", owner=None):
+        self.name, self.owner = name, owner
         self.seconds = []
 
     def __enter__(self):
-        from lightgbm_tpu_torch.basic import Booster
-        self._orig = orig = getattr(Booster, self.name)
+        if self.owner is None:
+            from lightgbm_tpu_torch.basic import Booster
+            self.owner = Booster
+        self._orig = orig = getattr(self.owner, self.name)
         rec = self.seconds
 
-        def timed(booster, *args, **kwargs):
+        def timed(*args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = orig(booster, *args, **kwargs)
+            out = orig(*args, **kwargs)
             torch.cuda.synchronize()
             rec.append(time.perf_counter() - t0)
             return out
-        setattr(Booster, self.name, timed)
+        setattr(self.owner, self.name, timed)
         return self
 
     def __exit__(self, *exc):
-        from lightgbm_tpu_torch.basic import Booster
-        setattr(Booster, self.name, self._orig)
+        setattr(self.owner, self.name, self._orig)
 
 
 def train_datasets(seed):
@@ -1623,26 +1685,91 @@ def phase_train(seed, dev, workdir):
     return launches, windows, datasets, ordered["round_s_median"]
 
 
+def leaf_rows_hist(bins, g, h, w, leaf_id, parent_leaf, right_leaf,
+                   max_bin, acc):
+    """K2's plain scatter over the two children's rows alone, added in
+    dtype ``acc`` and rounded once to f32: [2, F, B, 3] (``leaf_id``
+    None: every row in the left child, K2's root form).  In f64 each
+    entry is its exact sum, correctly rounded.  In f32 it is the plain
+    version's sum (``build_children_histograms`` also adds every row of
+    neither child into one dump slot: F x N contended adds a step)."""
+    F, N = bins.shape
+    B, dev = max_bin, bins.device
+    if leaf_id is None:
+        rows = torch.arange(N, device=dev)
+        child = torch.zeros(N, dtype=torch.int64, device=dev)
+    else:
+        right = leaf_id == right_leaf
+        rows = torch.nonzero((leaf_id == parent_leaf) | right).squeeze(1)
+        child = right[rows].long()
+    vals = torch.stack([g, h, w], dim=-1)[rows].to(acc)
+    out = torch.zeros((2 * F * B, 3), dtype=acc, device=dev)
+    step = max(1, (1 << 24) // max(rows.numel(), 1))
+    for f0 in range(0, F, step):
+        sub = bins[f0:f0 + step]
+        if sub.dtype == torch.uint16:
+            sub = sub.view(torch.int16)
+        sub = sub.index_select(1, rows).long() & 0xFFFF
+        feat = torch.arange(f0, f0 + sub.shape[0], device=dev)[:, None]
+        seg = child[None, :] * (F * B) + feat * B + sub
+        out.index_add_(0, seg.reshape(-1), vals.repeat(sub.shape[0], 1))
+    return out.to(torch.float32).reshape(2, F, B, 3)
+
+
 class _plain_kernels:
     """Inside the block every kernel wrapper of the training path runs
-    its plain PyTorch version instead (on the card, uncounted)."""
+    its plain PyTorch version instead (on the card, uncounted).  With
+    ``acc`` the f32 histograms (K2, and K3's before its scan) are
+    ``leaf_rows_hist``'s in that dtype."""
+
+    def __init__(self, acc=None):
+        self.acc = acc
 
     def __enter__(self):
         from lightgbm_tpu_torch.ops import children_hist as ch
         from lightgbm_tpu_torch.ops import leafhist as lh
         self._saved = (lh.digit_histogram, ch.children_histograms,
-                       ch.root_histogram, ch.fused_split_candidates)
+                       ch.root_histogram, ch.fused_split_candidates,
+                       ch.build_children_histograms)
         lh.digit_histogram = lh.digit_histogram_plain
         ch.children_histograms = ch.build_children_histograms
         ch.root_histogram = ch.build_root_histogram
         ch.fused_split_candidates = ch.fused_split_candidates_plain
+        acc = self.acc
+        if acc is not None:
+            def children(bins, g, h, w, leaf_id, parent, right, max_bin):
+                return leaf_rows_hist(bins, g, h, w, leaf_id, parent, right,
+                                      max_bin, acc)
+
+            def root(bins, g, h, w, max_bin):
+                return leaf_rows_hist(bins, g, h, w, None, 0, -2, max_bin,
+                                      acc)[0]
+            # K3's plain version reads build_children_histograms
+            ch.children_histograms = ch.build_children_histograms = children
+            ch.root_histogram = root
         return self
 
     def __exit__(self, *exc):
         from lightgbm_tpu_torch.ops import children_hist as ch
         from lightgbm_tpu_torch.ops import leafhist as lh
         (lh.digit_histogram, ch.children_histograms, ch.root_histogram,
-         ch.fused_split_candidates) = self._saved
+         ch.fused_split_candidates, ch.build_children_histograms) = \
+            self._saved
+
+
+def first_flip(a, b):
+    """The first node where trees ``a`` and ``b`` split otherwise: its
+    index and both choices with their gains, or None."""
+    for k in range(len(a.split_feature)):
+        x = (int(a.split_feature[k]), int(a.split_bin[k]))
+        z = (int(b.split_feature[k]), int(b.split_bin[k]))
+        if x != z:
+            return {"node": k,
+                    "kernel": {"feature": x[0], "bin": x[1],
+                               "gain": float(a.split_gain[k])},
+                    "plain": {"feature": z[0], "bin": z[1],
+                              "gain": float(b.split_gain[k])}}
+    return None
 
 
 def compare_regrown(a, b, label, exact):
@@ -1660,21 +1787,19 @@ def compare_regrown(a, b, label, exact):
               f"{label}: re-grown through the plain versions, not "
               f"bit-identical")
         return None, 0.0
+    flip = first_flip(a, b)
+    if flip is not None:
+        ga, gb = flip["kernel"]["gain"], flip["plain"]["gain"]
+        check(abs(ga - gb) <= TREE_TIE_RTOL * max(abs(ga), abs(gb)),
+              f"{label}: split {flip['node']} differs beyond a near-tie: "
+              f"{flip}")
+        return flip, 0.0
     na = [(int(a.split_feature[k]), int(a.split_bin[k]),
            int(a.left_child[k]), int(a.right_child[k]))
           for k in range(len(a.split_feature))]
     nb = [(int(b.split_feature[k]), int(b.split_bin[k]),
            int(b.left_child[k]), int(b.right_child[k]))
           for k in range(len(b.split_feature))]
-    for k, (x, z) in enumerate(zip(na, nb)):
-        if x[:2] != z[:2]:
-            ga, gb = float(a.split_gain[k]), float(b.split_gain[k])
-            flip = {"node": k, "kernel": {"feature": x[0], "bin": x[1],
-                                          "gain": ga},
-                    "plain": {"feature": z[0], "bin": z[1], "gain": gb}}
-            check(abs(ga - gb) <= TREE_TIE_RTOL * max(abs(ga), abs(gb)),
-                  f"{label}: split {k} differs beyond a near-tie: {flip}")
-            return flip, 0.0
     check(na == nb and int(a.num_leaves) == int(b.num_leaves)
           and torch.equal(a.leaf_count, b.leaf_count)
           and torch.equal(a.internal_count, b.internal_count),
@@ -1932,6 +2057,10 @@ def profile_round(booster, name):
                            (og, "find_best_split", "split_scan")),
                "cached": ((lh, "digit_histogram", "k1"),
                           (gr, "find_best_split", "split_scan")),
+               "cached_bundled": ((lh, "digit_histogram", "k1"),
+                                  (gr, "expand_digit_sums", "expansion"),
+                                  (gr, "find_best_split", "split_scan"),
+                                  (gr, "_feature_bins", "partition_bins")),
                "linear": ((lh, "digit_histogram", "k1"),
                           (og, "_partition", "partition"),
                           (og, "find_best_split", "split_scan"),
@@ -3267,6 +3396,599 @@ def phase_engine(seed, datasets, workdir):
     return {"digit_histogram": k1_total, **k4_total}
 
 
+# ---------------------------------------------------------------------------
+# wide-sparse data: EFB bundles and gain screening at the JAX package's
+# wide-sparse operating point (bench.py:505-531)
+
+
+def make_ctr_like(num_data: int, num_features: int = 2000,
+                  block_size: int = 20, seed: int = 9):
+    """The bench's wide-sparse CTR-style synthetic (a copy, as
+    ``make_higgs_like`` is): blocks of ``block_size`` features, at most
+    one of which is non-zero on a row (a one-hot of small integer
+    levels), so the features of a block are exclusive; the label a
+    logistic read-out of a sparse set of (feature, level) weights."""
+    rng = np.random.RandomState(seed)
+    num_blocks = max(num_features // block_size, 1)
+    F = num_blocks * block_size
+    X = np.zeros((num_data, F))
+    logit = rng.normal(scale=0.6, size=num_data)
+    w = rng.normal(scale=1.0, size=F) * (rng.rand(F) < 0.15)
+    idx = np.arange(num_data)
+    for b in range(num_blocks):
+        act = rng.rand(num_data) < 0.6          # block fires on 60% of rows
+        choice = b * block_size + rng.randint(0, block_size, num_data)
+        level = rng.randint(1, 5, num_data).astype(np.float64)
+        rows = idx[act]
+        X[rows, choice[act]] = level[act]
+        logit[rows] += w[choice[act]] * level[act] * 0.25
+    y = (logit > np.median(logit)).astype(np.float32)
+    return X, y
+
+
+def sparse_data(seed):
+    """The sparse cell's datasets: ``make_ctr_like`` of SPARSE_ROWS
+    training and SPARSE_VALID_ROWS valid rows (one draw, so both share
+    the label's weights), the training rows handed to ``Dataset`` as a
+    scipy CSR matrix, binned once bundled (the default
+    ``enable_bundle=true``) and once not, each with its valid set on its
+    own mappers and plan; raw values kept for the linear runs.  Returns
+    ({bundled: (train, valid)}, the valid rows and labels, the fields to
+    print)."""
+    import scipy.sparse
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.io import dataset as ds_mod
+    t0 = time.perf_counter()
+    X, y = make_ctr_like(SPARSE_ROWS + SPARSE_VALID_ROWS, SPARSE_FEATURES,
+                         seed=9 + seed)
+    Xv, yv = X[SPARSE_ROWS:].copy(), y[SPARSE_ROWS:].copy()
+    csr = scipy.sparse.csr_matrix(X[:SPARSE_ROWS])
+    y = y[:SPARSE_ROWS].copy()
+    del X
+    fields = {"generate_s": time.perf_counter() - t0, "csr_nnz": csr.nnz,
+              "density": csr.nnz / (SPARSE_ROWS * SPARSE_FEATURES)}
+    sets = {}
+    for bundled in (True, False):
+        params = {**SPARSE_PARAMS, "enable_bundle": bundled,
+                  "linear_tree": True}
+        with _timed_calls("plan_bundles", ds_mod) as planner:
+            t0 = time.perf_counter()
+            train_set = lt.Dataset(csr, y, params=params).construct()
+            bin_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        valid_set = train_set.create_valid(Xv, yv).construct()
+        key = "bundled" if bundled else "unbundled"
+        fields[key] = {"binning_s": bin_s,
+                       "planning_s": sum(planner.seconds),
+                       "valid_binning_s": time.perf_counter() - t0,
+                       "columns": train_set._binned.num_columns}
+        sets[bundled] = (train_set, valid_set)
+    del csr
+    b = sets[True][0]._binned
+    plan = b.bundle_plan
+    check(plan is not None, "sparse: the CTR set built no bundle plan")
+    per_bundle = [len(m) for m in plan.bundles]
+    nb = b.num_bin_per_feature()
+    sparse_rate = np.asarray([m.sparse_rate for m in b.mappers])
+    fields.update(
+        features=b.num_features, columns=plan.num_columns,
+        bundles=len(plan.bundles), features_bundled=plan.features_bundled,
+        sample_conflicts=plan.sample_conflicts,
+        members_per_bundle=sorted(set(per_bundle)),
+        num_bin_per_feature=sorted(set(nb.tolist())),
+        column_slots=sorted(set(1 + 4 * n for n in per_bundle)),
+        sparse_rate_min=float(sparse_rate.min()),
+        sparse_rate_mean=float(sparse_rate.mean()))
+    blocks = SPARSE_FEATURES // 20
+    check(plan.num_columns == len(plan.bundles) == blocks
+          and set(per_bundle) == {20} and plan.sample_conflicts == 0
+          and set(nb.tolist()) == {5},
+          f"sparse: expected {blocks} bundles of 20 features with 4 "
+          f"non-default bins each and no conflict: {fields}")
+    return sets, (Xv, yv), fields
+
+
+class _column_widths:
+    """Inside the block, the columns every K1 call (``bins_rm``'s width)
+    and every K2 call (``bins``' rows) scans, in call order."""
+
+    def __enter__(self):
+        from lightgbm_tpu_torch.ops import children_hist as ch
+        from lightgbm_tpu_torch.ops import leafhist as lh
+        self.k1, self.k2 = [], []
+        self._saved = [(lh, "digit_histogram", lh.digit_histogram, self.k1,
+                        lambda a: a[0].shape[1]),
+                       (ch, "children_histograms", ch.children_histograms,
+                        self.k2, lambda a: a[0].shape[0]),
+                       (ch, "root_histogram", ch.root_histogram, self.k2,
+                        lambda a: a[0].shape[0])]
+        for mod, attr, fn, rec, width in self._saved:
+            setattr(mod, attr, self._wrap(fn, rec, width))
+        return self
+
+    @staticmethod
+    def _wrap(fn, rec, width):
+        def recorded(*args, **kwargs):
+            rec.append(width(args))
+            return fn(*args, **kwargs)
+        return recorded
+
+    def __exit__(self, *exc):
+        for mod, attr, fn, _, _ in self._saved:
+            setattr(mod, attr, fn)
+
+
+def sparse_run(name, params, rounds, train_set, valid_set, snap_at=None):
+    """``rounds`` rounds through ``Booster.update`` with the valid set,
+    the launch counters set to 0 first.  Returns (the booster, the
+    fields to print, the launches, the train and valid score buffers
+    after round ``snap_at``)."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import children_hist as ch
+    from lightgbm_tpu_torch.ops import leafhist as lh
+    booster = lt.Booster(params=params, train_set=train_set)
+    booster.add_valid(valid_set, "valid")
+    gbdt = booster._booster
+    lh.reset_launch_counts()
+    ch.reset_launch_counts()
+    seconds, auc, widths, snap = [], [], [], None
+    with _column_widths() as cols:
+        for r in range(rounds):
+            k1_first = len(cols.k1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            booster.update()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            widths.append(sorted(set(cols.k1[k1_first:])))
+            auc.append(booster.eval_valid()[0][2])
+            if r + 1 == snap_at:
+                snap = [dd.score.clone()
+                        for dd in [gbdt.train_data] + gbdt.valid_data]
+    launches = {**lh.launch_counts(), **ch.launch_counts()}
+    check(len(cols.k1) == launches["digit_histogram"]
+          and len(cols.k2) == launches["children_histograms"],
+          f"sparse {name}: widths recorded {len(cols.k1)} / {len(cols.k2)}"
+          f" != launches {launches}")
+    check(all(np.isfinite(auc)) and auc[-1] > 0.5,
+          f"sparse {name}: valid AUC {auc}")
+    fields = {"run": name, "grower": gbdt.grow_kind, "rounds": rounds,
+              "bundled": train_set._binned.bundle_plan is not None,
+              "round_s": seconds,
+              "round_s_median_after_2": float(np.median(seconds[2:])),
+              "launches": launches,
+              "k1_columns": sorted(set(cols.k1)),
+              "k2_columns": sorted(set(cols.k2)),
+              "root_window_columns": cols.k1[0] if cols.k1 else
+              (cols.k2[0] if cols.k2 else None),
+              "k1_columns_by_round": widths, "valid_auc": auc,
+              "leaves_per_tree": [int(ta.num_leaves)
+                                  for ta in gbdt.tree_arrays]}
+    return booster, fields, launches, snap
+
+
+def same_tree_arrays(a_list, b_list, label):
+    """Two runs' trees bit-identical, every field."""
+    check(len(a_list) == len(b_list) > 0,
+          f"{label}: {len(a_list)} vs {len(b_list)} trees")
+    for i, (a, b) in enumerate(zip(a_list, b_list)):
+        compare_regrown(a, b, f"{label}: tree {i}", exact=True)
+
+
+def node_rows(ta, k, bins, bundle):
+    """[N] bool: the rows of the leaf that node ``k`` of tree ``ta``
+    splits, as it stood then: a walk that stops at the first node >= k
+    (node indices grow down every path).  Numerical splits only (the
+    sparse set has no categorical feature)."""
+    from lightgbm_tpu_torch.ops.bundle import decode_feature_bins
+    sf, sb, lc, rc = (t.long().to(bins.device) for t in (
+        ta.split_feature, ta.split_bin, ta.left_child, ta.right_child))
+    node = torch.zeros(bins.shape[1], dtype=torch.int64, device=bins.device)
+    for _ in range(k):
+        live = (node >= 0) & (node < k)
+        idx = node.clamp(min=0)
+        if bundle is not None:
+            fbin = decode_feature_bins(bins, sf[idx], bundle)
+        else:
+            fbin = bins.gather(0, sf[idx][None])[0].long()
+        node = torch.where(live, torch.where(fbin <= sb[idx], lc[idx],
+                                             rc[idx]), node)
+    return node == k
+
+
+def gain_f64(ta, k, bins, bundle, g, h):
+    """Node ``k``'s split of tree ``ta`` scored in f64 on its leaf's rows:
+    G_L^2/H_L + G_R^2/H_R - G^2/H (lambda_l1 = lambda_l2 = 0, as the
+    sparse runs train), the sums of the f32 gradients in f64."""
+    from lightgbm_tpu_torch.ops.bundle import decode_feature_bins
+    rows = node_rows(ta, k, bins, bundle)
+    f = int(ta.split_feature[k])
+    if bundle is not None:
+        fbin = decode_feature_bins(
+            bins, torch.tensor(f, device=bins.device), bundle)
+    else:
+        fbin = bins[f].long()
+    left = rows & (fbin <= int(ta.split_bin[k]))
+    G, H = g[rows].double().sum(), h[rows].double().sum()
+    GL, HL = g[left].double().sum(), h[left].double().sum()
+    GR, HR = G - GL, H - HL
+    return float(GL * GL / HL + GR * GR / HR - G * G / H)
+
+
+def regrow_against_f64(gbdt, label):
+    """Trees 0 and 1 of a nocache or fused run re-grown from the same
+    gradients through the plain versions twice: with the f32 histograms
+    (the port's plain scatter bundled, ``leaf_rows_hist`` in f32
+    unbundled) and with the histograms added in f64 and rounded once.
+    Tree 0's gradients (+-0.5) and hessians (0.25) sum exactly in f32
+    in any order: both re-grows bit-identical.  Tree 1 held against the
+    f64 re-grow as the train phase holds its tree 1 (a split may differ
+    only at a near-tie of TREE_TIE_RTOL; values within 1e-3).  Where
+    tree 1 and the f32 re-grow first split otherwise, both choices are
+    scored in f64 on their leaf's rows, and the kernel run's must score
+    no worse, up to the same near-tie.  Returns what was found."""
+    score = torch.zeros_like(gbdt.train_data.score)
+    bins, dec = gbdt.train_data.bins, gbdt._bundle
+    f32 = None if dec is not None else torch.float32
+    out = []
+    for i in range(2):
+        grad, hess = gbdt.objective.gradients_with(gbdt._grad_arrays, score)
+        g, h = grad[0], hess[0]
+        with _plain_kernels(f32):
+            t32, _, delta = gbdt._grow(g, h)
+        with _plain_kernels(torch.float64):
+            t64, _, _ = gbdt._grow(g, h)
+        kern = gbdt.tree_arrays[i]
+        if i == 0:
+            compare_regrown(kern, t32, f"{label} tree 0 (f32 re-grow)",
+                            exact=True)
+            compare_regrown(kern, t64, f"{label} tree 0 (f64 re-grow)",
+                            exact=True)
+            out.append({"tree": 0, "bit_identical": True})
+        else:
+            rec = {"tree": 1}
+            for key, other in (("f64", t64), ("f32", t32)):
+                diff = first_flip(kern, other)
+                if diff is not None:
+                    k = diff["node"]
+                    diff["kernel"]["gain_f64"] = gk = gain_f64(
+                        kern, k, bins, dec, g, h)
+                    diff["plain"]["gain_f64"] = gp = gain_f64(
+                        other, k, bins, dec, g, h)
+                    check(gk >= gp - TREE_TIE_RTOL * abs(gp),
+                          f"{label} tree 1: at node {k} the plain {key} "
+                          f"re-grow's split scores better in f64: {diff}")
+                rec[key] = {"first_difference": diff}
+            rec["f64"]["max_value_diff_of_field_max"] = compare_regrown(
+                kern, t64, f"{label} tree 1 (f64 re-grow)", exact=False)[1]
+            out.append(rec)
+        score[0] += delta
+    return out
+
+
+def screen_replay(params, gbdt, rounds):
+    """The active columns of each period from a CPU replay of the
+    screener's schedule on the card's trees' gains, each round's trees
+    folded in a round late (after the next round chose its view), as
+    the JAX package's pipelined booster folds them."""
+    from lightgbm_tpu_torch.models.screening import GainScreener
+    scr = GainScreener(gbdt.num_features, gbdt.num_columns,
+                       gbdt._feature_col,
+                       ratio=params["feature_screen_ratio"],
+                       refresh=params["feature_screen_refresh"],
+                       warmup=params["feature_screen_warmup"],
+                       decay=gbdt.config.feature_screen_decay)
+    out, period = [], -1
+    for it in range(rounds):
+        if scr.round_mode(it) == "screened" and scr.period(it) != period:
+            period = scr.period(it)
+            out.append((it, scr.active_columns()))
+        if it >= 1:
+            scr.observe_trees([gbdt.models[it - 1]])
+    return out
+
+
+def second_round_gradients(gbdt):
+    """Round 1's gradients and hessians (after tree 0), whose f32 sums
+    round: the score buffer rebuilt from the run's first tree."""
+    score = torch.zeros_like(gbdt.train_data.score)
+    gbdt._add_host_tree_to(types.SimpleNamespace(
+        score=score, bins=gbdt.train_data.bins, raw=None), gbdt.models[0], 0)
+    grad, hess = gbdt.objective.gradients_with(gbdt._grad_arrays, score)
+    return grad[0], hess[0]
+
+
+def k2_on_run(gbdt, g, h, label):
+    """K2 on the run's own bins and the given gradients, held within its
+    stated tolerance of its plain version added in f64 and rounded once
+    (``leaf_rows_hist``); the plain f32 scatter's distance from that is
+    printed beside it, each as its largest share of the tolerance."""
+    from lightgbm_tpu_torch.ops import children_hist as ch
+    bins = gbdt.train_data.bins
+    w = gbdt._ones_weight
+    B = gbdt.grow_params.max_bin
+    # the left child the rows of the first column's codes 0, 3, 6, ..., the
+    # right child 1, 4, 7, ...: most rows left and few right on a sparse
+    # feature, a third each on a bundled column
+    leaf = (bins[0].to(torch.int32) % 3)
+    before = ch.launch_counts()["children_histograms"]
+    got = ch.children_histograms(bins, g, h, w, leaf, 0, 1, B)
+    torch.cuda.synchronize()
+    check(ch.launch_counts()["children_histograms"] == before + 1,
+          f"{label}: K2 on the run's bins launched no kernel")
+    want = leaf_rows_hist(bins, g, h, w, leaf, 0, 1, B, torch.float64)
+    plain = ch.build_children_histograms(bins, g, h, w, leaf, 0, 1, B)
+    scale = abs_hist(bins, g, h, w, leaf, 0, 1, B)
+    err = check_hist(got, want, scale, f"{label}: K2 on the run's bins")
+    tol = ch.HIST_RTOL * scale + ch.HIST_ATOL
+    return {"columns": bins.shape[0], "k2_max_abs_diff": err,
+            "k2_max_share_of_tolerance": float(
+                ((got - want).abs() / tol).max()),
+            "plain_f32_max_abs_diff": float((plain - want).abs().max()),
+            "plain_f32_max_share_of_tolerance": float(
+                ((plain - want).abs() / tol).max()),
+            "largest_entry_abs_sum": float(scale.max())}
+
+
+def sparse_timing(bundled_gbdt, unbundled_gbdt, reps):
+    """CUDA-event medians of K1 at the root (all rows) over the bundled
+    columns and over the unbundled features, and of the two expansions
+    of a split's pair of children (digit sums and f32 histograms), on
+    the runs' own bins and round-0 gradients."""
+    from lightgbm_tpu_torch.ops import bundle as ob
+    from lightgbm_tpu_torch.ops import leafhist as lh
+    out = {}
+    for key, gbdt in (("bundled", bundled_gbdt),
+                      ("unbundled", unbundled_gbdt)):
+        score = torch.zeros_like(gbdt.train_data.score)
+        grad, hess = gbdt.objective.gradients_with(gbdt._grad_arrays, score)
+        w = gbdt._ones_weight
+        g, h = grad[0] * w, hess[0] * w
+        dig = lh.quantize_digits(g, h, w, lh.compute_scales(g, h, w))
+        bins = gbdt.train_data.bins_rm
+        B = gbdt.grow_params.max_bin
+        out[f"k1_root_ms_{key}"] = cuda_ms(
+            lambda: lh.digit_histogram(bins, dig, B), reps)
+        out[f"k1_root_columns_{key}"] = bins.shape[1]
+    gbdt = bundled_gbdt
+    dec, C = gbdt._bundle, gbdt.num_columns
+    B = gbdt.grow_params.max_bin
+    dev = gbdt.train_data.bins.device
+    sums = torch.randint(-1000, 1000, (2, C, 9, B), dtype=torch.int32,
+                         device=dev)
+    hist = torch.rand((2, C, B, 3), dtype=torch.float32, device=dev)
+    out["expand_digit_sums_ms"] = cuda_ms(
+        lambda: ob.expand_digit_sums(sums, dec), reps)
+    out["expand_histogram_ms"] = cuda_ms(
+        lambda: ob.expand_histogram(hist, dec), reps)
+    return out
+
+
+def phase_sparse(seed, workdir, reps):
+    """The wide-sparse cell on the card: the ``make_ctr_like`` set
+    through the scipy CSR adapter, bundled and not; the cached grower on
+    both (bit-identical trees and score buffers), ordered (the cached
+    fallback), nocache and fused unbundled and over the bundled columns
+    (K2 on 100 columns, no K3), each held against its re-grow
+    (``regrow_against_f64``), bagging, GOSS and DART bundled against unbundled
+    twins, linear leaves within the linear tolerance, screening (valid
+    AUC, active columns against a CPU replay, K1 over the compacted
+    view), predictions through K4, K1 and K2 on the run's own bins, and
+    the bundled set through a binary file.  Returns the launches."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import children_hist as ch
+    from lightgbm_tpu_torch.ops import forest_walk as fw
+    from lightgbm_tpu_torch.ops import leafhist as lh
+    from lightgbm_tpu_torch.utils import log
+    t_phase = time.perf_counter()
+    sets, (Xv, yv), data_fields = sparse_data(seed)
+    emit({"phase": "sparse_data", "rows": SPARSE_ROWS,
+          "valid_rows": SPARSE_VALID_ROWS, **data_fields})
+    (bset, bvalid), (uset, uvalid) = sets[True], sets[False]
+    base = {**SPARSE_PARAMS, "linear_tree": False}
+    cached = {**base, "serial_grow": "cached"}
+    total = {"digit_histogram": 0, "children_histograms": 0,
+             "fused_split_candidates": 0, "forest_walk": 0}
+    runs, out = {}, {}
+
+    def run(name, params, rounds, bundled, snap_at=None):
+        ds, dv = (bset, bvalid) if bundled else (uset, uvalid)
+        booster, fields, launches, snap = sparse_run(
+            name, params, rounds, ds, dv, snap_at)
+        for k, v in launches.items():
+            total[k] += v
+        out[name] = fields
+        runs[name] = (booster, snap)
+        return booster, fields
+
+    # cached: unbundled (15 rounds, the screening run's reference too)
+    # and bundled, bit-identical over the first 10
+    ub, uf = run("cached_unbundled", cached, SPARSE_SCREEN_ROUNDS, False,
+                 snap_at=SPARSE_ROUNDS)
+    bb, bf = run("cached", cached, SPARSE_ROUNDS, True, snap_at=SPARSE_ROUNDS)
+    L = SPARSE_PARAMS["num_leaves"]
+    C = bset._binned.num_columns
+    F = bset._binned.num_features
+    check(uf["k1_columns"] == [F] and bf["k1_columns"] == [C],
+          f"sparse: K1 scanned {uf['k1_columns']} / {bf['k1_columns']} "
+          f"columns")
+    same_tree_arrays(bb._booster.tree_arrays,
+                     ub._booster.tree_arrays[:SPARSE_ROUNDS],
+                     "sparse cached bundled against unbundled")
+    for a, b in zip(runs["cached"][1], runs["cached_unbundled"][1]):
+        check(torch.equal(a, b), "sparse: bundled score buffer differs "
+                                 "from the unbundled run's")
+    check(trees_text(bb.model_to_string(), 0, SPARSE_ROUNDS)
+          == trees_text(ub.model_to_string(), 0, SPARSE_ROUNDS),
+          "sparse: the bundled model's trees differ from the unbundled's "
+          "as text")
+    # K1 and K2 on the runs' own bins with the second round's gradients
+    g1, h1 = second_round_gradients(bb._booster)
+    k1_windows = k1_on_run(bb._booster, g1, h1, "sparse cached")
+    k2_err = {"bundled": k2_on_run(bb._booster, g1, h1, "sparse cached"),
+              "unbundled": k2_on_run(ub._booster,
+                                     *second_round_gradients(ub._booster),
+                                     "sparse cached_unbundled")}
+    del g1, h1
+    timing = sparse_timing(bb._booster, ub._booster, reps)
+    # predictions through K4: the bundled model against the unbundled
+    fw.reset_launch_counts()
+    pred_b = bb.predict(Xv[:4096], raw_score=True)
+    pred_u = ub.predict(Xv[:4096], raw_score=True,
+                        num_iteration=SPARSE_ROUNDS)
+    k4 = sum(fw.launch_counts().values())
+    total["forest_walk"] += k4
+    check(k4 >= 2 and np.array_equal(pred_b, pred_u),
+          f"sparse: bundled predictions differ from the unbundled's "
+          f"({k4} K4 launches)")
+    buf = bb._booster.valid_data[0].score[0, :4096].double().cpu().numpy()
+    d_pred = float(np.abs(pred_b - buf).max())
+    check(d_pred <= 1e-5, f"sparse: K4 against the valid score buffer "
+                          f"{d_pred}")
+    # after the comparisons: each takes one more round
+    profiles = {"cached": profile_round(bb, "cached_bundled"),
+                "cached_unbundled": profile_round(ub, "cached")}
+    del runs["cached_unbundled"]
+
+    # ordered: the cached fallback with the JAX package's warning
+    log._warned_once.discard("serial_grow_decode")
+    ob, of = run("ordered", base, SPARSE_SHORT_ROUNDS, True)
+    check(ob._booster.grow_kind == "cached"
+          and "serial_grow_decode" in log._warned_once,
+          "sparse: ordered did not fall back to cached with its warning")
+    same_tree_arrays(ob._booster.tree_arrays,
+                     bb._booster.tree_arrays[:SPARSE_SHORT_ROUNDS],
+                     "sparse ordered (cached fallback) against cached")
+    del runs["ordered"]
+
+    # nocache and fused, unbundled (K2, K3 on the F features) and over
+    # the bundled columns (K2 on C columns, no K3): the first two trees
+    # re-grown through the plain versions in f32 and f64
+    regrown = {}
+    nocache = {"histogram_pool_size": 1, "memory_policy": "degrade"}
+    for name, extra, kind, bundled in (
+            ("nocache_unbundled", nocache, "nocache", False),
+            ("fused_unbundled", {"serial_grow": "fused"}, "fused", False),
+            ("nocache", nocache, "nocache", True),
+            ("fused", {"serial_grow": "fused"}, "fused", True)):
+        booster, fields = run(name, {**base, **extra}, SPARSE_SHORT_ROUNDS,
+                              bundled)
+        gbdt = booster._booster
+        check(gbdt.grow_kind == kind, f"sparse {name}: {gbdt.grow_kind}")
+        k3 = kind == "fused" and not bundled
+        want = {"digit_histogram": 0,
+                "children_histograms": 0 if k3 else SPARSE_SHORT_ROUNDS * L,
+                "fused_split_candidates": SPARSE_SHORT_ROUNDS * L if k3
+                else 0}
+        check(fields["launches"] == want
+              and fields["k2_columns"] == ([] if k3 else [C if bundled
+                                                         else F]),
+              f"sparse {name}: launches {fields['launches']}, K2 columns "
+              f"{fields['k2_columns']}")
+        regrown[name] = regrow_against_f64(gbdt, f"sparse {name}")
+        del runs[name]
+
+    # bagging, GOSS and DART (the cached grower) against unbundled twins
+    sampled = {"bagging": {"bagging_fraction": 0.8, "bagging_freq": 5},
+               "goss": {"boosting_type": "goss", "top_rate": 0.2,
+                        "other_rate": 0.1, **SPARSE_GOSS_LR},
+               "dart": {"boosting_type": "dart"}}
+    for name, extra in sampled.items():
+        params = {**cached, **extra}
+        tb, _ = run(name, params, SPARSE_SAMPLED_ROUNDS, True)
+        tu, _ = run(f"{name}_unbundled", params, SPARSE_SAMPLED_ROUNDS,
+                    False)
+        same_tree_arrays(tb._booster.tree_arrays, tu._booster.tree_arrays,
+                         f"sparse {name} bundled against unbundled")
+        check(torch.equal(tb._booster.train_data.score,
+                          tu._booster.train_data.score),
+              f"sparse {name}: score buffers differ")
+        if name == "dart":
+            out[name]["tree_weights"] = tb._booster.tree_weights
+        del runs[name], runs[f"{name}_unbundled"]
+
+    # linear leaves: bundled against unbundled within the linear tolerance
+    lin = {**cached, "linear_tree": True, "linear_max_leaf_features": 5,
+           "linear_lambda": 0.01}
+    lb, _ = run("linear", lin, SPARSE_SHORT_ROUNDS, True)
+    lu, _ = run("linear_unbundled", lin, SPARSE_SHORT_ROUNDS, False)
+    linear_cmp = []
+    for i, (a, b) in enumerate(zip(lb._booster.tree_arrays,
+                                   lu._booster.tree_arrays)):
+        flip, rel = compare_regrown(a, b, f"sparse linear tree {i}",
+                                    exact=False)
+        check(rel <= LINEAR_LEAF_RTOL, f"sparse linear tree {i}: {rel}")
+        linear_cmp.append({"tree": i, "near_tie_flip": flip,
+                           "max_value_diff_of_field_max": rel})
+        if flip is not None:
+            break
+    del runs["linear"], runs["linear_unbundled"]
+
+    # screening on the bundled set
+    screened = {**base, **SPARSE_SCREEN}
+    sb, sf = run("screening", screened, SPARSE_SCREEN_ROUNDS, True)
+    gbdt = sb._booster
+    periods = [(it, cols.tolist()) for it, cols in gbdt.screen_periods]
+    replay = [(it, cols.tolist())
+              for it, cols in screen_replay(screened, gbdt,
+                                            SPARSE_SCREEN_ROUNDS)]
+    check(periods and periods == replay,
+          f"sparse screening: active columns {periods} != the CPU replay "
+          f"{replay}")
+    keep = gbdt._screener.keep_cols
+    modes = [gbdt._screener.round_mode(it)
+             for it in range(SPARSE_SCREEN_ROUNDS)]
+    for it, (mode, width) in enumerate(zip(modes,
+                                           sf["k1_columns_by_round"])):
+        want = [keep] if mode == "screened" else [C]
+        check(width == want, f"sparse screening: round {it} ({mode}) ran "
+                             f"K1 over {width} columns, not {want}")
+    d_auc = abs(sf["valid_auc"][-1] - uf["valid_auc"][-1])
+    check(d_auc <= SPARSE_AUC_PIN,
+          f"sparse screening: valid AUC {sf['valid_auc'][-1]} against the "
+          f"unbundled run's {uf['valid_auc'][-1]}")
+    del runs["screening"]
+
+    # the bundled set through a binary file (the raw values the linear
+    # runs keep are left out of the file), then one round
+    path = f"{workdir}/ctr_bundled.bin"
+    binned = copy.copy(bset._binned)
+    binned.raw = None
+    t0 = time.perf_counter()
+    binned.save_binary(path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = lt.Dataset(path, params=cached).construct()
+    load_s = time.perf_counter() - t0
+    check(loaded._binned.bundle_plan.signature()
+          == binned.bundle_plan.signature()
+          and np.array_equal(loaded._binned.bins, binned.bins),
+          "sparse: the binary file's bins or plan differ")
+    lh.reset_launch_counts()
+    one = lt.Booster(params=cached, train_set=loaded)
+    one.update()
+    total["digit_histogram"] += lh.launch_counts()["digit_histogram"]
+    same_tree_arrays(one._booster.tree_arrays, bb._booster.tree_arrays[:1],
+                     "sparse binary file: one round")
+
+    medians = {k: v["round_s_median_after_2"] for k, v in out.items()}
+    emit({"phase": "sparse", "params": SPARSE_PARAMS,
+          "rows": SPARSE_ROWS, "features": F, "columns": C,
+          "runs": out, "round_s_median_after_2": medians,
+          "regrown": regrown, "linear_vs_unbundled": linear_cmp,
+          "screen_periods": periods, "screen_keep_columns": keep,
+          "valid_auc_screened_vs_unbundled": d_auc,
+          "k1_bit_equal_on_run_bins": k1_windows,
+          "k2_on_run_bins": k2_err,
+          "k4_launches": k4, "k4_vs_valid_score_buffer": d_pred,
+          "timing": timing, "profile_round": profiles,
+          "binary_file": {"save_s": save_s, "load_s": load_s,
+                          "bytes": os.path.getsize(path)},
+          "launches": total, "seconds": time.perf_counter() - t_phase,
+          "card": nvidia_smi_line()})
+    return total
+
+
 
 def cuda_ms(fn, reps: int) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn`` after one
@@ -3885,6 +4607,9 @@ def main(argv=None) -> int:
                                       workdir).items()]:
             launches[name] += n
         del datasets
+        for name, n in phase_sparse(args.seed, workdir,
+                                    args.timing_reps).items():
+            launches[name] += n
     launches.update(phase_probes(args.timing_reps))
     timing = phase_timing(args.seed, dev, higgs_model, higgs_grid,
                           lin_model, lin_grid, args.timing_reps)

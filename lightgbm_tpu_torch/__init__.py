@@ -14,8 +14,11 @@ per-leaf affine fit, ``models/linear.py``) -> score update.  ``ordered``
 ``dart``, with bagging and ``feature_fraction`` drawn as the JAX package
 draws them.  ``train`` continues from ``init_model``,
 stops early, takes callbacks and per-round learning rates; ``cv``
-cross-validates.  Entry points run on the first CUDA card unless the
-caller passes ``device="cpu"``.
+cross-validates.  ``Dataset`` takes numpy, scipy sparse and pandas
+inputs and bundles exclusive sparse features (EFB) by default; the
+growers run over the bundled columns, and ``feature_screen_ratio``
+screens the lowest-gain columns out of rounds.  Entry points run on the
+first CUDA card unless the caller passes ``device="cpu"``.
 """
 
 from .basic import Booster, Dataset

@@ -1,13 +1,16 @@
 """``Dataset`` and ``Booster``: the Python front door of the port.
 
-Port of the JAX package's basic.py for the slices ported so far.
-``Dataset`` bins an in-memory matrix or a data file lazily
+Port of the JAX package's basic.py.  ``Dataset`` bins an in-memory
+matrix (numpy, a scipy sparse matrix, a pandas frame whose ``category``
+columns become categorical features, or lists) or a data file lazily
 (``from_matrix``, or ``create_valid`` against a ``reference``), with its
 metadata: weights, query sizes and initial scores from arguments, side
 files or the file's own columns, or a row ``subset`` of another
 Dataset on its mappers (the folds of ``cv``); with a predictor (an init
 model, ``engine.train``) its init scores are the predictor's raw
-predictions.  ``Booster`` either loads a model
+predictions.  ``save_binary`` writes the binned dataset in the JAX
+package's binary format, and ``Dataset(path)`` of such a file loads it.
+``Booster`` either loads a model
 (``model_file=`` / ``model_str=``) or trains one (``params=``,
 ``train_set=``; ``update()`` runs one boosting round, from a custom
 ``fobj`` too, ``add_valid()`` attaches a valid set, ``eval_*`` take a
@@ -16,13 +19,16 @@ custom ``feval``, ``reset_parameter`` / ``rollback_one_iter`` /
 the host in f64 and walks them through the forest-walk kernel
 (``serve/forest.py`` ``CompiledForest``), so on a card every prediction
 runs the kernel; ``pred_leaf=True`` gives each row's leaf in every tree
-by the f64 host walk, as the JAX package does.
+by the f64 host walk, as the JAX package does; a file path predicts in
+chunks (``predict_chunks``).  ``dump_model``, ``feature_importance``,
+``attr`` / ``set_attr`` and pickling through the model text follow the
+JAX package.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -30,20 +36,55 @@ from .config import Config
 from .device import DeviceLike, resolve_device
 from .io.column_roles import resolve_label_idx, resolve_roles
 from .io.dataset import BinnedDataset
-from .io.parser import parse_file, read_header
+from .io.parser import parse_file, parse_file_chunks, read_header
 from .models import create_boosting
 from .utils import log
 from .utils.log import LightGBMError
+
+
+def _to_dense(data) -> np.ndarray:
+    """numpy, pandas, scipy sparse or lists -> a 2-D f64 matrix (a 1-D
+    input is one row)."""
+    if hasattr(data, "toarray"):          # scipy CSR/CSC
+        data = data.toarray()
+    if hasattr(data, "values") and hasattr(data, "dtypes"):  # pandas
+        data = data.values
+    arr = np.asarray(data, dtype=np.float64)
+    if arr.ndim == 1:
+        arr = arr.reshape(1, -1)
+    return arr
+
+
+def _data_from_pandas(data, feature_name, categorical_feature):
+    """A pandas frame's column names as ``feature_name`` (when
+    ``"auto"``) and its ``category`` columns as their codes and as the
+    categorical features (when ``"auto"``); anything else is returned as
+    it is (reference basic.py:224-267)."""
+    if not (hasattr(data, "dtypes") and hasattr(data, "columns")):
+        return data, feature_name, categorical_feature
+    df = data.copy()
+    if feature_name == "auto":
+        feature_name = [str(c) for c in df.columns]
+    cat_cols = [c for c in df.columns if str(df[c].dtype) == "category"]
+    if categorical_feature == "auto":
+        categorical_feature = [str(c) for c in cat_cols]
+    for c in cat_cols:
+        df[c] = df[c].cat.codes.astype(np.float64)
+    return df.astype(np.float64).values, feature_name, categorical_feature
 
 
 class Dataset:
     """A raw ``[N, F]`` matrix or a data file, binned at first use
     (``construct``).
 
-    ``data`` is a matrix or the path of a CSV, TSV or LibSVM file; a
-    file's label is its ``label_column`` (default column 0), and
-    ``<data>.weight``, ``.query`` and ``.init`` beside it are loaded, for
-    a valid set too.  ``params`` carries the binning keys (``max_bin``,
+    ``data`` is a matrix (numpy, scipy sparse, pandas or lists) or the
+    path of a CSV, TSV or LibSVM file; a file's label is its
+    ``label_column`` (default column 0), and ``<data>.weight``,
+    ``.query`` and ``.init`` beside it are loaded, for a valid set too.
+    The path of a binary dataset file (``save_binary``) loads the binned
+    dataset it holds.  ``max_bin`` is the bin budget unless ``params``
+    sets one; ``silent`` is accepted and ignored, as in the JAX package.
+    ``params`` carries the binning keys (``max_bin``,
     ``min_data_in_bin``, ``min_data_in_leaf``,
     ``bin_construct_sample_cnt``, ``data_random_seed``,
     ``enable_bundle``, ``max_conflict_rate``, and ``linear_tree``, which
@@ -52,22 +93,26 @@ class Dataset:
     ``ignore_column``, ``categorical_column``; io/column_roles.py), whose
     weight and group columns override the side files.
     ``reference`` bins with another Dataset's mappers (a valid set).
-    ``weight``, ``group`` (query sizes) and ``init_score`` (class-major)
-    set the metadata of a matrix; for a file, its side files override
-    them, as in the JAX package.  ``categorical_feature`` lists column
-    indices, or names of ``feature_name``.  ``free_raw_data`` drops
-    ``data`` once binned; a constructed Dataset can then take no init
-    model (``train(init_model=)``), as in the JAX package."""
+    ``weight``, ``group`` (query sizes) and ``init_score`` (class-major;
+    a keyword of the port's after the JAX package's parameters) set the
+    metadata of a matrix; for a file, its side files override them, as
+    in the JAX package.  ``categorical_feature`` lists column indices, or
+    names of ``feature_name``.  ``free_raw_data`` drops ``data`` once
+    binned; a constructed Dataset can then take no init model
+    (``train(init_model=)``), as in the JAX package."""
 
-    def __init__(self, data, label=None, reference: "Dataset" = None,
-                 weight=None, group=None, init_score=None,
-                 feature_name="auto", categorical_feature="auto",
-                 params=None, free_raw_data: bool = True):
+    def __init__(self, data, label=None, max_bin: int = 255,
+                 reference: "Dataset" = None, weight=None, group=None,
+                 silent: bool = False, feature_name="auto",
+                 categorical_feature="auto", params=None,
+                 free_raw_data: bool = True, init_score=None):
         self.data = data
         self.label = label
+        self.max_bin = max_bin
         self.reference = reference
         self.weight = weight
         self.group = group
+        self.silent = silent
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -152,9 +197,14 @@ class Dataset:
             self._binned = self.reference.construct()._binned.subset(
                 self.used_indices)
             return self
-        cfg = Config({**self.params, "task": "train"})
+        # the argument's max_bin unless params set one (JAX basic.py)
+        cfg = Config({"max_bin": self.max_bin, **self.params,
+                      "task": "train"})
         roles = None
         label = self.label
+        if isinstance(self.data, str) and \
+                BinnedDataset.is_binary_file(self.data):
+            return self._load_binary()
         if isinstance(self.data, str):
             data, file_label, roles = self._read_file(cfg)
             if label is None:
@@ -166,7 +216,10 @@ class Dataset:
                     "column roles (label/weight/group/ignore/categorical "
                     "_column) apply to data files; ignored for an "
                     "in-memory matrix")
-            data = np.asarray(self.data, dtype=np.float64)
+            data, self.feature_name, self.categorical_feature = \
+                _data_from_pandas(self.data, self.feature_name,
+                                  self.categorical_feature)
+            data = _to_dense(data)
         if self.reference is not None:
             self._binned = self.reference.construct()._binned.create_valid(
                 data, label)
@@ -219,6 +272,24 @@ class Dataset:
             self.data = None
         return self
 
+    def _load_binary(self) -> "Dataset":
+        """The binned dataset of a binary file (``save_binary``), with the
+        label, weights, groups and init scores given as arguments over
+        those the file holds."""
+        if self._predictor is not None:
+            raise LightGBMError(
+                "Cannot set an init model on a binary dataset file: its "
+                "raw rows are not kept")
+        self._binned = BinnedDataset.load_binary(self.data)
+        md = self._binned.metadata
+        for value, setter in ((self.label, md.set_label),
+                              (self.weight, md.set_weights),
+                              (self.group, md.set_query),
+                              (self.init_score, md.set_init_score)):
+            if value is not None:
+                setter(value)
+        return self
+
     def subset(self, used_indices) -> "Dataset":
         """The rows ``used_indices`` of this Dataset on its mappers."""
         sub = Dataset(None, reference=self, feature_name=self.feature_name,
@@ -228,10 +299,13 @@ class Dataset:
         return sub
 
     def create_valid(self, data, label=None, weight=None, group=None,
-                     init_score=None, params=None) -> "Dataset":
-        """A valid Dataset binned with this one's mappers."""
+                     silent: bool = False, params=None,
+                     init_score=None) -> "Dataset":
+        """A valid Dataset binned with this one's mappers (and bundle
+        plan)."""
         return Dataset(data, label=label, reference=self, weight=weight,
-                       group=group, init_score=init_score, params=params)
+                       group=group, silent=silent, params=params,
+                       init_score=init_score)
 
     # -- fields: the label set before or after construction; all read
     # after it (a custom fobj or feval reads them)
@@ -241,10 +315,29 @@ class Dataset:
             self._binned.metadata.set_label(label)
         return self
 
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        if self._binned is not None and weight is not None:
+            self._binned.metadata.set_weights(weight)
+        return self
+
+    def set_group(self, group) -> "Dataset":
+        """Query sizes, in row order."""
+        self.group = group
+        if self._binned is not None and group is not None:
+            self._binned.metadata.set_query(group)
+        return self
+
     def set_init_score(self, init_score) -> "Dataset":
         self.init_score = init_score
         if self._binned is not None and init_score is not None:
             self._binned.metadata.set_init_score(init_score)
+        return self
+
+    def set_reference(self, reference) -> "Dataset":
+        if self._binned is not None:
+            raise LightGBMError("Cannot set reference after construction")
+        self.reference = reference
         return self
 
     def set_feature_name(self, feature_name) -> "Dataset":
@@ -279,6 +372,15 @@ class Dataset:
     def num_data(self) -> int:
         return self.construct()._binned.num_data
 
+    def num_feature(self) -> int:
+        return self.construct()._binned.num_total_features
+
+    def save_binary(self, filename: str) -> "Dataset":
+        """Write the binned dataset to ``filename`` in the JAX package's
+        binary format (``io/dataset.py`` ``save_binary``)."""
+        self.construct()._binned.save_binary(filename)
+        return self
+
 
 def _has_roles(cfg: Config) -> bool:
     return any(str(cfg[k]).strip() for k in (
@@ -305,6 +407,7 @@ class Booster:
         self.device = resolve_device(device)
         self._forest = None          # (num_iteration, CompiledForest)
         self.best_iteration = -1
+        self._attr: Dict[str, str] = {}
         self._train_data_name = "training"
         self._train_set = train_set
         self._valid_sets: List[Dataset] = []
@@ -344,15 +447,20 @@ class Booster:
         self._name_valid_sets.append(name)
         return self
 
-    def update(self, fobj=None) -> bool:
+    def update(self, train_set: Optional[Dataset] = None,
+               fobj=None) -> bool:
         """One boosting round; True when no leaf could split (training
         should stop).  ``fobj(preds, train_set) -> (grad, hess)`` is a
         custom objective: ``preds`` are the raw training scores and the
         gradients come back class-major, ``num_class * num_data`` values
-        each (train with ``objective=none``)."""
+        each (train with ``objective=none``).  ``train_set`` may only be
+        the Booster's own, as in the JAX package."""
         if self._train_set is None:
             raise LightGBMError("update needs a Booster built from a "
                                 "train_set")
+        if train_set is not None and train_set is not self._train_set:
+            raise LightGBMError("Replacing train_set is not supported; "
+                                "create a new Booster")
         self._forest = None
         if fobj is None:
             return self._booster.train_one_iter()
@@ -473,23 +581,140 @@ class Booster:
             self.compile(num_iteration)
         return self._forest[1]
 
+    #: data rows a chunk of a predicted file
+    _PREDICT_CHUNK_ROWS = 1 << 16
+
     def predict(self, data, num_iteration: int = -1,
-                raw_score: bool = False, pred_leaf: bool = False) -> np.ndarray:
-        """``[N]`` for one class, ``[N, K]`` for multiclass: host f64
-        binning, the binned forest-walk kernel, then the objective's
-        transform in f64 unless ``raw_score``.  ``pred_leaf``: ``[N,
-        num_trees]`` int32, each row's leaf in each tree, by the f64 host
-        walk (the JAX package's ``predict_leaf_index``)."""
-        X = np.asarray(data, np.float64)
-        if X.ndim == 1:
-            X = X.reshape(1, -1)
+                raw_score: bool = False, pred_leaf: bool = False,
+                data_has_header: bool = False,
+                is_reshape: bool = True) -> np.ndarray:
+        """``[N]`` for one class, ``[N, K]`` for multiclass (``[N * K]``,
+        class-major, with ``is_reshape=False``): host f64 binning, the
+        binned forest-walk kernel, then the objective's transform in f64
+        unless ``raw_score``.  ``pred_leaf``: ``[N, num_trees]`` int32,
+        each row's leaf in each tree, by the f64 host walk (the JAX
+        package's ``predict_leaf_index``).  ``data`` is a matrix (numpy,
+        scipy sparse, pandas or lists) or the path of a data file
+        (``data_has_header``), predicted chunk by chunk
+        (:meth:`predict_chunks`)."""
+        b = self._booster
+        if isinstance(data, str):
+            parts = list(self.predict_chunks(
+                data, num_iteration=num_iteration, raw_score=raw_score,
+                pred_leaf=pred_leaf, data_has_header=data_has_header))
+            if not parts:
+                # an empty file keeps the shape contract
+                parts.append(self._predict_array(
+                    np.zeros((0, b.max_feature_idx + 1)), num_iteration,
+                    raw_score, pred_leaf))
+            out = np.concatenate(parts, axis=0 if pred_leaf else -1)
+        else:
+            data, _, _ = _data_from_pandas(data, "auto", "auto")
+            out = self._predict_array(_to_dense(data), num_iteration,
+                                      raw_score, pred_leaf)
+        if pred_leaf:
+            return out
+        if out.shape[0] == 1:
+            return out[0]
+        return out.T if is_reshape else out.reshape(-1)
+
+    def predict_chunks(self, data_path: str, num_iteration: int = -1,
+                       raw_score: bool = False, pred_leaf: bool = False,
+                       data_has_header: bool = False):
+        """Yield the predictions of a data file chunk by chunk, one array
+        per ``_PREDICT_CHUNK_ROWS`` parsed rows: ``[num_class, n]`` (or
+        ``[n, num_trees]`` for ``pred_leaf``), so a caller can stream
+        the results.  The label column is the model's; each chunk is
+        densified to the model's width."""
+        b = self._booster
+        for _, X in parse_file_chunks(
+                data_path, has_header=data_has_header,
+                label_idx=b.label_idx, num_features=b.max_feature_idx + 1,
+                chunk_rows=self._PREDICT_CHUNK_ROWS):
+            if X.size == 0:
+                continue
+            yield self._predict_array(X, num_iteration, raw_score,
+                                      pred_leaf)
+
+    def _predict_array(self, X: np.ndarray, num_iteration: int,
+                       raw_score: bool, pred_leaf: bool) -> np.ndarray:
+        """``[num_class, n]`` predictions of the rows ``X`` (``[n,
+        num_trees]`` leaf indices for ``pred_leaf``)."""
         b = self._booster
         if pred_leaf:
             return b.predict_leaf_index(X, num_iteration)
-        if b.num_trees() == 0:
+        if b.num_trees() == 0 or X.shape[0] == 0:
             raw = np.zeros((b.num_class, X.shape[0]), np.float64)
         else:
             raw = self._compiled(num_iteration).raw_scores(X)
-        out = raw if raw_score else np.asarray(
+        return raw if raw_score else np.asarray(
             b.objective.convert_output(raw))
-        return out[0] if out.shape[0] == 1 else out.T
+
+    # -- introspection ---------------------------------------------------
+    def dump_model(self, num_iteration: int = -1) -> dict:
+        """The model as a JSON-style dict (reference dump_model,
+        basic.py:1522; trees by ``Tree.to_json``)."""
+        b = self._booster
+        n_models = len(b.models)
+        if num_iteration > 0:
+            n_models = min(n_models, num_iteration * b.num_class)
+        return {
+            "name": "tree",
+            "num_class": b.num_class,
+            "label_index": b.label_idx,
+            "max_feature_idx": b.max_feature_idx,
+            "feature_names": list(b.feature_names),
+            "tree_info": [b.models[i].to_json() for i in range(n_models)],
+        }
+
+    def feature_name(self) -> List[str]:
+        return list(self._booster.feature_names)
+
+    def feature_importance(self, importance_type: str = "split"
+                           ) -> np.ndarray:
+        """Per feature, the number of splits on it (``split``, int64) or
+        the sum of their gains (``gain``, f64), over every tree."""
+        return self._booster.feature_importance(importance_type)
+
+    def attr(self, key: str) -> Optional[str]:
+        return self._attr.get(key)
+
+    def set_attr(self, **kwargs) -> "Booster":
+        """Set string attributes; a value of None deletes the key."""
+        for k, v in kwargs.items():
+            if v is None:
+                self._attr.pop(k, None)
+            else:
+                self._attr[k] = str(v)
+        return self
+
+    # -- pickling through the model text (basic.py:1243-1262) ------------
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        for key in ("_booster", "_train_set", "_valid_sets", "_forest",
+                    "config"):
+            state.pop(key, None)
+        state["device"] = str(self.device)
+        state["_model_str"] = self.model_to_string()
+        return state
+
+    def __setstate__(self, state):
+        """A predict-only Booster on the pickled Booster's device; its
+        ``CompiledForest`` is rebuilt at the first prediction."""
+        state = dict(state)
+        model_str = state.pop("_model_str")
+        self.__dict__.update(state)
+        self.device = resolve_device(state["device"])
+        self._forest = None
+        self._train_set = None
+        self._valid_sets = []
+        self.config = Config({"task": "predict"})
+        self._booster = create_boosting(self.config, model_str=model_str)
+
+    def __copy__(self):
+        return self.__deepcopy__(None)
+
+    def __deepcopy__(self, _):
+        new = Booster.__new__(Booster)
+        new.__setstate__(self.__getstate__())
+        return new

@@ -162,6 +162,14 @@ _DEFAULTS: Dict[str, Any] = {
     "is_enable_sparse": True,
     "enable_bundle": True,
     "max_conflict_rate": 0.0,
+    # gain-informed feature screening (models/screening.py): off unless
+    # feature_screen_ratio > 0
+    "feature_screen_ratio": 0.0,     # share of the columns masked out of
+                                     # screened rounds
+    "feature_screen_refresh": 10,    # refresh round period
+    "feature_screen_warmup": 20,     # unscreened rounds seeding the
+                                     # gain average
+    "feature_screen_decay": 0.9,     # per-round decay of the average
     "sigmoid": 1.0,
     "is_unbalance": False,
     "scale_pos_weight": 1.0,
@@ -221,11 +229,8 @@ _DEFAULTS: Dict[str, Any] = {
     # read only to be refused (REFUSED)
     "bad_data_policy": "fail_fast",
     "use_two_round_loading": False,
-    "feature_screen_ratio": 0.0,
     "snapshot_dir": "",
     "num_machines": 1,
-    "is_pre_partition": False,
-    "is_save_binary_file": False,
     "serve_canary_model": "",
     "serve_canary_weight": 0.0,
     "serve_shadow": 0.0,
@@ -243,10 +248,6 @@ REFUSED: Dict[str, tuple] = {
         bool,
         "the JAX package's streaming loader samples the rows it bins "
         "from differently; the torch port loads the whole file"),
-    "feature_screen_ratio": (
-        lambda v: v > 0.0,
-        "gain-informed feature screening masks features out of rounds, "
-        "which changes the trees"),
     "snapshot_dir": (
         bool,
         "the JAX package writes snapshots there and resumes training "
@@ -254,10 +255,6 @@ REFUSED: Dict[str, tuple] = {
     "num_machines": (
         lambda v: v > 1,
         "distributed training over several machines"),
-    "is_pre_partition": (
-        bool, "pre-partitioned data of distributed training"),
-    "is_save_binary_file": (
-        bool, "the JAX package writes the binned dataset to a binary file"),
     "serve_canary_model": (
         bool, "a second model answers a share of the serving traffic"),
     "serve_canary_weight": (
@@ -271,18 +268,19 @@ REFUSED: Dict[str, tuple] = {
 
 #: keys that cannot change a tree, a prediction, a file the run writes
 #: or its outcome in the port: accepted with one warning each.  The
-#: ``feature_screen_*`` tuning keys and the distributed keys act only
-#: under a setting :data:`REFUSED` or ``check_trainable`` refuses; the
-#: quarantine budgets only under ``bad_data_policy=quarantine``;
-#: ``snapshot_freq`` / ``snapshot_keep`` only with a ``snapshot_dir``;
-#: ``top_k`` only in the voting learner; ``seed``,
-#: ``enable_load_from_binary_file``, ``tpu_histogram_impl`` and
-#: ``tpu_double_hist`` are read by nothing in the JAX package's
-#: training (the first through its aliases only).
+#: distributed keys act only under a setting :data:`REFUSED` or
+#: ``check_trainable`` refuses; the quarantine budgets only under
+#: ``bad_data_policy=quarantine``; ``snapshot_freq`` / ``snapshot_keep``
+#: only with a ``snapshot_dir``; ``top_k`` only in the voting learner;
+#: ``seed``, ``enable_load_from_binary_file``, ``tpu_histogram_impl``,
+#: ``tpu_double_hist``, ``is_save_binary_file`` and ``is_pre_partition``
+#: are read by nothing in the JAX package outside its config (the first
+#: through its aliases only; only ``Dataset.save_binary`` writes a
+#: binary file).
 INERT = frozenset({
     "seed", "num_threads", "enable_load_from_binary_file",
-    "feature_screen_refresh", "feature_screen_warmup",
-    "feature_screen_decay", "top_k", "local_listen_port", "time_out",
+    "is_save_binary_file", "is_pre_partition", "top_k",
+    "local_listen_port", "time_out",
     "machine_list_file", "tpu_histogram_impl", "tpu_double_hist",
     "snapshot_freq", "snapshot_keep", "sink_error_policy",
     "events_flush_every", "max_bad_rows", "max_bad_row_fraction",
@@ -419,11 +417,23 @@ class Config:
             raise ValueError(
                 f"Unknown bad_data_policy {v['bad_data_policy']} "
                 "(expected fail_fast or quarantine)")
+        if not (0.0 <= v["max_conflict_rate"] < 1.0):
+            raise ValueError(
+                "max_conflict_rate must be in [0, 1): it bounds the share "
+                "of conflicting rows an EFB bundle may absorb (0 = only "
+                "perfectly exclusive features bundle)")
         if not (0.0 <= v["feature_screen_ratio"] < 1.0):
             raise ValueError(
                 "feature_screen_ratio must be in [0, 1) (0 disables "
                 "gain-informed feature screening; 1 would mask every "
                 "feature)")
+        if v["feature_screen_refresh"] < 1:
+            raise ValueError("feature_screen_refresh must be >= 1 (every "
+                             "K-th round re-scans the full feature set)")
+        if v["feature_screen_warmup"] < 0:
+            raise ValueError("feature_screen_warmup must be >= 0")
+        if not (0.0 < v["feature_screen_decay"] <= 1.0):
+            raise ValueError("feature_screen_decay must be in (0, 1]")
         if v["nan_policy"] not in ("none", "fail_fast", "skip_tree"):
             raise ValueError(
                 f"Unknown nan_policy {v['nan_policy']} "
@@ -499,8 +509,7 @@ class Config:
         """Raise for every training setting outside the ported slice:
         an unknown objective or boosting type, or a distributed tree
         learner; nothing here is silently ignored (the refused keys of
-        :data:`REFUSED` raise when the Config is built, EFB bundles when
-        the dataset is binned)."""
+        :data:`REFUSED` raise when the Config is built)."""
         v = self._values
         if v["objective"] not in OBJECTIVES:
             raise LightGBMError(

@@ -19,13 +19,16 @@
 // K2 and K3 share one accumulation, built for what the full-pass growers
 // launch: a pass over all N rows where the two children often hold few of
 // them, so a fixed cost per launch weighs more than the per-row work.
-//   * One pass over the rows for all features where shared memory allows:
-//     at F = 28, B = 255 both children's histograms take 171 KB of a
-//     block's 227 KB.  One persistent block of 1024 threads per SM strides
-//     over tiles of 4 x blockDim rows; each thread takes 4 consecutive rows
-//     and reads their leaf ids once (16-byte loads where the rows are
-//     aligned).  Where F * B does not fit (uint16, 1000 bins), the features
-//     split into groups that share the card's blocks.
+//   * The sums are f64 from the first add to the last (see Numbers): a
+//     block's shared histograms and its partial slot hold f64, and the
+//     reduction rounds each entry once to f32.
+//   * One pass over the rows for as many features as shared memory holds:
+//     at B = 255 a feature's two children take 12 KB of f64, so 17 of a
+//     block's 227 KB (F = 28: two groups of 14).  One persistent block of
+//     1024 threads per SM strides over tiles of 4 x blockDim rows; each
+//     thread takes 4 consecutive rows and reads their leaf ids once
+//     (16-byte loads where the rows are aligned).  The feature groups
+//     share the card's blocks.
 //   * Sparse tiles are compacted.  When a child holds few rows, most warps
 //     hold one child row or two among their 128 and would walk every
 //     feature for it.  The block counts its child rows (a warp scan and one
@@ -41,7 +44,7 @@
 //     in one 4- or 8-byte load (uint8, uint16) on dense tiles.  Every lane
 //     of a warp adds feature j at step j: a lane-staggered order (lane l
 //     starting at feature l mod nf) was measured on the card and was 3-10%
-//     slower at every leaf occupancy, so it is not kept.  Shared f32
+//     slower at every leaf occupancy, so it is not kept.  Shared float
 //     atomicAdd is a compare-and-swap loop on this card (int32 is native),
 //     which is what the per-row part pays.
 //   * Cross-block reduction with no zero-filled scratch and no global
@@ -68,19 +71,27 @@
 // from device memory, as the TPU kernel reads them from SMEM, so the grower
 // never brings them to the host.
 //
-// Numbers: f32 atomics make the last bits of every sum depend on the order
-// of the adds, which changes from run to run; the plain index_add_ version
-// on the card is just as order-dependent.  Kernel and plain version agree
-// to a stated tolerance (ops/children_hist.py), not bit for bit.  The gain
-// arithmetic uses round-to-nearest intrinsics, so it rounds as the plain
-// torch version does (no contraction into FMAs, no fast math).
+// Numbers: the sums are f64 and rounded once to f32, so each output entry
+// is its exact sum correctly rounded, up to the f64 error of the adds (n
+// adds: about n x 2^-53 of the sum of absolute values), whatever the order
+// of the adds.  f32 sums were not enough: a block that adds the rows of
+// half the data in f32 (two blocks a feature group at 2000 features), into
+// an entry that holds most of a leaf's rows, where the second round's
+// gradients take two values a first-round leaf, rounds the same way add
+// after add, and its sum moved a split's gain by 0.5% on an H100
+// (chip_smoke.py's sparse phase).  The plain index_add_ version adds in
+// f32 with global atomics and drifts the same way; the kernel is held
+// against it within a stated tolerance (ops/children_hist.py), and
+// against the same scatter added in f64 where the sums can drift.  The
+// gain arithmetic uses round-to-nearest intrinsics, so it rounds as the
+// plain torch version does (no contraction into FMAs, no fast math).
 //
 // What bounds them on an H100: at the training root (1M rows, 28 features,
 // uint8) the pass reads 28 MB of bins and 16 MB of g, h, w and leaf ids,
 // about 0.013 ms at 3.35 TB/s; its 84M adds of 3 values are 0.0025 ms at
 // 67 TFLOP/s.  Both are bound by bytes.  What they pay in practice is the
 // shared atomics (3 per row and feature, each a compare-and-swap loop) and
-// a fixed part: the partials (132 slots of 171 KB) written and summed back,
+// a fixed part: the partials (66 slots of 342 KB) written and summed back,
 // and the grid barriers.  The first K2 (a grid of row chunks x feature
 // groups, a zeroed output merged into by global atomics, the row's 16
 // bytes re-read by every feature group) is gone: K2 is K3 less the scan.
@@ -261,7 +272,7 @@ template <typename BinT>
 __device__ __forceinline__ void add_queued_row(
     const BinT* __restrict__ bins, long long N, long long r, int c, float vg,
     float vh, float vw, int f0, int nf, int B, int n_half,
-    float* s_hist) {
+    double* s_hist) {
   for (int j0 = 0; j0 < nf; j0 += kBatch) {
     int bin[kBatch];
 #pragma unroll
@@ -273,10 +284,10 @@ __device__ __forceinline__ void add_queued_row(
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       if (bin[u] >= B) continue;
-      float* e = s_hist + c * n_half + ((j0 + u) * B + bin[u]) * kVals;
-      atomicAdd(e, vg);
-      atomicAdd(e + 1, vh);
-      atomicAdd(e + 2, vw);
+      double* e = s_hist + c * n_half + ((j0 + u) * B + bin[u]) * kVals;
+      atomicAdd(e, static_cast<double>(vg));
+      atomicAdd(e + 1, static_cast<double>(vh));
+      atomicAdd(e + 2, static_cast<double>(vw));
     }
   }
 }
@@ -287,10 +298,11 @@ __device__ __forceinline__ void add_queued_row(
 // (b % per_group) + k * per_group of `tile` (= blockDim.x * kRows) rows.
 // ops/children_hist.py `fused_block_rows` states the same walk for the
 // CPU tests.
-// Dynamic shared memory: the histogram [2][nf][B][3] f32, then a queue of
+// Dynamic shared memory: the histogram [2][nf][B][3] f64, then a queue of
 // `queue_cap` child rows (row | child << 31, g, h, w), then 3 counters.
-// partials [per_group][2][F][B][3], reduced [2][F][B][3] (K2's output),
-// out [2][F][8] (K3 only).  A null `leaf`: every row in the left child.
+// partials [per_group][2][F][B][3] f64, reduced [2][F][B][3] f32 (K2's
+// output), out [2][F][8] (K3 only).  A null `leaf`: every row in the left
+// child.
 template <typename BinT, bool SCAN>
 __global__ void __launch_bounds__(1024)
 fused_split_kernel(const BinT* __restrict__ bins,
@@ -303,9 +315,9 @@ fused_split_kernel(const BinT* __restrict__ bins,
                    const uint8_t* __restrict__ feat_mask, ScanParams p,
                    long long N, int F, int B, int fg, int groups,
                    int per_group, long long tile, int queue_cap,
-                   int vec_rows, float* partials, float* reduced,
+                   int vec_rows, double* partials, float* reduced,
                    float* __restrict__ out) {
-  extern __shared__ float s_hist[];
+  extern __shared__ double s_hist[];
   cg::grid_group grid = cg::this_grid();
   const int parent = parent_p ? *parent_p : parent_v;
   const int right = right_p ? *right_p : right_v;
@@ -328,7 +340,7 @@ fused_split_kernel(const BinT* __restrict__ bins,
     const int nf = min(fg, F - f0);
     const int n_half = nf * B * kVals;
     for (int i = threadIdx.x; i < 2 * n_half; i += blockDim.x)
-      s_hist[i] = 0.f;
+      s_hist[i] = 0.0;
     if (threadIdx.x < 3) s_count[threadIdx.x] = 0;
     __syncthreads();
     int slot = 0;
@@ -434,18 +446,18 @@ fused_split_kernel(const BinT* __restrict__ bins,
 #pragma unroll
           for (int i = 0; i < kRows; ++i) {
             if (c[i] < 0 || bin[u][i] >= B) continue;
-            float* e = s_hist + c[i] * n_half
-                       + ((j0 + u) * B + bin[u][i]) * kVals;
-            atomicAdd(e, vg[i]);
-            atomicAdd(e + 1, vh[i]);
-            atomicAdd(e + 2, vw[i]);
+            double* e = s_hist + c[i] * n_half
+                        + ((j0 + u) * B + bin[u][i]) * kVals;
+            atomicAdd(e, static_cast<double>(vg[i]));
+            atomicAdd(e + 1, static_cast<double>(vh[i]));
+            atomicAdd(e + 2, static_cast<double>(vw[i]));
           }
         }
       }
     }
     __syncthreads();
     // this block's partial, plain stores: [2][F][B][3] at slot pb
-    float* dst = partials + static_cast<long long>(pb) * E;
+    double* dst = partials + static_cast<long long>(pb) * E;
     for (int i = threadIdx.x; i < 2 * n_half; i += blockDim.x) {
       const int cc = i / n_half;
       dst[(static_cast<long long>(cc) * F + f0) * B * kVals + (i - cc * n_half)]
@@ -455,8 +467,9 @@ fused_split_kernel(const BinT* __restrict__ bins,
   }
 
   grid.sync();
-  // every entry summed over the partials in slot order; runs of 32
-  // entries dealt round the blocks, so that every SM takes a share
+  // every entry summed over the partials in slot order, in f64, and
+  // rounded once; runs of 32 entries dealt round the blocks, so that
+  // every SM takes a share
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const long long runs = (E + 31) / 32;
@@ -464,10 +477,10 @@ fused_split_kernel(const BinT* __restrict__ bins,
        k < runs; k += static_cast<long long>(nwarps) * gridDim.x) {
     const long long e = k * 32 + lane;
     if (e >= E) continue;
-    float s = 0.f;
+    double s = 0.0;
 #pragma unroll 32
     for (int q = 0; q < per_group; ++q) s += __ldcg(partials + q * E + e);
-    reduced[e] = s;
+    reduced[e] = __double2float_rn(s);
   }
   if constexpr (!SCAN) return;         // K2: the reduced sums are its output
   grid.sync();
@@ -505,7 +518,7 @@ int prepare_once(Kernel kern, bool* ready) {
 // The least dynamic shared memory K3's layout needs: the histogram, the
 // child-row queue and its counters (the wrapper's plan gives the size).
 size_t fused_smem(int fg, int B, int queue_cap) {
-  return static_cast<size_t>(2) * fg * B * kVals * sizeof(float)
+  return static_cast<size_t>(2) * fg * B * kVals * sizeof(double)
          + static_cast<size_t>(queue_cap) * 4 * sizeof(float) + 16;
 }
 
@@ -533,7 +546,7 @@ int launch_fused(const void* bins, const float* g, const float* h,
                  const uint8_t* is_cat, const uint8_t* feat_mask,
                  ScanParams p, long long N, int F, int B, int fg, int groups,
                  int per_group, int grid, long long tile, int queue_cap,
-                 int smem, int vec_rows, float* partials, float* reduced,
+                 int smem, int vec_rows, double* partials, float* reduced,
                  float* out, int threads, cudaStream_t stream) {
   auto kern = fused_split_kernel<BinT, SCAN>;
   static bool ready[kMaxDevices] = {};
@@ -582,7 +595,7 @@ extern "C" {
 // for none) are each a device int32 (parent_p, right_p) or, where that
 // pointer is null, the value given (parent_v, right_v).  A cooperative
 // launch of `grid` blocks (no more than can be resident), `per_group` of
-// them per feature group of `fg`; partials [per_group, 2, F, B, 3] f32 need
+// them per feature group of `fg`; partials [per_group, 2, F, B, 3] f64 need
 // no initial value.  Each block strides over tiles of `tile` rows, which
 // must be threads * kRows (4 rows a thread), and queues up to `queue_cap`
 // child rows of a tile in its `smem` bytes of dynamic shared memory.
@@ -606,7 +619,7 @@ int lgbt_children_histograms(const void* bins, int bin_bytes, const void* g,
   const int* lf = static_cast<const int*>(leaf);
   const int* pp = static_cast<const int*>(parent_p);
   const int* rp = static_cast<const int*>(right_p);
-  float* pa = static_cast<float*>(partials);
+  double* pa = static_cast<double*>(partials);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bin_bytes == 1)
@@ -669,7 +682,7 @@ int lgbt_fused_split_candidates(
   const int* nb = static_cast<const int*>(num_bin);
   const uint8_t* cat = static_cast<const uint8_t*>(is_cat);
   const uint8_t* fm = static_cast<const uint8_t*>(feat_mask);
-  float* pa = static_cast<float*>(partials);
+  double* pa = static_cast<double*>(partials);
   float* re = static_cast<float*>(reduced);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -14,26 +14,32 @@ than 256 bins).  With ``keep_raw`` (``linear_tree``) the dataset also
 keeps ``raw`` [F_used, N] f32, the used features' raw values (NaN kept),
 feature-major like ``bins``; ``create_valid`` carries it over.
 
-Exclusive feature bundling (EFB) is not ported: when the JAX planner
-would bundle features, ``from_matrix`` raises instead of binning them
-differently.  The drift fingerprint is not ported either.
+Exclusive feature bundling (EFB, ``io/bundling.py``): with
+``enable_bundle`` the planner runs over the binning sample, and a
+dataset with a ``bundle_plan`` stores ``bins`` as ``[C, N]`` columns,
+mutually exclusive sparse features sharing one with offset-encoded bin
+sub-ranges; valid sets and subsets ride the training plan.  The binary
+dataset file (``save_binary`` / ``load_binary``) is the JAX package's
+format: the token ``__lightgbm_tpu_dataset_v1__`` and a compressed npz
+archive whose ``meta_json`` holds the mappers, the names and the bundle
+plan, so either package loads a file the other wrote.  The drift
+fingerprint is not ported.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import List, Optional, Sequence
 
 import numpy as np
 
 from ..utils import log
-from ..utils.log import LightGBMError
 from .binning import CATEGORICAL, NUMERICAL, BinMapper
+from .bundling import BundlePlan, plan_bundles
 from .column_roles import qid_to_query_sizes
 
-# EFB candidates must be at least this sparse (the JAX io/bundling.py
-# MIN_BUNDLE_SPARSE_RATE)
-MIN_BUNDLE_SPARSE_RATE = 0.8
+_BINARY_TOKEN = b"__lightgbm_tpu_dataset_v1__"
 
 
 class Metadata:
@@ -137,47 +143,27 @@ def build_mappers_from_sample(sample: np.ndarray, num_data: int, *,
     return out
 
 
-def would_bundle(sample: np.ndarray, mappers, used: Sequence[int],
-                 max_conflict_rate: float, max_total_bin: int) -> bool:
-    """True when the JAX package's greedy EFB planner
-    (io/bundling.py ``_plan_bundles_impl``) would put two or more
-    features into one bundle on this sample."""
-    cand = [f for f, m in enumerate(mappers)
-            if not m.is_trivial and m.bin_type == NUMERICAL
-            and m.default_bin == 0 and m.num_bin > 1
-            and m.sparse_rate >= MIN_BUNDLE_SPARSE_RATE]
-    if len(cand) < 2:
-        return False
-    cand.sort(key=lambda f: (-mappers[f].sparse_rate, f))
-    budget = int(float(max_conflict_rate) * sample.shape[0])
-    bundles = []              # [occupied rows, conflicts, bins used, size]
-    for f in cand:
-        nd = np.asarray(mappers[f].value_to_bin(sample[:, used[f]])) != 0
-        nb = int(mappers[f].num_bin)
-        for b in bundles:
-            if b[2] + (nb - 1) > max_total_bin:
-                continue
-            c = int(np.count_nonzero(b[0] & nd))
-            if b[1] + c > budget:
-                continue
-            return True       # a second member joins: a bundle forms
-        bundles.append([nd.copy(), 0, nb, 1])
-    return False
-
-
-def _bins_dtype(mappers) -> type:
-    """uint8 unless some feature needs more than 256 bin codes."""
-    return np.uint8 if max([m.num_bin for m in mappers] or [1]) <= 256 \
-        else np.uint16
+def _bins_dtype(mappers, plan=None) -> type:
+    """uint8 unless some column needs more than 256 bin codes (a bundle's
+    bins are capped at ``max_bin``, so bundling never widens the
+    dtype)."""
+    per_col = [m.num_bin for m in mappers] or [1]
+    if plan is not None:
+        per_col = [1 + sum(mappers[f].num_bin - 1 for f in members)
+                   if len(members) > 1 else mappers[members[0]].num_bin
+                   for members in plan.column_members]
+    return np.uint8 if max(per_col or [1]) <= 256 else np.uint16
 
 
 class BinnedDataset:
     """Column-binned training matrix.
 
-    ``bins`` [F_used, N] uint8/uint16 feature-major codes; ``mappers`` per
-    used feature; ``used_feature_map`` used -> real feature index;
-    ``real_to_inner`` real -> used index or -1 (trivial); ``raw``
-    [F_used, N] f32 raw values or None (kept for linear trees)."""
+    ``bins`` [C, N] uint8/uint16 column-major codes, one column per used
+    feature, or per EFB bundle when ``bundle_plan`` is set; ``mappers``
+    per used feature (original space); ``used_feature_map`` used -> real
+    feature index; ``real_to_inner`` real -> used index or -1 (trivial);
+    ``raw`` [F_used, N] f32 raw values or None (kept for linear
+    trees)."""
 
     def __init__(self) -> None:
         self.bins: np.ndarray = np.zeros((0, 0), dtype=np.uint8)
@@ -189,6 +175,7 @@ class BinnedDataset:
         self.metadata = Metadata()
         self.max_bin = 255
         self.raw: Optional[np.ndarray] = None
+        self.bundle_plan: Optional[BundlePlan] = None
 
     @classmethod
     def from_matrix(cls, data: np.ndarray, label=None, *,
@@ -208,7 +195,8 @@ class BinnedDataset:
         FindBin -> extract features (dataset_loader.cpp:656-820).
         ``ignore_features`` (the ignored, weight and group columns) get
         no mapper and are not used; ``keep_raw`` also keeps the used
-        features' raw values."""
+        features' raw values; ``enable_bundle`` plans EFB bundles over
+        the binning sample (``io/bundling.py``)."""
         data = np.ascontiguousarray(np.asarray(data, dtype=np.float64))
         if data.ndim != 2:
             raise ValueError("data must be 2-D [num_data, num_features]")
@@ -243,12 +231,11 @@ class BinnedDataset:
         if not used:
             log.warning("All features are trivial; dataset has no usable "
                         "feature")
-        if enable_bundle and is_enable_sparse and would_bundle(
-                sample, self.mappers, used, max_conflict_rate, max_bin):
-            raise LightGBMError(
-                "exclusive feature bundling (EFB) is not ported yet to the "
-                "torch package: this matrix has sparse features the JAX "
-                "package would bundle; pass enable_bundle=false")
+        # the plan is drawn over the sample FindBin saw
+        self.bundle_plan = plan_bundles(
+            sample, self.mappers, used, max_conflict_rate=max_conflict_rate,
+            max_total_bin=max_bin, enable_bundle=enable_bundle,
+            is_enable_sparse=is_enable_sparse)
         self.bins = self._bin_columns(data)
         if keep_raw and used:
             self.raw = self._raw_columns(data)
@@ -258,11 +245,19 @@ class BinnedDataset:
         return self
 
     def _bin_columns(self, data: np.ndarray) -> np.ndarray:
-        dtype = _bins_dtype(self.mappers)
-        bins = np.zeros((len(self.used_feature_map), data.shape[0]), dtype)
-        for inner, f in enumerate(self.used_feature_map):
-            bins[inner] = self.mappers[inner].value_to_bin(
-                data[:, f]).astype(dtype)
+        """[C, n] column codes of the raw rows ``data``, in this dataset's
+        layout (the training plan's columns for a valid set too)."""
+        dtype = _bins_dtype(self.mappers, self.bundle_plan)
+        ufm = self.used_feature_map
+
+        def feature_bins(inner):
+            return self.mappers[inner].value_to_bin(data[:, ufm[inner]])
+        if self.bundle_plan is not None:
+            return self.bundle_plan.encode_columns(feature_bins,
+                                                   data.shape[0], dtype)
+        bins = np.zeros((len(ufm), data.shape[0]), dtype)
+        for inner in range(len(ufm)):
+            bins[inner] = feature_bins(inner).astype(dtype)
         return bins
 
     def _raw_columns(self, data: np.ndarray) -> np.ndarray:
@@ -280,6 +275,9 @@ class BinnedDataset:
         valid.used_feature_map = list(self.used_feature_map)
         valid.real_to_inner = self.real_to_inner.copy()
         valid.mappers = self.mappers
+        # valid rows ride the training bundles: their replay runs on the
+        # same column layout
+        valid.bundle_plan = self.bundle_plan
         valid.bins = self._bin_columns(data)
         if self.raw is not None:
             # linear-tree valid scoring reads the valid rows' raw values
@@ -303,6 +301,7 @@ class BinnedDataset:
         sub.used_feature_map = list(self.used_feature_map)
         sub.real_to_inner = self.real_to_inner.copy()
         sub.mappers = self.mappers
+        sub.bundle_plan = self.bundle_plan
         sub.bins = np.ascontiguousarray(self.bins[:, indices])
         if self.raw is not None:
             sub.raw = np.ascontiguousarray(self.raw[:, indices])
@@ -334,7 +333,14 @@ class BinnedDataset:
 
     @property
     def num_features(self) -> int:
+        """Used (non-trivial) original features: the split scan's
+        space."""
         return len(self.used_feature_map)
+
+    @property
+    def num_columns(self) -> int:
+        """Columns of ``bins`` (``num_features`` unless EFB bundled)."""
+        return self.bins.shape[0]
 
     def num_bin_per_feature(self) -> np.ndarray:
         return np.asarray([m.num_bin for m in self.mappers], dtype=np.int32)
@@ -348,3 +354,72 @@ class BinnedDataset:
         return ["none" if self.real_to_inner[f] < 0
                 else self.mappers[self.real_to_inner[f]].feature_info()
                 for f in range(self.num_total_features)]
+
+    # -- the binary dataset file (the JAX package's format) -------------
+    def save_binary(self, path: str) -> None:
+        """The token, then an npz archive of the arrays with the mappers,
+        names and bundle plan as a JSON blob (no pickle: loading a file
+        runs no code).  Written to ``<path>.tmp`` and moved over ``path``,
+        so a failed save keeps the previous file."""
+        meta_json = json.dumps({
+            "mappers": [m.to_state() for m in self.mappers],
+            "used_feature_map": self.used_feature_map,
+            "num_total_features": self.num_total_features,
+            "feature_names": self.feature_names,
+            "max_bin": self.max_bin,
+            "bundle_plan": (self.bundle_plan.to_state()
+                            if self.bundle_plan is not None else None),
+        })
+        arrays = {
+            "bins": self.bins,
+            "real_to_inner": self.real_to_inner,
+            "meta_json": np.frombuffer(meta_json.encode(), dtype=np.uint8),
+        }
+        if self.raw is not None:
+            arrays["raw"] = self.raw
+        for key in ("label", "weights", "query_boundaries", "init_score"):
+            value = getattr(self.metadata, key)
+            if value is not None:
+                arrays[key] = value
+        tmp = f"{path}.tmp"
+        with open(tmp, "wb") as fh:
+            fh.write(_BINARY_TOKEN)
+            np.savez_compressed(fh, **arrays)
+        os.replace(tmp, path)
+        log.info("Saved binary dataset to %s", path)
+
+    @classmethod
+    def is_binary_file(cls, path: str) -> bool:
+        try:
+            with open(path, "rb") as fh:
+                return fh.read(len(_BINARY_TOKEN)) == _BINARY_TOKEN
+        except OSError:
+            return False
+
+    @classmethod
+    def load_binary(cls, path: str) -> "BinnedDataset":
+        with open(path, "rb") as fh:
+            if fh.read(len(_BINARY_TOKEN)) != _BINARY_TOKEN:
+                raise ValueError(
+                    f"{path} is not a lightgbm_tpu binary dataset")
+            with np.load(fh, allow_pickle=False) as npz:
+                arrays = {k: npz[k] for k in npz.files}
+        meta = json.loads(bytes(arrays["meta_json"]).decode())
+        self = cls()
+        self.bins = arrays["bins"]
+        self.mappers = [BinMapper.from_state(s) for s in meta["mappers"]]
+        self.used_feature_map = [int(f) for f in meta["used_feature_map"]]
+        self.real_to_inner = np.asarray(arrays["real_to_inner"], np.int64)
+        self.num_total_features = int(meta["num_total_features"])
+        self.feature_names = list(meta["feature_names"])
+        self.max_bin = int(meta["max_bin"])
+        self.bundle_plan = BundlePlan.from_state(meta.get("bundle_plan"))
+        self.raw = arrays.get("raw")
+        md = self.metadata = Metadata(self.bins.shape[1])
+        if "label" in arrays:
+            md.set_label(arrays["label"])
+        md.weights = arrays.get("weights")
+        md.query_boundaries = arrays.get("query_boundaries")
+        md.init_score = arrays.get("init_score")
+        md._update_query_weights()
+        return self

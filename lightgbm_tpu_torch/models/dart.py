@@ -26,6 +26,8 @@ from .gbdt import GBDT
 
 class DART(GBDT):
     submodel_name = "dart"
+    # the JAX DART booster materialises each round's trees at once
+    _screen_observes_late = False
 
     def __init__(self, config=None, train_set=None, device=None):
         super().__init__(config, train_set, device)

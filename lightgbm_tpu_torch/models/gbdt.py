@@ -51,22 +51,40 @@ Growers (``_serial_grow_kind``): ``ordered`` (default) is
 ``grow_tree`` with the matching ``SerialComm``.  ``nocache`` is the
 ``hist_cache`` step of ``memory_policy=degrade``, taken when
 ``histogram_pool_size`` bounds the per-leaf histogram cache below its
-size (``_check_memory_budget``).  The JAX package's admission gate
-against the device's memory (``MemoryBudgetExceeded``) and its
+size (``_check_memory_budget``).  EFB bundled datasets and gain
+screening need the per-split column decode, which the leaf-ordered
+grower's layout does not carry: ``ordered`` falls back to ``cached``
+there, with the JAX package's warning.  The JAX package's admission
+gate against the device's memory (``MemoryBudgetExceeded``) and its
 ``score_donation`` and ``row_pad`` steps are not ported.
+
+EFB (``io/bundling.py``, ``ops/bundle.py``): a dataset with a bundle
+plan trains over its ``[C, N]`` columns with the plan's decode tables
+(``_setup_bundle``); trees stay in original feature space, and every
+replay (valid sets, DART's drops, rollbacks, loaded trees) decodes the
+columns.  Gain screening (``feature_screen_ratio > 0``,
+models/screening.py): each round picks its histogram view
+(``_select_view``); a screened round masks the inactive features and
+grows over a compacted view of the active columns.  The trees of a
+round are folded into the screener's average when the JAX package
+would: a round late for ``gbdt`` and GOSS (the JAX booster materialises
+a round's trees during the next one, or when ``models`` is read), in the
+round itself for DART (``_screen_observes_late``).
 """
 
 from __future__ import annotations
 
 import io
 import re
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..io.bundling import BundlePlan
 from ..metric import create_metric
 from ..objective import create_objective
+from ..ops.bundle import BundleDecode
 from ..ops.grow import GrowParams, SerialComm, _read, grow_tree
 from ..ops.ordered_grow import grow_tree_ordered
 from ..ops.predict import predict_binned_tree
@@ -75,24 +93,43 @@ from ..utils import random as jrandom
 from ..utils.log import LightGBMError
 from .linear import (LinearParams, affine_epilogue, attach_linear,
                      fit_leaf_models)
+from .screening import GainScreener
 from .tree import Tree
 
 
-def estimate_train_memory(num_data: int, num_features: int, num_leaves: int,
+class _HistView(NamedTuple):
+    """One round's histogram side: the column matrix (EFB bundled or
+    not, the screening's compacted view or the whole), its row-major
+    copy and its decode tables (None: plain per-feature columns)."""
+    bins: torch.Tensor
+    bins_rm: Optional[torch.Tensor]
+    bundle: Optional[BundleDecode]
+
+
+def _take(t: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
+    """``t.index_select(dim, idx)`` for uint8 and uint16 tensors (the
+    latter through an int16 view)."""
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).index_select(dim, idx).view(torch.uint16)
+    return t.index_select(dim, idx)
+
+
+def estimate_train_memory(num_data: int, num_columns: int, num_leaves: int,
                           max_bin: int, num_models: int,
                           bin_itemsize: int = 1, *,
                           leaf_cache: bool = True,
                           linear_k: int = 0) -> Dict[str, int]:
     """Rough device footprint (bytes) of training, by component: the
-    column- and row-major bin copies, the score, gradient, hessian and
-    delta buffers, the [L, F, 9, B] int32 per-leaf histogram cache
+    column- and row-major bin copies (``num_columns`` of them, the EFB
+    columns of a bundled dataset), the score, gradient, hessian and
+    delta buffers, the [L, C, 9, B] int32 per-leaf histogram cache
     (zero without ``leaf_cache``: the fused grower and the
     ``hist_cache`` degrade step) and, with ``linear_k`` affine slots a
     leaf (``linear_tree``), the linear fit's: the [F, N] f32 raw copy,
     two [N, K+1] f32 per-row gathers and three [L, K+1, K+1] f32 normal
     equation copies (the JAX ``linear_fit`` term).  The JAX version's
     terms for packed word lanes and score donation are not ported."""
-    n, f = num_data, num_features
+    n, f = num_data, num_columns
     bins = 2 * n * f * bin_itemsize
     scores = num_models * n * 4 * 4
     cache = num_leaves * f * 9 * max_bin * 4 if leaf_cache else 0
@@ -200,6 +237,13 @@ class GBDT:
     ``device`` from a ``BinnedDataset``."""
 
     submodel_name = "gbdt"
+    #: the JAX booster materialises a round's trees during the next round
+    #: (after that round has chosen its screening view) or when ``models``
+    #: is read; DART's materialises them in the round itself.  The
+    #: screener sees the trees when the JAX package's would.
+    _screen_observes_late = True
+    _screen_pending = None
+    _screener = None
     #: the JAX package's fused round (an objective's gradients, and a
     #: booster whose per-round hooks are the base's) draws the bag mask
     #: and every class's feature mask before it grows; its per-stage
@@ -219,7 +263,7 @@ class GBDT:
         self.feature_infos_: List[str] = []
         self.objective_name = ""
         self.objective = None
-        self.models: List[Tree] = []
+        self._models: List[Tree] = []
         self._footer_tail = ""
         self.iter_ = 0
         # rounds carried in from an init model (continued training) or
@@ -250,8 +294,12 @@ class GBDT:
         self.shrinkage_rate = config.learning_rate
         self._degrade_steps: tuple = ()
         self._degrade_leaf_cache_off = False
+        self.num_features = train_set.num_features
+        self.num_columns = train_set.num_columns
         self._check_memory_budget(config, train_set)
         self._linear = self._setup_linear(config, train_set)
+        self._setup_bundle(train_set)
+        self._setup_screening(config)
         self._grow = self._make_grow_fn()
         self.num_bin = torch.from_numpy(
             train_set.num_bin_per_feature()).to(device)
@@ -266,7 +314,9 @@ class GBDT:
         self.valid_metrics: List[list] = []
         self.train_metrics = self._make_metrics(train_set)
         self._grad_arrays = self.objective.gradient_arrays(device)
-        self.num_features = train_set.num_features
+        td = self.train_data
+        self._full_view = self._view = _HistView(td.bins, td.bins_rm,
+                                                 self._bundle)
         self._ones_weight = torch.ones(self.num_data, dtype=torch.float32,
                                        device=device)
         # the bagging mask of the last draw (JAX _row_weight), and the
@@ -313,7 +363,8 @@ class GBDT:
         """Booster::ResetConfig (c_api.cpp:96-134) between rounds: the
         new learning rate, the grower rebuilt only when its parameters
         really change (so a per-round learning-rate schedule rebuilds
-        nothing), and the metrics anew.  The sampling keys are read from
+        nothing), the screener when a ``feature_screen_*`` key changes,
+        and the metrics anew.  The sampling keys are read from
         the config each round, so a new bagging or feature fraction
         takes effect at once, from the generators as they stand (the
         JAX package resets neither).  A setting ``check_trainable``
@@ -323,10 +374,19 @@ class GBDT:
             self.config = config
             return
         config.check_trainable()
-        self.config = config
+        self._observe_pending()
+        old, self.config = self.config, config
         self.shrinkage_rate = config.learning_rate
         params = self._make_grow_params(config)
-        if params != self.grow_params:
+        # the screener is rebuilt only on a real change of its keys, so a
+        # per-round learning-rate schedule keeps its average
+        screen = ("feature_screen_ratio", "feature_screen_refresh",
+                  "feature_screen_warmup", "feature_screen_decay")
+        rescreen = any(old[k] != config[k] for k in screen)
+        if rescreen:
+            self._setup_screening(config)
+            self._view = self._full_view
+        if params != self.grow_params or rescreen:
             self.grow_params = params
             self._grow = self._make_grow_fn()
         self.train_metrics = self._make_metrics(self.train_set)
@@ -356,16 +416,131 @@ class GBDT:
                             float(cfg.lambda_l2))
 
     def _serial_grow_kind(self) -> str:
-        """``fused`` / ``nocache`` / ``ordered`` / ``cached`` (the JAX
-        version without its EFB and screening branch: neither is
-        ported)."""
-        if self.config.serial_grow == "fused":
+        """``fused`` / ``nocache`` / ``ordered`` / ``cached``."""
+        cfg = self.config
+        if cfg.serial_grow == "fused":
             return "fused"
         # the hist_cache degrade step dropped the per-leaf histogram
         # cache: the full-pass learner scans the same histograms
         if self._degrade_leaf_cache_off:
             return "nocache"
-        return self.config.serial_grow
+        # EFB columns and the screening's compacted views need the
+        # per-split column decode, which the leaf-ordered grower's layout
+        # does not carry: the cached learner (same trees) instead
+        if self._bundle is not None or self._screener is not None:
+            if cfg.serial_grow == "ordered":
+                log.warn_once(
+                    "serial_grow_decode",
+                    "serial_grow=ordered: using the cached serial "
+                    "learner instead (EFB bundling / feature screening "
+                    "need the column-decode path)")
+            return "cached"
+        return cfg.serial_grow
+
+    def _setup_bundle(self, train_set) -> None:
+        """The decode tables of an EFB bundled dataset on the training
+        device (None for the plain layout) and each feature's column."""
+        plan = train_set.bundle_plan
+        self._bundle = None
+        self._feature_col = np.arange(self.num_features, dtype=np.int64)
+        if plan is None:
+            return
+        self._bundle = BundleDecode.from_plan(
+            plan, train_set.mappers, self.config.max_bin, self.device)
+        self._feature_col = self._bundle.col.cpu().numpy()
+        log.info("EFB active: %d feature(s) in %d column(s) "
+                 "(%d bundle(s))", self.num_features, self.num_columns,
+                 len(plan.bundles))
+
+    def _setup_screening(self, cfg) -> None:
+        """The gain screener (models/screening.py) when
+        ``feature_screen_ratio > 0``, and a fresh schedule."""
+        self._screener = None
+        self._screen_mask = None
+        self._screen_pending = None
+        self._screen_period = -1
+        self._active_view = None
+        #: (round, active columns) each time the active set is drawn
+        self.screen_periods: list = []
+        if cfg.feature_screen_ratio <= 0.0:
+            return
+        self._screener = GainScreener(
+            self.num_features, self.num_columns, self._feature_col,
+            ratio=cfg.feature_screen_ratio,
+            refresh=cfg.feature_screen_refresh,
+            warmup=cfg.feature_screen_warmup,
+            decay=cfg.feature_screen_decay)
+
+    def _select_view(self) -> _HistView:
+        """This round's histogram view and screening mask: warmup and
+        refresh rounds take the whole view, unmasked; a screened round the
+        compacted view of the period's active columns (drawn once a
+        period) under their mask."""
+        scr = self._screener
+        if scr is None:
+            return self._full_view
+        it = self.iter_ - self.num_init_iteration
+        if scr.round_mode(it) != "screened":
+            self._screen_mask = None
+            return self._full_view
+        period = scr.period(it)
+        if period != self._screen_period:
+            self._screen_period = period
+            cols = scr.active_columns()
+            self.screen_periods.append((it, cols))
+            self._screen_mask = _to_device(
+                torch.from_numpy(scr.screen_mask(cols)), self.device)
+            self._active_view = self._build_active_view(cols)
+        return (self._active_view if self._active_view is not None
+                else self._full_view)
+
+    def _build_active_view(self, cols: np.ndarray) -> Optional[_HistView]:
+        """The active columns gathered into a ``[len(cols), N]`` view
+        (and its row-major copy), whose decode tables send each feature
+        to its column's position; a dropped feature points at position 0
+        and is masked out of the scan.  The JAX package pads the view to
+        its compile-cache bucket of ``len(cols)`` columns and keeps the
+        whole view (mask-only screening) when that bucket is not below
+        the column count; the port needs no compile cache and gathers
+        exactly the active columns, under the same rule, since the
+        compacted view expands its histograms (pad columns are zeros no
+        feature reads, so the trees are the JAX package's)."""
+        if jrandom.bucket_rows(len(cols)) >= self.num_columns:
+            return None
+        idx = torch.from_numpy(np.asarray(cols, np.int64)).to(self.device)
+        td = self.train_data
+        pos = np.zeros(self.num_features, np.int64)
+        pos_of = {int(c): i for i, c in enumerate(cols)}
+        for f in range(self.num_features):
+            pos[f] = pos_of.get(int(self._feature_col[f]), 0)
+        # the EFB tables, or an all-singleton plan's when unbundled
+        base = self._bundle
+        if base is None:
+            base = BundleDecode.from_plan(
+                BundlePlan.identity(self.num_features),
+                self.train_set.mappers, self.config.max_bin, self.device)
+        bundle = base._replace(col=torch.from_numpy(pos).to(self.device))
+        return _HistView(_take(td.bins, 0, idx), _take(td.bins_rm, 1, idx),
+                         bundle)
+
+    def _observe_pending(self) -> None:
+        """Fold the last round's trees into the screener, if it has not
+        seen them yet."""
+        if self._screen_pending is not None:
+            trees, self._screen_pending = self._screen_pending, None
+            self._screener.observe_trees(trees)
+
+    @property
+    def models(self) -> List[Tree]:
+        """The forest, class-major; reading it is where the JAX booster
+        materialises a pending round (``_observe_pending``)."""
+        self._observe_pending()
+        return self._models
+
+    @models.setter
+    def models(self, value: List[Tree]) -> None:
+        self._observe_pending()
+        self._models = value
 
     def _check_memory_budget(self, cfg, train_set) -> None:
         """The histogram-pool half of the JAX admission gate:
@@ -376,7 +551,7 @@ class GBDT:
         memory."""
         policy = resource.check_memory_policy(cfg.memory_policy)
         est = estimate_train_memory(
-            train_set.num_data, train_set.num_features, cfg.num_leaves,
+            train_set.num_data, train_set.num_columns, cfg.num_leaves,
             cfg.max_bin, self.num_class,
             bin_itemsize=train_set.bins.dtype.itemsize,
             leaf_cache=cfg.serial_grow != "fused",
@@ -402,7 +577,7 @@ class GBDT:
             "memory_policy=fail_fast the parameter does NOT bound memory — "
             "lower num_leaves/max_bin, or set memory_policy=degrade to make "
             "the bound real", pool_mb, est["histogram_cache"] / (1 << 20),
-            cfg.num_leaves, train_set.num_features, cfg.max_bin)
+            cfg.num_leaves, train_set.num_columns, cfg.max_bin)
 
     def _apply_degrade(self, step: str, saved_bytes: int,
                        detail: str) -> None:
@@ -413,7 +588,8 @@ class GBDT:
 
     def _make_grow_fn(self):
         """The grower of this booster's kind, as ``fn(grad, hess) ->
-        (TreeArrays, leaf_id, delta)`` over the training data.  Unlike
+        (TreeArrays, leaf_id, delta)`` over the round's histogram view
+        (``_view``) of the training data.  Unlike
         the JAX package, whose leaf-ordered grower packs uint8 bins into
         words and falls back to the cached learner for more than 256
         bins, the port's ordered grower takes uint16 bins too, and its
@@ -423,18 +599,19 @@ class GBDT:
         params = self.grow_params
 
         def grow(grad, hess):
-            td = self.train_data
+            view = self._view
             args = (self.num_bin, self.is_cat, self._feat_mask, grad, hess,
                     self._round_weight, self.shrinkage_rate, params)
             if kind == "ordered":
-                return grow_tree_ordered(td.bins_rm, *args)
+                return grow_tree_ordered(view.bins_rm, *args)
             # fused: each split's pass is K3 (per-feature candidates);
             # nocache: K2 histograms and the split scan; cached: K1 over
             # the smaller child and the exact sibling subtraction
             comm = {"fused": SerialComm(leaf_cache=False, fused_gain=True),
                     "nocache": SerialComm(leaf_cache=False),
                     "cached": SerialComm()}[kind]
-            return grow_tree(td.bins, *args, comm=comm, bins_rm=td.bins_rm)
+            return grow_tree(view.bins, *args, comm=comm,
+                             bins_rm=view.bins_rm, bundle=view.bundle)
         return grow
 
     def _make_metrics(self, dataset) -> list:
@@ -448,10 +625,13 @@ class GBDT:
 
     def add_valid_dataset(self, valid_set) -> None:
         """GBDT::AddValidDataset (gbdt.cpp:169-199): the valid set must
-        share the training mappers (``create_valid``)."""
-        if valid_set.mappers is not self.train_set.mappers and \
-                [m.to_state() for m in valid_set.mappers] != \
-                [m.to_state() for m in self.train_set.mappers]:
+        share the training mappers and bundle plan (``create_valid``)."""
+        pa, pb = self.train_set.bundle_plan, valid_set.bundle_plan
+        if (valid_set.mappers is not self.train_set.mappers and
+                [m.to_state() for m in valid_set.mappers] !=
+                [m.to_state() for m in self.train_set.mappers]) or \
+                (pa is None) != (pb is None) or \
+                (pa is not None and pa.signature() != pb.signature()):
             log.fatal("Cannot add validation data, since it has different "
                       "bin mappers with training data")
         if self._linear is not None and valid_set.raw is None:
@@ -498,7 +678,7 @@ class GBDT:
             _to_device(torch.from_numpy(tree.right_child), dev),
             _to_device(torch.from_numpy(
                 tree.leaf_value.astype(np.float32)), dev),
-            dd.bins, int(tree.num_leaves))
+            dd.bins, int(tree.num_leaves), bundle=self._bundle)
         if tree.has_linear():
             if dd.raw is None:
                 log.fatal("Cannot replay a linear tree on this dataset: "
@@ -526,11 +706,11 @@ class GBDT:
         fitted intercepts, the host (coeff, feat) tables, the train-score
         delta).  One host read brings the intercepts, slopes and fallback
         count back for the model text."""
-        td = self.train_data
+        td, view = self.train_data, self._view
         const, coeff, feat, delta, fb = fit_leaf_models(
-            ta, td.bins, self._is_cat_host, td.raw, grad, hess,
+            ta, view.bins, self._is_cat_host, td.raw, grad, hess,
             self._round_weight, self.shrinkage_rate, self._linear,
-            leaf=leaf_id)
+            leaf=leaf_id, bundle=view.bundle)
         L, K = coeff.shape
         # feature indices and the count are small integers, exact in f32
         host = _read(torch.cat([
@@ -565,16 +745,20 @@ class GBDT:
     def _feature_mask(self) -> torch.Tensor:
         """``feature_fraction`` of the used features for one tree
         (serial_tree_learner.cpp:226+), from the host generator of
-        ``feature_fraction_seed`` as the JAX package draws it."""
+        ``feature_fraction_seed`` as the JAX package draws it, within the
+        screening mask of a screened round."""
         frac = self.config.feature_fraction
+        screen = self._screen_mask
         if frac >= 1.0:
-            return self._full_feat_mask
+            return (self._full_feat_mask if screen is None
+                    else self._full_feat_mask & screen)
         used = max(1, int(self.num_features * frac))
         idx = self._feature_rng.choice(self.num_features, used,
                                        replace=False)
         mask = np.zeros(self.num_features, bool)
         mask[idx] = True
-        return _to_device(torch.from_numpy(mask), self.device)
+        out = _to_device(torch.from_numpy(mask), self.device)
+        return out if screen is None else out & screen
 
     def _gradients(self):
         return self.objective.gradients_with(self._grad_arrays,
@@ -599,6 +783,8 @@ class GBDT:
         growing and the training scores after: a non-finite round is
         rolled back (``_contain_poisoned_iter``)."""
         it = self.iter_
+        # the screening view and mask, before any mask draw reads them
+        self._view = self._select_view()
         guard = self._nan_policy != "none"
         if guard:
             score0 = self.train_data.score.clone()
@@ -656,12 +842,19 @@ class GBDT:
                 del self.tree_arrays[-len(trees):]
             return self._contain_poisoned_iter(it, poisoned, score0,
                                                vscores0)
+        if self._screener is not None:
+            # the realised gains feed the screener's average (a saturated
+            # round's one-leaf trees add nothing but the decay)
+            self._observe_pending()
+            self._screen_pending = trees
+            if not self._screen_observes_late:
+                self._observe_pending()
         if all(t.num_leaves <= 1 for t in trees):
             log.warning("Stopped training because there are no more "
                         "leaves that meet the split requirements.")
             del self.tree_arrays[-self.num_class:]
             return True
-        self.models.extend(trees)
+        self._models.extend(trees)
         self.iter_ += 1
         return False
 
@@ -801,18 +994,22 @@ class GBDT:
         return out
 
     # ------------------------------------------------------------------
-    def feature_importance(self):
-        """Split-count importance (gbdt.cpp:765-789)."""
-        counts = np.zeros(self.max_feature_idx + 1, np.int64)
+    def feature_importance(self, importance_type: str = "split"
+                           ) -> np.ndarray:
+        """Per feature, the number of splits on it (``split``, int64) or
+        the sum of their gains (``gain``, f64), over every tree
+        (gbdt.cpp:765-789)."""
+        counts = np.zeros(self.max_feature_idx + 1, np.float64)
         for tree in self.models:
-            for f in tree.split_feature[:tree.num_leaves - 1]:
-                counts[f] += 1
-        names = self.feature_names
-        pairs = [(names[f] if f < len(names) else f"Column_{f}",
-                  int(counts[f]))
-                 for f in range(len(counts)) if counts[f] > 0]
-        pairs.sort(key=lambda kv: -kv[1])
-        return pairs
+            for i in range(tree.num_leaves - 1):
+                f = tree.split_feature[i]
+                if importance_type == "split":
+                    counts[f] += 1
+                elif importance_type == "gain":
+                    counts[f] += tree.split_gain[i]
+        if importance_type == "split":
+            return counts.astype(np.int64)
+        return counts
 
     def save_model_to_string(self, num_iteration: int = -1) -> str:
         buf = io.StringIO()
@@ -834,7 +1031,13 @@ class GBDT:
             buf.write(self.models[i].to_string())
             buf.write("\n")
         buf.write("\nfeature importances:\n")
-        for name, cnt in self.feature_importance():
+        counts = self.feature_importance()
+        names = self.feature_names
+        pairs = [(names[f] if f < len(names) else f"Column_{f}",
+                  int(counts[f]))
+                 for f in range(len(counts)) if counts[f] > 0]
+        pairs.sort(key=lambda kv: -kv[1])
+        for name, cnt in pairs:
             buf.write(f"{name}={cnt}\n")
         if self._footer_tail.strip():
             buf.write(self._footer_tail)

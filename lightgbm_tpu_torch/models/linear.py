@@ -107,7 +107,7 @@ def fit_leaf_models(tree_arrays, bins: torch.Tensor, is_cat: torch.Tensor,
                     raw: torch.Tensor, grad: torch.Tensor,
                     hess: torch.Tensor, row_weight: torch.Tensor,
                     lr: float, linear: LinearParams,
-                    leaf: Optional[torch.Tensor] = None):
+                    leaf: Optional[torch.Tensor] = None, bundle=None):
     """Fit every leaf's affine model in one batched solve.
 
     ``tree_arrays`` is the grower's ``TreeArrays`` and ``is_cat`` [F]
@@ -116,7 +116,8 @@ def fit_leaf_models(tree_arrays, bins: torch.Tensor, is_cat: torch.Tensor,
     raw values, ``grad``/``hess``/``row_weight`` [N] f32 (the grower's
     inputs, not yet weighted), all on the training device.  ``leaf``
     [N] is each row's leaf; when omitted it comes from re-walking the
-    grown structure over ``bins``, as the JAX package does.
+    grown structure over ``bins``, as the JAX package does (over EFB
+    columns with their ``bundle`` decode tables).
 
     Returns ``(leaf_value [L] f32, coeff [L, K] f32, feat [L, K] int32,
     delta [N] f32, fallback_count 0-dim int64)`` on the training device:
@@ -135,7 +136,7 @@ def fit_leaf_models(tree_arrays, bins: torch.Tensor, is_cat: torch.Tensor,
         _, leaf = predict_binned_tree(
             sf, ta.split_bin.to(dev), is_cat.to(dev)[sf.clamp(min=0)],
             ta.left_child.to(dev), ta.right_child.to(dev), leaf_value,
-            bins, L)
+            bins, L, bundle=bundle)
     leaf = leaf.long()
     feat = path_features(ta, is_cat, K).to(dev)
     vals = gather_leaf_values(raw, feat, leaf)             # [N, K]

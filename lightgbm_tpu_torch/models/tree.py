@@ -3,7 +3,8 @@
 The port's copy of the JAX package's models/tree.py, cut to what loading,
 saving, host prediction, building a tree from a grower's arrays
 (``from_arrays``), replaying a tree on a binned dataset
-(``ensure_inner``) and scaling its outputs (rollback, merge) need.  Leaves are encoded as ``~leaf_index``
+(``ensure_inner``), scaling its outputs (rollback, merge) and the JSON
+dump (``to_json``, ``max_depth``) need.  Leaves are encoded as ``~leaf_index``
 in the child arrays; decision_type 0 is numerical ``value <= threshold``
 and 1 is categorical ``int(value) == int(threshold)``; the ``Tree=``
 text block is the reference layout (tree.cpp:295-338).
@@ -194,6 +195,63 @@ class Tree:
 
     def predict_leaf_index(self, X: np.ndarray) -> np.ndarray:
         return self._walk(X).astype(np.int32)
+
+    def max_depth(self) -> int:
+        """Levels of the deepest leaf (0 for a one-leaf tree)."""
+        if self.num_leaves <= 1:
+            return 0
+        depth = np.zeros(self.num_leaves - 1, dtype=np.int32)
+        best = 1
+        for node in range(self.num_leaves - 1):
+            for child in (self.left_child[node], self.right_child[node]):
+                if child >= 0:
+                    depth[child] = depth[node] + 1
+                    best = max(best, depth[child] + 1)
+                else:
+                    best = max(best, depth[node] + 1)
+        return best
+
+    def to_json(self) -> dict:
+        """Tree::ToJSON structure (tree.cpp:326-366); a linear leaf also
+        lists its ``leaf_features`` and ``leaf_coeff`` (unused slots
+        left out)."""
+        def node_json(index: int):
+            if index >= 0:
+                return {
+                    "split_index": int(index),
+                    "split_feature": int(self.split_feature[index]),
+                    "split_gain": float(self.split_gain[index]),
+                    "threshold": float(self.threshold[index]),
+                    "decision_type": ("no_greater"
+                                      if self.decision_type[index] == 0
+                                      else "is"),
+                    "internal_value": float(self.internal_value[index]),
+                    "internal_count": int(self.internal_count[index]),
+                    "left_child": node_json(int(self.left_child[index])),
+                    "right_child": node_json(int(self.right_child[index])),
+                }
+            leaf = ~index
+            out = {
+                "leaf_index": int(leaf),
+                "leaf_parent": int(self.leaf_parent[leaf]),
+                "leaf_value": float(self.leaf_value[leaf]),
+                "leaf_count": int(self.leaf_count[leaf]),
+            }
+            if self.has_linear():
+                keep = self.leaf_feat[leaf] >= 0
+                out["leaf_features"] = [
+                    int(f) for f in self.leaf_feat[leaf][keep]]
+                out["leaf_coeff"] = [
+                    float(c) for c in self.leaf_coeff[leaf][keep]]
+            return out
+        if self.num_leaves > 1:
+            structure = node_json(0)
+        else:
+            structure = {"leaf_value": float(self.leaf_value[0])
+                         if self.num_leaves else 0.0}
+        return {"num_leaves": int(self.num_leaves),
+                "shrinkage": float(self.shrinkage),
+                "tree_structure": structure}
 
     # ------------------------------------------------------------------
     def to_string(self) -> str:

@@ -24,14 +24,15 @@ never reads them to the host.  Both launches are planned by the pure
 function :func:`launch_plan` (:func:`plan_fused`: one persistent block
 per SM, as many features a block as shared memory holds, a cooperative
 grid no larger than the resident blocks).  Each writes its output whole
-(``torch.empty``); the partials (and K3's reduced histogram) are one
+(``torch.empty``); the partials (f64) and K3's reduced histogram are
 ``torch.empty`` a call from PyTorch's caching allocator
 (stream-ordered, no device work), never zeroed: the kernel writes every
 slot it reads.  Kernel launches are counted in :data:`LAUNCHES`.
 
-Tolerance.  Kernel and plain version both sum f32 values with atomics,
-in an order that changes from run to run, so they agree only up to
-rounding, whose scale is the sum of the absolute values added: histogram
+Tolerance.  The kernel adds in f64 and rounds each entry once; the plain
+version adds f32 values with f32 atomics, in an order that changes from
+run to run.  They agree only up to the plain version's rounding, whose
+scale is the sum of the absolute values added: histogram
 entries and left sums within :data:`HIST_RTOL` of their sums of |g|,
 |h|, |w| plus :data:`HIST_ATOL` (the JAX package's own
 kernel-against-scatter constants; a bin of 4000 rows of gradients that
@@ -43,7 +44,11 @@ differences of two sums over most of the child's rows, and a few ulps of
 those become a large share of the gain (3e-4 of the largest gain at 1M
 rows).  Where two thresholds' gains differ by less than their
 tolerances, the two versions may pick either (a near-tie); features and
-thresholds are otherwise equal.
+thresholds are otherwise equal.  An f32 sum over many rows can drift
+past this tolerance where the values repeat (the second round's
+gradients take two values a first-round leaf) and one entry holds most
+rows (a sparse feature's default bin): the plain version does on the
+card's wide-sparse data, which is why the kernel adds in f64.
 
 Preconditions: every bin code is below ``max_bin`` (the kernel skips
 larger codes, the plain version would index the next feature).
@@ -132,11 +137,11 @@ class FusedPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def fused_feature_group(F: int, max_bin: int) -> int:
-    """K2's and K3's features a block: as many ``[2, B, 3]`` f32
+    """K2's and K3's features a block: as many ``[2, B, 3]`` f64
     histograms as one block's shared memory holds beside the child-row
-    queue (all 28 at 255 bins, 171 KB + 16 KB), spread evenly over the
-    groups."""
-    per = 2 * max_bin * 3 * 4
+    queue (17 at 255 bins: 28 features in two groups of 14, 171 KB +
+    16 KB), spread evenly over the groups."""
+    per = 2 * max_bin * 3 * 8
     room = SMEM_LIMIT - FUSED_QUEUE_BYTES
     if per > room:
         raise LightGBMError(
@@ -159,7 +164,7 @@ def plan_fused(F: int, max_bin: int, sms: int,
     several groups in turn."""
     fg = fused_feature_group(F, max_bin)
     groups = -(-F // fg)
-    per = 2 * max_bin * 3 * 4
+    per = 2 * max_bin * 3 * 8
     if blocks_per_sm < 1 or sms < 1:
         raise LightGBMError(
             f"children histograms: no block of {fg * per} shared bytes "
@@ -177,7 +182,7 @@ def plan_fused(F: int, max_bin: int, sms: int,
 def fused_smem(F: int, max_bin: int) -> int:
     """Shared bytes a block of K2 or K3 takes: its features' histograms
     beside the row queue."""
-    return 2 * max_bin * 3 * 4 * fused_feature_group(F, max_bin) \
+    return 2 * max_bin * 3 * 8 * fused_feature_group(F, max_bin) \
         + FUSED_QUEUE_BYTES
 
 
@@ -320,7 +325,7 @@ def _children_kernel(bins, grad, hess, weight, leaf_id, parent_leaf,
     F, N = bins.shape
     p = _card_plan(bins, max_bin, scan=False)
     partials = torch.empty(p.per_group * 2 * F * max_bin * 3,
-                           dtype=torch.float32, device=dev)
+                           dtype=torch.float64, device=dev)
     (parent_t, parent_p, parent_v), (right_t, right_p, right_v) = (
         _leaf_arg(v, dev) for v in (parent_leaf, right_leaf))
     out = torch.empty((2, F, max_bin, 3), dtype=torch.float32, device=dev)
@@ -390,9 +395,9 @@ def fused_split_candidates(bins, grad, hess, weight, leaf_id, parent_leaf,
             totals, num_bin, is_cat, feat_mask, max_bin, params)
     p = _card_plan(bins, max_bin, scan=True)
     E = 2 * F * max_bin * 3
-    # partials [per_group, 2, F, B, 3], then the reduced [2, F, B, 3]
-    buf = torch.empty((p.per_group + 1) * E, dtype=torch.float32,
-                      device=dev)
+    # f64 partials [per_group, 2, F, B, 3] and the reduced [2, F, B, 3]
+    partials = torch.empty(p.per_group * E, dtype=torch.float64, device=dev)
+    reduced = torch.empty(E, dtype=torch.float32, device=dev)
     (parent_t, parent_p, parent_v), (right_t, right_p, right_v) = (
         _leaf_arg(v, dev) for v in (parent_leaf, right_leaf))
     out = bins.new_empty((2, F, 8), dtype=torch.float32)
@@ -407,8 +412,8 @@ def fused_split_candidates(bins, grad, hess, weight, leaf_id, parent_leaf,
         float(params.lambda_l2), float(params.min_gain_to_split),
         N, F, max_bin, p.fg, p.groups, p.per_group, p.grid, p.tile, p.queue,
         p.smem, _vec_rows(N, bins, grad, hess, weight, leaf_id),
-        buf.data_ptr(),
-        buf.data_ptr() + 4 * p.per_group * E, out.data_ptr(), FUSED_THREADS)
+        partials.data_ptr(), reduced.data_ptr(), out.data_ptr(),
+        FUSED_THREADS)
     del parent_t, right_t          # alive until the launch is enqueued
     if err != 0:
         raise LightGBMError(

@@ -28,6 +28,14 @@ are read with ``index_select`` and written with ``index_copy_`` and
 one read at the end brings the packed ``TreeArrays`` over.  The
 ``cached`` strategy reads the smaller child's row count once per split
 to pick its compaction size class.  :func:`host_syncs` counts the reads.
+
+Over EFB bundled columns (``bundle``, an ``ops.bundle.BundleDecode``)
+``bins`` holds C columns and every histogram pass runs over them: the
+cached strategy builds and caches its digit sums in column space and
+expands them only for the scan (exact integers); ``nocache`` expands
+K2's histograms, and so does ``fused``, which runs the ``nocache`` pass
+there (K3's in-kernel scan cannot expand).  The partition decodes the
+split feature's bins from its column.
 """
 
 from __future__ import annotations
@@ -38,8 +46,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..utils.log import LightGBMError
 from . import leafhist
+from .bundle import decode_feature_bins, expand_digit_sums, expand_histogram
 from .histogram import (children_histograms, children_split_candidates,
                         root_histogram)
 from .split import (BestSplit, FeatureCandidates, SplitParams, K_MIN_SCORE,
@@ -190,6 +198,14 @@ class SerialComm(NamedTuple):
     never leaves the kernel's scratch.  Ignored with the cache on, which
     needs the histograms themselves for the subtraction.
 
+    With a ``bundle`` the cache holds column-space sums ``[L, C, 9, B]``
+    (the histogram saving lives there) and each scan expands the two
+    children's sums to the original features; the full-pass strategies
+    expand K2's histograms, ``fused_gain`` running the ``leaf_cache=False``
+    pass: K3's scan cannot expand, and the JAX package's half-fused pass
+    there (K2, the expansion, ``per_feature_candidates``) chooses the
+    splits ``find_best_split`` chooses.
+
     The JAX version's ``traffic_per_tree`` (collective accounting of the
     distributed learners) is not ported."""
     leaf_cache: bool = True
@@ -209,11 +225,11 @@ class SerialComm(NamedTuple):
 
     def root_split(self, prep, bins, g, h, w, root_g, root_h, root_c,
                    num_bin, is_cat, feat_mask, max_bin: int,
-                   sp: SplitParams, num_leaves: int):
+                   sp: SplitParams, num_leaves: int, bundle=None):
         dev = bins.device
         true = torch.ones((), dtype=torch.bool, device=dev)
         if not self.leaf_cache:
-            if self.fused_gain:
+            if self.fused_gain and bundle is None:
                 # all rows in the "left" child; the right child's totals
                 # are zero and its candidates are discarded
                 totals = torch.stack([
@@ -227,11 +243,15 @@ class SerialComm(NamedTuple):
                 return combine_feature_candidates(
                     _first(cand), root_g, root_h, true, sp), None
             hist = root_histogram(bins, g, h, w, max_bin)
+            if bundle is not None:
+                hist = expand_histogram(hist, bundle)
             return find_best_split(hist, root_g, root_h, root_c, num_bin,
                                    is_cat, feat_mask, true, sp), None
         F = bins.shape[0]
         sums = leafhist.digit_histogram(prep.bins_rm, prep.digits, max_bin)
-        hist = leafhist.combine_digit_sums(sums, prep.scales)
+        scan_sums = (sums if bundle is None
+                     else expand_digit_sums(sums, bundle))
+        hist = leafhist.combine_digit_sums(scan_sums, prep.scales)
         split = find_best_split(hist, root_g, root_h, root_c, num_bin,
                                 is_cat, feat_mask, true, sp)
         cache = torch.zeros((num_leaves, F, leafhist.NUM_STREAMS, max_bin),
@@ -241,9 +261,10 @@ class SerialComm(NamedTuple):
 
     def children_splits(self, prep, cache, bins, g, h, w, step: _StepInfo,
                         totals_g, totals_h, totals_c, can, num_bin, is_cat,
-                        feat_mask, max_bin: int, sp: SplitParams):
+                        feat_mask, max_bin: int, sp: SplitParams,
+                        bundle=None):
         if not self.leaf_cache:
-            if self.fused_gain:
+            if self.fused_gain and bundle is None:
                 totals = torch.stack([totals_g, totals_h, totals_c], dim=-1)
                 cand = children_split_candidates(
                     bins, g, h, w, step.leaf_id, step.parent_leaf,
@@ -254,6 +275,8 @@ class SerialComm(NamedTuple):
             hists = children_histograms(bins, g, h, w, step.leaf_id,
                                         step.parent_leaf, step.right_leaf,
                                         max_bin)
+            if bundle is not None:
+                hists = expand_histogram(hists, bundle)
             return find_best_split(hists, totals_g, totals_h, totals_c,
                                    num_bin, is_cat, feat_mask, can,
                                    sp), cache
@@ -278,6 +301,8 @@ class SerialComm(NamedTuple):
         both = torch.stack([sums_left, sums_right])
         # in place: the cache is this tree's alone
         cache.index_copy_(0, pair, torch.where(step.do_split, both, cur))
+        if bundle is not None:
+            both = expand_digit_sums(both, bundle)
         hists = leafhist.combine_digit_sums(both, prep.scales)
         return find_best_split(hists, totals_g, totals_h, totals_c, num_bin,
                                is_cat, feat_mask, can, sp), cache
@@ -330,8 +355,12 @@ def _store_leaf_split(state: _GrowState, leaf: torch.Tensor,
     state.leaf_i[:, :2].index_copy_(0, leaf, i)
 
 
-def _feature_bins(bins: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
-    """Row ``feat`` (0-dim) of ``bins`` [F, N] as int32 [N]."""
+def _feature_bins(bins: torch.Tensor, feat: torch.Tensor,
+                  bundle=None) -> torch.Tensor:
+    """Feature ``feat`` (0-dim) of ``bins`` as int32 [N]: its row of
+    ``bins`` [F, N], or decoded from its column under a ``bundle``."""
+    if bundle is not None:
+        return decode_feature_bins(bins, feat, bundle).to(torch.int32)
     if bins.dtype == torch.uint16:
         row = bins.view(torch.int16).index_select(0, feat.reshape(1))[0]
         return row.to(torch.int32) & 0xFFFF
@@ -351,18 +380,17 @@ def grow_tree(bins: torch.Tensor, num_bin: torch.Tensor,
     gradients and hessians, ``row_weight`` [N] f32 (it also scales
     grad/hess); ``comm`` the strategy (``SerialComm()`` by default);
     ``bins_rm`` an optional [N, F] row-major copy of ``bins`` for the
-    cached strategy (transposed from ``bins`` when omitted).  EFB
-    ``bundle`` layouts are not ported.
+    cached strategy (transposed from ``bins`` when omitted); ``bundle``
+    an optional ``ops.bundle.BundleDecode`` when ``bins`` are EFB
+    columns [C, N] (``num_bin``, ``is_cat`` and ``feat_mask`` stay in
+    original feature space).
 
     Returns (TreeArrays on the host CPU, leaf_id [N] int32 and
     output_delta [N] f32 on the device), where output_delta is each
     row's shrunk leaf value (the train-score update)."""
-    if bundle is not None:
-        raise LightGBMError("not ported yet to the torch package: grow_tree "
-                            "over EFB bundled columns")
     comm = SerialComm() if comm is None else comm
     L, B = params.num_leaves, params.max_bin
-    F, N = bins.shape
+    N = bins.shape[1]
     dev = bins.device
     sp = params.split_params()
 
@@ -374,7 +402,8 @@ def grow_tree(bins: torch.Tensor, num_bin: torch.Tensor,
     prep = comm.prepare(bins, bins_rm, g, h, row_weight, params)
     root_split, cache = comm.root_split(prep, bins, g, h, row_weight,
                                         root_g, root_h, root_c, num_bin,
-                                        is_cat, feat_mask, B, sp, L)
+                                        is_cat, feat_mask, B, sp, L,
+                                        bundle=bundle)
 
     leaf_f = torch.zeros((L, 8), dtype=torch.float32, device=dev)
     leaf_f[:, _BEST_GAIN] = K_MIN_SCORE
@@ -396,7 +425,7 @@ def grow_tree(bins: torch.Tensor, num_bin: torch.Tensor,
     for k in range(L - 1):
         state, cache = _step(k, state, cache, comm, prep, bins, g, h,
                              row_weight, num_bin, is_cat, feat_mask, params,
-                             sp)
+                             sp, bundle)
 
     shrunk = state.leaf_f[:, _CUR_VALUE] * learning_rate
     tree = TreeArrays(
@@ -424,7 +453,7 @@ def grow_tree(bins: torch.Tensor, num_bin: torch.Tensor,
 
 def _step(k: int, state: _GrowState, cache, comm: SerialComm, prep, bins,
           g, h, w, num_bin, is_cat, feat_mask, params: GrowParams,
-          sp: SplitParams):
+          sp: SplitParams, bundle=None):
     """Split step ``k`` (it creates internal node ``k`` when it splits)."""
     dev = bins.device
     # best leaf by gain; ties -> the smallest leaf index, like
@@ -440,7 +469,7 @@ def _step(k: int, state: _GrowState, cache, comm: SerialComm, prep, bins,
     # partition: rows of best_leaf with bin > t (numerical) or bin != t
     # (categorical) move to the right child
     feat_c = feat.clamp(min=0)
-    fbin = _feature_bins(bins, feat_c)
+    fbin = _feature_bins(bins, feat_c, bundle)
     cat_f = is_cat.index_select(0, feat_c.reshape(1))[0]
     go_right = torch.where(cat_f, fbin != tbin, fbin > tbin)
     in_leaf = state.leaf_id == best_leaf
@@ -483,7 +512,8 @@ def _step(k: int, state: _GrowState, cache, comm: SerialComm, prep, bins,
                      right_leaf=right_leaf, do_split=do_split)
     child, cache = comm.children_splits(
         prep, cache, bins, g, h, w, info, totals[:, 0], totals[:, 1],
-        totals[:, 2], can, num_bin, is_cat, feat_mask, params.max_bin, sp)
+        totals[:, 2], can, num_bin, is_cat, feat_mask, params.max_bin, sp,
+        bundle=bundle)
 
     # the split leaf (left child) and the new leaf (right child): split
     # records, totals, value, parent node and depth; nothing changes

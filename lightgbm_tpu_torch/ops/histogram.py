@@ -13,15 +13,17 @@ The dispatchers take the device of the tensors they are given: on a
 CUDA tensor they launch the hand-written kernels of
 ``csrc/children_hist.cu`` through ``ops/children_hist.py`` (K2 for the
 histograms, K3 for the fused histogram -> per-feature split candidates
-pass), on a CPU tensor they run the plain versions.  EFB column layouts
-(``bundle``) are not ported.
+pass), on a CPU tensor they run the plain versions.  Over EFB bundled columns
+the grower calls :func:`children_histograms` and expands its output
+(``ops/bundle.py``); K3 is not launched there, since its in-kernel scan
+cannot expand.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..utils.log import LightGBMError
+from .bundle import int_bins
 from .split import FeatureCandidates, SplitParams, per_feature_candidates
 
 
@@ -50,16 +52,12 @@ def root_histogram(bins, grad, hess, weight, max_bin: int) -> torch.Tensor:
 def children_split_candidates(bins, grad, hess, weight, leaf_id,
                               parent_leaf, right_leaf, totals, num_bin,
                               is_cat, feat_mask, max_bin: int,
-                              params: SplitParams,
-                              bundle=None) -> FeatureCandidates:
+                              params: SplitParams) -> FeatureCandidates:
     """Per-child ``FeatureCandidates`` ([2, F] fields) of the fused
     histogram -> split-gain pass: K3 on a CUDA tensor (the [2, F, B, 3]
     histogram lives only in the kernel's L2-resident scratch), the plain
     histogram plus ``per_feature_candidates`` on the CPU.  ``totals`` is
     [2, 3] f32: (g, h, count) of the left and right child."""
-    if bundle is not None:
-        raise LightGBMError("not ported yet to the torch package: EFB "
-                            "bundled histograms")
     if bins.device.type == "cuda":
         from . import children_hist
         raw = children_hist.fused_split_candidates(
@@ -73,14 +71,6 @@ def children_split_candidates(bins, grad, hess, weight, leaf_id,
     return per_feature_candidates(hists, totals[:, 0], totals[:, 1],
                                   totals[:, 2], num_bin, is_cat, feat_mask,
                                   params)
-
-
-def _int_bins(bins: torch.Tensor) -> torch.Tensor:
-    """Bin codes as int64 (uint16 through an int16 view: torch's uint16
-    support is partial)."""
-    if bins.dtype == torch.uint16:
-        return bins.view(torch.int16).to(torch.int64) & 0xFFFF
-    return bins.to(torch.int64)
 
 
 def histogram_scatter(bins, seg, num_seg: int, grad, hess,
@@ -115,7 +105,7 @@ def build_children_histograms(bins, grad, hess, weight, leaf_id,
     in_leaf = is_left | is_right
     child = is_right.to(torch.int64)                           # [N]
     feat = torch.arange(F, dtype=torch.int64, device=bins.device)[:, None]
-    seg = child[None, :] * (F * B) + feat * B + _int_bins(bins)
+    seg = child[None, :] * (F * B) + feat * B + int_bins(bins)
     seg = torch.where(in_leaf[None, :], seg,
                       torch.full_like(seg, 2 * F * B))        # dump slot
     flat = histogram_scatter(bins, seg, 2 * F * B, grad, hess, weight)
@@ -128,6 +118,6 @@ def build_root_histogram(bins, grad, hess, weight,
     F, N = bins.shape
     B = max_bin
     feat = torch.arange(F, dtype=torch.int64, device=bins.device)[:, None]
-    seg = feat * B + _int_bins(bins)
+    seg = feat * B + int_bins(bins)
     flat = histogram_scatter(bins, seg, F * B, grad, hess, weight)
     return flat.reshape(F, B, 3)

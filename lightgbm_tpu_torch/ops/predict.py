@@ -19,17 +19,22 @@ from typing import Tuple
 
 import torch
 
+from .bundle import decode_feature_bins
+
 
 def predict_binned_tree(split_feature, split_bin, is_cat_node, left_child,
                         right_child, leaf_value, bins: torch.Tensor,
-                        max_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                        max_steps: int, bundle=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One tree on binned rows.
 
     ``split_feature``/``split_bin``/``left_child``/``right_child`` [M]
     int, ``is_cat_node`` [M] bool, ``leaf_value`` [L] f32, ``bins``
-    [F, N] integer bin codes.  ``max_steps`` bounds the walk
-    (num_leaves always suffices).  Returns ([N] f32 leaf values, [N]
-    int64 leaf indices)."""
+    [F, N] integer bin codes, or EFB columns [C, N] with their
+    ``bundle`` (``ops.bundle.BundleDecode``): the splits stay in original
+    feature space and each level decodes the split feature's column.
+    ``max_steps`` bounds the walk (num_leaves always suffices).  Returns
+    ([N] f32 leaf values, [N] int64 leaf indices)."""
     N = bins.shape[1]
     dev = bins.device
     node = torch.zeros(N, dtype=torch.int64, device=dev)
@@ -44,7 +49,10 @@ def predict_binned_tree(split_feature, split_bin, is_cat_node, left_child,
             if not bool(live.any()):
                 break
             idx = node.clamp(min=0)
-            fbin = b64.gather(0, sf[idx].unsqueeze(0))[0]
+            if bundle is not None:
+                fbin = decode_feature_bins(b64, sf[idx], bundle)
+            else:
+                fbin = b64.gather(0, sf[idx].unsqueeze(0))[0]
             tbin = sb[idx]
             go_left = torch.where(is_cat_node[idx], fbin == tbin,
                                   fbin <= tbin)

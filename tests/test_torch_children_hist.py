@@ -24,6 +24,8 @@ JAX package's own tests run them on the CPU, in interpret mode.
     card.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -40,6 +42,8 @@ from lightgbm_tpu.ops.split import (FeatureCandidates as JaxCandidates,
 from lightgbm_tpu_torch import LightGBMError
 from lightgbm_tpu_torch.ops import children_hist as ch
 from lightgbm_tpu_torch.ops import histogram as th
+from lightgbm_tpu_torch.ops.bundle import (decode_feature_bins,
+                                           expand_histogram)
 from lightgbm_tpu_torch.ops.split import (SplitParams,
                                           combine_feature_candidates,
                                           per_feature_candidates)
@@ -255,11 +259,31 @@ def test_dispatchers_run_plain_on_cpu_without_launches():
                                  totals[:, 2], nb, cat, fm, sp)
     for a, b in zip(cand, ref):
         assert torch.equal(a, b)
+    # EFB columns: the dispatcher's column histograms, expanded, are the
+    # histograms of each feature's bins decoded from its column (the
+    # default bin rebuilt as total - other bins: f32 in another order)
+    dec = _pair_bundle()
+    cols = th.children_histograms(bins, g, h, w, leaf, 1, 2, 16)
+    decoded = torch.stack([decode_feature_bins(bins, torch.tensor(f), dec)
+                           for f in range(6)]).to(torch.uint8)
+    direct = th.build_children_histograms(decoded, g, h, w, leaf, 1, 2, 16)
+    torch.testing.assert_close(expand_histogram(cols, dec), direct,
+                               rtol=0, atol=1e-4)
     assert ch.launch_counts() == {"children_histograms": 0,
                                   "fused_split_candidates": 0}
-    with pytest.raises(LightGBMError, match="EFB"):
-        th.children_split_candidates(bins, g, h, w, leaf, 1, 2, totals, nb,
-                                     cat, fm, 16, sp, bundle=object())
+
+
+def _pair_bundle():
+    """Decode tables of 6 features in the 4 columns of ``_rows``: features
+    0 and 1 share column 0 (offsets 1 and 8), 4 and 5 column 3, and 2
+    and 3 have columns 1 and 2 to themselves."""
+    from lightgbm_tpu_torch.io.bundling import BundlePlan
+    from lightgbm_tpu_torch.ops.bundle import BundleDecode
+    plan = BundlePlan([[0, 1], [2], [3], [4, 5]],
+                      [[1, 8], [0], [0], [1, 8]], 6)
+    mappers = [types.SimpleNamespace(num_bin=8 if f in (0, 1, 4, 5) else 16,
+                                     default_bin=0) for f in range(6)]
+    return BundleDecode.from_plan(plan, mappers, 16, torch.device("cpu"))
 
 
 def test_wrappers_check_their_inputs():
@@ -293,7 +317,7 @@ def test_k2_launch_plan_is_k3s_and_refuses_what_cannot_fit():
         assert p == ch.plan_fused(F, B, 132, 1)
         assert seen == [p.smem] and p.smem <= ch.SMEM_LIMIT
     assert ch.launch_plan(28, 255, lambda smem: (1, 132)).grid == 132
-    too_wide = (ch.SMEM_LIMIT - ch.FUSED_QUEUE_BYTES) // 24 + 1
+    too_wide = (ch.SMEM_LIMIT - ch.FUSED_QUEUE_BYTES) // 48 + 1
     with pytest.raises(LightGBMError, match="shared memory"):
         ch.launch_plan(4, too_wide, lambda smem: (1, 132))
     with pytest.raises(LightGBMError, match="resident"):

@@ -22,6 +22,8 @@ tolerance of the JAX package's own ordered-against-cached test
 by the two growers, so bit identity is not expected.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -32,7 +34,6 @@ from lightgbm_tpu.ops.grow import GrowParams as JaxGrowParams
 from lightgbm_tpu.ops.grow import SerialComm as JaxSerialComm
 from lightgbm_tpu.ops.grow import grow_tree as jax_grow_tree
 
-from lightgbm_tpu_torch import LightGBMError
 from lightgbm_tpu_torch.ops import grow, leafhist
 from lightgbm_tpu_torch.ops.grow import GrowParams, SerialComm, grow_tree
 from lightgbm_tpu_torch.ops.ordered_grow import grow_tree_ordered
@@ -180,8 +181,18 @@ def test_strategies_agree_and_bins_rm_is_optional():
     # the full-pass strategies scan the same f32 histograms
     for a, b in zip(trees["nocache"][0], trees["fused"][0]):
         assert torch.equal(a, b)
-    with pytest.raises(LightGBMError, match="EFB"):
-        grow_tree(*args, params, bundle=object())
+    # one feature a column, through the EFB decode: the same trees
+    from lightgbm_tpu_torch.io.bundling import BundlePlan
+    from lightgbm_tpu_torch.ops.bundle import BundleDecode
+    mappers = [types.SimpleNamespace(num_bin=int(nb), default_bin=0)
+               for nb in data[1]]
+    dec = BundleDecode.from_plan(BundlePlan.identity(len(mappers)), mappers,
+                                 params.max_bin, torch.device("cpu"))
+    bundled = grow_tree(*args, params, SerialComm(), bundle=dec)
+    for field in EXACT + CLOSE:
+        assert torch.equal(getattr(bundled[0], field),
+                           getattr(trees["cached"][0], field)), field
+    assert torch.equal(bundled[1], trees["cached"][1])
 
 
 def test_leaf_histogram_matches_jax():

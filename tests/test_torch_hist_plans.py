@@ -32,7 +32,7 @@ SMEM_LIMIT = 232448
 # widest bins one feature's histogram still fits a block at: K1 [9, B]
 # int32, K3 [2, B, 3] f32
 K1_MAX_BIN = SMEM_LIMIT // (9 * 4)
-K3_MAX_BIN = (SMEM_LIMIT - ch.FUSED_QUEUE_BYTES) // (2 * 3 * 4)
+K3_MAX_BIN = (SMEM_LIMIT - ch.FUSED_QUEUE_BYTES) // (2 * 3 * 8)
 
 
 def _tiles(ranges, lo, hi):
@@ -95,7 +95,7 @@ def test_k3_plan(N, F, B, bin_bytes, sms, blocks_per_sm):
     if bin_bytes == 1:
         B = min(B, 256)
     p = ch.plan_fused(F, B, sms, blocks_per_sm)
-    assert p.smem == p.fg * 2 * B * 3 * 4 + p.queue * 16 + 16 <= SMEM_LIMIT
+    assert p.smem == p.fg * 2 * B * 3 * 8 + p.queue * 16 + 16 <= SMEM_LIMIT
     assert p.tile == ch.FUSED_THREADS * 4 and p.queue >= 1
     assert p.groups == -(-F // p.fg) and (p.groups - 1) * p.fg < F
     # one block a SM at most, never more than can be resident
@@ -117,14 +117,14 @@ def test_k3_plan(N, F, B, bin_bytes, sms, blocks_per_sm):
 
 
 def test_k3_plan_at_the_training_shapes():
-    # F = 28 at 255 bins: every feature in one block's 171 KB, one block a
-    # SM of an H100 beside the 16 KB row queue; uint16 at 1000 bins: 4
-    # groups of 8 features
+    # F = 28 at 255 bins: two groups of 14 features, each block's f64
+    # histograms 171 KB, one block a SM of an H100 beside the 16 KB row
+    # queue; uint16 at 1000 bins: 8 groups of 4 features
     p = ch.plan_fused(28, 255, 132, 1)
-    assert (p.fg, p.groups, p.per_group, p.grid) == (28, 1, 132, 132)
+    assert (p.fg, p.groups, p.per_group, p.grid) == (14, 2, 66, 132)
     assert p.smem == 171360 + 16384 + 16
     p = ch.plan_fused(30, 1000, 132, 1)
-    assert (p.fg, p.groups, p.per_group, p.grid) == (8, 4, 33, 132)
+    assert (p.fg, p.groups, p.per_group, p.grid) == (4, 8, 16, 128)
     with pytest.raises(LightGBMError, match="resident"):
         ch.plan_fused(28, 255, 132, 0)
     with pytest.raises(LightGBMError, match="shared memory"):

@@ -249,14 +249,21 @@ def test_bundling_is_refused_not_ignored():
     params = {**PARAMS, "min_data_in_leaf": 5}
     assert JaxBinned.from_matrix(X, y, max_bin=63, min_data_in_leaf=5,
                                  enable_bundle=True).bundle_plan is not None
-    with pytest.raises(lt.LightGBMError, match="bundling.*not ported"):
-        lt.train(params, lt.Dataset(X, y), 2, device="cpu")
+    # bundled by default, as in the JAX package, and trained, not refused
+    on = lt.train(params, lt.Dataset(X, y), 2, device="cpu",
+                  verbose_eval=False)
+    assert on._booster.train_set.bundle_plan is not None
     off = {**params, "enable_bundle": False}
     bt = lt.train(off, lt.Dataset(X, y), 2, device="cpu", verbose_eval=False)
-    bj = lgb.train(off, lgb.Dataset(X, y), 2, verbose_eval=False)
-    for a, b in zip(bj._booster.models, bt._booster.models):
+    bj = lgb.train(params, lgb.Dataset(X, y), 2, verbose_eval=False)
+    assert len(bj._booster.models) == len(on._booster.models) == 2
+    for a, b, c in zip(bj._booster.models, bt._booster.models,
+                       on._booster.models):
         np.testing.assert_array_equal(b.split_feature,
                                       a.split_feature[:a.num_leaves - 1])
+        np.testing.assert_array_equal(c.split_feature, b.split_feature)
+    # zero-conflict bundling changes nothing (the cached grower)
+    assert on.model_to_string() == bt.model_to_string()
 
 
 # ---------------------------------------------------------------------------
@@ -301,6 +308,21 @@ def test_train_without_device_raises_here(monkeypatch):
 ])
 def test_unported_training_settings_raise(extra, what):
     X, y = make_higgs_like(200, seed=4)
+    if what == "feature_screen_ratio":
+        # ported since: the screened run trains the JAX package's trees
+        # (on 1500 rows: at 200, round 3 meets an f32 near-tie of gains,
+        # 6.6073189 against 6.6073151, unscreened too)
+        X, y = make_higgs_like(1500, seed=4)
+        params = {**PARAMS, **extra, "feature_screen_warmup": 2,
+                  "feature_screen_refresh": 2}
+        bt = lt.train(params, lt.Dataset(X, y), 6, device="cpu",
+                      verbose_eval=False)
+        bj = lgb.train(params, lgb.Dataset(X, y), 6, verbose_eval=False)
+        assert bt._booster._screener is not None
+        for a, b in zip(bj._booster.models, bt._booster.models):
+            np.testing.assert_array_equal(
+                b.split_feature, a.split_feature[:a.num_leaves - 1])
+        return
     with pytest.raises(lt.LightGBMError, match="not ported yet") as exc:
         lt.train({**PARAMS, **extra}, lt.Dataset(X, y), 1, device="cpu")
     assert what in str(exc.value)
