@@ -85,6 +85,33 @@ probes' own lines); any failure raises and exits non-zero.
    the pin, must stay float32 with one ``forest_quantize_fallback``.
    Counters set to 0 before and read after; every linear and bf16
    variant must have launched.
+   ``fleet``: the serving fleet over K4, the Higgs forest with a
+   training fingerprint (``fingerprinted``: 50k rows of its own grid)
+   and a second Higgs forest from ``--seed + 1``, both through
+   ``serve_from_config`` on port 0 with a canary slot at 0.25,
+   ``lifecycle_window_s=3``, ``lifecycle_min_samples=50``,
+   ``serve_shadow=0.5``, ``drift=on`` and a state file.  Four clients
+   send 1, 64 and 4096 rows while ``POST /reload`` swaps the second
+   forest in: no request fails, each response equals the plain walk of
+   the generation it names (<= 1e-6), the old generation's batchers
+   close; the reload's build, warm, swap and drain seconds and the p99
+   of the requests in flight across it.  The first forest as the canary:
+   every fourth request while it is live is the canary's,
+   ``/metrics`` parsed by ``prom.parse_text`` carries its
+   ``serve_latency_seconds{model="canary"}``, and the controller
+   promotes it.  The second as the canary again, skewed by
+   ``skew_predictions`` and fed labels through ``/feedback``: rolled back
+   for its quality, no request failed, shadow batches counted.  Drift:
+   2048 rows of the training distribution, then 2048 with one feature
+   shifted 3 sigma: each window's PSI per feature equal to a host
+   recomputation over the rows sent, the shifted feature first.  A
+   restart with the state file serves the promoted forest, not
+   ``input_model``.  ``serve_queue_depth=2`` under ``slow_replica``: 429
+   with ``Retry-After``, the admitted p99 bounded.  ``wedge_replica`` on
+   the lone replica: ejected, 503 at once, re-admitted on probation by
+   the probe, healthy after three clean requests.  ``serve_walk=gather``
+   against K4's answers, both timed at B = 1, 256 and 4096.  K4 launches
+   counted over the phase.
 4. ``train``: the training path at full width: the bench operating point
    (binary, ``make_higgs_like(1000000)`` from ``--seed``, 28 features,
    ``num_leaves=63``, ``max_bin=255``, ``learning_rate=0.1``,
@@ -116,6 +143,9 @@ probes' own lines); any failure raises and exits non-zero.
    part (1e-5), AUC rising, and the fit's share of a round.  Every run
    also counts its histogram kernel's launches by the power-of-two
    class of the rows each scans (``train_windows``: printed only).
+   ``train_delta``: the ordered run's model continued 5 rounds on
+   100k fresh rows with feature 0 shifted 2 sigma: one skew warning
+   counted, the fresh fingerprint carried, K1 launched.
    ``examples``: each of the repo's four example confs
    (``examples/{binary_classification,regression,multiclass_classification,
    lambdarank}/train.conf``) through ``lightgbm_tpu_torch.cli.main`` in a
@@ -1370,7 +1400,7 @@ def _post_rows(base: str, rows: np.ndarray):
 
 def phase_serve(seed, dev, higgs_model, higgs_grid, workdir, errs):
     """The main path; returns the launch counts it made."""
-    from lightgbm_tpu_torch import Booster
+    from lightgbm_tpu_torch import Booster, obs
     from lightgbm_tpu_torch.config import Config, parse_cli_args
     from lightgbm_tpu_torch.ops import forest_walk as fw
     from lightgbm_tpu_torch.serve.server import serve_from_config
@@ -1384,6 +1414,7 @@ def phase_serve(seed, dev, higgs_model, higgs_grid, workdir, errs):
     Xb = random_rows(rng, 2000, higgs_grid, tie_frac=0.02)
 
     fw.reset_launch_counts()
+    obs.reset()
     t0 = time.perf_counter()
     cfg = Config(parse_cli_args([
         "task=serve", f"input_model={path}", "serve_port=0",
@@ -1428,7 +1459,9 @@ def phase_serve(seed, dev, higgs_model, higgs_grid, workdir, errs):
               "the constant f32 forest launched another walk variant")
     finally:
         srv.stop()
-    check(not srv.batcher._worker.is_alive(), "batcher worker still alive")
+    check(not any(rep.batcher._worker.is_alive()
+                  for rep in srv.fleet._primary.replicas),
+          "batcher worker still alive")
     try:
         urllib.request.urlopen(base + "/healthz", timeout=2)
         closed = False
@@ -1452,15 +1485,17 @@ def phase_serve(seed, dev, higgs_model, higgs_grid, workdir, errs):
     host = booster._booster.predict_raw(Xb)[0]
     d_host = float(np.abs(pred - host).max())
     check(d_host <= 1e-5, f"Booster.predict vs f64 host walk: {d_host}")
-    check(stats["requests"] == SERVE_CLIENTS * len(SERVE_SIZES) + SOLO,
-          f"/stats requests {stats['requests']}")
-    check(1 <= stats["batches"] <= stats["requests"],
-          f"/stats batches {stats['batches']} > requests")
+    counters = stats["counters"]
+    check(counters["serve_requests"] == SERVE_CLIENTS * len(SERVE_SIZES)
+          + SOLO, f"/stats requests {counters['serve_requests']}")
+    check(1 <= counters["serve_batches"] <= counters["serve_requests"],
+          f"/stats batches {counters['serve_batches']} > requests")
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched on the main path: {launches}")
     emit({"phase": "serve", "model": {**HIGGS, "seed": seed},
-          "startup_s": startup_s, "requests": stats["requests"],
-          "batches": stats["batches"], "rows": stats["rows"],
+          "startup_s": startup_s, "requests": counters["serve_requests"],
+          "batches": counters["serve_batches"],
+          "rows": counters["serve_rows"],
           "launches": launches,
           "latency_ms_median": {str(n): float(np.median(v))
                                 for n, v in lat.items()},
@@ -1569,6 +1604,7 @@ def phase_serve_linear(seed, dev, lin_model, lin_grid, higgs_model,
         qsrv = serve_from_config(serve_config(paths[name],
                                               "serve_quantize_leaves=true"))
         fell = log.counter("forest_quantize_fallback") - fell
+        qsrv.stop()
         qf = qsrv.forest
         dtype = qf.info()["leaf_dtype"]
         check(dtype == ("float32" if name == "linear" else "bfloat16")
@@ -1603,6 +1639,582 @@ def phase_serve_linear(seed, dev, lin_model, lin_grid, higgs_model,
                                              "leaf_dtype", "bin_dtype",
                                              "num_features")}})
     return launches
+
+
+FLEET_SHIFT = 3.0                    # the drift step's shift, in sigmas
+FLEET_DRIFT_FEATURE = 5
+FLEET_SPLIT = 200                    # sequential requests of the split
+FLEET_LABELLED = 400                 # labelled requests of the rollback
+GATHER_SIZES = (1, 256, 4096)
+DELTA_ROWS = 100_000
+
+
+def fingerprinted(g, grid, seed):
+    """``g`` carrying a training fingerprint of ``random_rows`` from its
+    own grid (the rows the drift step calls in-distribution)."""
+    from lightgbm_tpu_torch.io.dataset import BinnedDataset
+    X = random_rows(np.random.RandomState(seed), 50_000, grid)
+    g.data_fingerprint = BinnedDataset.from_matrix(
+        X, None, max_bin=255).data_fingerprint
+    return g
+
+
+def _request(base, path, payload, timeout=120):
+    """(status, json body, headers, ms) of one POST; errors included."""
+    req = urllib.request.Request(base + path,
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type":
+                                          "application/json"})
+    t0 = time.perf_counter()
+    try:
+        resp = urllib.request.urlopen(req, timeout=timeout)
+        body, code, headers = json.loads(resp.read()), resp.status, \
+            resp.headers
+    except urllib.error.HTTPError as err:
+        body, code, headers = json.loads(err.read() or b"{}"), err.code, \
+            err.headers
+    return code, body, headers, (time.perf_counter() - t0) * 1e3
+
+
+def _plain_answers(cf, X):
+    """[N] f64 answers of ``cf``'s plain walk on the card (the serving
+    path's f32 binning)."""
+    from lightgbm_tpu_torch.ops.forest_walk import forest_walk_raw_plain
+    raw = forest_walk_raw_plain(cf.walk_tables, *cf.cut_tables(),
+                                cf.device_rows(np.asarray(X, np.float32)))
+    return cf.transform_scores(raw)[0].double().cpu().numpy()
+
+
+def _until(cond, timeout_s):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(0.02)
+    return cond()
+
+
+def _progress(step, t0):
+    """One stderr line a step of a long phase (where a slow run is)."""
+    print(f"fleet: {step} done at {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr, flush=True)
+
+
+def _p99(ms):
+    return float(np.percentile(ms, 99)) if ms else None
+
+
+# a client process of the reload step: posts its rows (1, 64 and 4096 of
+# them in turn, from its own offset) until the stop file appears, then
+# writes (size index, generation, start time, ms, answers) per response
+FLEET_CLIENT = r"""
+import json, os, sys, time, urllib.error, urllib.request
+import numpy as np
+base, rows_path, stop, out, c = sys.argv[1:6]
+plans = np.load(rows_path)
+plans = [plans[f"p{j}"] for j in range(len(plans.files))]
+got, failed, i = [], [], 0
+while not os.path.exists(stop) or i < len(plans):
+    j = (int(c) + i) % len(plans)
+    req = urllib.request.Request(
+        base + "/predict", data=json.dumps({"rows": plans[j].tolist()})
+        .encode(), headers={"Content-Type": "application/json"})
+    t0 = time.time()
+    try:
+        body = json.loads(urllib.request.urlopen(req, timeout=300).read())
+        got.append([j, body["generation"], t0, (time.time() - t0) * 1e3,
+                    body["predictions"]])
+    except urllib.error.HTTPError as err:
+        failed.append([j, err.code])
+    i += 1
+with open(out, "w") as fh:
+    json.dump({"got": got, "failed": failed}, fh)
+"""
+
+
+def fleet_reload(seed, base, srv, grid, path_b, workdir):
+    """Four client processes send 1, 64 and 4096 rows in turn while
+    ``POST /reload`` swaps ``path_b`` in (processes, so that the clients'
+    JSON work does not share the server's interpreter); every response
+    against the plain walk of the generation it names.  Returns the
+    phase line's reload part and the two generations' forests."""
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.serve.forest import CompiledForest
+    rng = np.random.RandomState(seed + 80)
+    plans = [random_rows(rng, n, grid, tie_frac=0.02) for n in SERVE_SIZES]
+    rows_path = f"{workdir}/reload_rows.npz"
+    np.savez(rows_path, **{f"p{j}": p for j, p in enumerate(plans)})
+    stop = f"{workdir}/reload_stop"
+    forests = {srv.fleet.generation: srv.forest}
+    old_set = srv.fleet._primary
+    load_s = []
+    manager = srv.manager
+    loader = manager._loader
+
+    def timed_loader(path):
+        t0 = time.perf_counter()
+        out = loader(path)
+        load_s.append(time.perf_counter() - t0)
+        return out
+    manager._loader = timed_loader
+    drain0 = obs.get_histogram("phase_seconds_serve_drain") or {"sum": 0.0}
+    outs = [f"{workdir}/reload_client{c}.json" for c in range(SERVE_CLIENTS)]
+    procs = [subprocess.Popen([sys.executable, "-c", FLEET_CLIENT, base,
+                               rows_path, stop, outs[c], str(c)])
+             for c in range(SERVE_CLIENTS)]
+    try:
+        time.sleep(2.0)
+        with _timed_calls("warmup", owner=CompiledForest) as warm:
+            t_reload = time.time()
+            code, body, _, reload_ms = _request(base, "/reload",
+                                                {"model": path_b})
+            t_done = time.time()
+        manager._loader = loader
+        check(code == 200, f"/reload answered {code}: {body}")
+        forests[body["generation"]] = srv.forest
+        time.sleep(1.0)
+        open(stop, "w").close()
+        for proc in procs:
+            check(proc.wait(timeout=600) == 0, "a reload client failed")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    got, failures = [], []
+    for out in outs:
+        with open(out) as fh:
+            res = json.load(fh)
+        got += res["got"]
+        failures += res["failed"]
+    check(not failures, f"requests failed across the reload: {failures[:3]}")
+    gens = sorted({g[1] for g in got})
+    check(gens == sorted(forests), f"generations answered {gens}")
+    want = {gen: [_plain_answers(cf, p) for p in plans]
+            for gen, cf in forests.items()}
+    worst = 0.0
+    for j, gen, _, _, preds in got:
+        preds = np.asarray(preds, np.float64)
+        check(preds.shape == want[gen][j].shape and np.isfinite(preds).all(),
+              "reload responses: wrong shape or non-finite")
+        worst = max(worst, float(np.abs(preds - want[gen][j]).max()))
+    check(worst <= TOL, f"responses vs their generation's plain walk: "
+                        f"{worst}")
+    check(all(not rep.batcher._worker.is_alive()
+              for rep in old_set.replicas), "the old generation's "
+          "batchers are still running")
+    drain = obs.get_histogram("phase_seconds_serve_drain")
+    drain_s = float(drain["sum"]) - float(drain0["sum"])
+    during = [ms for _, _, t0, ms, _ in got
+              if t0 <= t_done and t0 + ms / 1e3 >= t_reload]
+    by_size = {str(n): [ms for j, _, _, ms, _ in got if j == k]
+               for k, n in enumerate(SERVE_SIZES)}
+    build_s, warm_s = sum(load_s), sum(warm.seconds)
+    return {"requests": len(got), "failed": len(failures),
+            "generations": gens, "max_abs_diff_vs_plain": worst,
+            "reload_s": reload_ms / 1e3, "reload_build_s": build_s,
+            "reload_warm_s": warm_s, "reload_drain_s": drain_s,
+            "reload_swap_and_rest_s": reload_ms / 1e3 - build_s - warm_s
+            - drain_s,
+            "p99_ms_during_reload": _p99(during),
+            "p99_ms_steady": _p99([ms for _, _, t0, ms, _ in got
+                                   if t0 + ms / 1e3 < t_reload]),
+            "requests_during_reload": len(during),
+            "latency_ms_median": {n: float(np.median(v))
+                                  for n, v in by_size.items()}}, forests
+
+
+def fleet_latency(seed, base, grid):
+    """The serve phase's protocol against the fleet (drift, lifecycle and
+    a canary slot on, no canary yet): four client threads send 1, 64
+    and 4096 rows once each; medians by size."""
+    rng = np.random.RandomState(seed + 79)
+    plans = [[random_rows(rng, n, grid, tie_frac=0.02) for n in SERVE_SIZES]
+             for _ in range(SERVE_CLIENTS)]
+    lat = {n: [] for n in SERVE_SIZES}
+    failures = []
+
+    def client(c):
+        for X in plans[c]:
+            code, _, _, ms = _request(base, "/predict", {"rows": X.tolist()})
+            if code != 200:
+                failures.append(code)
+            lat[len(X)].append(ms)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    check(not failures, f"fleet latency requests failed: {failures}")
+    return {str(n): float(np.median(v)) for n, v in lat.items()}
+
+
+def fleet_canary(seed, base, srv, grid, path_a):
+    """The canary at 0.25: the exact split over sequential requests,
+    ``/metrics`` with the canary's latency histogram, then the promote."""
+    from lightgbm_tpu_torch.obs import prom
+    code, body, _, _ = _request(base, "/reload",
+                                {"model": path_a, "target": "canary"})
+    check(code == 200, f"canary /reload answered {code}: {body}")
+    canary_gen = body["generation"]
+    primary_gen = srv.fleet.generation
+    rng = np.random.RandomState(seed + 81)
+    rows = random_rows(rng, FLEET_SPLIT, grid)
+    models = []
+    for i in range(FLEET_SPLIT):
+        code, body, _, _ = _request(base, "/predict",
+                                    {"rows": rows[i:i + 1].tolist()})
+        check(code == 200, f"canary traffic answered {code}")
+        models.append((body["model"], body["generation"]))
+    # the requests routed while the canary was live (the controller may
+    # promote it before the last): every fourth is the canary's
+    live = [m for m, g in models if g in (primary_gen, canary_gen)]
+    split = live.count("canary")
+    check(len(live) >= FLEET_SPLIT // 2 and split == len(live) // 4
+          and all(g == canary_gen for m, g in models if m == "canary"),
+          f"canary took {split} of {len(live)} requests at 0.25")
+    parsed = prom.parse_text(urllib.request.urlopen(
+        base + "/metrics", timeout=60).read().decode())
+    hist = prom.histogram_series(parsed, "lightgbm_tpu_serve_latency_seconds",
+                                 {"model": "canary"})
+    check(hist["count"] and hist["count"] >= split,
+          f"/metrics canary latency histogram: {hist}")
+    check(_until(lambda: (srv.controller.stats()["last_verdict"] or {})
+                 .get("outcome") == "promote", 30),
+          f"the good canary was not promoted: {srv.controller.stats()}")
+    return {"split": f"{split}/{len(live)}",
+            "canary_latency_count": hist["count"],
+            "promoted_generation": srv.fleet.generation}
+
+
+def fleet_rollback(seed, base, srv, grid, path_b):
+    """A canary skewed by ``skew_predictions``, labels through
+    ``/feedback``: rolled back for its quality; shadow scoring on."""
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.testing import faults
+    rng = np.random.RandomState(seed + 82)
+    rows = random_rows(rng, FLEET_LABELLED, grid)
+    labels = (_plain_answers(srv.forest, rows) > 0.5).astype(float)
+    # a window long enough for the labels (the quality gate abstains
+    # until both models have lifecycle_min_samples of them)
+    srv.controller.window_s = srv.controller.max_window_s = 120.0
+    code, body, _, _ = _request(base, "/reload",
+                                {"model": path_b, "target": "canary"})
+    check(code == 200, f"canary /reload answered {code}: {body}")
+    shadow0 = obs.get_counter("lifecycle_shadow_total")
+    failed = 0
+    with faults.skew_predictions(srv.fleet, 0.9, model="canary"):
+        for i in range(FLEET_LABELLED):
+            code, body, _, _ = _request(base, "/predict",
+                                        {"rows": rows[i:i + 1].tolist()})
+            if code != 200:
+                failed += 1
+                continue
+            _request(base, "/feedback", {"request_id": body["request_id"],
+                                         "label": labels[i]})
+            if srv.controller.stats()["consecutive_rollbacks"]:
+                break
+        rolled = _until(lambda: srv.controller.stats()
+                        ["consecutive_rollbacks"] == 1, 30)
+    verdict = srv.controller.stats()["last_verdict"] or {}
+    check(rolled and verdict.get("outcome") == "rollback"
+          and verdict.get("reason") == "quality",
+          f"the skewed canary was not rolled back for quality: {verdict}")
+    check(failed == 0, f"{failed} primary/canary requests failed")
+    check(not srv.fleet.has_canary(), "the canary is still routed")
+    gates = (verdict.get("verdict") or {}).get("gates", {})
+    return {"rollback_reason": verdict["reason"],
+            "quality_gate": gates.get("quality"),
+            "labelled_requests": i + 1,
+            "shadow_batches": obs.get_counter("lifecycle_shadow_total")
+            - shadow0,
+            "shadow_dropped": obs.get_counter(
+                "lifecycle_shadow_dropped_total"),
+            "shadow_errors": obs.get_counter(
+                "lifecycle_shadow_errors_total")}
+
+
+def fleet_drift(seed, base, srv, grid, fp):
+    """Rows from the training distribution, then rows with one feature
+    shifted: the collector's PSI against a host recomputation."""
+    from lightgbm_tpu_torch.obs import drift
+    json.loads(urllib.request.urlopen(base + "/stats", timeout=60).read())
+    col = srv.drift["primary"]
+    col.flush()
+    rng = np.random.RandomState(seed + 83)
+    out = {}
+    for name, shift in (("in_distribution", 0.0), ("shifted", FLEET_SHIFT)):
+        X = random_rows(rng, 2048, grid)
+        X[:, FLEET_DRIFT_FEATURE] += shift
+        for lo in range(0, len(X), 256):
+            code, _, _, _ = _request(base, "/predict",
+                                     {"rows": X[lo:lo + 256].tolist()})
+            check(code == 200, f"drift traffic answered {code}")
+        win = col.flush()
+        check(win is not None and win["rows"] == len(X),
+              f"drift window rows: {win and win['rows']}")
+        sent = X.astype(np.float32).astype(np.float64)
+        worst = 0.0
+        for feat, cnt in zip(fp.features, fp.rebin_counts(sent)):
+            eg, ag = drift.coarsen(feat["counts"], cnt)
+            want = round(drift.psi(eg, ag), 6)
+            got = win["features"][feat["name"]]["psi"]
+            worst = max(worst, abs(got - want))
+        check(worst == 0.0, f"collector PSI vs host recomputation: {worst}")
+        out[name] = {"top": [(f, win["features"][f]["psi"])
+                             for f in win["top"]],
+                     "max_psi": max(r["psi"]
+                                    for r in win["features"].values())}
+    lead = out["shifted"]["top"][0][0]
+    check(lead == f"Column_{FLEET_DRIFT_FEATURE}",
+          f"the shifted feature does not lead the top-k: {out['shifted']}")
+    check(out["in_distribution"]["max_psi"] < 0.25 < out["shifted"]["top"]
+          [0][1], f"drift windows: {out}")
+    return out
+
+
+def fleet_admission(base, srv, grid):
+    """``serve_queue_depth=2`` and ``slow_replica``: 429s with a
+    ``Retry-After``, the admitted requests' p99 bounded."""
+    from lightgbm_tpu_torch.testing import faults
+    rows = random_rows(np.random.RandomState(7), 1, grid).tolist()
+    got = []
+    stop = time.monotonic() + 2.0
+
+    def client():
+        while time.monotonic() < stop:
+            code, _, headers, ms = _request(base, "/predict",
+                                            {"rows": rows})
+            got.append((code, headers.get("Retry-After"), ms))
+
+    with faults.slow_replica(srv.fleet, 0, 0.05):
+        threads = [threading.Thread(target=client) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    shed = [h for c, h, _ in got if c == 429]
+    admitted = [ms for c, _, ms in got if c == 200]
+    check({c for c, _, _ in got} <= {200, 429}, f"codes {set(got)}")
+    check(shed and all(h is not None and int(h) >= 1 for h in shed),
+          f"no 429 with Retry-After: {len(shed)} shed")
+    stats = json.loads(urllib.request.urlopen(base + "/stats",
+                                              timeout=60).read())
+    # the server's own account (enqueue to answer, the batcher's
+    # histogram); the clients' p99 adds the connection backlog's
+    # retries, which the listener, not admission, decides
+    p99 = stats["histograms"]["serve_latency_seconds"]["p99"] * 1e3
+    check(admitted and p99 < 1000.0, f"admitted p99 {p99} ms")
+    return {"requests": len(got), "shed_429": len(shed),
+            "admitted": len(admitted), "admitted_p99_ms": p99,
+            "admitted_p99_ms_client": _p99(admitted),
+            "retry_after_s": sorted({int(h) for h in shed}),
+            "serve_shed_total": stats["counters"].get("serve_shed_total")}
+
+
+def fleet_watchdog(base, srv, grid):
+    """``wedge_replica`` on the lone replica: ejected, 503 (never a
+    hang), re-admitted on probation by the probe, healthy after clean
+    requests."""
+    from lightgbm_tpu_torch.testing import faults
+    rows = random_rows(np.random.RandomState(8), 2, grid)
+    rep = srv.fleet._primary.replicas[0]
+    blocked = []
+    with faults.wedge_replica(srv.fleet, 0):
+        t = threading.Thread(target=lambda: blocked.append(
+            _request(base, "/predict", {"rows": rows.tolist()})[0]))
+        t0 = time.perf_counter()
+        t.start()
+        check(_until(lambda: rep.health == "ejected", 30),
+              "the wedged replica was not ejected")
+        eject_s = time.perf_counter() - t0
+        t.join(30)
+        code, _, _, ms = _request(base, "/predict", {"rows": rows.tolist()})
+        check(blocked == [503] and code == 503 and ms < 5000,
+              f"requests at zero healthy replicas: {blocked}, {code}, "
+              f"{ms} ms")
+    check(_until(lambda: rep.health == "probation", 30),
+          f"the probe did not re-admit the replica: {rep.health}")
+    for _ in range(3):
+        code, body, _, _ = _request(base, "/predict",
+                                    {"rows": rows.tolist()})
+        check(code == 200, f"probation request answered {code}")
+        d = float(np.abs(np.asarray(body["predictions"])
+                         - _plain_answers(srv.forest, rows)).max())
+        check(d <= TOL, f"probation answers vs plain: {d}")
+    check(rep.health == "healthy", f"after probation: {rep.health}")
+    return {"eject_s": eject_s, "zero_healthy_503_ms": ms,
+            "health": rep.health}
+
+
+def fleet_gather(path, fused, X):
+    """``serve_walk=gather`` on the card against K4's answers (``fused``,
+    the same model served by K4), both timed (host clock, synchronized;
+    the gather walk syncs every level)."""
+    from lightgbm_tpu_torch import Booster
+    from lightgbm_tpu_torch.serve.forest import CompiledForest
+    gather = CompiledForest.from_booster(Booster(model_file=path),
+                                         buckets=fused.ladder.sizes,
+                                         serve_walk="gather")
+    check(gather.info()["serve_walk"] == "gather", "gather not selected")
+    rows, worst = [], 0.0
+    for n in GATHER_SIZES:
+        timings = {}
+        for name, cf in (("fused", fused), ("gather", gather)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = cf.predict(X[:n], device_binning=True)
+            torch.cuda.synchronize()
+            timings[name] = ((time.perf_counter() - t0) * 1e3, out)
+            print(f"fleet: {name} walk at B={n}: {timings[name][0]:.1f} ms",
+                  file=sys.stderr, flush=True)
+        d = float(np.abs(timings["gather"][1] - timings["fused"][1]).max())
+        worst = max(worst, d)
+        rows.append({"B": n, "fused_ms": timings["fused"][0],
+                     "gather_ms": timings["gather"][0], "max_abs_diff": d})
+    check(worst <= TOL, f"gather vs K4 answers: {worst}")
+    return rows
+
+
+def phase_fleet(seed, dev, higgs_model, higgs_grid, workdir):
+    """The serving fleet on the card (see the module docstring); returns
+    the K4 launches it made."""
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.config import Config, parse_cli_args
+    from lightgbm_tpu_torch.ops import forest_walk as fw
+    from lightgbm_tpu_torch.serve.server import serve_from_config
+
+    t_phase = time.perf_counter()
+    model_a = fingerprinted(copy.deepcopy(higgs_model), higgs_grid,
+                            seed + 84)
+    model_b, grid_b = random_model(seed + 1, **HIGGS)
+    model_b = fingerprinted(model_b, higgs_grid, seed + 85)
+    paths = {}
+    for name, g in (("a", model_a), ("b", model_b)):
+        paths[name] = f"{workdir}/fleet_{name}.txt"
+        with open(paths[name], "w") as fh:
+            fh.write(g.save_model_to_string())
+    state = f"{workdir}/serve_state.json"
+
+    def config(path, *extra):
+        return Config(parse_cli_args([
+            "task=serve", f"input_model={path}", "serve_port=0",
+            "serve_max_batch=4096", "serve_max_delay_ms=2", *extra]))
+
+    obs.reset()
+    fw.reset_launch_counts()
+    t0 = time.perf_counter()
+    srv = serve_from_config(config(
+        paths["a"], "serve_canary_weight=0.25", "lifecycle_window_s=3",
+        "lifecycle_min_samples=50", "lifecycle_latency_ratio=5",
+        "serve_shadow=0.5", "drift=on", "drift_window=3600",
+        f"serve_state_file={state}")).start()
+    startup_s = time.perf_counter() - t0
+    base = f"http://{srv.address[0]}:{srv.address[1]}"
+    try:
+        latency = fleet_latency(seed, base, higgs_grid)
+        _progress("startup", t_phase)
+        reload, forests = fleet_reload(seed, base, srv, higgs_grid,
+                                       paths["b"], workdir)
+        _progress("reload", t_phase)
+        canary = fleet_canary(seed, base, srv, higgs_grid, paths["a"])
+        _progress("canary", t_phase)
+        rollback = fleet_rollback(seed, base, srv, higgs_grid, paths["b"])
+        _progress("rollback", t_phase)
+        drift = fleet_drift(seed, base, srv, higgs_grid,
+                            model_a.data_fingerprint)
+        _progress("drift", t_phase)
+        stats = json.loads(urllib.request.urlopen(base + "/stats",
+                                                  timeout=60).read())
+    finally:
+        srv.stop()
+    # a restart with the state file serves the last-good primary (the
+    # promoted canary), not input_model
+    srv = serve_from_config(config(paths["b"], f"serve_state_file={state}"))
+    try:
+        X = random_rows(np.random.RandomState(seed + 86), 64, higgs_grid)
+        _, out = srv.forest.batched_fn()(X.astype(np.float32))
+        want = {name: _plain_answers(forests[gen], X)
+                for name, gen in (("a", 1), ("b", 2))}
+        d_a = float(np.abs(out[0] - want["a"]).max())
+        d_b = float(np.abs(out[0] - want["b"]).max())
+        check(d_a <= TOL < d_b, f"restart with the state file serves "
+                                f"{d_a} from fleet_a, {d_b} from fleet_b")
+    finally:
+        srv.stop()
+    _progress("restart", t_phase)
+    small = ("serve_max_batch=64", "predict_buckets=16,64")
+    obs.reset()
+    srv = serve_from_config(config(paths["a"], "serve_queue_depth=2",
+                                   *small)).start()
+    try:
+        admission = fleet_admission(
+            f"http://{srv.address[0]}:{srv.address[1]}", srv, higgs_grid)
+    finally:
+        srv.stop()
+    _progress("admission", t_phase)
+    srv = serve_from_config(config(paths["a"], "serve_watchdog_ms=20",
+                                   "serve_stall_ms=300",
+                                   "serve_retry_limit=0", *small)).start()
+    try:
+        watchdog = fleet_watchdog(
+            f"http://{srv.address[0]}:{srv.address[1]}", srv, higgs_grid)
+    finally:
+        srv.stop()
+    _progress("watchdog", t_phase)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in fw.launch_counts().items() if v}
+    check(set(launches) == {"forest_walk", "forest_walk_raw"}
+          and all(launches.values()),
+          f"K4 launches in the fleet phase: {launches}")
+    gather = fleet_gather(paths["a"], forests[1], random_rows(
+        np.random.RandomState(seed + 87), 4096, higgs_grid))
+    emit({"phase": "fleet", "startup_s": startup_s,
+          "latency_ms_median": latency, "reload": reload,
+          "canary": canary, "rollback": rollback, "drift": drift,
+          "restored_primary": "promoted canary (fleet_a)",
+          "admission": admission, "watchdog": watchdog, "gather": gather,
+          "generation": stats["fleet"]["generation"],
+          "counters": {k: v for k, v in stats["counters"].items()
+                       if "{" not in k and k.startswith(("serve_", "life"))},
+          "launches": launches, "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def fleet_train_delta(seed, workdir):
+    """``train_delta`` on the training cell's ordered model with shifted
+    fresh rows: the skew warning counted, the fresh fingerprint carried,
+    K1 launched."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.ops import leafhist as lh
+    base = f"{workdir}/higgs_ordered.txt"
+    Xf, yf = make_higgs_like(DELTA_ROWS, seed=seed + 88)
+    Xf[:, 0] += 2.0
+    fresh = lt.Dataset(Xf, yf, params=TRAIN_PARAMS)
+    warnings0 = obs.get_counter("drift_skew_warnings_total")
+    lh.reset_launch_counts()
+    t0 = time.perf_counter()
+    booster = lt.train_delta(base, fresh, num_trees=5, params=TRAIN_PARAMS,
+                             verbose_eval=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k1 = lh.launch_counts()["digit_histogram"]
+    warned = obs.get_counter("drift_skew_warnings_total") - warnings0
+    fp = booster._booster.data_fingerprint
+    check(warned == 1, f"skew warnings counted: {warned}")
+    check(fp is not None and fp is fresh._binned.data_fingerprint
+          and fp.num_rows == DELTA_ROWS, "the delta model's fingerprint")
+    check("\ndata_fingerprint\n" in booster.model_to_string(),
+          "the delta model text has no fingerprint section")
+    check(k1 > 0, "K1 was not launched by train_delta")
+    base_trees = lt.Booster(model_file=base).num_trees()
+    check(booster.num_trees() == base_trees + 5, "delta tree count")
+    emit({"phase": "train_delta", "rows": DELTA_ROWS, "seconds": seconds,
+          "skew_warnings": warned, "launches": {"digit_histogram": k1}})
+    return {"digit_histogram": k1}
 
 
 class _timed_calls:
@@ -4591,9 +5203,14 @@ def main(argv=None) -> int:
         launches.update(phase_serve_linear(args.seed, dev, lin_model,
                                            lin_grid, higgs_model, workdir,
                                            errs))
+        for name, n in phase_fleet(args.seed, dev, higgs_model, higgs_grid,
+                                   workdir).items():
+            launches[name] += n
         trained, windows, datasets, ordered_round_s = phase_train(
             args.seed, dev, workdir)
         launches.update(trained)
+        for name, n in fleet_train_delta(args.seed, workdir).items():
+            launches[name] += n
         examples = phase_examples(workdir)
         objectives, multiclass = phase_objectives(args.seed, workdir)
         # sampling before the engine phase, whose continued runs give the

@@ -17,14 +17,18 @@ stops early, takes callbacks and per-round learning rates; ``cv``
 cross-validates.  ``Dataset`` takes numpy, scipy sparse and pandas
 inputs and bundles exclusive sparse features (EFB) by default; the
 growers run over the bundled columns, and ``feature_screen_ratio``
-screens the lowest-gain columns out of rounds.  Entry points run on the
-first CUDA card unless the caller passes ``device="cpu"``.
+screens the lowest-gain columns out of rounds.  ``train_delta``
+continues a model on fresh data with the train/serve skew check.  The
+server (``serve/``) is a replica fleet with admission control, hot
+reload, a health watchdog, a guarded canary lifecycle, drift monitoring
+and ``/metrics``.  Entry points run on the first CUDA card unless the
+caller passes ``device="cpu"``.
 """
 
 from .basic import Booster, Dataset
 from .callback import (early_stopping, print_evaluation, record_evaluation,
                        reset_parameter)
-from .engine import CVBooster, cv, train
+from .engine import CVBooster, cv, train, train_delta
 from .serve.forest import CompiledForest
 from .utils.log import LightGBMError
 
@@ -32,4 +36,4 @@ __version__ = "0.4.0"
 
 __all__ = ["Booster", "CVBooster", "CompiledForest", "Dataset",
            "LightGBMError", "__version__", "cv", "early_stopping", "print_evaluation", "record_evaluation",
-           "reset_parameter", "train"]
+           "reset_parameter", "train", "train_delta"]

@@ -13,9 +13,8 @@ exactly one of three tables (pinned by a test):
   ``LightGBMError`` naming the key when the ``Config`` is built (under
   the key's aliases too);
 * :data:`INERT`: keys that cannot change a tree, a prediction or the
-  run's outcome (thread counts, the serving fleet's knobs, telemetry,
-  compile caches, and the keys only the refused features read): each
-  is accepted with one warning.
+  run's outcome (thread counts, telemetry, compile caches, and the keys
+  only the refused features read): each is accepted with one warning.
 
 A key of neither package is ignored with one warning too.
 :meth:`Config.check_trainable` refuses what is still unported in
@@ -135,6 +134,32 @@ _DEFAULTS: Dict[str, Any] = {
     "serve_quantize_leaves": False,
     "serve_max_body_bytes": 33554432,
     "serve_nonfinite_policy": "reject",
+    # the serving fleet (serve/fleet.py): replicas, admission, canary
+    "serve_replicas": 0,          # cards (0 = every card; 1 on the CPU)
+    "serve_queue_depth": 128,     # pending requests a replica (0 = no cap)
+    "serve_max_inflight": 0,      # fleet-wide in-flight cap (0 = no cap)
+    "serve_canary_model": "",     # a second model file (A/B routing)
+    "serve_canary_weight": 0.0,   # the canary's traffic share in [0, 1)
+    # replica health (serve/health.py)
+    "serve_retry_limit": 2,       # hedged retries a request (0 = none)
+    "serve_error_threshold": 3,   # consecutive errors -> suspect
+    "serve_watchdog_ms": 250.0,   # watchdog interval (0 = off)
+    "serve_stall_ms": 5000.0,     # a batch this old -> wedged
+    "serve_latency_outlier": 8.0,  # EWMA over the fleet median -> suspect
+    "serve_state_file": "",       # last-good model state (crash restore)
+    # the guarded model lifecycle (serve/lifecycle.py)
+    "serve_shadow": 0.0,          # primary traffic mirrored to the canary
+    "lifecycle_window_s": 0.0,    # observation window (0 = manual)
+    "lifecycle_max_window_s": 0.0,  # extended-window cap (0 = 4x window)
+    "lifecycle_min_samples": 50,  # canary requests before a gate votes
+    "lifecycle_latency_ratio": 3.0,  # canary/primary p99 (0 = gate off)
+    "lifecycle_error_rate": 0.05,  # canary error+ejection share
+    "lifecycle_cooldown_s": 60.0,  # post-rollback cooldown, doubling
+    # the drift observatory (obs/drift.py)
+    "drift": "off",               # serve-side drift collector: off | on
+    "drift_window": 30.0,         # collector window, seconds
+    "drift_top_k": 5,             # offending features labeled a window
+    "lifecycle_drift_threshold": 0.25,  # sustained PSI -> rollback vote
     # the port's own: where the forest runs ("cuda" or "cpu")
     "device": "cuda",
     # training (the JAX config's defaults)
@@ -231,10 +256,6 @@ _DEFAULTS: Dict[str, Any] = {
     "use_two_round_loading": False,
     "snapshot_dir": "",
     "num_machines": 1,
-    "serve_canary_model": "",
-    "serve_canary_weight": 0.0,
-    "serve_shadow": 0.0,
-    "serve_state_file": "",
 }
 
 #: key -> (refused(value), what the JAX package does with it): a value
@@ -255,15 +276,6 @@ REFUSED: Dict[str, tuple] = {
     "num_machines": (
         lambda v: v > 1,
         "distributed training over several machines"),
-    "serve_canary_model": (
-        bool, "a second model answers a share of the serving traffic"),
-    "serve_canary_weight": (
-        lambda v: v > 0.0,
-        "a canary model answers a share of the serving traffic"),
-    "serve_shadow": (
-        lambda v: v > 0.0, "serving traffic mirrored onto a canary model"),
-    "serve_state_file": (
-        bool, "the server restores its last-good model from that file"),
 }
 
 #: keys that cannot change a tree, a prediction, a file the run writes
@@ -287,16 +299,9 @@ INERT = frozenset({
     "distributed_init_retries", "distributed_init_backoff",
     "distributed_heartbeat_ms", "collective_timeout_s",
     "distributed_consistency_check", "desync_policy",
-    "serve_replicas", "serve_queue_depth", "serve_max_inflight",
-    "serve_retry_limit", "serve_error_threshold", "serve_watchdog_ms",
-    "serve_stall_ms", "serve_latency_outlier", "lifecycle_window_s",
-    "lifecycle_max_window_s", "lifecycle_min_samples",
-    "lifecycle_latency_ratio", "lifecycle_error_rate",
-    "lifecycle_cooldown_s", "events_file", "trace_dir",
-    "trace_start_iter", "trace_num_iters", "metrics_port",
-    "metrics_host", "compile_ledger_file", "memwatch", "devprof",
-    "trace_events_file", "compile_cache_dir", "drift", "drift_window",
-    "drift_top_k", "lifecycle_drift_threshold",
+    "events_file", "trace_dir", "trace_start_iter", "trace_num_iters",
+    "metrics_port", "metrics_host", "compile_ledger_file", "memwatch",
+    "devprof", "trace_events_file", "compile_cache_dir",
 })
 
 _BOOL_KEYS = {k for k, v in _DEFAULTS.items() if isinstance(v, bool)}
@@ -467,6 +472,7 @@ class Config:
                 "(expected auto, fused or gather)")
         if any(b <= 0 for b in v["predict_buckets"]):
             raise ValueError("predict_buckets must be positive sizes")
+        self._check_fleet(v)
         # the JAX config's conflict derivation (config.cpp:138-176)
         if v["serial_grow"] not in ("ordered", "cached", "fused"):
             raise ValueError(
@@ -504,6 +510,72 @@ class Config:
                              "leaves)")
         if v["max_depth"] > 0:
             v["num_leaves"] = min(v["num_leaves"], 2 ** v["max_depth"])
+
+    @staticmethod
+    def _check_fleet(v: Dict[str, Any]) -> None:
+        """The JAX config's checks of the fleet, lifecycle and drift
+        keys, with its messages."""
+        if v["serve_replicas"] < 0:
+            raise ValueError("serve_replicas must be >= 0 "
+                             "(0 = one replica per local device)")
+        if v["serve_queue_depth"] < 0:
+            raise ValueError("serve_queue_depth must be >= 0 (0 = no cap)")
+        if v["serve_max_inflight"] < 0:
+            raise ValueError("serve_max_inflight must be >= 0 (0 = no cap)")
+        if not (0.0 <= v["serve_canary_weight"] < 1.0):
+            raise ValueError("serve_canary_weight must be in [0, 1) — the "
+                             "canary is a minority share, not the primary")
+        if v["serve_retry_limit"] < 0:
+            raise ValueError("serve_retry_limit must be >= 0 "
+                             "(0 disables hedged retries)")
+        if v["serve_error_threshold"] < 1:
+            raise ValueError("serve_error_threshold must be >= 1")
+        if v["serve_watchdog_ms"] < 0:
+            raise ValueError("serve_watchdog_ms must be >= 0 "
+                             "(0 disables the health watchdog)")
+        if v["serve_stall_ms"] < 0:
+            raise ValueError("serve_stall_ms must be >= 0 "
+                             "(0 disables the wedge detector)")
+        if v["serve_latency_outlier"] <= 1.0:
+            raise ValueError("serve_latency_outlier must be > 1 — it "
+                             "multiplies the fleet-median service time")
+        if not (0.0 <= v["serve_shadow"] <= 1.0):
+            raise ValueError("serve_shadow must be in [0, 1] — the "
+                             "fraction of primary traffic mirrored onto "
+                             "the canary")
+        if v["lifecycle_window_s"] < 0:
+            raise ValueError("lifecycle_window_s must be >= 0 "
+                             "(0 = manual promotion, controller off)")
+        if v["lifecycle_max_window_s"] < 0:
+            raise ValueError("lifecycle_max_window_s must be >= 0 "
+                             "(0 = 4x lifecycle_window_s)")
+        if v["lifecycle_max_window_s"] > 0 \
+                and v["lifecycle_max_window_s"] < v["lifecycle_window_s"]:
+            raise ValueError("lifecycle_max_window_s must be >= "
+                             "lifecycle_window_s (or 0 for the 4x default)")
+        if v["lifecycle_min_samples"] < 1:
+            raise ValueError("lifecycle_min_samples must be >= 1 — a "
+                             "guardrail must never vote on zero evidence")
+        if v["lifecycle_latency_ratio"] != 0 \
+                and v["lifecycle_latency_ratio"] <= 1.0:
+            raise ValueError("lifecycle_latency_ratio must be > 1 (it "
+                             "multiplies the primary's p99) or 0 to "
+                             "disable the latency gate")
+        if not (0.0 <= v["lifecycle_error_rate"] <= 1.0):
+            raise ValueError("lifecycle_error_rate must be in [0, 1]")
+        if v["lifecycle_cooldown_s"] < 0:
+            raise ValueError("lifecycle_cooldown_s must be >= 0")
+        if v["drift"] not in ("off", "on"):
+            raise ValueError(f"drift must be 'off' or 'on', "
+                             f"got {v['drift']!r}")
+        if v["drift_window"] <= 0:
+            raise ValueError("drift_window must be > 0 seconds (disable "
+                             "the collector with drift=off instead)")
+        if v["drift_top_k"] < 1:
+            raise ValueError("drift_top_k must be >= 1")
+        if v["lifecycle_drift_threshold"] < 0:
+            raise ValueError("lifecycle_drift_threshold must be >= 0 "
+                             "(0 disables the drift gate)")
 
     def check_trainable(self) -> None:
         """Raise for every training setting outside the ported slice:

@@ -12,8 +12,9 @@ round (``learning_rates``), then ``print_evaluation`` (``verbose_eval``),
 row subsets that share the full Dataset's mappers and aggregates their
 valid metrics into means and standard deviations.  The JAX ``train``'s
 snapshots, telemetry, compile cache, metrics port and watchdog are not
-ported (their keys are ignored with one warning each), nor is
-``train_delta``.
+ported (their keys are ignored with one warning each).  ``train_delta``
+continues a base model on fresh data and warns when the fresh rows
+drifted from the base model's training fingerprint.
 """
 
 from __future__ import annotations
@@ -23,9 +24,10 @@ from typing import List
 
 import numpy as np
 
-from . import callback
+from . import callback, obs
 from .basic import Booster, Dataset
 from .device import DeviceLike
+from .utils import log
 
 _ROUND_ALIASES = ("num_boost_round", "num_iterations", "num_iteration",
                   "num_tree", "num_trees", "num_round", "num_rounds")
@@ -160,6 +162,68 @@ def train(params, train_set: Dataset, num_boost_round: int = 100,
             break
         if finished:
             break
+    return booster
+
+
+def _base_fingerprint(base_model):
+    """The base model's training-data fingerprint, from a Booster or
+    parsed out of a model file's tail; None when it has none (the skew
+    check then abstains)."""
+    from .obs.drift import parse_model_fingerprint
+    try:
+        if isinstance(base_model, str):
+            with open(base_model) as fh:
+                return parse_model_fingerprint(fh.read())
+        inner = getattr(base_model, "_booster", base_model)
+        return getattr(inner, "data_fingerprint", None)
+    except Exception:
+        # a garbled section raises its named error on train()'s load;
+        # the advisory check never preempts that
+        return None
+
+
+def train_delta(base_model, fresh_data, num_trees=100, params=None,
+                **kwargs):
+    """Warm-start retrain (the JAX package's ``train_delta``): boost
+    ``num_trees`` rounds on ``fresh_data`` on top of ``base_model`` (a
+    Booster or a model file) through ``train(init_model=)``; the base
+    trees are carried over untouched and the delta model carries the
+    fresh data's fingerprint.  ``kwargs`` go to :func:`train`
+    (``device`` among them).
+
+    Train/serve skew check: the fresh data's raw rows are re-binned
+    under the base model's fingerprint edges (``obs/drift.py``
+    ``compare_to_data``, the serve collector's comparison).  Features
+    whose PSI passes ``lifecycle_drift_threshold`` (default 0.25) become
+    one named warning and a ``drift_skew_warnings_total`` count, never a
+    refusal."""
+    base_fp = _base_fingerprint(base_model)
+    raw = getattr(fresh_data, "data", None)   # before free_raw_data
+    raw = None if isinstance(raw, str) else raw
+    booster = train(dict(params or {}), fresh_data,
+                    num_boost_round=num_trees, init_model=base_model,
+                    **kwargs)
+    cmp = None
+    threshold = float((params or {}).get("lifecycle_drift_threshold",
+                                         0.25) or 0.25)
+    top_k = int((params or {}).get("drift_top_k", 5) or 5)
+    if base_fp is not None and raw is not None:
+        from .obs.drift import compare_to_data
+        try:
+            cmp = compare_to_data(base_fp, raw, top_k=top_k)
+        except Exception:
+            cmp = None    # a ragged or exotic raw payload abstains
+    if cmp is not None:
+        offenders = [f for f in cmp["features"] if f["psi"] > threshold]
+        if offenders:
+            obs.inc("drift_skew_warnings_total")
+            log.warning(
+                "train_delta: fresh data drifted from the base model's "
+                "training distribution (train/serve skew): %s "
+                "(PSI threshold %g; rows %d -> %d)",
+                ", ".join(f"{f['feature']} psi={f['psi']:g}"
+                          for f in offenders),
+                threshold, cmp["expected_rows"], cmp["actual_rows"])
     return booster
 
 

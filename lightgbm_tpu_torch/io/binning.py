@@ -61,8 +61,8 @@ class BinMapper:
         self.min_val: float = 0.0
         self.max_val: float = 0.0
         self.default_bin: int = 0
-        # FindBin sample occupancy per bin (kept for state round trips
-        # with the JAX mapper; the drift fingerprint is not ported)
+        # FindBin sample occupancy per bin (the drift fingerprint's
+        # fallback, and the state round trip with the JAX mapper)
         self.bin_counts: Optional[np.ndarray] = None
 
     # ------------------------------------------------------------------

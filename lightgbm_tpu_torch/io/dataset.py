@@ -22,8 +22,11 @@ sub-ranges; valid sets and subsets ride the training plan.  The binary
 dataset file (``save_binary`` / ``load_binary``) is the JAX package's
 format: the token ``__lightgbm_tpu_dataset_v1__`` and a compressed npz
 archive whose ``meta_json`` holds the mappers, the names and the bundle
-plan, so either package loads a file the other wrote.  The drift
-fingerprint is not ported.
+plan, so either package loads a file the other wrote.
+
+``from_matrix`` also builds the drift fingerprint (``obs/drift.py``
+``DataFingerprint``) from the mappers and the full matrix, as the JAX
+package does; binary files, valid sets and subsets leave it ``None``.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from ..obs.drift import DataFingerprint
 from ..utils import log
 from .binning import CATEGORICAL, NUMERICAL, BinMapper
 from .bundling import BundlePlan, plan_bundles
@@ -143,6 +147,15 @@ def build_mappers_from_sample(sample: np.ndarray, num_data: int, *,
     return out
 
 
+def _nan_counts(data: np.ndarray, rows: int = 1 << 16) -> np.ndarray:
+    """NaNs per column of ``data`` [N, F], read in row blocks (one pass
+    in memory order)."""
+    out = np.zeros(data.shape[1], np.int64)
+    for lo in range(0, data.shape[0], rows):
+        out += np.isnan(data[lo:lo + rows]).sum(axis=0)
+    return out
+
+
 def _bins_dtype(mappers, plan=None) -> type:
     """uint8 unless some column needs more than 256 bin codes (a bundle's
     bins are capped at ``max_bin``, so bundling never widens the
@@ -176,6 +189,7 @@ class BinnedDataset:
         self.max_bin = 255
         self.raw: Optional[np.ndarray] = None
         self.bundle_plan: Optional[BundlePlan] = None
+        self.data_fingerprint = None
 
     @classmethod
     def from_matrix(cls, data: np.ndarray, label=None, *,
@@ -236,28 +250,46 @@ class BinnedDataset:
             sample, self.mappers, used, max_conflict_rate=max_conflict_rate,
             max_total_bin=max_bin, enable_bundle=enable_bundle,
             is_enable_sparse=is_enable_sparse)
-        self.bins = self._bin_columns(data)
+        occupancy: List[np.ndarray] = []
+        self.bins = self._bin_columns(data, occupancy)
         if keep_raw and used:
             self.raw = self._raw_columns(data)
         self.metadata = Metadata(num_data)
         self.metadata.set_label(label if label is not None
                                 else np.zeros(num_data, np.float32))
+        if used:
+            self.data_fingerprint = DataFingerprint.from_training(
+                self.mappers, used, self.feature_names, data,
+                np.asarray(label, np.float64) if label is not None
+                else None, occupancy=occupancy,
+                nan_counts=_nan_counts(data))
         return self
 
-    def _bin_columns(self, data: np.ndarray) -> np.ndarray:
+    def _bin_columns(self, data: np.ndarray,
+                     occupancy: Optional[list] = None) -> np.ndarray:
         """[C, n] column codes of the raw rows ``data``, in this dataset's
-        layout (the training plan's columns for a valid set too)."""
+        layout (the training plan's columns for a valid set too).  With
+        ``occupancy`` (a list), each used feature's bin counts over the
+        rows are appended to it, in feature order (the fingerprint's)."""
         dtype = _bins_dtype(self.mappers, self.bundle_plan)
         ufm = self.used_feature_map
+        counts = {}
 
         def feature_bins(inner):
-            return self.mappers[inner].value_to_bin(data[:, ufm[inner]])
+            mapper = self.mappers[inner]
+            b = mapper.value_to_bin(data[:, ufm[inner]])
+            if occupancy is not None:
+                counts[inner] = np.bincount(b, minlength=mapper.num_bin)
+            return b
         if self.bundle_plan is not None:
-            return self.bundle_plan.encode_columns(feature_bins,
+            bins = self.bundle_plan.encode_columns(feature_bins,
                                                    data.shape[0], dtype)
-        bins = np.zeros((len(ufm), data.shape[0]), dtype)
-        for inner in range(len(ufm)):
-            bins[inner] = feature_bins(inner).astype(dtype)
+        else:
+            bins = np.zeros((len(ufm), data.shape[0]), dtype)
+            for inner in range(len(ufm)):
+                bins[inner] = feature_bins(inner).astype(dtype)
+        if occupancy is not None:
+            occupancy.extend(counts[inner] for inner in range(len(ufm)))
         return bins
 
     def _raw_columns(self, data: np.ndarray) -> np.ndarray:

@@ -4,8 +4,11 @@ Port of the JAX package's models/gbdt.py.  The model-file half
 (``save_model_to_string``, ``load_model_from_string``,
 ``_PredictionObjective``; reference gbdt.cpp:625-815) validates every
 header field, tree section and the footer with the JAX loader's checks
-and error texts; text after the ``feature importances`` block (the drift
-fingerprint section) is kept verbatim and written back on save.
+and error texts.  After the ``feature importances`` block comes the
+optional drift fingerprint section (``obs/drift.py``): a trained booster
+carries its training set's fingerprint and writes it there, its
+``score_hist`` filled from the training scores at the first save; a
+loaded model parses it back (absent: ``None``).
 
 The training half is serial GBDT for every objective: the device state
 of ``_DeviceData`` (feature-major and row-major bins, the
@@ -83,6 +86,7 @@ import torch
 
 from ..io.bundling import BundlePlan
 from ..metric import create_metric
+from ..obs.drift import DataFingerprint
 from ..objective import create_objective
 from ..ops.bundle import BundleDecode
 from ..ops.grow import GrowParams, SerialComm, _read, grow_tree
@@ -264,7 +268,7 @@ class GBDT:
         self.objective_name = ""
         self.objective = None
         self._models: List[Tree] = []
-        self._footer_tail = ""
+        self.data_fingerprint = None
         self.iter_ = 0
         # rounds carried in from an init model (continued training) or
         # loaded from a model file
@@ -280,6 +284,9 @@ class GBDT:
         self.config = config
         self.device = device
         self.train_set = train_set
+        # the training data's fingerprint: a continued run carries the
+        # fresh data's, not the init model's
+        self.data_fingerprint = getattr(train_set, "data_fingerprint", None)
         self.objective = create_objective(config)
         self.objective.init(train_set.metadata, train_set.num_data)
         self.num_class = self.objective.num_tree_per_iteration
@@ -1039,8 +1046,13 @@ class GBDT:
         pairs.sort(key=lambda kv: -kv[1])
         for name, cnt in pairs:
             buf.write(f"{name}={cnt}\n")
-        if self._footer_tail.strip():
-            buf.write(self._footer_tail)
+        fp = self.data_fingerprint
+        if fp is not None:
+            if fp.score_hist is None and getattr(self, "train_data",
+                                                 None) is not None:
+                # raw training scores, filled at the first save
+                fp.set_score_hist(self.train_data.host_score())
+            buf.write("\n" + fp.to_text())
         return buf.getvalue()
 
     def load_model_from_string(self, text: str) -> None:
@@ -1120,19 +1132,6 @@ class GBDT:
         self.iter_ = self.num_init_iteration
         self.objective = _PredictionObjective(
             self.objective_name, self.sigmoid, self.num_class)
-        # the importance lines end at the first blank line; what follows
-        # (a drift fingerprint section) rides along unparsed
-        footer = text[footer_pos + 1:].split("\n")
-        i = 1
-        while i < len(footer) and footer[i].strip() and "=" in footer[i]:
-            i += 1
-        self._footer_tail = "\n".join(footer[i:])
-        # only the fingerprint section's framing is checked: a header
-        # without its terminator is a file truncated mid-write
-        head = re.search(r"(?m)^data_fingerprint\s*$", self._footer_tail)
-        if head is not None and re.search(
-                r"(?m)^end data_fingerprint\s*$",
-                self._footer_tail[head.end():]) is None:
-            log.fatal("Model file data_fingerprint section: no 'end "
-                      "data_fingerprint' terminator — truncated mid-write? "
-                      "(re-save the model or restore from a good copy)")
+        # the optional drift fingerprint after the footer: absent ->
+        # None, truncated or garbled -> a named LightGBMError
+        self.data_fingerprint = DataFingerprint.parse(text[footer_pos:])

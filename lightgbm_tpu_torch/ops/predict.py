@@ -9,8 +9,9 @@ f32 total match the JAX walk bit for bit for constant leaves; a linear
 leaf's affine part sums its slots in ascending order (the JAX gather
 walk leaves that order to XLA's reduce, so the two agree to f32
 rounding).  This is the plain version the forest-walk kernel
-(csrc/forest_walk.cu) is held against; the serving path on the card
-never calls it.
+(csrc/forest_walk.cu) is held against, and the ``serve_walk=gather``
+strategy of ``serve/forest.py``, which serves through it when asked for
+by name.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ Port of the JAX package's serve/batcher.py.  Rows are padded up a small
 ladder of power-of-two bucket sizes with a validity mask, which bounds
 the shapes the device sees.  Nothing here compiles per bucket (the
 kernels are built once), so the JAX package's ``CountingJit`` has no
-counterpart.
+counterpart: the forest-walk wrappers count their own launches
+(``ops/forest_walk.launch_counts``).
 
 ``MicroBatcher`` coalesces concurrent ``submit()`` calls into one device
 batch under a max-latency deadline: one worker thread waits up to
@@ -12,6 +13,16 @@ batch under a max-latency deadline: one worker thread waits up to
 ``max_batch`` rows, runs ``predict_fn`` once on the concatenated rows
 and splits the result back per request.  The worker enters
 ``torch.cuda.device(device)`` so its launches go to the forest's card.
+It writes the JAX batcher's registry series (``obs/registry.py``):
+``serve_requests`` / ``serve_rows`` at submit, ``serve_batches`` /
+``serve_batch_rows`` a batch, ``serve_deadline_expired_total``,
+``serve_timeouts_shed`` and one ``serve_latency_seconds`` sample a
+request, each mirrored into a ``{model=...}`` series when the batcher
+carries ``metric_labels`` (the fleet's replicas do).  ``max_queue``
+bounds the pending queue (:class:`QueueFull`, the fleet's 429);
+``abort()`` fails every queued and in-flight request at once (replica
+ejection), and ``stalled_for_s()`` is the health watchdog's wedge
+signal.
 """
 
 from __future__ import annotations
@@ -19,10 +30,13 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
+
+from .. import obs
 
 
 class QueueFull(RuntimeError):
@@ -38,6 +52,14 @@ class BatcherClosed(RuntimeError):
 class DeadlineExpired(RuntimeError):
     """The request's deadline passed before it could be served; expired
     work is shed before it takes device time."""
+
+
+def device_scope(device):
+    """``torch.cuda.device(device)`` for a card, else a no-op: a serving
+    thread's launches go to its forest's card."""
+    if device is not None and getattr(device, "type", None) == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def default_ladder(lo: int = 16, hi: int = 65536) -> List[int]:
@@ -108,43 +130,63 @@ class _Pending:
 
 
 class MicroBatcher:
-    """Coalesce concurrent predict requests into device batches.
-
-    Counters (``stats()``): ``requests``/``rows`` at submit,
-    ``batches``/``batch_rows`` per device batch, ``deadline_expired``
-    and ``timeouts_shed``.  ``max_queue`` bounds the pending queue
-    (0 = unbounded); a submit against a full queue raises
-    :class:`QueueFull`."""
+    """Coalesce concurrent predict requests into device batches (the
+    registry series of the module docstring).  A submit against a full
+    ``max_queue`` (0 = unbounded) raises :class:`QueueFull`."""
 
     def __init__(self, predict_fn: Callable[[np.ndarray], object],
                  max_batch: int = 8192, max_delay_s: float = 0.005,
                  max_queue: int = 0,
+                 metric_labels: Optional[Mapping[str, str]] = None,
                  device: Optional[torch.device] = None):
         self.predict_fn = predict_fn
         self.max_batch = max(int(max_batch), 1)
         self.max_delay_s = max(float(max_delay_s), 0.0)
         self.max_queue = max(int(max_queue), 0)
         self.device = device
+        self._labels = dict(metric_labels or {})
+        self._labeled_keys: Dict[str, str] = {}
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._queue: List[_Pending] = []
+        # the batch on the device: close()/abort() fail its requests if
+        # the worker is wedged in predict_fn, and its start time is the
+        # watchdog's wedge signal
         self._active: List[_Pending] = []
+        self._active_since: Optional[float] = None
         self._closed = False
-        self._counts: Dict[str, int] = {
-            "requests": 0, "rows": 0, "batches": 0, "batch_rows": 0,
-            "deadline_expired": 0, "timeouts_shed": 0}
+        self._aborted = False
+        self._lat_seq = 0
         self._worker = threading.Thread(target=self._run,
                                         name="lgbt-torch-batcher",
                                         daemon=True)
         self._worker.start()
 
-    def _inc(self, name: str, n: int = 1) -> None:
-        with self._lock:
-            self._counts[name] += n
+    def _labeled(self, name: str) -> str:
+        key = self._labeled_keys.get(name)
+        if key is None:
+            key = self._labeled_keys[name] = obs.labeled_name(
+                name, self._labels)
+        return key
 
-    def stats(self) -> Dict[str, int]:
-        with self._lock:
-            return {**self._counts, "queue_depth": len(self._queue)}
+    def _inc(self, name: str, n: int = 1) -> None:
+        """One registry series, and its labeled twin."""
+        obs.inc(name, n)
+        if self._labels:
+            obs.inc(self._labeled(name), n)
+
+    def queue_depth(self) -> int:
+        """Pending (not yet picked up) requests."""
+        with self._cond:
+            return len(self._queue)
+
+    def stalled_for_s(self) -> Optional[float]:
+        """Seconds the worker has been inside the current device batch
+        (None when idle): it grows only while one batch does not
+        return, never under plain queueing load."""
+        with self._cond:
+            since = self._active_since
+        return None if since is None else time.monotonic() - since
 
     # -- client side -----------------------------------------------------
     def submit(self, rows: np.ndarray, timeout: Optional[float] = None,
@@ -153,10 +195,11 @@ class MicroBatcher:
         ``predict_fn`` produced for this request's rows.  Raises
         :class:`QueueFull`, :class:`BatcherClosed` or
         :class:`DeadlineExpired` (``deadline`` is an absolute
-        ``time.monotonic()`` instant)."""
+        ``time.monotonic()`` instant); expired work is shed before it
+        takes device time."""
         rows = np.ascontiguousarray(rows)
         if deadline is not None and time.monotonic() >= deadline:
-            self._inc("deadline_expired")
+            self._inc("serve_deadline_expired_total")
             raise DeadlineExpired("deadline expired before enqueue")
         req = _Pending(rows, deadline=deadline)
         with self._cond:
@@ -166,27 +209,56 @@ class MicroBatcher:
                 raise QueueFull(
                     f"queue at max_queue={self.max_queue} pending requests")
             self._queue.append(req)
-            self._counts["requests"] += 1
-            self._counts["rows"] += int(rows.shape[0])
             self._cond.notify_all()
+        self._inc("serve_requests")
+        self._inc("serve_rows", int(rows.shape[0]))
         wait_s = timeout
         if deadline is not None:
             left = deadline - time.monotonic()
             wait_s = left if wait_s is None else min(wait_s, left)
         if not req.done.wait(wait_s):
+            # a timed-out request still queued is taken out: it would
+            # hold batch capacity ahead of live requests
             with self._cond:
                 settled = req.done.is_set()
                 if not settled and req in self._queue:
                     self._queue.remove(req)
             if not settled:
                 if deadline is not None and time.monotonic() >= deadline:
-                    self._inc("deadline_expired")
+                    self._inc("serve_deadline_expired_total")
                     raise DeadlineExpired("deadline expired in queue")
-                self._inc("timeouts_shed")
+                self._inc("serve_timeouts_shed")
                 raise TimeoutError("predict request timed out")
         if req.error is not None:
             raise req.error
+        self._note_latency((time.perf_counter() - req.t0) * 1000.0)
         return req.result
+
+    def _fail_pending_locked(self) -> List[_Pending]:
+        """Detach every queued and in-flight request (cond held)."""
+        doomed = [r for r in self._queue + self._active
+                  if not r.done.is_set()]
+        self._queue.clear()
+        return doomed
+
+    @staticmethod
+    def _complete_failed(doomed: Sequence[_Pending],
+                         error: BaseException) -> None:
+        for req in doomed:
+            req.error = error
+            req.done.set()
+
+    def abort(self, error: Optional[BaseException] = None) -> None:
+        """Fail every queued and in-flight request with ``error`` at
+        once, without waiting for the worker (which may be wedged in
+        ``predict_fn``); a re-admitted replica gets a fresh batcher."""
+        error = error or BatcherClosed("MicroBatcher aborted")
+        with self._cond:
+            self._closed = True
+            self._aborted = True
+            doomed = self._fail_pending_locked()
+            self._cond.notify_all()
+        self._complete_failed(doomed, error)
 
     def close(self, drain: bool = True, join_timeout_s: float = 30.0) -> None:
         """Stop the worker; with ``drain`` queued requests are served
@@ -194,23 +266,23 @@ class MicroBatcher:
         request left behind by a stalled worker is failed, never left
         hanging."""
         with self._cond:
+            already_aborted = self._aborted
             self._closed = True
             if not drain:
-                doomed, self._queue = self._queue, []
-                for req in doomed:
-                    req.error = BatcherClosed("MicroBatcher closed")
-                    req.done.set()
+                doomed = [r for r in self._queue if not r.done.is_set()]
+                self._queue.clear()
+                self._complete_failed(doomed,
+                                      BatcherClosed("MicroBatcher closed"))
             self._cond.notify_all()
+        if already_aborted:
+            return
         self._worker.join(timeout=join_timeout_s)
         if self._worker.is_alive():
             with self._cond:
-                doomed = self._queue + self._active
-                self._queue = []
-            for req in doomed:
-                if not req.done.is_set():
-                    req.error = BatcherClosed(
-                        "MicroBatcher closed with a stalled worker")
-                    req.done.set()
+                self._aborted = True
+                doomed = self._fail_pending_locked()
+            self._complete_failed(doomed, BatcherClosed(
+                "MicroBatcher closed with a stalled worker"))
 
     # -- worker side -----------------------------------------------------
     def _shed_expired_locked(self) -> None:
@@ -223,7 +295,7 @@ class MicroBatcher:
         for req in expired:
             req.error = DeadlineExpired("deadline expired in queue")
             req.done.set()
-        self._counts["deadline_expired"] += len(expired)
+        self._inc("serve_deadline_expired_total", len(expired))
 
     def _take_batch(self) -> Optional[List[_Pending]]:
         """Wait for work, then gather until ``max_batch`` rows or the
@@ -253,13 +325,11 @@ class MicroBatcher:
                 batch.append(self._queue.pop(0))
                 total += nxt
             self._active = batch
+            self._active_since = time.monotonic() if batch else None
             return batch
 
     def _run(self) -> None:
-        on_card = self.device is not None and self.device.type == "cuda"
-        ctx = torch.cuda.device(self.device) if on_card \
-            else contextlib.nullcontext()
-        with ctx:
+        with device_scope(self.device):
             while True:
                 batch = self._take_batch()
                 if batch is None:
@@ -269,11 +339,13 @@ class MicroBatcher:
 
     def _serve(self, batch: List[_Pending]) -> None:
         try:
-            rows = (batch[0].rows if len(batch) == 1 else
-                    np.concatenate([r.rows for r in batch], axis=0))
-            out = self.predict_fn(rows)
-            self._inc("batches")
-            self._inc("batch_rows", int(rows.shape[0]))
+            with obs.span("Serve::batch"):
+                rows = (batch[0].rows if len(batch) == 1 else
+                        np.concatenate([r.rows for r in batch], axis=0))
+                out = self.predict_fn(rows)
+            self._inc("serve_batches")
+            self._inc("serve_batch_rows", int(rows.shape[0]))
+            obs.set_gauge("serve_last_batch_rows", int(rows.shape[0]))
             off = 0
             for req in batch:
                 n = req.rows.shape[0]
@@ -287,6 +359,27 @@ class MicroBatcher:
         finally:
             with self._cond:
                 self._active = []
+                self._active_since = None
+
+    _GAUGE_EVERY = 32
+
+    def _note_latency(self, ms: float) -> None:
+        """One ``serve_latency_seconds`` sample (and its labeled twin);
+        the p50/p99 gauges are refreshed from the histogram on the first
+        request and every ``_GAUGE_EVERY`` after."""
+        obs.observe("serve_latency_seconds", ms / 1000.0)
+        if self._labels:
+            obs.observe(self._labeled("serve_latency_seconds"), ms / 1000.0)
+        with self._lock:
+            self._lat_seq += 1
+            if self._lat_seq % self._GAUGE_EVERY != 1:
+                return
+        hist = obs.get_histogram("serve_latency_seconds")
+        p50 = obs.histogram_quantile(hist, 0.50)
+        p99 = obs.histogram_quantile(hist, 0.99)
+        if p50 is not None and p99 is not None:
+            obs.set_gauge("serve_latency_p50_ms", round(p50 * 1000.0, 3))
+            obs.set_gauge("serve_latency_p99_ms", round(p99 * 1000.0, 3))
 
 
 def _slice_rows(out, off: int, n: int):

@@ -28,9 +28,19 @@ the forest-walk kernel (``ops/forest_walk.py``, ``csrc/forest_walk.cu``):
   output transform (sigmoid / softmax) runs in torch after the kernel
   with the padding masked.
 
-``serve_walk=auto|fused`` runs the kernel.  ``gather`` (the XLA
-per-level gather strategy) is not ported yet and raises a named
-:class:`LightGBMError`.
+``serve_walk=auto|fused`` runs the kernel.  ``gather`` runs the
+per-level walk of ``ops/predict.py`` in plain torch (the JAX package's
+XLA gather walk, which is not a Pallas kernel), only when asked for by
+name; ``info()`` then reports ``serve_walk=gather``.  ``auto`` is always
+``fused``: the kernel reads its tables from device memory, so the JAX
+package's VMEM sizing rule (``auto`` falls back to ``gather`` when the
+walk's operands outgrow VMEM) has no counterpart on the card.
+
+A replica's forest is :meth:`CompiledForest.to_device`: the same frozen
+arrays on another device.  The drift hook (``_drift``, a shared
+``obs/drift.py`` ``DriftCollector`` or ``None``) gets every predicted
+batch's real (unpadded) rows and raw scores on the host, after the
+kernel; ``data_fingerprint`` is the booster's training fingerprint.
 """
 
 from __future__ import annotations
@@ -42,7 +52,9 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models.gbdt import _PredictionObjective
+from .. import obs
 from ..ops import _build
+from ..ops.predict import predict_binned_forest, predict_binned_forest_linear
 from ..ops.forest_walk import (WalkTables, bin_index_dtype,
                                build_walk_tables, forest_walk,
                                forest_walk_raw)
@@ -146,17 +158,18 @@ def _resolve_walk(serve_walk: Optional[str]) -> str:
     if walk not in ("auto", "fused", "gather"):
         raise LightGBMError(
             f"serve_walk must be auto, fused or gather (got {walk!r})")
-    if walk == "gather":
-        raise LightGBMError(
-            "serve_walk=gather is not ported yet: the torch port serves "
-            "through the fused forest-walk kernel (serve_walk=auto|fused)")
-    return "fused"
+    return "gather" if walk == "gather" else "fused"
 
 
 class CompiledForest:
     """Immutable inference artifact: the forest's kernel tables and cut
     tables on one device.  Build with :meth:`from_booster` or
     :meth:`from_arrays`."""
+
+    #: the training fingerprint (obs/drift.py) and the serve-side drift
+    #: collector fed after every predict (None: drift off)
+    data_fingerprint = None
+    _drift = None
 
     #: bound on the output error of bf16 leaf storage (the JAX
     #: package's ``QUANTIZE_LEAF_ATOL``): ``serve_quantize_leaves`` keeps
@@ -237,11 +250,18 @@ class CompiledForest:
         transform = ("softmax" if K > 1
                      else "sigmoid" if sigmoid > 0 else "identity")
         lv = stacked[5]
+        # bf16 storage is a property of the kernel's table (the JAX
+        # package quantizes only its fused walk)
         leaf_dtype = (cls._quantize_pin(lv.reshape(K * T, lv.shape[2]), K, T)
-                      if quantize_leaves else "float32")
-        return cls._assemble(stacked, cuts_num, cuts_cat, F, transform,
+                      if quantize_leaves and walk == "fused" else "float32")
+        self = cls._assemble(stacked, cuts_num, cuts_cat, F, transform,
                              sigmoid, device, buckets, n_models, walk, lin,
                              leaf_dtype)
+        self.data_fingerprint = getattr(b, "data_fingerprint", None)
+        obs.inc("forest_compile_artifacts")
+        obs.set_gauge("forest_trees", int(n_models))
+        obs.set_gauge("forest_leaves_padded", int(self.num_leaves))
+        return self
 
     @classmethod
     def from_arrays(cls, sf, sb, ic, lc, rc, lv, cuts_num, cuts_cat,
@@ -298,6 +318,9 @@ class CompiledForest:
         self = object.__new__(cls)
         dev = resolve_device(device)
         self.device = dev
+        # the host arrays a replica re-freezes on its own device
+        self._frozen = (stacked, cuts_num, cuts_cat, F, transform, sigmoid,
+                        num_trees, walk, lin, leaf_dtype)
         sf, sb, ic, lc, rc, lv = stacked
         self.num_class = int(sf.shape[0])
         self.trees_per_class = int(sf.shape[1])
@@ -332,7 +355,26 @@ class CompiledForest:
         self._objective = _PredictionObjective(
             transform, sigmoid if transform == "sigmoid" else -1.0,
             self.num_class)
+        self._tree_dev = self._lin_dev = None
+        if walk == "gather":
+            # the per-level walk's operands: the SoA stacks as they are
+            # ([K, T, M] / [K, T, L]; categorical misses stay -1)
+            self._tree_dev = tuple(self._to_device(a) for a in stacked)
+            if lin is not None:
+                self._lin_dev = tuple(self._to_device(a) for a in lin)
         return self
+
+    def to_device(self, device: DeviceLike) -> "CompiledForest":
+        """The same frozen forest on ``device`` (a replica's own copy):
+        every table moved there, the fingerprint carried, no drift
+        collector (the server attaches one per model)."""
+        (stacked, cuts_num, cuts_cat, F, transform, sigmoid, num_trees,
+         walk, lin, leaf_dtype) = self._frozen
+        clone = self._assemble(stacked, cuts_num, cuts_cat, F, transform,
+                               sigmoid, device, self.ladder.sizes, num_trees,
+                               walk, lin, leaf_dtype)
+        clone.data_fingerprint = self.data_fingerprint
+        return clone
 
     # ------------------------------------------------------------------
     # host-side exact binning (f64 compares; feeds the binned kernel)
@@ -412,17 +454,62 @@ class CompiledForest:
         return self._to_device(
             np.where(np.isnan(X), 0.0, X).T.astype(np.float32))
 
+    def _gather_walk(self, bins: torch.Tensor,
+                     xt: Optional[torch.Tensor]) -> torch.Tensor:
+        """``serve_walk=gather``: [K, B] raw scores of the per-level
+        walk (``ops/predict.py``) over ``bins`` [F, B] int32 (a
+        categorical miss -1); ``xt`` [F, B] f32 covariates (NaN as 0.0)
+        of a linear forest."""
+        sf, sb, ic, lc, rc, lv = self._tree_dev
+        steps = self.num_leaves
+        if self._lin_dev is not None:
+            lcf, lft = self._lin_dev
+            outs = [predict_binned_forest_linear(
+                sf[k], sb[k], ic[k], lc[k], rc[k], lv[k], lcf[k], lft[k],
+                bins, xt, steps)[0] for k in range(self.num_class)]
+        else:
+            outs = [predict_binned_forest(sf[k], sb[k], ic[k], lc[k],
+                                          rc[k], lv[k], bins, steps)[0]
+                    for k in range(self.num_class)]
+        return torch.stack(outs, dim=0)
+
+    def _device_cut_bins(self, xt: torch.Tensor):
+        """[F, B] raw f32 rows -> ([F, B] int32 cut-table bins, the rows
+        with NaN read as 0.0), binned in f32 on the device: the JAX
+        gather walk's ``bin_lookup``."""
+        isnan = torch.isnan(xt)
+        safe = torch.where(isnan, 0.0, xt)
+        nbin = torch.searchsorted(self._bnd, safe.contiguous(),
+                                  side="left").to(torch.int32)
+        nbin = torch.where(isnan, self._nan_bin, nbin)
+        iv = safe.to(torch.int32)
+        j = torch.searchsorted(self._cats, iv.contiguous(),
+                               side="left").to(torch.int64)
+        jc = j.clamp(max=self._cats.shape[1] - 1)
+        hit = self._cats.gather(1, jc) == iv
+        cbin = torch.where(hit & ~isnan, jc.to(torch.int32), -1)
+        return torch.where(self._is_cat.bool()[:, None], cbin, nbin), safe
+
     def _dispatch_binned(self, Xp: np.ndarray, mask: np.ndarray):
         """[K, B] raw scores of one padded bucket, binned on the host."""
         xt = self.device_covariates(Xp) if self._tables.linear else None
-        raw = forest_walk(self._tables, self.device_bins(Xp), xt)
+        if self.walk_strategy == "gather":
+            raw = self._gather_walk(
+                self._to_device(self.bin_rows(np.asarray(Xp, np.float64))),
+                xt)
+        else:
+            raw = forest_walk(self._tables, self.device_bins(Xp), xt)
         return torch.where(self._to_device(mask)[None, :], raw, 0.0)
 
     def _dispatch_raw(self, Xp: np.ndarray, mask: np.ndarray):
         """(raw, transformed) [K, B] of one padded f32 bucket, binned
-        inside the kernel."""
-        raw = forest_walk_raw(self._tables, self._bnd, self._cats,
-                              self._is_cat, self.device_rows(Xp))
+        inside the kernel (gather: binned in f32 by torch ops)."""
+        if self.walk_strategy == "gather":
+            bins, safe = self._device_cut_bins(self.device_rows(Xp))
+            raw = self._gather_walk(bins, safe)
+        else:
+            raw = forest_walk_raw(self._tables, self._bnd, self._cats,
+                                  self._is_cat, self.device_rows(Xp))
         m = self._to_device(mask)[None, :]
         raw = torch.where(m, raw, 0.0)
         out = torch.where(m, self.transform_scores(raw), 0.0)
@@ -440,7 +527,11 @@ class CompiledForest:
             Xp, mask = pad_rows(X[off:off + n], bucket)
             raw = self._dispatch_binned(Xp, mask)
             parts.append(raw[:, :n].cpu().numpy().astype(np.float64))
-        return np.concatenate(parts, axis=1)
+        raw_all = np.concatenate(parts, axis=1)
+        col = self._drift
+        if col is not None:
+            col.offer(X, raw_all)
+        return raw_all
 
     def _device_scores(self, X) -> Tuple[np.ndarray, np.ndarray]:
         """(raw, transformed) [K, N] f32 through the raw kernel (the
@@ -456,7 +547,13 @@ class CompiledForest:
             raw, out = self._dispatch_raw(Xp, mask)
             raws.append(raw[:, :n].cpu().numpy())
             outs.append(out[:, :n].cpu().numpy())
-        return np.concatenate(raws, axis=1), np.concatenate(outs, axis=1)
+        raw_all = np.concatenate(raws, axis=1)
+        # drift hook: the real rows and raw scores, on the host after
+        # the kernel; drift=off is this one attribute read
+        col = self._drift
+        if col is not None:
+            col.offer(X, raw_all)
+        return raw_all, np.concatenate(outs, axis=1)
 
     def predict(self, X, raw_score: bool = False,
                 device_binning: bool = False) -> np.ndarray:
@@ -478,13 +575,15 @@ class CompiledForest:
         micro-batcher (the serving path)."""
         return self._device_scores
 
-    def warmup(self, max_bucket: Optional[int] = None) -> "CompiledForest":
+    def warmup(self, buckets: Optional[Sequence[int]] = None,
+               max_bucket: Optional[int] = None) -> "CompiledForest":
         """Build the walk kernel's library (on a card) and run both paths once
-        per ladder bucket up to the one ``max_bucket`` rows dispatch to,
-        so the first request pays neither the build nor a first launch."""
-        if self.device.type == "cuda":
+        per ladder bucket (``buckets``, default the ladder) up to the one
+        ``max_bucket`` rows dispatch to, so the first request pays
+        neither the build nor a first launch."""
+        if self.device.type == "cuda" and self.walk_strategy == "fused":
             _build.build_all(("forest_walk",))
-        sizes = list(self.ladder.sizes)
+        sizes = list(buckets) if buckets else list(self.ladder.sizes)
         if max_bucket:
             cap = self.ladder.bucket_for(int(max_bucket))
             sizes = [s for s in sizes if s <= cap] or sizes[:1]
@@ -495,6 +594,7 @@ class CompiledForest:
             self._dispatch_raw(Xp.astype(np.float32), mask)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        obs.inc("forest_warmups")
         return self
 
     def info(self) -> Dict[str, object]:
@@ -507,6 +607,8 @@ class CompiledForest:
             "buckets": list(self.ladder.sizes),
             "max_cuts": int(self.max_cuts),
             "linear": bool(self._tables.linear),
+            "fingerprint": self.data_fingerprint is not None,
+            "drift": self._drift is not None,
             "linear_k": self._tables.linear_k,
             "serve_walk": self.walk_strategy,
             "leaf_dtype": self.leaf_dtype,

@@ -4,7 +4,7 @@ which follows the reference include/LightGBM/utils/log.h)."""
 from __future__ import annotations
 
 import sys
-from typing import Dict, Set
+from typing import Set
 
 _current_level = 1
 _warned_once: Set[str] = set()
@@ -43,17 +43,17 @@ def warn_once(key: str, msg: str, *args) -> None:
     warning(msg, *args)
 
 
-_counters: Dict[str, int] = {}
-
-
 def inc(name: str, n: int = 1) -> None:
-    """Add ``n`` to the named process-wide counter (the JAX package's
-    ``obs.inc``: ``forest_quantize_fallback``, ``linear_fallback_total``)."""
-    _counters[name] = _counters.get(name, 0) + int(n)
+    """Add ``n`` to the named counter of the process registry
+    (``obs/registry.py``; the JAX package's ``obs.inc``:
+    ``forest_quantize_fallback``, ``linear_fallback_total``)."""
+    from ..obs import registry
+    registry.inc(name, n)
 
 
 def counter(name: str) -> int:
-    return _counters.get(name, 0)
+    from ..obs import registry
+    return registry.get_counter(name)
 
 
 class LightGBMError(Exception):

@@ -162,11 +162,25 @@ def test_corrupt_model_raises_jax_message(models, mode, tmp_path):
 
 
 def test_text_after_footer_kept_verbatim(models):
-    tail = ("\ndata_fingerprint\nversion=1\nnum_rows=600\n"
-            "end data_fingerprint\n")
-    text = models["binary"].model_to_string() + tail
-    assert lt.Booster(model_str=text,
-                      device="cpu").model_to_string().endswith(tail)
+    # the fingerprint section after the footer is parsed and written back
+    # as the JAX package does: the first section is kept, byte for byte,
+    # and anything after it is dropped
+    text = models["binary"].model_to_string()
+    head, section = text.split("\ndata_fingerprint\n")
+    assert section.endswith("end data_fingerprint\n")
+    extra = ("\ndata_fingerprint\nversion=1\nnum_rows=600\n"
+             "end data_fingerprint\n")
+    for doubled in (text, text + extra):
+        ours = lt.Booster(model_str=doubled, device="cpu").model_to_string()
+        theirs = create_boosting(JaxConfig({"task": "predict"}), None,
+                                 model_str=doubled)
+        assert ours == theirs.save_model_to_string() == text
+    bare = head + "\n"
+    assert lt.Booster(model_str=bare, device="cpu")._booster \
+        .data_fingerprint is None
+    assert lt.Booster(model_str=bare, device="cpu").model_to_string() \
+        == create_boosting(JaxConfig({"task": "predict"}), None,
+                           model_str=bare).save_model_to_string()
 
 
 def test_linear_sections_parse_like_jax():

@@ -446,6 +446,12 @@ def test_keys_that_change_the_answer_are_refused_by_name(params, what):
         # ported since: read as the JAX package reads it
         assert tconfig.Config(params)[key] == JaxConfig(params)[key] == 0.3
         return
+    if what == "serve_canary_model":
+        # ported since (the serving fleet's canary): read as the JAX
+        # package reads it
+        assert tconfig.Config(params)[key] == JaxConfig(params)[key] \
+            == "b.txt"
+        return
     if what in ("is_pre_partition", "is_save_binary_file"):
         # read by nothing in the JAX package outside its config: inert
         # since, with one warning
@@ -462,8 +468,14 @@ def test_keys_that_change_the_answer_are_refused_by_name(params, what):
 @pytest.mark.parametrize("key", ["seed", "num_threads", "trace_dir",
                                  "serve_replicas", "compile_cache_dir"])
 def test_inert_keys_warn_once(key, capsys):
+    from lightgbm_tpu.config import Config as JaxConfig
     from lightgbm_tpu_torch.utils import log
     log._warned_once.discard(f"config:{key}")
+    if key == "serve_replicas":
+        # read since the serving fleet was ported: no warning
+        assert tconfig.Config({key: "4"})[key] == JaxConfig({key: "4"})[key]
+        assert f"config:{key}" not in log._warned_once
+        return
     tconfig.Config({key: "4"}).check_trainable()
     assert f"config:{key}" in log._warned_once
     assert "cannot change a tree" in capsys.readouterr().err

@@ -28,7 +28,7 @@ import lightgbm_tpu as lgb
 from lightgbm_tpu.serve import CompiledForest as JaxForest
 
 import lightgbm_tpu_torch as lt
-from lightgbm_tpu_torch import cli
+from lightgbm_tpu_torch import cli, obs
 from lightgbm_tpu_torch.config import Config, parse_cli_args
 from lightgbm_tpu_torch.ops import forest_walk as fw
 from lightgbm_tpu_torch.serve.batcher import (BatcherClosed, BucketLadder,
@@ -124,9 +124,15 @@ def test_num_iteration_limits_the_forest(trained):
 
 
 def test_unported_strategies_raise_named_errors(trained):
-    _, ours, _ = trained["binary"]
-    with pytest.raises(lt.LightGBMError, match="gather is not ported"):
-        lt.CompiledForest.from_booster(ours, serve_walk="gather")
+    bst, ours, X = trained["binary"]
+    # serve_walk=gather is ported since: the plain per-level walk, named
+    # by info(); the JAX package's gather walk gives the same answers
+    cf = lt.CompiledForest.from_booster(ours, serve_walk="gather")
+    assert cf.info()["serve_walk"] == "gather"
+    want = JaxForest.from_booster(bst, serve_walk="gather").predict(
+        X.astype(np.float32), device_binning=True)
+    np.testing.assert_allclose(cf.predict(X, device_binning=True), want,
+                               rtol=0, atol=1e-6)
     # bf16 leaves are ported: the pin decides, and info() says which
     cf = lt.CompiledForest.from_booster(ours, quantize_leaves=True)
     assert cf.info()["leaf_dtype"] in ("float32", "bfloat16")
@@ -202,6 +208,7 @@ def server(trained):
     bst, ours, X = trained["multiclass"]
     cf = lt.CompiledForest.from_booster(ours, device="cpu", buckets=BUCKETS)
     cf.warmup()
+    obs.reset()
     srv = PredictServer(cf, port=0, max_batch=256, max_delay_ms=20.0,
                         max_body_bytes=40000).start()
     host, port = srv.address
@@ -237,10 +244,13 @@ def test_server_concurrent_predict_matches_jax(server):
     r = _post(base, csv.encode(), "text/csv")
     np.testing.assert_allclose(r["predictions"], want[:3], rtol=0,
                                atol=1e-6)
+    # /stats holds the JAX package's registry contract (the counters of
+    # the single-forest server renamed to its serve_* series)
+    counters = _get(base, "/stats")["counters"]
+    assert counters["serve_requests"] == len(spans) + 2
+    assert 1 <= counters["serve_batches"] <= counters["serve_requests"]
+    assert counters["serve_rows"] == 300 + 4 + 3
     stats = _get(base, "/stats")
-    assert stats["requests"] == len(spans) + 2
-    assert 1 <= stats["batches"] <= stats["requests"]
-    assert stats["rows"] == 300 + 4 + 3
     assert set(stats["kernel_launches"]) == set(fw.VARIANTS)
     assert {"forest_walk", "forest_walk_raw"} <= set(fw.VARIANTS)
 
@@ -263,8 +273,9 @@ def test_server_rejects_bad_requests_with_400(server, case):
     msg = json.loads(err.value.read())["error"]
     if case in ("ragged", "nan"):
         assert "row 1" in msg
-    assert _get(base, "/stats")["bad_requests"] == 1
-    assert _get(base, "/stats")["requests"] == 0
+    counters = _get(base, "/stats")["counters"]
+    assert counters["serve_bad_requests"] == 1
+    assert counters.get("serve_requests", 0) == 0
 
 
 def test_server_oversize_body_gets_413_and_health_endpoints(server):
@@ -334,6 +345,7 @@ def test_microbatcher_coalesces_and_propagates_errors():
             raise ValueError("negative row")
         return rows.T * 2.0, rows.T
 
+    obs.reset()
     mb = MicroBatcher(fn, max_batch=64, max_delay_s=0.05)
     results = {}
 
@@ -346,8 +358,10 @@ def test_microbatcher_coalesces_and_propagates_errors():
     gate.set()
     for t in threads:
         t.join(10)
-    assert mb.stats()["requests"] == 5
-    assert mb.stats()["batches"] < 5 and sum(seen) == 15
+    # the registry's serve_* series (the batcher's own counts before
+    # the fleet was ported)
+    assert obs.get_counter("serve_requests") == 5
+    assert obs.get_counter("serve_batches") < 5 and sum(seen) == 15
     for i, (a, b) in results.items():
         np.testing.assert_array_equal(a, np.full((2, 3), 2.0 * i))
     with pytest.raises(ValueError, match="negative row"):

@@ -128,6 +128,50 @@ def test_model_files_cross_load(trained, tmp_path):
     head = ours.read_text().split("Tree=0")[0]
     want = theirs.read_text().split("Tree=0")[0]
     assert head == want          # header and feature_infos identical
+    # the text after the importances: the drift fingerprint section
+    score = trained["bt"]._booster.train_data.host_score()
+    assert_fingerprint_tails_match(ours.read_text(), theirs.read_text(),
+                                   score)
+    # each package parses the other's section
+    mine = lt.Booster(model_file=str(ours), device="cpu")._booster
+    jaxs = lgb.Booster(model_file=str(theirs))._booster
+    assert lgb.Booster(model_file=str(ours))._booster.data_fingerprint \
+        .to_text() == mine.data_fingerprint.to_text()
+    assert lt.Booster(model_file=str(theirs), device="cpu")._booster \
+        .data_fingerprint.to_text() == jaxs.data_fingerprint.to_text()
+
+
+SCORE_HIST_RTOL = 1e-5
+
+
+def assert_fingerprint_tails_match(ours: str, theirs: str, scores) -> None:
+    """The text after ``feature importances`` of a port-trained model
+    against the JAX package's: every line equal but ``score_hist``,
+    whose edges agree within SCORE_HIST_RTOL of the largest and whose
+    counts differ by at most the moves of the training ``scores`` that
+    sit within that distance of an edge (the two packages' training
+    scores differ in the last bits)."""
+    cut = "\nfeature importances:\n"
+    a, b = ours.split(cut)[1].splitlines(), theirs.split(cut)[1].splitlines()
+    assert "data_fingerprint" in a and a[-1] == "end data_fingerprint"
+    assert len(a) == len(b)
+    seen = False
+    for la, lb in zip(a, b):
+        if not la.startswith("score_hist="):
+            assert la == lb
+            continue
+        seen = True
+        (ea, ca), (eb, cb) = ([np.asarray(v.split(","), np.float64)
+                               for v in ln.split("=", 1)[1].split(":")]
+                              for ln in (la, lb))
+        tol = SCORE_HIST_RTOL * np.abs(eb).max()
+        np.testing.assert_allclose(ea, eb, rtol=0, atol=tol)
+        s = np.asarray(scores, np.float64).ravel()
+        near = int((np.abs(s[:, None] - eb[None, :]).min(axis=1)
+                    <= 2 * tol).sum())
+        assert ca.sum() == cb.sum() == s.size
+        assert np.abs(ca - cb).sum() <= 2 * near
+    assert seen
 
 
 def test_booster_update_equals_train(trained):
