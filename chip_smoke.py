@@ -146,6 +146,42 @@ probes' own lines); any failure raises and exits non-zero.
    ``train_delta``: the ordered run's model continued 5 rounds on
    100k fresh rows with feature 0 shifted 2 sigma: one skew warning
    counted, the fresh fingerprint carried, K1 launched.
+   ``memory``: the device-memory gate on the train phase's datasets.
+   For each grower (ordered, cached, fused, nocache) the gate's estimate
+   beside the peak ``torch.cuda.max_memory_allocated`` measures over its
+   construction and 3 rounds (the estimate bounds the peak, within 64x of
+   it); the card's budget as ``_device_memory_limit`` reads it beside
+   ``nvidia-smi``'s memory total; a ``LGBT_DEVICE_MEMORY_BYTES`` override
+   below the estimate refused with ``MemoryBudgetExceeded`` before
+   anything is allocated (``memory_allocated`` unchanged); a budget
+   between the no-cache floor and the full estimate taking ``hist_cache``
+   and training the nocache run's trees; a real CUDA OOM: a ballast
+   tensor leaves the card nearly full, an override admits the run, and
+   one round raises ``DeviceOOM`` naming its unit, its shapes, the
+   admission table and a memwatch line; once the ballast is freed the
+   same booster trains on; a valid set over the budget refused with the
+   JAX package's message.
+   ``distributed``: ``tools/probe_gloo.py`` (which gloo collectives take
+   CUDA tensors) held against ``parallel/comm.py``'s rule; then two OS
+   processes on the one card (``chip_smoke.py --dist-rank``), each a
+   rank of a gloo group from a machine list of two localhost ports,
+   each building the Higgs cell (1M x 28, 63 leaves, 255 bins) from the
+   seed and training 3 rounds of data (``reduce_scatter``, then
+   ``psum``), feature and voting (``top_k`` 20, then 28) through
+   ``Booster.update``: both ranks' model texts byte-equal; data, feature
+   and voting at ``top_k`` 28 the nocache serial grower's trees on the
+   card (up to a near-tie; values within 1e-3 of a field's largest);
+   voting at ``top_k`` 20 within 1e-3 of its valid AUC; K2 on one rank's
+   row shard bit-equal to its plain version added in f64 and rounded
+   once.  Per learner: seconds a round beside the serial run's,
+   collective ms a round (host clock, the card synchronized before each
+   collective), K2 launches a rank, collective bytes a tree (equal to
+   ``traffic_per_tree``).
+   Then ``examples/parallel_learning/train.conf`` through the CLI as
+   written (one process: it warns and trains serial) and as two CLI
+   processes with ``num_machines=2`` and a machine list (10 trees),
+   byte-equal models.  A rank that fails or outlives its timeout fails
+   the phase; every rank's process group is killed at the end.
    ``examples``: each of the repo's four example confs
    (``examples/{binary_classification,regression,multiclass_classification,
    lambdarank}/train.conf``) through ``lightgbm_tpu_torch.cli.main`` in a
@@ -469,6 +505,31 @@ SPARSE_SCREEN = {"feature_screen_ratio": 0.3, "feature_screen_warmup": 6,
 SPARSE_SCREEN_ROUNDS = 15
 SPARSE_AUC_PIN = 0.002
 SPARSE_GOSS_LR = {"learning_rate": 0.5}
+
+
+# the memory phase: rounds measured per grower, the free memory the real
+# OOM's ballast leaves at most (about 256 MB; less when a round needs
+# less), the growers measured
+MEM_ROUNDS = 3
+MEM_LEAVE_MAX = 256 << 20
+MEM_GROWERS = GROWERS[:4]
+# the distributed phase: rounds a learner, the runs (name, params, the
+# data-parallel reduce), the ranks' and the CLI's timeouts, the CLI
+# two-process run's trees
+DIST_ROUNDS = 3
+DIST_RUNS = (("data_reduce_scatter", {"tree_learner": "data"},
+              "reduce_scatter"),
+             ("data_psum", {"tree_learner": "data"}, "psum"),
+             ("feature", {"tree_learner": "feature"}, "reduce_scatter"),
+             ("voting_top20", {"tree_learner": "voting", "top_k": 20},
+              "reduce_scatter"),
+             ("voting_top28", {"tree_learner": "voting", "top_k": 28},
+              "reduce_scatter"))
+DIST_EXACT = ("data_reduce_scatter", "data_psum", "feature", "voting_top28")
+DIST_TIMEOUT_S = 420
+DIST_CLI_TIMEOUT_S = 300
+DIST_CLI_TREES = 10
+DIST_AUC_PIN = 1e-3
 
 
 def emit(obj) -> None:
@@ -2897,6 +2958,593 @@ def compare_round_metrics(a, b, work, conf, label, models,
     return worst, ties
 
 
+# ---------------------------------------------------------------------------
+# the device-memory gate
+
+
+@contextlib.contextmanager
+def memory_override(limit):
+    """``LGBT_DEVICE_MEMORY_BYTES=limit`` inside the block (the gate's
+    budget), unset after it."""
+    os.environ["LGBT_DEVICE_MEMORY_BYTES"] = str(int(limit))
+    try:
+        yield
+    finally:
+        os.environ.pop("LGBT_DEVICE_MEMORY_BYTES", None)
+
+
+def _mem_params(extra):
+    return {**TRAIN_PARAMS, **extra}
+
+
+def _tree_arrays(booster):
+    return list(booster._booster.tree_arrays)
+
+
+def memory_growers(train_set, dev):
+    """Each grower's gate estimate beside the peak its construction and
+    MEM_ROUNDS rounds allocate; returns {grower: (estimate, peak,
+    steady, tree arrays)}."""
+    import gc
+    import lightgbm_tpu_torch as lt
+    out = {}
+    for name, extra, _ in MEM_GROWERS:
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        b = lt.Booster(params=_mem_params(extra), train_set=train_set,
+                       device=dev)
+        steady = torch.cuda.memory_allocated(dev) - base
+        for _ in range(MEM_ROUNDS):
+            b.update()
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        est = b._booster._train_mem_est
+        check(peak > 0, f"memory: {name} measured no allocation")
+        check(est >= peak, f"memory: {name}'s estimate {est} B is below "
+                           f"its measured peak {peak} B")
+        check(est <= 64 * peak, f"memory: {name}'s estimate {est} B is "
+                                f"over 64x its measured peak {peak} B")
+        out[name] = (est, peak, steady, _tree_arrays(b),
+                     b._booster.grow_kind)
+        del b
+    return out
+
+
+def fill_cache_slack(dev, ballast, smallest: int = 512) -> None:
+    """Tensors (appended to ``ballast``) into the caching allocator's
+    reserved but free blocks, largest first, so that later allocations
+    find no cached room.  A size no cached block holds is served from a
+    new segment; the loop then halves the size and ends below
+    ``smallest`` bytes."""
+    size = 1 << 30
+    while size >= smallest:
+        slack = (torch.cuda.memory_reserved(dev)
+                 - torch.cuda.memory_allocated(dev))
+        if slack < size:
+            size //= 2
+            continue
+        before = torch.cuda.memory_reserved(dev)
+        ballast.append(torch.empty(size, dtype=torch.uint8, device=dev))
+        if torch.cuda.memory_reserved(dev) > before:
+            size //= 2
+
+
+def memory_real_oom(train_set, dev, transient):
+    """A real CUDA OOM: a ballast tensor leaves the card nearly full, an
+    override admits the run, one round raises DeviceOOM; freed, the same
+    booster trains on."""
+    import gc
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.utils import resource
+    with memory_override(1 << 50):
+        b = lt.Booster(params=_mem_params(CONST), train_set=train_set,
+                       device=dev)
+        b.update()
+        torch.cuda.synchronize(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        leave = min(MEM_LEAVE_MAX, max(transient // 2, 1 << 20))
+        # first the allocator's reserved but free blocks (earlier phases
+        # leave some that empty_cache cannot return), else the round finds
+        # its room there; then the card in 1 GiB pieces, then the rest
+        # rounded down to 2 MiB
+        ballast = []
+        slack = (torch.cuda.memory_reserved(dev)
+                 - torch.cuda.memory_allocated(dev))
+        fill_cache_slack(dev, ballast)
+        while True:
+            room = torch.cuda.mem_get_info(dev)[0] - leave
+            if room < (2 << 20):
+                break
+            size = min(room, 1 << 30) & ~((2 << 20) - 1)
+            ballast.append(torch.empty(size, dtype=torch.uint8, device=dev))
+        free_left = torch.cuda.mem_get_info(dev)[0]
+        err = None
+        try:
+            b.update()
+        except resource.DeviceOOM as exc:
+            err = exc
+        check(err is not None, f"memory: a round with {free_left} B free "
+                               f"raised no DeviceOOM")
+        msg = str(err)
+        check(err.program in ("bag_mask", "train_gradients", "train_step",
+                              "score_update", "valid_replay")
+              and err.shapes and "admission estimate:" in msg
+              and "bins_device=" in msg and "memwatch: device_in_use=" in msg,
+              f"memory: the DeviceOOM lacks its diagnosis: {msg[:600]}")
+        it0 = b._booster.iter_
+        del ballast
+        gc.collect()
+        torch.cuda.empty_cache()
+        b.update()
+        torch.cuda.synchronize(dev)
+        check(b._booster.iter_ == it0 + 1 and it0 == 1,
+              f"memory: after the OOM the booster did not train on "
+              f"(iterations {it0} -> {b._booster.iter_})")
+    return {"free_bytes_left": int(free_left),
+            "cache_slack_bytes": int(slack), "program": err.program,
+            "shapes": err.shapes, "message": msg[:900],
+            "iterations_after": int(b._booster.iter_)}
+
+
+def phase_memory(datasets, dev):
+    """The device-memory gate on the train phase's datasets (module
+    docstring, ``memory``)."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.models.gbdt import _device_memory_limit
+    from lightgbm_tpu_torch.utils import resource
+    train_set, valid_set, _, _ = datasets
+    t0 = time.perf_counter()
+    runs = memory_growers(train_set, dev)
+    total = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.total", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+    budget = _device_memory_limit(dev)
+    # refused before training allocates
+    full = runs["ordered"][0]
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    refused = None
+    with memory_override(full // 2):
+        try:
+            lt.Booster(params=_mem_params(CONST), train_set=train_set,
+                       device=dev)
+        except resource.MemoryBudgetExceeded as exc:
+            refused = exc
+    check(refused is not None, "memory: an override of half the estimate "
+                               "was admitted")
+    check(torch.cuda.memory_allocated(dev) == before,
+          "memory: the refused construction allocated on the card")
+    check("exceeds the device budget" in str(refused)
+          and "histogram_cache=" in str(refused),
+          f"memory: the refusal lacks its table: {refused}")
+    # between the no-cache floor and the full estimate: hist_cache
+    floor = runs["nocache"][0]
+    check(floor < full, f"memory: no-cache floor {floor} B not below the "
+                        f"estimate {full} B")
+    with memory_override((floor + full) // 2):
+        b = lt.Booster(params=_mem_params({**CONST,
+                                           "memory_policy": "degrade"}),
+                       train_set=train_set, device=dev)
+        check(b._booster._degrade_steps == ("hist_cache",)
+              and b._booster.grow_kind == "nocache",
+              f"memory: the ladder took {b._booster._degrade_steps}")
+        for _ in range(MEM_ROUNDS):
+            b.update()
+    for i, (x, z) in enumerate(zip(_tree_arrays(b), runs["nocache"][3])):
+        compare_regrown(x, z, f"memory: degraded tree {i}", exact=False)
+    del b
+    # the real OOM: the ordered run's transient bytes set the ballast
+    est_o, peak_o, steady_o = runs["ordered"][:3]
+    oom = memory_real_oom(train_set, dev, peak_o - steady_o)
+    # a valid set past the budget
+    with memory_override(full + 1000):
+        b = lt.Booster(params=_mem_params(CONST), train_set=train_set,
+                       device=dev)
+        msg = None
+        try:
+            b.add_valid(valid_set, "valid")
+        except lt.LightGBMError as exc:
+            msg = str(exc)
+        check(msg is not None and "attaching this validation set" in msg
+              and "over the budget" in msg,
+              f"memory: the valid set past the budget was attached: {msg}")
+        del b
+    emit({"phase": "memory", "rounds": MEM_ROUNDS,
+          "growers": {name: {"estimate_bytes": r[0], "peak_bytes": r[1],
+                             "construction_bytes": r[2],
+                             "estimate_over_peak": r[0] / r[1],
+                             "grow_kind": r[4]}
+                      for name, r in runs.items()},
+          "budget_bytes": budget, "nvidia_smi_memory_total": total,
+          "refused_at_bytes": full // 2, "refusal": str(refused)[:400],
+          "degrade_budget_bytes": (floor + full) // 2, "oom": oom,
+          "valid_refusal": msg[:300], "seconds": time.perf_counter() - t0})
+
+
+# ---------------------------------------------------------------------------
+# the distributed learners
+
+
+def _dist_data(seed):
+    import lightgbm_tpu_torch as lt
+    X, y = make_higgs_like(TRAIN_ROWS, seed=seed + 40)
+    Xv, yv = make_higgs_like(VALID_ROWS, seed=seed + 41)
+    train_set = lt.Dataset(X, y, params=TRAIN_PARAMS).construct()
+    valid_set = lt.Dataset(Xv, yv, reference=train_set).construct()
+    return train_set, valid_set
+
+
+def _timed_rounds(b, dev, rounds):
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        b.update()
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def dist_k2_shard(gb, rank, world):
+    """K2 (children and root form) on this rank's row shard of the
+    booster's bins and its next round's gradients, against its plain
+    version added in f64 and rounded once."""
+    from lightgbm_tpu_torch.ops import children_hist as ch
+    bins = gb.train_data.bins
+    N = bins.shape[1]
+    n_loc = -(-N // world)
+    lo, hi = rank * n_loc, min((rank + 1) * n_loc, N)
+    shard = bins[:, lo:hi].contiguous()
+    g, h = gb._gradients()
+    g, h = g[0, lo:hi].contiguous(), h[0, lo:hi].contiguous()
+    w = torch.ones_like(g)
+    B = gb.grow_params.max_bin
+    leaf = shard[0].to(torch.int32) % 3
+    out = {}
+    for form, args in (("children", (leaf, 0, 1)), ("root", (None, 0, -2))):
+        before = ch.launch_counts()["children_histograms"]
+        if args[0] is None:
+            got = ch.root_histogram(shard, g, h, w, B)[None]
+        else:
+            got = ch.children_histograms(shard, g, h, w, *args, B)
+        torch.cuda.synchronize()
+        check(ch.launch_counts()["children_histograms"] == before + 1,
+              f"distributed: K2 ({form}) on the shard launched no kernel")
+        want = leaf_rows_hist(shard, g, h, w, *args, B, torch.float64)
+        if args[0] is None:
+            want = want[:1]
+            scale = abs_hist(shard, g, h, w, torch.zeros_like(leaf), 0, -2,
+                             B)[:1]
+        else:
+            scale = abs_hist(shard, g, h, w, *args, B)
+        label = f"distributed: K2 ({form}) on rank {rank}'s shard"
+        err = check_hist(got, want, scale, label)
+        equal = int((got == want).sum())
+        check(equal == got.numel(), f"{label}: {got.numel() - equal} of "
+                                    f"{got.numel()} sums are not bit-equal "
+                                    f"to the f64 sum rounded once")
+        out[form] = {"rows": hi - lo, "max_abs_diff": err,
+                     "entries": int(got.numel()), "bit_equal_entries": equal}
+    return out
+
+
+@contextlib.contextmanager
+def data_hist_reduce(mode):
+    """The booster's data-parallel grower built by
+    ``make_parallel_grow(..., hist_reduce=mode)`` (the learner's
+    ``reduce_scatter`` by default; ``psum`` is a grower argument, not a
+    config key, in both packages)."""
+    import functools
+    from lightgbm_tpu_torch import parallel
+    orig = parallel.make_parallel_grow
+    parallel.make_parallel_grow = functools.partial(orig, hist_reduce=mode)
+    try:
+        yield
+    finally:
+        parallel.make_parallel_grow = orig
+
+
+def profile_dist_round(booster):
+    """One extra distributed round: CUDA events around every K2 call and
+    every split scan of the rank's strategy, and every collective timed
+    on the host clock between two synchronizations of the card, so that
+    its time holds no queued kernel: the collective itself and the wait
+    for the peer rank.  Returns the sums beside the round's synchronized
+    wall time, and each collective's kind and ms in call order (the same
+    order on every rank)."""
+    from lightgbm_tpu_torch.parallel import comm
+    spans = {"k2": [], "split_scan": []}
+    colls = []
+
+    def evented(fn, key):
+        def timed(*args, **kwargs):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            res = fn(*args, **kwargs)
+            e.record()
+            spans[key].append((s, e))
+            return res
+        return timed
+
+    def synced(fn):
+        def timed(kind, run, nbytes):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(kind, run, nbytes)
+            torch.cuda.synchronize()
+            colls.append((kind, (time.perf_counter() - t0) * 1e3))
+        return timed
+
+    targets = (("children_histograms", "k2"), ("root_histogram", "k2"),
+               ("find_best_split", "split_scan"),
+               ("per_feature_scan", "split_scan"))
+    saved = [(attr, getattr(comm, attr)) for attr, _ in targets] \
+        + [("_collective", comm._collective)]
+    for attr, key in targets:
+        setattr(comm, attr, evented(getattr(comm, attr), key))
+    comm._collective = synced(comm._collective)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        booster.update()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for attr, fn in saved:
+            setattr(comm, attr, fn)
+    out = {"round_s": wall, "collective_ms": sum(ms for _, ms in colls),
+           "collective_calls": [[k, ms] for k, ms in colls]}
+    for key, pairs in spans.items():
+        out[key] = {"calls": len(pairs),
+                    "ms": sum(s.elapsed_time(e) for s, e in pairs)}
+    return out
+
+
+def dist_rank(job_path) -> int:
+    """One rank of the distributed phase (``--dist-rank JOB``)."""
+    import lightgbm_tpu_torch as lt
+    import torch.distributed as dist
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.ops import children_hist as ch
+    from lightgbm_tpu_torch.parallel import comm
+    from lightgbm_tpu_torch.parallel.multihost import (
+        maybe_initialize_distributed, process_rank_world)
+    with open(job_path) as fh:
+        job = json.load(fh)
+    cfg = Config({"num_machines": 2, "tree_learner": "data",
+                  "machine_list_file": job["mlist"],
+                  "distributed_heartbeat_ms": 0})
+    check(maybe_initialize_distributed(cfg), "distributed: no group")
+    rank, world = process_rank_world()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    train_set, valid_set = _dist_data(job["seed"])
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "device": str(dev), "data_s": time.perf_counter() - t0,
+           "runs": {}}
+    for name, extra, reduce in DIST_RUNS:
+        ch.reset_launch_counts()
+        comm.reset_stats()
+        with data_hist_reduce(reduce):
+            b = lt.Booster(params={**TRAIN_PARAMS, **extra,
+                                   "num_machines": 2},
+                           train_set=train_set, device=dev)
+        b.add_valid(valid_set, "valid")
+        times = _timed_rounds(b, dev, DIST_ROUNDS)
+        st = comm.stats()
+        gb = b._booster
+        check(gb.grow_kind == "parallel_" + extra["tree_learner"],
+              f"distributed: {name} grew with {gb.grow_kind}")
+        tree_bytes = sum(v for k, v in st["bytes"].items()
+                         if k in gb._comm_traffic) / DIST_ROUNDS
+        out["runs"][name] = {
+            "round_s": times,
+            "k2_launches": ch.launch_counts()["children_histograms"],
+            "collective_bytes_per_tree": tree_bytes,
+            "traffic_per_tree_bytes": gb._comm_traffic_totals[1],
+            "calls": st["calls"], "bytes": st["bytes"],
+            "valid_auc": dict((n, v) for n, v, _ in
+                              gb.eval_set("valid_1"))["auc"]}
+        with open(os.path.join(job["workdir"],
+                               f"dist_{name}_r{rank}.txt"), "w") as fh:
+            fh.write(b.model_to_string())
+        torch.save([ta._asdict() for ta in gb.tree_arrays],
+                   os.path.join(job["workdir"], f"dist_{name}_r{rank}.pt"))
+        if name == "data_reduce_scatter":
+            out["k2_shard"] = dist_k2_shard(gb, rank, world)
+        # after the model is written: the profiled round is a 4th tree
+        out["runs"][name]["profile"] = profile_dist_round(b)
+        del b, gb
+    with open(os.path.join(job["workdir"], f"dist_rank{rank}.json"),
+              "w") as fh:
+        json.dump(out, fh)
+    dist.destroy_process_group()
+    return 0
+
+
+def _dist_cli(workdir):
+    """``examples/parallel_learning/train.conf`` through the CLI: as
+    written (one process), then as two CLI processes with a machine
+    list."""
+    from lightgbm_tpu_torch.parallel.launch import machine_list, run_ranks
+    root = os.path.join(workdir, "parallel_cli")
+    work = os.path.join(root, "parallel_learning")
+    copy_example("parallel_learning", "parallel_learning", work)
+    copy_example("binary", "binary_classification",
+                 os.path.join(root, "binary_classification"))
+    t0 = time.perf_counter()
+    one = subprocess.run(
+        [sys.executable, "-m", "lightgbm_tpu_torch", "config=train.conf"],
+        cwd=work, capture_output=True, text=True,
+        timeout=DIST_CLI_TIMEOUT_S, env=dict(os.environ, PYTHONPATH=REPO))
+    one_s = time.perf_counter() - t0
+    check(one.returncode == 0, f"distributed: the conf as written failed: "
+                               f"{one.stderr[-2000:]}")
+    check("requested but only 1 device(s) available; falling back to "
+          "serial" in one.stderr,
+          "distributed: the conf as written did not warn of the serial "
+          "fallback")
+    mlist = machine_list(os.path.join(work, "mlist.txt"), 2)
+    argv = [[sys.executable, "-m", "lightgbm_tpu_torch", "config=train.conf",
+             "num_machines=2", f"machine_list_file={mlist}",
+             f"num_trees={DIST_CLI_TREES}", f"output_model=model_{r}.txt"]
+            for r in range(2)]
+    t0 = time.perf_counter()
+    codes, outs = run_ranks(argv, timeout=DIST_CLI_TIMEOUT_S,
+                            env=dict(os.environ, PYTHONPATH=REPO), cwd=work)
+    two_s = time.perf_counter() - t0
+    check(codes == [0, 0], f"distributed: the two CLI ranks exited "
+                           f"{codes}: {outs[0][-1500:]} {outs[1][-1500:]}")
+    texts = [open(os.path.join(work, f"model_{r}.txt")).read()
+             for r in range(2)]
+    check(texts[0] == texts[1], "distributed: the two CLI ranks wrote "
+                                "different models")
+    check("Using data-parallel tree learner over 2 ranks" in outs[0],
+          "distributed: the CLI ranks did not train data-parallel")
+    return {"as_written_s": one_s, "two_process_s": two_s,
+            "two_process_trees": DIST_CLI_TREES,
+            "backend_line": [ln for ln in outs[0].splitlines()
+                             if "torch.distributed: rendezvous" in ln][:1]}
+
+
+def dist_profile(per):
+    """The ranks' profiled rounds side by side: each one's round, K2,
+    split-scan and collective ms, and the collectives' ms summed over
+    calls of the smaller of the two ranks' times for each call (the
+    rank that came later waited least: the nearest this run gets to
+    the collectives' own cost)."""
+    prof = [rr["profile"] for rr in per]
+    calls = [p["collective_calls"] for p in prof]
+    check(all([k for k, _ in c] == [k for k, _ in calls[0]] for c in calls),
+          "distributed: the ranks' collectives ran in different orders")
+    return {"round_s": [p["round_s"] for p in prof],
+            "k2_ms": [p["k2"]["ms"] for p in prof],
+            "k2_calls": [p["k2"]["calls"] for p in prof],
+            "split_scan_ms": [p["split_scan"]["ms"] for p in prof],
+            "collective_ms": [p["collective_ms"] for p in prof],
+            "collective_calls": len(calls[0]),
+            "collective_ms_min_over_ranks": sum(
+                min(ms) for ms in zip(*([m for _, m in c] for c in calls)))}
+
+
+def phase_distributed(seed, datasets, dev, workdir):
+    """The distributed learners on two ranks of the one card (module
+    docstring, ``distributed``); returns K2's launches."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops.grow import TreeArrays
+    from lightgbm_tpu_torch.parallel import comm
+    from lightgbm_tpu_torch.parallel.launch import machine_list, run_ranks
+    t_start = time.perf_counter()
+    probe = subprocess.run(
+        [sys.executable, "-m", "lightgbm_tpu_torch.tools.probe_gloo"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    check(probe.returncode == 0, f"distributed: probe_gloo failed: "
+                                 f"{probe.stderr[-2000:]}")
+    found = json.loads(probe.stdout.strip().splitlines()[-1])
+    takes = {k for k, v in found["cuda"].items() if v is True}
+    check(takes == set(comm.GLOO_CUDA_COLLECTIVES),
+          f"distributed: gloo takes CUDA tensors in {sorted(takes)}, the "
+          f"comm layer's rule says {sorted(comm.GLOO_CUDA_COLLECTIVES)}")
+    job = os.path.join(workdir, "dist_job.json")
+    with open(job, "w") as fh:
+        json.dump({"seed": seed, "workdir": workdir,
+                   "mlist": machine_list(os.path.join(workdir,
+                                                      "dist_mlist.txt"), 2)},
+                  fh)
+    env = {k: v for k, v in os.environ.items()
+           if k != "LGBT_DEVICE_MEMORY_BYTES"}
+    t0 = time.perf_counter()
+    codes, outs = run_ranks([[sys.executable, os.path.abspath(__file__),
+                              "--dist-rank", job]] * 2,
+                            timeout=DIST_TIMEOUT_S, env=env, cwd=REPO)
+    ranks_s = time.perf_counter() - t0
+    for r, text in enumerate(outs):
+        with open(os.path.join(workdir, f"dist_rank{r}.log"), "w") as fh:
+            fh.write(text)
+    check(codes == [0, 0], f"distributed: the ranks exited {codes} (a "
+                           f"timeout is -9): {outs[0][-2000:]} "
+                           f"{outs[1][-2000:]}")
+    res = []
+    for r in range(2):
+        with open(os.path.join(workdir, f"dist_rank{r}.json")) as fh:
+            res.append(json.load(fh))
+    # the serial full-pass grower on the same cell, in this process
+    train_set, valid_set, _, _ = datasets
+    b = lt.Booster(params={**TRAIN_PARAMS, **CONST,
+                           "histogram_pool_size": 1,
+                           "memory_policy": "degrade"},
+                   train_set=train_set, device=dev)
+    b.add_valid(valid_set, "valid")
+    serial_s = _timed_rounds(b, dev, DIST_ROUNDS)
+    serial_auc = dict((n, v) for n, v, _ in
+                      b._booster.eval_set("valid_1"))["auc"]
+    serial_trees = _tree_arrays(b)
+    check(b._booster.grow_kind == "nocache", "distributed: the serial "
+                                             "reference is not nocache")
+    del b
+    runs = {}
+    for name, extra, _ in DIST_RUNS:
+        texts = [open(os.path.join(workdir, f"dist_{name}_r{r}.txt")).read()
+                 for r in range(2)]
+        check(texts[0] == texts[1], f"distributed: {name}: the ranks' "
+                                    f"model texts differ")
+        flips = []
+        if name in DIST_EXACT:
+            trees = [TreeArrays(**d) for d in torch.load(
+                os.path.join(workdir, f"dist_{name}_r0.pt"))]
+            check(len(trees) == len(serial_trees) == DIST_ROUNDS,
+                  f"distributed: {name} grew {len(trees)} trees")
+            for i, (x, z) in enumerate(zip(trees, serial_trees)):
+                flip, _ = compare_regrown(x, z, f"distributed: {name} "
+                                                f"tree {i}", exact=False)
+                if flip is not None:
+                    flips.append({"tree": i, **flip})
+        per = [rr["runs"][name] for rr in res]
+        for rr in per:
+            check(rr["k2_launches"] > 0, f"distributed: {name}: a rank "
+                                         f"launched no K2")
+            check(rr["collective_bytes_per_tree"]
+                  == rr["traffic_per_tree_bytes"],
+                  f"distributed: {name}: {rr['collective_bytes_per_tree']} "
+                  f"collective bytes a tree against the account's "
+                  f"{rr['traffic_per_tree_bytes']}")
+        auc = per[0]["valid_auc"]
+        if name == "voting_top20":
+            check(abs(auc - serial_auc) <= DIST_AUC_PIN,
+                  f"distributed: voting top_k=20 valid AUC {auc} against "
+                  f"serial {serial_auc}")
+        runs[name] = {
+            "round_s_median": float(np.median(per[0]["round_s"])),
+            "round_s": [rr["round_s"] for rr in per],
+            "profiled_round": dist_profile(per),
+            "k2_launches_per_rank": [rr["k2_launches"] for rr in per],
+            "collective_bytes_per_tree": per[0]["collective_bytes_per_tree"],
+            "calls_per_tree": {k: v / DIST_ROUNDS
+                               for k, v in per[0]["calls"].items()},
+            "valid_auc": auc, "near_tie_flips": flips}
+    for rr in res:
+        check(rr["backend"] == "gloo" and rr["device"] == "cuda:0",
+              f"distributed: rank {rr['rank']} ran {rr['backend']} on "
+              f"{rr['device']}")
+    cli_line = _dist_cli(workdir)
+    emit({"phase": "distributed", "world": 2, "backend": res[0]["backend"],
+          "rounds": DIST_ROUNDS, "gloo_cuda": found,
+          "serial_nocache_round_s_median": float(np.median(serial_s)),
+          "serial_round_s": serial_s, "serial_valid_auc": serial_auc,
+          "runs": runs, "k2_shard": [rr["k2_shard"] for rr in res],
+          "rank_data_s": [rr["data_s"] for rr in res], "ranks_s": ranks_s,
+          "cli": cli_line, "seconds": time.perf_counter() - t_start})
+    # K2 launches of the main path: both ranks' runs
+    return {"children_histograms": sum(
+        rr["runs"][n]["k2_launches"] for rr in res for n, _, _ in DIST_RUNS)}
+
+
 def phase_examples(workdir):
     """Each example conf through ``lightgbm_tpu_torch.cli.main``, on the
     card and on the CPU, in a copy of its directory: EXAMPLE_ROUNDS
@@ -5178,11 +5826,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--timing-reps", type=int, default=20)
+    ap.add_argument("--dist-rank", default=None,
+                    help="run one rank of the distributed phase (its job "
+                         "file); the phase starts these itself")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    if args.dist_rank:
+        return dist_rank(args.dist_rank)
     from lightgbm_tpu_torch.ops import children_hist as ch
     from lightgbm_tpu_torch.ops import forest_walk as fw
     from lightgbm_tpu_torch.ops import leafhist as lh
@@ -5210,6 +5863,10 @@ def main(argv=None) -> int:
             args.seed, dev, workdir)
         launches.update(trained)
         for name, n in fleet_train_delta(args.seed, workdir).items():
+            launches[name] += n
+        phase_memory(datasets, dev)
+        for name, n in phase_distributed(args.seed, datasets, dev,
+                                         workdir).items():
             launches[name] += n
         examples = phase_examples(workdir)
         objectives, multiclass = phase_objectives(args.seed, workdir)

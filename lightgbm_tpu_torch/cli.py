@@ -100,7 +100,8 @@ def run_train(config: Config, params: Dict[str, str]) -> None:
     """task=train (Application::InitTrain + Train): bin ``data`` (with
     its side files and column roles) and each ``valid_data`` file
     against its mappers, then ``engine.train`` on ``device`` as the JAX
-    CLI calls it: the training set first among the evaluated sets when
+    CLI calls it (with ``num_machines > 1`` and a ``machine_list_file``,
+    first joining the machine list's group: ``parallel/multihost.py``): the training set first among the evaluated sets when
     ``is_training_metric``, ``valid_<i>`` names, metrics logged every
     ``output_freq`` rounds, early stopping when ``early_stopping_round``
     > 0, continued from ``input_model``.  Saves every trained round to
@@ -108,6 +109,10 @@ def run_train(config: Config, params: Dict[str, str]) -> None:
     if not config.data:
         log.fatal("No training data specified (data=...)")
     config.check_trainable()          # before reading a large file
+    # join the machine list's group before any device use (the JAX
+    # CLI's order); one process without a machine list trains alone
+    from .parallel.multihost import maybe_initialize_distributed
+    distributed = maybe_initialize_distributed(config)
     start = time.monotonic()
     train_set = Dataset(config.data, params=dict(params))
     valid_sets, valid_names = [], []
@@ -128,6 +133,9 @@ def run_train(config: Config, params: Dict[str, str]) -> None:
     log.info("%f seconds elapsed, finished training",
              time.monotonic() - start)
     log.info("Finished training. Model saved to %s", config.output_model)
+    if distributed:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 def run_serve(config: Config, params: Dict[str, str]) -> None:

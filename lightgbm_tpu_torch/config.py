@@ -17,11 +17,12 @@ exactly one of three tables (pinned by a test):
   only the refused features read): each is accepted with one warning.
 
 A key of neither package is ignored with one warning too.
-:meth:`Config.check_trainable` refuses what is still unported in
-training: ``tree_learner`` other than ``serial``.  The rest of
-training (every objective, ``gbdt``, ``goss`` and ``dart``, bagging,
-feature fraction, ``nan_policy``, continued training, early stopping)
-is ported.
+:meth:`Config.check_trainable` refuses an unknown objective or boosting
+type.  Every objective, ``gbdt``, ``goss`` and ``dart``, bagging,
+feature fraction, ``nan_policy``, continued training, early stopping
+and the distributed learners (``tree_learner`` = ``data``, ``feature``
+or ``voting`` with ``num_machines > 1``, ``parallel/``) are ported.  As
+in the JAX config, ``num_machines <= 1`` makes the learner ``serial``.
 """
 
 from __future__ import annotations
@@ -251,11 +252,24 @@ _DEFAULTS: Dict[str, Any] = {
     "is_predict_leaf_index": False,
     # the leaf-output decay Booster.merge applies by default
     "shrinkage_decay": 1.0,
+    # distributed training (parallel/): the machine list, the voting
+    # learner's k, the bring-up's timeout (minutes) and retries
+    "num_machines": 1,
+    "top_k": 20,
+    "machine_list_file": "",
+    "local_listen_port": 12400,
+    "time_out": 120,
+    "distributed_init_retries": 3,
+    "distributed_init_backoff": 2.0,
+    # the JAX package's collective watchdog: the heartbeat only warns,
+    # the other two are refused (REFUSED)
+    "distributed_heartbeat_ms": 500.0,
+    "collective_timeout_s": 0.0,
+    "distributed_consistency_check": 0,
     # read only to be refused (REFUSED)
     "bad_data_policy": "fail_fast",
     "use_two_round_loading": False,
     "snapshot_dir": "",
-    "num_machines": 1,
 }
 
 #: key -> (refused(value), what the JAX package does with it): a value
@@ -273,32 +287,33 @@ REFUSED: Dict[str, tuple] = {
         bool,
         "the JAX package writes snapshots there and resumes training "
         "from the newest one"),
-    "num_machines": (
-        lambda v: v > 1,
-        "distributed training over several machines"),
+    "collective_timeout_s": (
+        lambda v: v > 0,
+        "the JAX package arms its collective watchdog with a per-round "
+        "deadline and aborts a hung distributed run"),
+    "distributed_consistency_check": (
+        lambda v: v > 0,
+        "the JAX package compares the ranks' replicated state every K "
+        "rounds and resynchronizes or aborts a diverged rank"),
 }
 
 #: keys that cannot change a tree, a prediction, a file the run writes
-#: or its outcome in the port: accepted with one warning each.  The
-#: distributed keys act only under a setting :data:`REFUSED` or
-#: ``check_trainable`` refuses; the quarantine budgets only under
+#: or its outcome in the port: accepted with one warning each.
+#: ``desync_policy`` acts only under the refused
+#: ``distributed_consistency_check``; the quarantine budgets only under
 #: ``bad_data_policy=quarantine``; ``snapshot_freq`` / ``snapshot_keep``
-#: only with a ``snapshot_dir``; ``top_k`` only in the voting learner;
-#: ``seed``, ``enable_load_from_binary_file``, ``tpu_histogram_impl``,
+#: only with a ``snapshot_dir``; ``seed``, ``enable_load_from_binary_file``, ``tpu_histogram_impl``,
 #: ``tpu_double_hist``, ``is_save_binary_file`` and ``is_pre_partition``
 #: are read by nothing in the JAX package outside its config (the first
 #: through its aliases only; only ``Dataset.save_binary`` writes a
 #: binary file).
 INERT = frozenset({
     "seed", "num_threads", "enable_load_from_binary_file",
-    "is_save_binary_file", "is_pre_partition", "top_k",
-    "local_listen_port", "time_out",
-    "machine_list_file", "tpu_histogram_impl", "tpu_double_hist",
+    "is_save_binary_file", "is_pre_partition",
+    "tpu_histogram_impl", "tpu_double_hist",
     "snapshot_freq", "snapshot_keep", "sink_error_policy",
     "events_flush_every", "max_bad_rows", "max_bad_row_fraction",
-    "distributed_init_retries", "distributed_init_backoff",
-    "distributed_heartbeat_ms", "collective_timeout_s",
-    "distributed_consistency_check", "desync_policy",
+    "desync_policy",
     "events_file", "trace_dir", "trace_start_iter", "trace_num_iters",
     "metrics_port", "metrics_host", "compile_ledger_file", "memwatch",
     "devprof", "trace_events_file", "compile_cache_dir",
@@ -473,6 +488,7 @@ class Config:
         if any(b <= 0 for b in v["predict_buckets"]):
             raise ValueError("predict_buckets must be positive sizes")
         self._check_fleet(v)
+        self._check_distributed(v)
         # the JAX config's conflict derivation (config.cpp:138-176)
         if v["serial_grow"] not in ("ordered", "cached", "fused"):
             raise ValueError(
@@ -577,21 +593,55 @@ class Config:
             raise ValueError("lifecycle_drift_threshold must be >= 0 "
                              "(0 disables the drift gate)")
 
+    @staticmethod
+    def _check_distributed(v: Dict[str, Any]) -> None:
+        """The JAX config's distributed checks and its normalization
+        (config.cpp:161-172): ``num_machines <= 1`` trains ``serial``,
+        and a ``serial`` learner runs on one machine."""
+        if v["tree_learner"] not in ("serial", "feature", "data", "voting"):
+            raise ValueError(f"Unknown tree learner type {v['tree_learner']}")
+        if v["top_k"] < 1:
+            raise ValueError("top_k must be >= 1")
+        if not 0 < v["local_listen_port"] < 65536:
+            raise ValueError("local_listen_port must be a TCP port "
+                             "(1..65535)")
+        if v["time_out"] < 0:
+            raise ValueError("time_out must be >= 0 minutes")
+        if v["distributed_init_retries"] < 0:
+            raise ValueError("distributed_init_retries must be >= 0")
+        if v["distributed_init_backoff"] < 0:
+            raise ValueError("distributed_init_backoff must be >= 0")
+        if v["distributed_heartbeat_ms"] < 0:
+            raise ValueError("distributed_heartbeat_ms must be >= 0 "
+                             "(0 disables the collective watchdog)")
+        if v["collective_timeout_s"] < 0:
+            raise ValueError("collective_timeout_s must be >= 0 (0 = "
+                             "no deadline)")
+        if v["distributed_consistency_check"] < 0:
+            raise ValueError("distributed_consistency_check must be >= 0 "
+                             "(0 disables it)")
+        if v["num_machines"] <= 1:
+            v["tree_learner"] = "serial"
+        elif v["tree_learner"] == "serial":
+            v["num_machines"] = 1
+        if v["num_machines"] > 1 and v["distributed_heartbeat_ms"] > 0:
+            log.warn_once(
+                "distributed_heartbeat_ms",
+                "distributed_heartbeat_ms=%g: the JAX package's heartbeat "
+                "watchdog is not ported to the torch package; a dead rank "
+                "surfaces as a collective error or the rendezvous "
+                "time_out", v["distributed_heartbeat_ms"])
+
     def check_trainable(self) -> None:
-        """Raise for every training setting outside the ported slice:
-        an unknown objective or boosting type, or a distributed tree
-        learner; nothing here is silently ignored (the refused keys of
-        :data:`REFUSED` raise when the Config is built)."""
+        """Raise for an unknown objective or boosting type; nothing here
+        is silently ignored (the refused keys of :data:`REFUSED` raise
+        when the Config is built)."""
         v = self._values
         if v["objective"] not in OBJECTIVES:
             raise LightGBMError(
                 f"Unknown objective type name: {v['objective']}")
         if v["boosting_type"] not in BOOSTING_TYPES:
             log.fatal("Unknown boosting type %s", v["boosting_type"])
-        if v["tree_learner"] != "serial":
-            raise LightGBMError(
-                "not ported yet to the torch package: "
-                f"tree_learner={v['tree_learner']} (distributed learners)")
 
     def __getattr__(self, name: str) -> Any:
         values = object.__getattribute__(self, "_values")

@@ -18,7 +18,8 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None``/``"cuda"`` -> ``cuda:0``; ``"cpu"`` -> ``cpu``; a CUDA
+    """``None``/``"cuda"`` -> the current card (``cuda:0`` unless a
+    distributed rank set its own); ``"cpu"`` -> ``cpu``; a CUDA
     index is kept.  Raises :class:`LightGBMError` for a CUDA request on
     a host without a card, and for any other device type."""
     dev = torch.device("cuda" if device is None else device)
@@ -32,7 +33,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise LightGBMError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the host")
-    index = 0 if dev.index is None else dev.index
+    # a bare "cuda" is the current card: cuda:0 unless a distributed
+    # rank set its own (parallel/multihost.py)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
     if index >= torch.cuda.device_count():
         raise LightGBMError(
             f"device cuda:{index} does not exist "

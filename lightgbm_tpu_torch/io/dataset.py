@@ -122,28 +122,32 @@ def build_mappers_from_sample(sample: np.ndarray, num_data: int, *,
                               min_data_in_leaf: int,
                               categorical_features=frozenset(),
                               ignore_features=frozenset(),
-                              predefined_mappers=None):
+                              predefined_mappers=None,
+                              feature_indices=None):
     """Per-feature BinMapper list (None for an ignored feature) from a
     row sample (the FindBin stage, reference dataset_loader.cpp:656-722).
     The trivial-feature filter count is scaled to the sample: 0.95 *
-    min_data_in_leaf / num_data * sample_cnt."""
+    min_data_in_leaf / num_data * sample_cnt.  ``feature_indices``
+    restricts the work to those features (the feature-sharded
+    distributed FindBin, ``parallel/ingest.py``); the others get None."""
     total_sample_cnt = sample.shape[0]
     filter_cnt = int(0.95 * min_data_in_leaf / max(1, num_data)
                      * total_sample_cnt)
-    out: List[Optional[BinMapper]] = []
-    for f in range(sample.shape[1]):
+    todo = range(sample.shape[1]) if feature_indices is None \
+        else feature_indices
+    out: List[Optional[BinMapper]] = [None] * sample.shape[1]
+    for f in todo:
         if f in ignore_features:
-            out.append(None)
             continue
         if predefined_mappers is not None \
                 and predefined_mappers[f] is not None:
-            out.append(predefined_mappers[f])
+            out[f] = predefined_mappers[f]
             continue
         col = sample[:, f]
-        out.append(BinMapper().find_bin(
+        out[f] = BinMapper().find_bin(
             col[col != 0.0], total_sample_cnt, max_bin, min_data_in_bin,
             filter_cnt,
-            CATEGORICAL if f in categorical_features else NUMERICAL))
+            CATEGORICAL if f in categorical_features else NUMERICAL)
     return out
 
 

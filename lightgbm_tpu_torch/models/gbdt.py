@@ -57,9 +57,29 @@ Growers (``_serial_grow_kind``): ``ordered`` (default) is
 size (``_check_memory_budget``).  EFB bundled datasets and gain
 screening need the per-split column decode, which the leaf-ordered
 grower's layout does not carry: ``ordered`` falls back to ``cached``
-there, with the JAX package's warning.  The JAX package's admission
-gate against the device's memory (``MemoryBudgetExceeded``) and its
-``score_donation`` and ``row_pad`` steps are not ported.
+there, with the JAX package's warning.
+
+The admission gate (``_check_memory_budget``, the JAX package's): before
+training allocates, the per-component estimate
+(:func:`estimate_train_memory`) meets the card's budget
+(:func:`_device_memory_limit`); ``memory_policy=fail_fast`` refuses an
+estimate over it with a ``MemoryBudgetExceeded`` and its table,
+``degrade`` walks the ladder (``score_donation``, ``hist_cache``,
+``row_pad``; ``utils/resource.py``) first.  A valid set is re-checked when
+it is attached, and ``reset_training_data`` runs the gate again.  Each
+unit of a round runs under ``resource.oom_guard``: a CUDA allocation
+failure becomes a ``DeviceOOM`` naming the unit (``bag_mask``,
+``train_gradients``, ``train_step``, ``linear_fit``, ``valid_replay``,
+``score_update``), and the round commits nothing before its last unit,
+so the booster trains on after one.
+
+Distributed learners (``tree_learner`` = ``data``, ``feature`` or
+``voting`` over a ``torch.distributed`` group of more than one rank,
+``parallel/``): ``_make_grow_fn`` grows each class's tree with
+``parallel.make_parallel_grow`` over the group; every rank holds the
+whole training set and the same scores, grows the same tree and keeps
+the same model.  With a world of one the booster warns and trains
+serial, as the JAX package does on one device.
 
 EFB (``io/bundling.py``, ``ops/bundle.py``): a dataset with a bundle
 plan trains over its ``[C, N]`` columns with the plan's decode tables
@@ -78,12 +98,14 @@ round itself for DART (``_screen_observes_late``).
 from __future__ import annotations
 
 import io
+import os
 import re
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..io.bundling import BundlePlan
 from ..metric import create_metric
 from ..obs.drift import DataFingerprint
@@ -121,29 +143,115 @@ def _take(t: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
 def estimate_train_memory(num_data: int, num_columns: int, num_leaves: int,
                           max_bin: int, num_models: int,
                           bin_itemsize: int = 1, *,
+                          fused_scratch: bool = False,
                           leaf_cache: bool = True,
-                          linear_k: int = 0) -> Dict[str, int]:
-    """Rough device footprint (bytes) of training, by component: the
-    column- and row-major bin copies (``num_columns`` of them, the EFB
-    columns of a bundled dataset), the score, gradient, hessian and
-    delta buffers, the [L, C, 9, B] int32 per-leaf histogram cache
-    (zero without ``leaf_cache``: the fused grower and the
-    ``hist_cache`` degrade step) and, with ``linear_k`` affine slots a
-    leaf (``linear_tree``), the linear fit's: the [F, N] f32 raw copy,
-    two [N, K+1] f32 per-row gathers and three [L, K+1, K+1] f32 normal
-    equation copies (the JAX ``linear_fit`` term).  The JAX version's
-    terms for packed word lanes and score donation are not ported."""
+                          linear_k: int = 0,
+                          grower: str = "cached",
+                          scratch_blocks: int = 0,
+                          bag_rows: int = 0) -> Dict[str, int]:
+    """Rough device footprint (bytes) of training, by component, under
+    the JAX package's names:
+
+    * ``bins_device``: the column- and row-major bin copies (the EFB
+      columns of a bundled dataset);
+    * ``scores_and_gradients``: score, gradient, hessian and delta
+      buffers of every class;
+    * ``score_double_buffer``: zero, since the port adds each tree into
+      the score buffer in place (the JAX term with ``donate_score``);
+    * ``histogram_cache``: the ``[L, C, 9, B]`` int32 per-leaf cache of
+      the cached and ordered growers (zero without ``leaf_cache``: the
+      fused grower and the ``hist_cache`` step);
+    * ``vmem_scratch``: the JAX fused kernel's two ``[F, B, 3]`` f32
+      tiles (``fused_scratch``), plus, for ``scratch_blocks`` > 0 (the
+      SMs of the card), K2's and K3's f64 partials, at most one
+      ``[2, C, B, 3]`` f64 set a block;
+    * ``linear_fit``: the JAX term (the raw ``[F, N]`` f32 copy, two
+      ``[N, K+1]`` gathers, three ``[L, K+1, K+1]`` normal equations);
+    * ``packed_payload``: the port's own: the ``[N, 9]`` int8 digits of
+      the cached and ordered growers, and for ``grower="ordered"`` its
+      row-major working copy of the bins and its int64 row order.  The
+      JAX term's packed word lanes have no buffer in the port (its
+      ordered grower partitions rows, not words; ``pack_u8_words``
+      serves the probe P2 only);
+    * ``working``: the port's own transients, summed although they
+      are not all live at once: the objective's gradient temporaries
+      (``24 N``: a few ``[N]`` f32 vectors); for the cached and ordered
+      growers the digit split of ``quantize_digits`` (``96 N``: its
+      ``[3, N]`` f32 and int32 steps and the ``[3, 3, N]`` int32 stack);
+      the ordered partition's gathered segment and index vectors at the
+      root (``N * (C + 54)`` bytes at uint8), or the fixed-trip growers'
+      per-step row vectors (``32 N``) and the cached grower's compacted
+      half; and, under bagging (``bag_rows`` > 0, the padded draw
+      count), the draw's words, sorted words and indices.
+
+    ``num_data`` is the unpadded row count: the port allocates no pad
+    rows (the JAX package's pad reaches only the bag draw here)."""
     n, f = num_data, num_columns
     bins = 2 * n * f * bin_itemsize
     scores = num_models * n * 4 * 4
     cache = num_leaves * f * 9 * max_bin * 4 if leaf_cache else 0
+    vmem = (2 * f * max_bin * 3 * 4) if fused_scratch else 0
+    if scratch_blocks > 0:
+        vmem += scratch_blocks * 2 * f * max_bin * 3 * 8 \
+            + 2 * f * max_bin * 3 * 4
     linear = 0
     if linear_k > 0:
         m = linear_k + 1
         linear = n * f * 4 + 2 * n * m * 4 + 3 * num_leaves * m * m * 4
-    return {"bins_device": bins, "scores_and_gradients": scores,
-            "histogram_cache": cache, "linear_fit": linear,
-            "total": bins + scores + cache + linear}
+    payload = n * 9 if leaf_cache else 0
+    working = 24 * n + (96 * n if leaf_cache else 0)
+    if grower == "ordered":
+        payload += n * (f * bin_itemsize + 8)
+        working += n * (f * bin_itemsize + 54)
+    else:
+        working += 32 * n
+        if leaf_cache:
+            working += (n // 2) * (f * bin_itemsize + 9 + 8)
+    if bag_rows > 0:
+        working += bag_rows * 16
+    return {"bins_device": bins, "packed_payload": payload,
+            "scores_and_gradients": scores,
+            "score_double_buffer": 0, "histogram_cache": cache,
+            "vmem_scratch": vmem, "linear_fit": linear, "working": working,
+            "total": (bins + payload + scores + cache + vmem + linear
+                      + working)}
+
+
+def estimate_valid_memory(num_data: int, num_features: int,
+                          num_models: int,
+                          bin_itemsize: int = 1) -> Dict[str, int]:
+    """Device footprint (bytes) of attaching a validation set: its
+    ``[C, N]`` bins, its ``[num_class, N]`` f32 scores, and one class's
+    delta during a replay (the JAX package's terms)."""
+    n = num_data
+    bins = n * num_features * bin_itemsize
+    scores = num_models * n * 4
+    working = n * 4
+    return {"bins_device": bins, "scores": scores, "working": working,
+            "total": bins + scores + working}
+
+
+def _device_memory_limit(device: Optional[torch.device] = None
+                         ) -> Optional[int]:
+    """The device budget in bytes, or None when unknown (the CPU).
+
+    ``LGBT_DEVICE_MEMORY_BYTES`` overrides it (the JAX package reads the
+    same variable, so one test sets both).  On a card it is the free
+    memory ``torch.cuda.mem_get_info`` reports plus the bytes this
+    process's caching allocator holds reserved (free to it, not to the
+    card): not the card's total, since other processes, such as a second
+    rank on the same card, hold the rest."""
+    env = os.environ.get("LGBT_DEVICE_MEMORY_BYTES")
+    if env:
+        try:
+            return int(env)
+        except ValueError:
+            log.warning("LGBT_DEVICE_MEMORY_BYTES=%r is not an integer; "
+                        "ignoring", env)
+    if device is None or torch.device(device).type != "cuda":
+        return None
+    free, _total = torch.cuda.mem_get_info(device)
+    return int(free) + int(torch.cuda.memory_reserved(device))
 
 
 class _PredictionObjective:
@@ -303,10 +411,14 @@ class GBDT:
         self._degrade_leaf_cache_off = False
         self.num_features = train_set.num_features
         self.num_columns = train_set.num_columns
-        self._check_memory_budget(config, train_set)
         self._linear = self._setup_linear(config, train_set)
         self._setup_bundle(train_set)
         self._setup_screening(config)
+        # the JAX package's draws cover its padded rows (row_buckets)
+        self._padded_rows = (jrandom.bucket_rows(self.num_data)
+                             if config.row_buckets else self.num_data)
+        # the admission gate, before any training buffer is allocated
+        self._check_memory_budget(config, train_set)
         self._grow = self._make_grow_fn()
         self.num_bin = torch.from_numpy(
             train_set.num_bin_per_feature()).to(device)
@@ -333,9 +445,6 @@ class GBDT:
         self._full_feat_mask = torch.ones(self.num_features,
                                           dtype=torch.bool, device=device)
         self._feat_mask = self._full_feat_mask
-        # the JAX package's draws cover its padded rows (row_buckets)
-        self._padded_rows = (jrandom.bucket_rows(self.num_data)
-                             if config.row_buckets else self.num_data)
         self._bag_cnt = self.num_data
         self._bag_key = jrandom.prng_key(config.bagging_seed)
         self._feature_rng = np.random.RandomState(
@@ -393,7 +502,8 @@ class GBDT:
         if rescreen:
             self._setup_screening(config)
             self._view = self._full_view
-        if params != self.grow_params or rescreen:
+        if params != self.grow_params or rescreen \
+                or old.tree_learner != config.tree_learner:
             self.grow_params = params
             self._grow = self._make_grow_fn()
         self.train_metrics = self._make_metrics(self.train_set)
@@ -549,59 +659,173 @@ class GBDT:
         self._observe_pending()
         self._models = value
 
+    def _estimate_now(self, cfg, train_set,
+                      padded_rows: Optional[int] = None) -> Dict[str, int]:
+        """:func:`estimate_train_memory` of this booster as it stands:
+        its grower, its degrade steps, its card."""
+        kind = self._serial_grow_kind()
+        full_pass = kind in ("fused", "nocache") or self._parallel_world() > 1
+        sms = 0
+        if full_pass and self.device.type == "cuda":
+            sms = torch.cuda.get_device_properties(
+                self.device).multi_processor_count
+        sampled = (cfg.boosting_type == "goss"
+                   or (cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0))
+        padded = self._padded_rows if padded_rows is None else padded_rows
+        return estimate_train_memory(
+            self.num_data, train_set.num_columns, cfg.num_leaves, cfg.max_bin,
+            self.num_class, bin_itemsize=train_set.bins.dtype.itemsize,
+            fused_scratch=kind == "fused",
+            leaf_cache=kind in ("cached", "ordered") and not full_pass,
+            linear_k=(self._linear.max_features
+                      if self._linear is not None else 0),
+            grower=kind, scratch_blocks=sms,
+            bag_rows=padded if sampled else 0)
+
     def _check_memory_budget(self, cfg, train_set) -> None:
-        """The histogram-pool half of the JAX admission gate:
-        ``histogram_pool_size`` (MB) against the per-leaf histogram
-        cache.  Under ``memory_policy=degrade`` a cache over the pool
-        takes the ``hist_cache`` step (no cache: the full-pass grower);
-        under ``fail_fast`` it warns that the pool does not bound
-        memory."""
+        """The admission gate (the JAX ``_check_memory_budget``): the
+        estimate against the card's budget, under ``memory_policy``.
+
+        ``histogram_pool_size`` (MB) below the per-leaf cache takes the
+        ``hist_cache`` step under ``degrade`` and warns under
+        ``fail_fast``.  Then, with a budget (:func:`_device_memory_limit`),
+        ``degrade`` walks the ladder (:meth:`_walk_degrade_ladder`) while
+        the estimate is over it, and an estimate still over it is refused
+        with ``MemoryBudgetExceeded`` and its table, before any training
+        buffer is allocated.  The ``hbm_*`` gauges and the OOM
+        diagnosis's table are published either way."""
         policy = resource.check_memory_policy(cfg.memory_policy)
-        est = estimate_train_memory(
-            train_set.num_data, train_set.num_columns, cfg.num_leaves,
-            cfg.max_bin, self.num_class,
-            bin_itemsize=train_set.bins.dtype.itemsize,
-            leaf_cache=cfg.serial_grow != "fused",
-            linear_k=(int(cfg.linear_max_leaf_features)
-                      if cfg.linear_tree else 0))
+        est = self._estimate_now(cfg, train_set)
         pool_mb = float(cfg.histogram_pool_size)
-        if pool_mb <= 0 or est["histogram_cache"] <= pool_mb * (1 << 20):
-            return
-        if policy == "degrade":
-            self._apply_degrade(
-                "hist_cache", est["histogram_cache"],
-                f"histogram_pool_size={pool_mb:g}MB bounds the per-leaf "
-                f"histogram cache "
-                f"({est['histogram_cache'] / (1 << 20):.0f}MB resident): "
-                f"dropping the cache — children recompute instead of "
-                f"sibling-subtraction")
-            return
-        log.warn_once(
-            "histogram_pool_size",
-            "histogram_pool_size=%.0fMB requested but the device design "
-            "keeps the whole per-leaf histogram cache resident (%.0fMB for "
-            "num_leaves=%d x %d columns x 9 x %d bins); under "
-            "memory_policy=fail_fast the parameter does NOT bound memory — "
-            "lower num_leaves/max_bin, or set memory_policy=degrade to make "
-            "the bound real", pool_mb, est["histogram_cache"] / (1 << 20),
-            cfg.num_leaves, train_set.num_columns, cfg.max_bin)
+        if pool_mb > 0 and est["histogram_cache"] > pool_mb * (1 << 20):
+            if policy == "degrade":
+                self._apply_degrade(
+                    "hist_cache", est["histogram_cache"],
+                    f"histogram_pool_size={pool_mb:g}MB bounds the "
+                    f"per-leaf histogram cache "
+                    f"({est['histogram_cache'] / (1 << 20):.0f}MB "
+                    f"resident): dropping the cache — children recompute "
+                    f"instead of sibling-subtraction")
+                est = self._estimate_now(cfg, train_set)
+            else:
+                log.warn_once(
+                    "histogram_pool_size",
+                    "histogram_pool_size=%.0fMB requested but the device "
+                    "design keeps the whole per-leaf histogram cache "
+                    "resident (%.0fMB for num_leaves=%d x %d columns x 9 x "
+                    "%d bins); under memory_policy=fail_fast the parameter "
+                    "does NOT bound memory — lower num_leaves/max_bin, or "
+                    "set memory_policy=degrade to make the bound real",
+                    pool_mb, est["histogram_cache"] / (1 << 20),
+                    cfg.num_leaves, train_set.num_columns, cfg.max_bin)
+        limit = _device_memory_limit(self.device)
+        obs.set_gauge("hbm_budget_bytes", int(limit) if limit else -1)
+        if limit and est["total"] > limit and policy == "degrade":
+            est = self._walk_degrade_ladder(cfg, train_set, est, limit)
+        obs.set_gauge("hbm_train_estimate_bytes", int(est["total"]))
+        obs.set_gauge("hbm_histogram_cache_bytes",
+                      int(est["histogram_cache"]))
+        resource.set_budget_table(
+            est, f"train rows={self.num_data} "
+                 f"cols={train_set.num_columns} "
+                 f"leaves={cfg.num_leaves} bins={cfg.max_bin}")
+        if limit and est["total"] > limit:
+            raise resource.refuse(est, limit, "training",
+                                  self._degrade_steps)
+        # the running account add_valid_dataset re-checks against
+        self._train_mem_est = int(est["total"])
+        self._valid_mem_bytes = 0
 
     def _apply_degrade(self, step: str, saved_bytes: int,
                        detail: str) -> None:
         if step == "hist_cache":
             self._degrade_leaf_cache_off = True
+        elif step == "row_pad":
+            self._padded_rows = self.num_data
         self._degrade_steps = self._degrade_steps + (step,)
         resource.note_degrade(step, saved_bytes, detail)
+
+    def _walk_degrade_ladder(self, cfg, train_set, est: Dict[str, int],
+                             limit: int) -> Dict[str, int]:
+        """Apply the ladder's steps in order until the estimate fits or
+        every available step is spent.  A step that is unavailable is
+        skipped with a debug line: ``score_donation`` always (the port
+        updates the scores in place, so there is no second buffer to
+        drop), ``hist_cache`` for the fused grower or a zero cache,
+        ``row_pad`` when the bag draw covers no pad rows."""
+        for step in resource.DEGRADE_STEPS:
+            if est["total"] <= limit:
+                break
+            if step == "score_donation":
+                log.debug("degrade step score_donation unavailable (the "
+                          "score update is already in place)")
+                continue
+            if step == "hist_cache":
+                if self._degrade_leaf_cache_off \
+                        or cfg.serial_grow == "fused" \
+                        or est["histogram_cache"] <= 0:
+                    log.debug("degrade step hist_cache unavailable "
+                              "(fused grower or no cache)")
+                    continue
+                saved = est["histogram_cache"]
+                detail = ("dropping the [L, F, 9, B] per-leaf histogram "
+                          "cache — children recompute instead of "
+                          "sibling-subtraction (slower, never wrong)")
+            else:
+                if self._padded_rows <= self.num_data:
+                    log.debug("degrade step row_pad unavailable (no pad "
+                              "rows)")
+                    continue
+                pad = self._padded_rows - self.num_data
+                saved = est["total"] - self._estimate_probe_rows(
+                    cfg, train_set)["total"]
+                detail = (f"capping the row-bucket pad ({pad} pad rows "
+                          f"released; the bag draw covers the rows alone)")
+            self._apply_degrade(step, max(int(saved), 0), detail)
+            est = self._estimate_now(cfg, train_set)
+        return est
+
+    def _estimate_probe_rows(self, cfg, train_set) -> Dict[str, int]:
+        """The estimate as it would be with the pad capped (the
+        ``row_pad`` step's saving), without applying it."""
+        return self._estimate_now(cfg, train_set,
+                                  padded_rows=self.num_data)
+
+    def _parallel_world(self) -> int:
+        """The ranks a distributed learner would span: the default
+        group's world when ``tree_learner`` is not ``serial`` and a group
+        is up, else 1."""
+        if self.config.tree_learner == "serial":
+            return 1
+        from ..parallel.multihost import process_rank_world
+        return process_rank_world()[1]
 
     def _make_grow_fn(self):
         """The grower of this booster's kind, as ``fn(grad, hess) ->
         (TreeArrays, leaf_id, delta)`` over the round's histogram view
-        (``_view``) of the training data.  Unlike
+        (``_view``) of the training data.
+
+        A distributed ``tree_learner`` over a group of more than one rank
+        (TreeLearner::CreateTreeLearner, tree_learner.cpp) grows with
+        ``parallel.make_parallel_grow`` over the default group, with its
+        static traffic account of a tree; with a world of one it warns
+        and trains serial, as the JAX package does on one device.  Unlike
         the JAX package, whose leaf-ordered grower packs uint8 bins into
         words and falls back to the cached learner for more than 256
         bins, the port's ordered grower takes uint16 bins too, and its
         trees equal the cached grower's; so ``ordered`` stays
         ``ordered``."""
+        cfg = self.config
+        self._comm_traffic = None
+        self._comm_traffic_totals = (0, 0)
+        self._parallel_grow = None
+        if cfg.tree_learner != "serial":
+            world = self._parallel_world()
+            if world > 1:
+                return self._make_parallel_grow_fn(world)
+            log.warning("tree_learner=%s requested but only %d device(s) "
+                        "available; falling back to serial",
+                        cfg.tree_learner, world)
         kind = self.grow_kind = self._serial_grow_kind()
         params = self.grow_params
 
@@ -620,6 +844,86 @@ class GBDT:
             return grow_tree(view.bins, *args, comm=comm,
                              bins_rm=view.bins_rm, bundle=view.bundle)
         return grow
+
+    def _make_parallel_grow_fn(self, world: int):
+        from ..parallel import make_parallel_grow
+        from ..parallel.comm import observe_traffic, traffic_totals
+        cfg = self.config
+        log.info("Using %s-parallel tree learner over %d ranks",
+                 cfg.tree_learner, world)
+        self.grow_kind = f"parallel_{cfg.tree_learner}"
+        fn = make_parallel_grow(None, cfg.tree_learner, self.grow_params,
+                                top_k=cfg.top_k)
+        # data-parallel reduces column histograms under EFB (the whole
+        # histogram, all-reduced); voting and feature ship per-feature
+        # payloads
+        traffic_f = (self.num_columns if cfg.tree_learner == "data"
+                     else self.num_features)
+        self._comm_traffic = fn.traffic_per_tree(
+            traffic_f, bundled=self._bundle is not None)
+        self._comm_traffic_totals = traffic_totals(self._comm_traffic)
+        self._parallel_grow = fn
+
+        def grow(grad, hess):
+            view = self._view
+            out = fn(view.bins, self.num_bin, self.is_cat, self._feat_mask,
+                     grad, hess, self._round_weight, self.shrinkage_rate,
+                     bundle=view.bundle)
+            observe_traffic(self._comm_traffic)
+            return out
+        return grow
+
+    def reset_training_data(self, train_set) -> None:
+        """GBDT::ResetTrainingData (gbdt.cpp:101-167; the JAX
+        ``reset_training_data``): a new training set on the same mappers,
+        the objective and training metrics re-initialised on it, the
+        admission gate run again against it (the valid sets' account
+        kept), and every tree of ``models`` replayed into a fresh score
+        buffer."""
+        old = self.train_set
+        if [m.to_state() for m in old.mappers] != \
+                [m.to_state() for m in train_set.mappers]:
+            log.fatal("Cannot reset training data, since new training data "
+                      "has different bin mappers")
+        self._observe_pending()
+        cfg, dev = self.config, self.device
+        self.train_set = train_set
+        fp = getattr(train_set, "data_fingerprint", None)
+        if fp is not None:
+            self.data_fingerprint = fp
+        self.num_data = train_set.num_data
+        self.objective.init(train_set.metadata, train_set.num_data)
+        self.num_columns = train_set.num_columns
+        self.num_bin = torch.from_numpy(
+            train_set.num_bin_per_feature()).to(dev)
+        self.is_cat = torch.from_numpy(
+            train_set.is_categorical_per_feature()).to(dev)
+        self._is_cat_host = torch.from_numpy(
+            train_set.is_categorical_per_feature())
+        self._setup_bundle(train_set)
+        self._linear = self._setup_linear(cfg, train_set)
+        self._padded_rows = (jrandom.bucket_rows(self.num_data)
+                             if cfg.row_buckets else self.num_data)
+        valid_bytes = self._valid_mem_bytes
+        self._check_memory_budget(cfg, train_set)
+        self._valid_mem_bytes = valid_bytes
+        self.train_data = _DeviceData(train_set, self.num_class, dev,
+                                      with_row_major=True,
+                                      with_raw=self._linear is not None)
+        self.train_metrics = self._make_metrics(train_set)
+        self._grad_arrays = self.objective.gradient_arrays(dev)
+        td = self.train_data
+        self._full_view = self._view = _HistView(td.bins, td.bins_rm,
+                                                 self._bundle)
+        self._ones_weight = torch.ones(self.num_data, dtype=torch.float32,
+                                       device=dev)
+        self._row_weight = self._round_weight = self._ones_weight
+        self._bag_cnt = self.num_data
+        self._setup_screening(cfg)
+        self._grow = self._make_grow_fn()
+        self.tree_arrays = []
+        for i, tree in enumerate(self.models):
+            self._add_host_tree_to(td, tree, i % self.num_class)
 
     def _make_metrics(self, dataset) -> list:
         out = []
@@ -641,6 +945,27 @@ class GBDT:
                 (pa is not None and pa.signature() != pb.signature()):
             log.fatal("Cannot add validation data, since it has different "
                       "bin mappers with training data")
+        # the gate again, with this valid set counted: attached late, it
+        # is the allocation the construction check could not see
+        est = estimate_valid_memory(
+            valid_set.num_data, valid_set.num_columns, self.num_class,
+            bin_itemsize=valid_set.bins.dtype.itemsize)
+        valid_bytes = self._valid_mem_bytes + int(est["total"])
+        total = self._train_mem_est + valid_bytes
+        obs.set_gauge("hbm_total_estimate_bytes", int(total))
+        limit = _device_memory_limit(self.device)
+        if limit and total > limit:
+            log.fatal(
+                "attaching this validation set (%d rows: bins=%.0fMB, "
+                "scores=%.0fMB) brings the estimated device footprint to "
+                "%.0fMB, over the budget %.0fMB (training state %.0fMB + "
+                "valid sets %.0fMB).  Evaluate on fewer/smaller valid "
+                "sets, or shrink the training state (num_leaves/max_bin).",
+                valid_set.num_data, est["bins_device"] / (1 << 20),
+                est["scores"] / (1 << 20), total / (1 << 20),
+                limit / (1 << 20), self._train_mem_est / (1 << 20),
+                valid_bytes / (1 << 20))
+        self._valid_mem_bytes = valid_bytes
         if self._linear is not None and valid_set.raw is None:
             log.fatal("linear_tree validation scoring needs the valid "
                       "set's raw feature values (the per-leaf affine "
@@ -650,26 +975,32 @@ class GBDT:
                          with_raw=self._linear is not None)
         # every tree of ``models``, loaded ones too; tree i belongs to
         # class i % num_class (the JAX add_valid_dataset)
-        for i, tree in enumerate(self.models):
-            self._add_host_tree_to(dd, tree, i % self.num_class)
+        with resource.oom_guard("valid_replay",
+                                lambda: resource.render_shapes(dd.bins,
+                                                               dd.score)):
+            for i, tree in enumerate(self.models):
+                self._add_host_tree_to(dd, tree, i % self.num_class)
         self.valid_data.append(dd)
         self.valid_metrics.append(self._make_metrics(valid_set))
 
     def _add_host_tree_to(self, dd: _DeviceData, tree: Tree,
                           cls: int) -> None:
         """Add a host ``Tree`` (grown, loaded or negated) to class ``cls``
-        of ``dd``'s scores: its bin-space splits against the training
-        mappers (``ensure_inner``), the plain binned walk, then the
-        affine part of linear leaves (the JAX ``_add_host_tree_to``).
-        A grown tree adds its leaf values and slopes, f32 values held in
-        f64, so exactly what its fit added to the training scores.  A
-        tree that splits on a feature trivial in the training data, or
-        whose affine part reads one, or a linear tree on a set without
-        raw values, is fatal."""
+        of ``dd``'s scores (:meth:`_host_tree_delta`)."""
+        dd.score[cls] += self._host_tree_delta(dd, tree)
+
+    def _host_tree_delta(self, dd: _DeviceData, tree: Tree):
+        """What a host ``Tree`` adds to each row of ``dd``: its bin-space
+        splits against the training mappers (``ensure_inner``), the plain
+        binned walk, then the affine part of linear leaves (the JAX
+        ``_add_host_tree_to``); a float for a one-leaf tree.  A grown
+        tree adds its leaf values and slopes, f32 values held in f64, so
+        exactly what its fit added to the training scores.  A tree that
+        splits on a feature trivial in the training data, or whose affine
+        part reads one, or a linear tree on a set without raw values, is
+        fatal."""
         if tree.num_leaves <= 1:
-            dd.score[cls] += float(tree.leaf_value[0]) \
-                if tree.num_leaves else 0.0
-            return
+            return float(tree.leaf_value[0]) if tree.num_leaves else 0.0
         ts = self.train_set
         if not tree.ensure_inner(ts.real_to_inner, ts.mappers):
             log.fatal("Cannot replay a loaded tree on this dataset: it "
@@ -706,7 +1037,7 @@ class GBDT:
                     tree.leaf_coeff.astype(np.float32)), dev),
                 _to_device(torch.from_numpy(inner.astype(np.int32)), dev),
                 dd.raw)
-        dd.score[cls] += delta
+        return delta
 
     def _fit_linear(self, ta, leaf_id, grad, hess):
         """The per-leaf affine fit of one grown tree: (TreeArrays with the
@@ -798,14 +1129,24 @@ class GBDT:
             vscores0 = [dd.score.clone() for dd in self.valid_data]
         poisoned = None
         feat_masks = None
+        td = self.train_data
         if grad is None and hess is None and self._masks_before_gradients:
-            row_weight = self._bagging_mask(it)
+            with resource.oom_guard("bag_mask",
+                                    lambda: resource.render_shapes(
+                                        td.score[0])):
+                row_weight = self._bagging_mask(it)
             feat_masks = [self._feature_mask()
                           for _ in range(self.num_class)]
-            grad, hess = self._gradients()
+            with resource.oom_guard("train_gradients",
+                                    lambda: resource.render_shapes(
+                                        td.score)):
+                grad, hess = self._gradients()
         else:
             if grad is None or hess is None:
-                grad, hess = self._gradients()
+                with resource.oom_guard("train_gradients",
+                                        lambda: resource.render_shapes(
+                                            td.score)):
+                    grad, hess = self._gradients()
             else:
                 grad, hess = (_to_device(torch.from_numpy(
                     np.ascontiguousarray(a, np.float32).reshape(
@@ -816,28 +1157,55 @@ class GBDT:
             # caught before growing: the round grows nothing
             poisoned = "gradients/hessians"
         if feat_masks is None:
-            row_weight = self._bagging_mask(it)
+            with resource.oom_guard("bag_mask",
+                                    lambda: resource.render_shapes(
+                                        td.score[0])):
+                row_weight = self._bagging_mask(it)
         self._round_weight = row_weight
-        trees = []
+        # every class's tree and deltas first, the commits after: a unit
+        # that dies in an allocation leaves the booster as it was
+        grown = []
         for cls in range(self.num_class) if poisoned is None else ():
             self._feat_mask = (feat_masks[cls] if feat_masks is not None
                                else self._feature_mask())
-            ta, leaf_id, delta = self._grow(grad[cls], hess[cls])
+            view = self._view
+            with resource.oom_guard(
+                    "train_step", lambda: resource.render_shapes(
+                        grad[cls], hess[cls], self._round_weight,
+                        view.bins, view.bins_rm)):
+                ta, leaf_id, delta = self._grow(grad[cls], hess[cls])
             host_lin = None
             if self._linear is not None:
                 # the grower's leaf of every row is the leaf a re-walk of
                 # the grown structure over the bins finds (tested)
-                ta, host_lin, delta = self._fit_linear(
-                    ta, leaf_id, grad[cls], hess[cls])
-            self.train_data.score[cls] += delta
+                with resource.oom_guard(
+                        "linear_fit", lambda: resource.render_shapes(
+                            td.raw, grad[cls], leaf_id)):
+                    ta, host_lin, delta = self._fit_linear(
+                        ta, leaf_id, grad[cls], hess[cls])
             tree = Tree.from_arrays(ta, self.train_set.mappers,
                                     self.train_set.used_feature_map,
                                     self.shrinkage_rate)
             if host_lin is not None:
                 attach_linear(tree, *host_lin,
                               self.train_set.used_feature_map)
-            for dd in self.valid_data:
-                self._add_host_tree_to(dd, tree, cls)
+            grown.append((cls, ta, tree, delta))
+        replays = []
+        for dd in self.valid_data:
+            with resource.oom_guard("valid_replay",
+                                    lambda: resource.render_shapes(
+                                        dd.bins, dd.score)):
+                replays.append([self._host_tree_delta(dd, tree)
+                                for _, _, tree, _ in grown])
+        with resource.oom_guard("score_update",
+                                lambda: resource.render_shapes(td.score)):
+            for (cls, _, _, delta) in grown:
+                td.score[cls] += delta
+            for dd, deltas in zip(self.valid_data, replays):
+                for (cls, _, _, _), d in zip(grown, deltas):
+                    dd.score[cls] += d
+        trees = []
+        for _, ta, tree, _ in grown:
             self.tree_arrays.append(ta)
             trees.append(tree)
         if guard and poisoned is None \

@@ -23,6 +23,11 @@ DEFAULT_TIME_BUCKETS: Tuple[float, ...] = (
     0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
     1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0)
 
+# Byte-size bucket bounds (the JAX package's): powers of four, 256 B to
+# 4 GiB, for the distributed learners' collective payloads.
+DEFAULT_BYTE_BUCKETS: Tuple[float, ...] = tuple(
+    float(1 << k) for k in range(8, 33, 2))
+
 
 class _Hist:
     """One fixed-bucket histogram: non-cumulative bucket counts (the

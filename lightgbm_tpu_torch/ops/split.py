@@ -170,3 +170,23 @@ def find_best_split(hist, total_g, total_h, total_c, num_bin, is_cat,
     cand = per_feature_candidates(hist, total_g, total_h, total_c, num_bin,
                                   is_cat, feat_mask, p)
     return combine_feature_candidates(cand, total_g, total_h, can_split, p)
+
+
+def better_split(a: BestSplit, b: BestSplit) -> BestSplit:
+    """Elementwise the better of two split records (SplitInfo::operator>,
+    split_info.hpp:100-105; the JAX ``better_split``): the larger gain
+    wins, and an equal gain goes to the smaller feature index."""
+    a_wins = (a.gain > b.gain) | ((a.gain == b.gain)
+                                  & (a.feature <= b.feature))
+    return BestSplit(*(torch.where(a_wins, x, y) for x, y in zip(a, b)))
+
+
+def combine_gathered_splits(gathered: BestSplit,
+                            num_shards: int) -> BestSplit:
+    """The global winner of an all-gathered ``BestSplit`` (leading axis:
+    the shard), folded shard by shard with :func:`better_split`: the
+    Allreduce(SplitInfo::MaxReducer) of the parallel learners."""
+    out = BestSplit(*(f[0] for f in gathered))
+    for i in range(1, num_shards):
+        out = better_split(out, BestSplit(*(f[i] for f in gathered)))
+    return out

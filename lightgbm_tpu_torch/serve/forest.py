@@ -58,7 +58,7 @@ from ..ops.predict import predict_binned_forest, predict_binned_forest_linear
 from ..ops.forest_walk import (WalkTables, bin_index_dtype,
                                build_walk_tables, forest_walk,
                                forest_walk_raw)
-from ..utils import log
+from ..utils import log, resource
 from ..utils.log import LightGBMError
 from .batcher import BucketLadder, pad_rows
 
@@ -491,7 +491,13 @@ class CompiledForest:
         return torch.where(self._is_cat.bool()[:, None], cbin, nbin), safe
 
     def _dispatch_binned(self, Xp: np.ndarray, mask: np.ndarray):
-        """[K, B] raw scores of one padded bucket, binned on the host."""
+        """[K, B] raw scores of one padded bucket, binned on the host
+        (the K4 predict, under the OOM guard ``predict``)."""
+        with resource.oom_guard("predict",
+                                lambda: resource.render_shapes(Xp, mask)):
+            return self._walk_binned(Xp, mask)
+
+    def _walk_binned(self, Xp: np.ndarray, mask: np.ndarray):
         xt = self.device_covariates(Xp) if self._tables.linear else None
         if self.walk_strategy == "gather":
             raw = self._gather_walk(
@@ -503,7 +509,14 @@ class CompiledForest:
 
     def _dispatch_raw(self, Xp: np.ndarray, mask: np.ndarray):
         """(raw, transformed) [K, B] of one padded f32 bucket, binned
-        inside the kernel (gather: binned in f32 by torch ops)."""
+        inside the kernel (gather: binned in f32 by torch ops); the K4
+        predict of every fleet replica, under the OOM guard
+        ``predict``."""
+        with resource.oom_guard("predict",
+                                lambda: resource.render_shapes(Xp, mask)):
+            return self._walk_raw(Xp, mask)
+
+    def _walk_raw(self, Xp: np.ndarray, mask: np.ndarray):
         if self.walk_strategy == "gather":
             bins, safe = self._device_cut_bins(self.device_rows(Xp))
             raw = self._gather_walk(bins, safe)

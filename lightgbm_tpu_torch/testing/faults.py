@@ -15,7 +15,10 @@ it on exit:
 - ``fail_warmup``: ``CompiledForest.warmup`` raises (a hot reload dying
   mid-warm);
 - ``corrupt_model_file``: a truncated, footer-less or bit-rotted model
-  file (``POST /reload`` must answer 400 and keep serving).
+  file (``POST /reload`` must answer 400 and keep serving);
+- ``oom_on_program``: the next dispatches of one named unit of device
+  work die in an allocation failure (``make_resource_exhausted``), at the
+  port's OOM guard (``utils/resource.py`` ``oom_guard``).
 
 The predict injectors patch the replica's forest as well as its live
 batcher, so the watchdog's synthetic probes see the fault the traffic
@@ -227,3 +230,36 @@ def corrupt_model_file(path: str, mode: str = "truncate_tree") -> str:
     with open(path, "w") as fh:
         fh.write(out)
     return what
+
+
+def make_resource_exhausted(program: str,
+                            nbytes: int = 123456789) -> BaseException:
+    """A device-OOM exception shaped like the real thing: the
+    ``torch.OutOfMemoryError`` the caching allocator raises, with its
+    text."""
+    import torch
+    return torch.OutOfMemoryError(
+        f"CUDA out of memory. Tried to allocate {int(nbytes)} bytes. "
+        f"(injected for program {program!r})")
+
+
+@contextlib.contextmanager
+def oom_on_program(program: str, times: int = 1) -> Iterator[dict]:
+    """The next ``times`` runs of the unit named ``program`` (an
+    ``oom_guard`` name: ``train_step``, ``train_gradients``,
+    ``score_update``, ``valid_replay``, ``bag_mask``, ``linear_fit``,
+    ``predict``) die in an allocation failure when their guard is
+    entered, before any work of theirs: the late failure the admission
+    gate cannot always predict.  It must surface as a named
+    ``DeviceOOM``.  Yields stats with the ``fired`` count."""
+    from ..utils import resource
+    stats = {"fired": 0, "times": int(times)}
+    prev = resource._injected.get(program)
+    resource._injected[program] = stats
+    try:
+        yield stats
+    finally:
+        if prev is None:
+            resource._injected.pop(program, None)
+        else:
+            resource._injected[program] = prev

@@ -281,8 +281,14 @@ def test_a_rate_schedule_rebuilds_no_grower():
     assert bt._booster._grow is grow and bt._booster.shrinkage_rate == 0.2
     bt.reset_parameter({"num_leaves": 5})
     assert bt._booster._grow is not grow
-    with pytest.raises(LightGBMError, match="tree_learner"):
-        bt.reset_parameter({"tree_learner": "data"})
+    # a new tree_learner rebuilds the grower (one rank here: it warns
+    # and grows serial, as the JAX package does on one device)
+    grow = bt._booster._grow
+    bt.reset_parameter({"tree_learner": "data", "num_machines": 2})
+    assert bt._booster._grow is not grow
+    assert bt._booster.config.tree_learner == "data"
+    assert bt._booster.grow_kind == "ordered"
+    assert not bt.update()
 
 
 def test_unresettable_keys_and_short_lists_raise_as_in_jax():

@@ -405,6 +405,15 @@ def test_every_jax_key_is_read_refused_or_inert():
         assert (key in read) + (key in refused) + (key in inert) == 1, key
     # the port's own key, and nothing else the JAX package lacks
     assert read - set(JAX_DEFAULTS) == {"device"}
+    # the distributed learners' keys are read; the collective
+    # watchdog's deadline and the consistency check refused; memwatch
+    # waits for the span hooks
+    assert {"num_machines", "tree_learner", "top_k", "machine_list_file",
+            "local_listen_port", "time_out", "distributed_init_retries",
+            "distributed_init_backoff", "distributed_heartbeat_ms"} <= read
+    assert "memwatch" in inert
+    assert {"collective_timeout_s",
+            "distributed_consistency_check"} <= refused
     assert inert <= set(JAX_DEFAULTS)
     for alias, key in JAX_ALIASES.items():
         assert tconfig.PARAM_ALIASES[alias] == key
@@ -458,6 +467,22 @@ def test_keys_that_change_the_answer_are_refused_by_name(params, what):
         log._warned_once.discard(f"config:{key}")
         tconfig.Config(params).check_trainable()
         assert f"config:{key}" in log._warned_once
+        return
+    if what == "num_machines":
+        # ported since (the distributed learners): read as the JAX
+        # package reads it (a serial learner runs on one machine); the
+        # watchdog's keys are refused by name instead
+        for extra in ({}, {"tree_learner": "voting"}):
+            ours = tconfig.Config({**params, **extra})
+            theirs = JaxConfig({**params, **extra})
+            assert ours[key] == theirs[key]
+            assert ours.tree_learner == theirs.tree_learner
+        for refused in ("collective_timeout_s",
+                        "distributed_consistency_check"):
+            with pytest.raises(LightGBMError,
+                               match=f"not ported yet.*{refused}"):
+                tconfig.Config({refused: 3})
+            tconfig.Config({refused: tconfig._DEFAULTS[refused]})
         return
     with pytest.raises(LightGBMError, match=f"not ported yet.*{what}"):
         tconfig.Config(params)

@@ -180,6 +180,13 @@ def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "lightgbm_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
+    # the distributed learners and the memory watermarks too
+    names = {str(p.relative_to(REPO)) for p in files}
+    assert {"lightgbm_tpu_torch/parallel/comm.py",
+            "lightgbm_tpu_torch/parallel/grow.py",
+            "lightgbm_tpu_torch/parallel/multihost.py",
+            "lightgbm_tpu_torch/parallel/ingest.py",
+            "lightgbm_tpu_torch/obs/memwatch.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -390,7 +397,7 @@ def test_cli_predict_matches_jax(trained, tmp_path):
                                atol=1e-6)
 
 
-def test_cli_serve_token_and_unported_task(monkeypatch):
+def test_cli_serve_token_and_unported_task(monkeypatch, tmp_path, capsys):
     seen = {}
 
     def fake_serve(config, params):
@@ -402,9 +409,24 @@ def test_cli_serve_token_and_unported_task(monkeypatch):
                      "predict_buckets=16,64"]) == 0
     assert seen == {"task": "serve", "port": 12345, "buckets": [16, 64],
                     "device": "cuda"}
-    # a training setting the port refuses, before the data is read
-    with pytest.raises(lt.LightGBMError, match="not ported"):
-        cli.main(["task=train", "data=x.csv", "tree_learner=data"])
+    # a distributed learner without a machine list: the world of one
+    # warns and trains a serial model (the JAX package's fallback)
+    from lightgbm_tpu_torch.utils import log as tlog
+    rng = np.random.RandomState(3)
+    X = rng.normal(size=(300, 4))
+    data = tmp_path / "d.csv"
+    np.savetxt(data, np.column_stack([(X[:, 0] > 0).astype(float), X]),
+               delimiter=",")
+    monkeypatch.setattr(tlog, "_current_level", 1)
+    capsys.readouterr()
+    assert cli.main(["task=train", f"data={data}", "tree_learner=data",
+                     "num_machines=2", "objective=binary", "num_trees=2",
+                     "min_data_in_leaf=5", "device=cpu",
+                     f"output_model={tmp_path / 'm.txt'}"]) == 0
+    err = capsys.readouterr().err
+    assert "tree_learner=data requested but only 1 device(s)" in err
+    model = lt.Booster(model_file=str(tmp_path / "m.txt"), device="cpu")
+    assert model.num_trees() == 2
 
 
 def test_config_defaults_and_aliases_match_jax(tmp_path):

@@ -367,6 +367,24 @@ def test_unported_training_settings_raise(extra, what):
             np.testing.assert_array_equal(
                 b.split_feature, a.split_feature[:a.num_leaves - 1])
         return
+    if what in ("num_machines", "tree_learner"):
+        # ported since (the distributed learners): read as the JAX
+        # package reads them; without a group of ranks the run warns
+        # and trains serial, and the watchdog's keys are refused instead
+        from lightgbm_tpu.config import Config as JaxConfig
+        ours, theirs = Config(extra), JaxConfig(extra)
+        assert (ours.num_machines, ours.tree_learner) == \
+            (theirs.num_machines, theirs.tree_learner)
+        bt = lt.train({**PARAMS, **extra, "num_machines": 2,
+                       "tree_learner": "data"}, lt.Dataset(X, y), 1,
+                      device="cpu", verbose_eval=False)
+        assert bt._booster.grow_kind == "ordered"
+        for key in ("collective_timeout_s", "distributed_consistency_check"):
+            with pytest.raises(lt.LightGBMError,
+                               match=f"not ported yet.*{key}"):
+                lt.train({**PARAMS, key: 5}, lt.Dataset(X, y), 1,
+                         device="cpu")
+        return
     with pytest.raises(lt.LightGBMError, match="not ported yet") as exc:
         lt.train({**PARAMS, **extra}, lt.Dataset(X, y), 1, device="cpu")
     assert what in str(exc.value)
