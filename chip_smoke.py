@@ -182,6 +182,31 @@ probes' own lines); any failure raises and exits non-zero.
    processes with ``num_machines=2`` and a machine list (10 trees),
    byte-equal models.  A rank that fails or outlives its timeout fails
    the phase; every rank's process group is killed at the end.
+   ``resilience``: crash-safe training.  (a) On the train phase's
+   datasets, the ordered grower (K1) 8 rounds uninterrupted, then with a
+   snapshot every 2 rounds and an ``InjectedCrash`` after round 5; the
+   newest snapshot (round 4) torn by ``truncate_file``; the rerun must
+   skip it by name, resume from round 2 and end with the uninterrupted
+   run's model text and training score buffer, bit for bit, K1 launched
+   once per leaf of the resumed trees.  Each snapshot's write ms and
+   bytes, the load and restore ms.  (b) Two gloo ranks on the card
+   (``chip_smoke.py --resilience-rank``), each building the Higgs cell's
+   1M rows from the seed, the nocache data-parallel learner (K2), a
+   snapshot every round, ``distributed_heartbeat_ms=100``,
+   ``collective_timeout_s=20``, ``kill_rank(3, rank=1)``: rank 1 dies
+   with SIGKILL, rank 0 exits 75 within the timeout + 10 s naming
+   ``Comm::grow`` and rank 1; restarted on fresh ports, both ranks
+   agree on round 3 (``coordinated_resume``) and end with a model
+   byte-equal between them and to an uninterrupted two-rank run.  (c)
+   and (d) in one launch of 250k-row ranks with
+   ``collective_timeout_s=5``: ``corrupt_rank_state(2, rank=1,
+   field="score")`` under ``distributed_consistency_check=1``:
+   ``fail_fast`` names rank 1 and ``score`` on both ranks, then
+   ``resync`` (one resync, timed) ends with the clean run's model; then
+   ``hang_rank(2, rank=1)``: rank 0 exits 75 through its deadline (two
+   timeouts, one extension) while rank 1's heartbeat is fresh, and rank
+   1, released once rank 0's heartbeat stops, exits 75 too.  K1's and
+   K2's launches counted over every run.
    ``examples``: each of the repo's four example confs
    (``examples/{binary_classification,regression,multiclass_classification,
    lambdarank}/train.conf``) through ``lightgbm_tpu_torch.cli.main`` in a
@@ -270,7 +295,7 @@ probes' own lines); any failure raises and exits non-zero.
    ``sparse``: the JAX package's wide-sparse operating point
    (``bench.py:505-531``: ``make_ctr_like`` of 2000 features in blocks
    of 20 exclusive ones, ~97% zeros; binary, 63 leaves, 255 bins, a
-   binning sample of 50k rows), cut to 250k rows with a 50k-row valid
+   binning sample of 50k rows), cut to 125k rows with a 25k-row valid
    set from the same draw, fed to ``Dataset`` as a scipy CSR matrix and
    binned twice: with the default ``enable_bundle=true`` (100 columns,
    one bundle of 20 features each, no sample conflict: checked) and
@@ -487,15 +512,16 @@ SAMPLING_GOSS_ROUNDS, SAMPLING_MULTICLASS_ROUNDS = 15, 3
 # (bench.py:505-531, docs/SPARSE.md's bench recipe): make_ctr_like of
 # 2000 features (blocks of 20 exclusive features), binary, 63 leaves,
 # 255 bins, a binning sample of 50k rows; cut from 500k rows to 250k
-# (the phase took 215 s at 500k, 125 s of it host binning), with a
-# 50k-row valid set from the same draw; 10 rounds, 3 for ordered (the
+# (the phase took 215 s at 500k, 125 s of it host binning), then to
+# 125k to make room for the resilience phase (164-183 s at 250k, 71 s
+# of it host set-up), with a 25k-row valid set from the same draw; 10 rounds, 3 for ordered (the
 # cached fallback), nocache, fused and linear, 5 for the sampled twins,
 # 15 for screening (docs/SPARSE.md's recipe: ratio 0.3, 6 warmup rounds,
 # a refresh every 4) and its unbundled reference, whose final valid AUC
 # the screened run's is held to within the JAX package's pin; GOSS at
 # learning rate 0.5, so that its 5 rounds sample after int(1 / 0.5) = 2
 # warmup rounds
-SPARSE_ROWS, SPARSE_VALID_ROWS, SPARSE_FEATURES = 250_000, 50_000, 2000
+SPARSE_ROWS, SPARSE_VALID_ROWS, SPARSE_FEATURES = 125_000, 25_000, 2000
 SPARSE_PARAMS = {"objective": "binary", "metric": "auc", "num_leaves": 63,
                  "max_bin": 255, "learning_rate": 0.1,
                  "min_data_in_leaf": 50, "bin_construct_sample_cnt": 50_000}
@@ -530,6 +556,25 @@ DIST_TIMEOUT_S = 420
 DIST_CLI_TIMEOUT_S = 300
 DIST_CLI_TREES = 10
 DIST_AUC_PIN = 1e-3
+
+
+# the resilience phase: (a) the serial crash and resume (rounds, the
+# snapshot period, the round whose after-callback crashes); (b) the kill
+# and resume of two gloo ranks (rows, rounds, the killed rank's round,
+# the heartbeat, the deadline, the abort's allowance over it); (c) the
+# hang and (d) the desync, in one launch of 250k-row ranks (rounds, the
+# hung round, the deadline: two of them and a round bound the abort, the
+# hung rank wakes after; the corrupted round); each launch's timeout
+RES_ROUNDS, RES_SNAP_FREQ, RES_CRASH_AT = 8, 2, 5
+RES_DIST_ROWS, RES_DIST_ROUNDS, RES_KILL_AT = TRAIN_ROWS, 8, 3
+RES_HEARTBEAT_MS, RES_KILL_TIMEOUT_S, RES_ABORT_SLACK_S = 100.0, 20.0, 10.0
+RES_SMALL_ROWS, RES_SMALL_ROUNDS, RES_HANG_AT = 250_000, 6, 2
+RES_HANG_TIMEOUT_S, RES_CORRUPT_AT = 5.0, 2
+RES_LAUNCH_TIMEOUT_S = 240
+# the ranks' nocache data-parallel learner (K2 on every rank)
+RES_DIST_PARAMS = {**TRAIN_PARAMS, **CONST, "tree_learner": "data",
+                   "num_machines": 2, "histogram_pool_size": 1,
+                   "memory_policy": "degrade"}
 
 
 def emit(obj) -> None:
@@ -3545,6 +3590,411 @@ def phase_distributed(seed, datasets, dev, workdir):
         rr["runs"][n]["k2_launches"] for rr in res for n, _, _ in DIST_RUNS)}
 
 
+def _snapshot_timer():
+    """Wrap ``snapshot.save_snapshot``, ``load_latest_snapshot`` and
+    ``restore_booster_state`` (the engine looks them up at each call);
+    returns (the records, undo)."""
+    from lightgbm_tpu_torch import snapshot as snapmod
+    rec = {"writes": [], "loads": [], "restores": []}
+    save, restore = snapmod.save_snapshot, snapmod.restore_booster_state
+    load = snapmod.load_latest_snapshot
+
+    def timed_save(directory, booster, rounds_done, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(directory, booster, rounds_done, **kw)
+        ms = 1e3 * (time.perf_counter() - t0)
+        rec["writes"].append({"rounds": rounds_done, "ms": ms,
+                              "bytes": os.path.getsize(path)
+                              if path else None})
+        return path
+
+    def timed_restore(booster, state):
+        t0 = time.perf_counter()
+        out = restore(booster, state)
+        torch.cuda.synchronize()
+        rec["restores"].append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def timed_load(directory):
+        t0 = time.perf_counter()
+        out = load(directory)
+        rec["loads"].append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    snapmod.save_snapshot = timed_save
+    snapmod.restore_booster_state = timed_restore
+    snapmod.load_latest_snapshot = timed_load
+
+    def undo():
+        snapmod.save_snapshot = save
+        snapmod.restore_booster_state = restore
+        snapmod.load_latest_snapshot = load
+    return rec, undo
+
+
+def resilience_serial(datasets, workdir):
+    """(a) ``RES_ROUNDS`` rounds of the ordered grower on the train
+    phase's datasets, uninterrupted; then with a snapshot every
+    ``RES_SNAP_FREQ`` rounds, an ``InjectedCrash`` after round
+    ``RES_CRASH_AT``, the newest snapshot torn, and a resume, which must
+    fall back to the one before it by name and end byte-equal (model
+    text, the training score buffer)."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch import snapshot as snapmod
+    from lightgbm_tpu_torch.ops import leafhist as lh
+    from lightgbm_tpu_torch.testing import faults
+    train_set, valid_set, _, _ = datasets
+    params = {**TRAIN_PARAMS, **CONST}
+    common = dict(valid_sets=[valid_set], valid_names=["valid"],
+                  verbose_eval=False)
+    plain = lt.train(params, train_set, RES_ROUNDS, **common)
+    snaps = os.path.join(workdir, "resilience_snaps")
+    snap = {**params, "snapshot_dir": snaps, "snapshot_freq": RES_SNAP_FREQ}
+
+    def crash(env):
+        if env.iteration == RES_CRASH_AT:
+            raise faults.InjectedCrash(f"crash after round {RES_CRASH_AT}")
+    crash.order = 99
+    rec, undo = _snapshot_timer()
+    try:
+        lh.reset_launch_counts()
+        try:
+            lt.train(snap, train_set, RES_ROUNDS, callbacks=[crash],
+                     **common)
+            check(False, "resilience: the injected crash did not fire")
+        except faults.InjectedCrash:
+            pass
+        crashed_k1 = lh.launch_counts()["digit_histogram"]
+        on_disk = [r for r, _ in snapmod.list_snapshots(snaps)]
+        newest = RES_CRASH_AT - RES_CRASH_AT % RES_SNAP_FREQ
+        check(on_disk[0] == newest, f"resilience: snapshots {on_disk} at "
+                                    f"the crash")
+        faults.truncate_file(snapmod.snapshot_path(snaps, newest))
+        skipped = obs.get_counter("snapshot_corrupt_skipped_total")
+        found = snapmod.load_latest_snapshot(snaps)
+        check(found is not None and found[0] == snapmod.snapshot_path(
+            snaps, newest - RES_SNAP_FREQ)
+            and obs.get_counter("snapshot_corrupt_skipped_total")
+            == skipped + 1, f"resilience: the torn snapshot of round "
+                            f"{newest} did not fall back by name: {found}")
+        lh.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed = lt.train(snap, train_set, RES_ROUNDS, **common)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        resumed_k1 = lh.launch_counts()["digit_histogram"]
+    finally:
+        undo()
+    check(resumed.model_to_string() == plain.model_to_string(),
+          "resilience: the resumed model text differs from the "
+          "uninterrupted run's")
+    check(torch.equal(resumed._booster.train_data.score,
+                      plain._booster.train_data.score),
+          "resilience: the resumed training scores differ")
+    leaves = sum(t.num_leaves for t in resumed._booster.models[
+        (newest - RES_SNAP_FREQ):])
+    check(resumed_k1 == leaves and resumed_k1 > 0,
+          f"resilience: {resumed_k1} K1 launches in the resumed rounds "
+          f"against {leaves} leaves grown")
+    return {"rounds": RES_ROUNDS, "crash_after_round": RES_CRASH_AT,
+            "torn": newest, "resumed_from": newest - RES_SNAP_FREQ,
+            "snapshot_writes": rec["writes"], "load_ms": rec["loads"],
+            "restore_ms": rec["restores"],
+            "resumed_run_s": resume_s, "k1_launches_crashed_run": crashed_k1,
+            "k1_launches_resumed_run": resumed_k1}, crashed_k1 + resumed_k1
+
+
+def _res_launch(scenario, job, workdir, env):
+    """Two ranks of ``chip_smoke.py --resilience-rank`` on a fresh machine
+    list; returns (exit codes, outputs, seconds), the outputs kept in
+    ``workdir``."""
+    from lightgbm_tpu_torch.parallel.launch import machine_list, run_ranks
+    mlist = machine_list(os.path.join(workdir, f"res_{scenario}.txt"), 2)
+    path = os.path.join(workdir, f"res_{scenario}.json")
+    with open(path, "w") as fh:
+        json.dump({**job, "scenario": scenario, "mlist": mlist,
+                   "workdir": workdir}, fh)
+    t0 = time.perf_counter()
+    codes, outs = run_ranks([[sys.executable, os.path.abspath(__file__),
+                              "--resilience-rank", path]] * 2,
+                            timeout=RES_LAUNCH_TIMEOUT_S, env=env, cwd=REPO,
+                            wait_all=True)
+    secs = time.perf_counter() - t0
+    for r, text in enumerate(outs):
+        with open(os.path.join(workdir, f"res_{scenario}_r{r}.log"),
+                  "w") as fh:
+            fh.write(text)
+    return codes, outs, secs
+
+
+def _res_result(workdir, scenario, rank):
+    with open(os.path.join(workdir, f"res_{scenario}_r{rank}.json")) as fh:
+        return json.load(fh)
+
+
+def phase_resilience(seed, datasets, workdir):
+    """Crash-safe training on the card (module docstring,
+    ``resilience``); returns K1's and K2's launches."""
+    t_start = time.perf_counter()
+    serial, k1 = resilience_serial(datasets, workdir)
+    serial_s = time.perf_counter() - t_start
+    env = {k: v for k, v in os.environ.items()
+           if k != "LGBT_DEVICE_MEMORY_BYTES"}
+    job = {"seed": seed}
+    # (b) the kill, then the restart on fresh ports
+    codes, outs_kill, kill_s = _res_launch("kill", job, workdir, env)
+    outs = outs_kill
+    check(codes == [75, -9], f"resilience: the kill's ranks exited "
+                             f"{codes}: {outs[0][-2000:]} {outs[1][-2000:]}")
+    check("distributed training aborted in phase 'Comm::grow'" in outs[0]
+          and "rank 1 last seen" in outs[0],
+          f"resilience: rank 0's abort names no phase and rank: "
+          f"{outs[0][-2000:]}")
+    kill = _res_result(workdir, "kill", 0)
+    from lightgbm_tpu_torch.snapshot import list_snapshots
+    kill_snaps = [r for r, _ in list_snapshots(
+        os.path.join(workdir, "res_dist_snaps"))]
+    check(kill_snaps and kill_snaps[0] == RES_KILL_AT,
+          f"resilience: snapshots {kill_snaps} after the kill")
+    with open(os.path.join(workdir, "res_killed_at.txt")) as fh:
+        killed_at = float(fh.read())
+    abort_s = kill["aborted_at"] - killed_at
+    check(abort_s <= RES_KILL_TIMEOUT_S + RES_ABORT_SLACK_S,
+          f"resilience: rank 0 aborted {abort_s:.1f} s after the kill")
+    codes, outs, resume_s = _res_launch("resume", job, workdir, env)
+    check(codes == [0, 0], f"resilience: the restarted ranks exited "
+                           f"{codes}: {outs[0][-2000:]} {outs[1][-2000:]}")
+    resumed = [_res_result(workdir, "resume", r) for r in range(2)]
+    texts = [open(os.path.join(workdir, f"res_resume_r{r}.txt")).read()
+             for r in range(2)]
+    check(texts[0] == texts[1], "resilience: the resumed ranks' models "
+                                "differ")
+    # (c) and (d) in one launch: the desync, then the hang
+    codes, outs, small_s = _res_launch("desync_hang", job, workdir, env)
+    check(codes == [75, 75], f"resilience: the desync/hang ranks exited "
+                             f"{codes}: {outs[0][-2000:]} "
+                             f"{outs[1][-2000:]}")
+    check("distributed training aborted in phase 'Comm::grow'" in outs[0]
+          and "deadline" in outs[0]
+          and "heartbeat lost" not in outs[0],
+          f"resilience: rank 0 did not leave through the deadline path: "
+          f"{outs[0][-2000:]}")
+    small = [_res_result(workdir, "desync_hang", r) for r in range(2)]
+    texts = [open(os.path.join(workdir, f"res_desync_r{r}.txt")).read()
+             for r in range(2)]
+    check(texts[0] == texts[1], "resilience: the resynced ranks' models "
+                                "differ")
+    with open(os.path.join(workdir, "res_hung_at.txt")) as fh:
+        hung_at = float(fh.read())
+    hang_abort_s = small[0]["aborted_at"] - hung_at
+    check(hang_abort_s <= 2 * RES_HANG_TIMEOUT_S + RES_ABORT_SLACK_S,
+          f"resilience: rank 0 aborted {hang_abort_s:.1f} s into the hang")
+    k2 = sum(r["k2_launches"] for r in [kill, *resumed, *small])
+    check(all(r["k2_launches"] > 0 for r in [kill, *resumed, *small]),
+          "resilience: a rank launched no K2")
+    emit({"phase": "resilience", "serial": serial, "serial_s": serial_s,
+          "kill": {"abort_s_after_kill": abort_s,
+                   "collective_timeout_s": RES_KILL_TIMEOUT_S,
+                   "rank0_abort": [ln for ln in outs_kill[0].splitlines()
+                                   if "distributed training aborted" in ln],
+                   "launch_s": kill_s, "snapshot_rounds": kill_snaps},
+          "resume": {"consensus_ms": [r["consensus_ms"] for r in resumed],
+                     "resumed_run_s": [r["resumed_run_s"]
+                                       for r in resumed],
+                     "reference_run_s": [r["reference_run_s"]
+                                         for r in resumed],
+                     "launch_s": resume_s},
+          "desync": {"fail_fast": small[0]["fail_fast"],
+                     "resync_ms": [r["resync_ms"] for r in small],
+                     "resyncs": [r["resyncs"] for r in small]},
+          "hang": {"abort_s_after_hang": hang_abort_s,
+                   "collective_timeout_s": RES_HANG_TIMEOUT_S,
+                   "rank0_abort": [ln for ln in outs[0].splitlines()
+                                   if "distributed training aborted" in ln],
+                   "heartbeat_ages_at_abort": small[0]["ages"]},
+          "desync_hang_launch_s": small_s,
+          "rank_stage_s": {"kill": kill["stage_s"],
+                           "resume": [r["stage_s"] for r in resumed],
+                           "desync_hang": [r["stage_s"] for r in small]},
+          "k1_launches": k1, "k2_launches": k2,
+          "seconds": time.perf_counter() - t_start})
+    return {"digit_histogram": k1, "children_histograms": k2}
+
+
+def resilience_rank(job_path) -> int:
+    """One rank of the resilience phase (``--resilience-rank JOB``)."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.models.gbdt import GBDT
+    from lightgbm_tpu_torch.ops import children_hist as ch
+    from lightgbm_tpu_torch.parallel import watchdog
+    from lightgbm_tpu_torch.parallel.multihost import (
+        maybe_initialize_distributed, process_rank_world)
+    from lightgbm_tpu_torch.snapshot import coordinated_resume
+    from lightgbm_tpu_torch.testing import faults
+    with open(job_path) as fh:
+        job = json.load(fh)
+    scenario, workdir = job["scenario"], job["workdir"]
+    small = scenario == "desync_hang"
+    timeout_s = RES_HANG_TIMEOUT_S if small else RES_KILL_TIMEOUT_S
+    cfg = Config({"num_machines": 2, "tree_learner": "data",
+                  "machine_list_file": job["mlist"],
+                  "distributed_heartbeat_ms": RES_HEARTBEAT_MS,
+                  "collective_timeout_s": timeout_s})
+    check(maybe_initialize_distributed(cfg), "resilience: no group")
+    rank, _ = process_rank_world()
+    wd = watchdog.active_watchdog()
+    check(wd is not None, "resilience: the watchdog is not armed")
+    t_start = time.perf_counter()
+    out = {"rank": rank, "scenario": scenario, "stage_s": {}}
+    out_path = os.path.join(workdir, f"res_{scenario}_r{rank}.json")
+
+    def dump():
+        with open(out_path, "w") as fh:
+            json.dump(out, fh)
+
+    def note_abort(message=None):
+        out["stage_s"]["abort"] = time.perf_counter() - t_start
+        out["aborted_at"] = time.time()
+        out["message"] = message
+        out["ages"] = {str(k): v for k, v in wd.mesh.peer_ages().items()}
+        out["k2_launches"] = ch.launch_counts()["children_histograms"]
+        dump()
+    # the hard abort runs the registered flushes before it exits
+    wd.register_flush(note_abort)
+    X, y = make_higgs_like(RES_SMALL_ROWS if small else RES_DIST_ROWS,
+                           seed=job["seed"] + 60)
+    train_set = lt.Dataset(X, y, params=RES_DIST_PARAMS).construct()
+    out["stage_s"]["data"] = time.perf_counter() - t_start
+    rounds = RES_SMALL_ROUNDS if small else RES_DIST_ROUNDS
+    snaps = os.path.join(workdir, "res_dist_snaps")
+    snap = {**RES_DIST_PARAMS, "snapshot_dir": snaps, "snapshot_freq": 1}
+    ch.reset_launch_counts()
+
+    def train(params, callbacks=None):
+        return lt.train(params, train_set, rounds, verbose_eval=False,
+                        callbacks=callbacks)
+
+    def stamp(name, at):
+        def cb(env):
+            if env.iteration == at and rank == 1:
+                with open(os.path.join(workdir, name), "w") as fh:
+                    fh.write(repr(time.time()))
+        cb.before_iteration = True
+        cb.order = -100                  # before the injector's -99
+        return cb
+
+    def abort_on(params, callbacks):
+        try:
+            train(params, callbacks)
+        except watchdog.DistributedAborted as e:
+            note_abort(str(e))
+            print(f"resilience rank abort: {e}", flush=True)
+            os._exit(watchdog.DISTRIBUTED_ABORT_EXIT_CODE)
+        print("UNEXPECTED_COMPLETION", flush=True)
+        return 1
+
+    if scenario == "kill":
+        return abort_on(snap, [stamp("res_killed_at.txt", RES_KILL_AT),
+                               faults.kill_rank(RES_KILL_AT, rank=1)])
+    if scenario == "resume":
+        t0 = time.perf_counter()
+        found = coordinated_resume(snaps)
+        out["consensus_ms"] = 1e3 * (time.perf_counter() - t0)
+        check(found is not None
+              and int(found[1]["rounds_done"]) == RES_KILL_AT
+              and int(found[1]["world"]["num_processes"]) == 2,
+              f"resilience: the consensus found {found and found[0]}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed = train(snap)
+        torch.cuda.synchronize()
+        out["resumed_run_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = train(RES_DIST_PARAMS)
+        torch.cuda.synchronize()
+        out["reference_run_s"] = time.perf_counter() - t0
+        out["k2_launches"] = ch.launch_counts()["children_histograms"]
+        check(resumed.model_to_string() == ref.model_to_string(),
+              f"resilience: rank {rank}'s resumed model differs from the "
+              f"uninterrupted two-rank run's (first differing split: "
+              f"{first_text_diff(resumed, ref)})")
+        with open(os.path.join(workdir, f"res_resume_r{rank}.txt"),
+                  "w") as fh:
+            fh.write(resumed.model_to_string())
+        dump()
+        return 0
+    # (d) the desync: fail_fast, then resync, then the clean run; the
+    # resyncing check timed
+    checks = []
+    orig = GBDT._check_distributed_consistency
+
+    def timed_check(self, r, w):
+        t0 = time.perf_counter()
+        healed = orig(self, r, w)
+        checks.append((healed, 1e3 * (time.perf_counter() - t0)))
+        return healed
+    GBDT._check_distributed_consistency = timed_check
+    base = {**RES_DIST_PARAMS, "distributed_consistency_check": 1}
+    try:
+        train({**base, "desync_policy": "fail_fast"},
+              [faults.corrupt_rank_state(RES_CORRUPT_AT, rank=1,
+                                         field="score")])
+        check(False, "resilience: fail_fast did not trip on the desync")
+    except lt.LightGBMError as e:
+        out["fail_fast"] = str(e)
+    check("field 'score' diverged on rank(s) [1]" in out["fail_fast"],
+          f"resilience: fail_fast said {out['fail_fast']}")
+    del checks[:]
+    healed = train({**base, "desync_policy": "resync"},
+                   [faults.corrupt_rank_state(RES_CORRUPT_AT, rank=1,
+                                              field="score")])
+    GBDT._check_distributed_consistency = orig
+    out["resyncs"] = sum(1 for h, _ in checks if h)
+    out["resync_ms"] = [ms for h, ms in checks if h]
+    check(out["resyncs"] == 1, f"resilience: {out['resyncs']} resyncs")
+    ref = train(RES_DIST_PARAMS)
+    check(healed.model_to_string() == ref.model_to_string(),
+          f"resilience: rank {rank}'s resynced model differs from the "
+          f"clean run's (first differing split: "
+          f"{first_text_diff(healed, ref)})")
+    with open(os.path.join(workdir, f"res_desync_r{rank}.txt"), "w") as fh:
+        fh.write(healed.model_to_string())
+    out["stage_s"]["desync"] = time.perf_counter() - t_start
+    dump()
+    # (c) the hang: rank 1 is released once rank 0's heartbeat has
+    # stopped (rank 0 left through its deadline), then leaves itself
+    hang = faults.hang_rank(RES_HANG_AT, rank=1,
+                            hang_s=2 * RES_HANG_TIMEOUT_S
+                            + RES_ABORT_SLACK_S)
+
+    def release_when_peer_gone():
+        while not hang.release.is_set():
+            if wd.mesh.peer_ages().get(0, 0.0) > 1.0:
+                hang.release.set()
+            time.sleep(0.1)
+    if rank == 1:
+        threading.Thread(target=release_when_peer_gone, daemon=True).start()
+    return abort_on(RES_DIST_PARAMS,
+                    [stamp("res_hung_at.txt", RES_HANG_AT), hang])
+
+
+def first_text_diff(a, b):
+    """The first tree and field where two boosters' model texts differ,
+    or None."""
+    ta = tree_sections(a.model_to_string())
+    tb = tree_sections(b.model_to_string())
+    for i, (x, z) in enumerate(zip(ta, tb)):
+        for key in x:
+            if x[key] != z.get(key):
+                return {"tree": i, "field": key, "a": x[key][:200],
+                        "b": str(z.get(key))[:200]}
+    return None if len(ta) == len(tb) else {"trees": [len(ta), len(tb)]}
+
+
 def phase_examples(workdir):
     """Each example conf through ``lightgbm_tpu_torch.cli.main``, on the
     card and on the CPU, in a copy of its directory: EXAMPLE_ROUNDS
@@ -5829,6 +6279,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dist-rank", default=None,
                     help="run one rank of the distributed phase (its job "
                          "file); the phase starts these itself")
+    ap.add_argument("--resilience-rank", default=None,
+                    help="run one rank of the resilience phase (its job "
+                         "file); the phase starts these itself")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5836,6 +6289,8 @@ def main(argv=None) -> int:
         return 2
     if args.dist_rank:
         return dist_rank(args.dist_rank)
+    if args.resilience_rank:
+        return resilience_rank(args.resilience_rank)
     from lightgbm_tpu_torch.ops import children_hist as ch
     from lightgbm_tpu_torch.ops import forest_walk as fw
     from lightgbm_tpu_torch.ops import leafhist as lh
@@ -5867,6 +6322,9 @@ def main(argv=None) -> int:
         phase_memory(datasets, dev)
         for name, n in phase_distributed(args.seed, datasets, dev,
                                          workdir).items():
+            launches[name] += n
+        for name, n in phase_resilience(args.seed, datasets,
+                                        workdir).items():
             launches[name] += n
         examples = phase_examples(workdir)
         objectives, multiclass = phase_objectives(args.seed, workdir)

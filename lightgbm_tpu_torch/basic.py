@@ -27,7 +27,6 @@ JAX package.
 
 from __future__ import annotations
 
-import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -558,13 +557,44 @@ class Booster:
         return self._booster.save_model_to_string(num_iteration)
 
     def save_model(self, filename: str, num_iteration: int = -1) -> "Booster":
-        """Write the model text atomically (tmp file + replace), so a
-        failed save keeps the previous file."""
-        tmp = f"{filename}.tmp{os.getpid()}"
-        with open(tmp, "w") as fh:
-            fh.write(self.model_to_string(num_iteration))
-        os.replace(tmp, filename)
+        """Write the model text atomically (``utils/diskguard.py``): a
+        failed save is a named ``SinkWriteError`` (sink ``model_file``)
+        and keeps the previous file."""
+        from .utils.diskguard import write_artifact_atomic
+        write_artifact_atomic(filename,
+                              self.model_to_string(num_iteration).encode(),
+                              "model_file")
         return self
+
+    def save_snapshot(self, directory: str, evals_result=None,
+                      keep: int = 0, rounds_done=None) -> Optional[str]:
+        """Write a checksummed training snapshot into ``directory``
+        (atomic tmp + ``os.replace``; ``snapshot.py``) and return its
+        path; under several ranks only rank 0 writes (None elsewhere).
+        ``engine.train`` does this every ``snapshot_freq`` rounds; this
+        is the hook for a loop of ``update()`` calls.  ``rounds_done``
+        defaults to the rounds this booster trained; a resume through
+        ``engine.train`` reads it as the loop's rounds already run."""
+        from .snapshot import save_snapshot
+        gb = self._booster
+        if rounds_done is None:
+            rounds_done = gb.iter_ - gb.num_init_iteration
+        return save_snapshot(directory, self, int(rounds_done),
+                             evals_result=evals_result, keep=keep)
+
+    def restore_snapshot(self, directory_or_state) -> int:
+        """Restore this new booster (same params and data) from the
+        newest valid snapshot of a directory, or from a state dict;
+        returns the rounds done."""
+        from .snapshot import load_latest_snapshot, restore_booster_state
+        state = directory_or_state
+        if isinstance(state, str):
+            found = load_latest_snapshot(state)
+            if found is None:
+                raise LightGBMError(
+                    f"no valid snapshot found in {directory_or_state!r}")
+            _, state = found
+        return restore_booster_state(self, state)
 
     def compile(self, num_iteration: int = -1, buckets=None):
         """Freeze the model into a ``CompiledForest`` on this booster's

@@ -7,7 +7,11 @@ tasks.
         [input_model=init.txt] [early_stopping_round=10] \\
         [num_iterations=100 num_leaves=63 ...] [device=cuda|cpu] \\
         [serial_grow=ordered|cached|fused] \\
-        [histogram_pool_size=<MB> memory_policy=fail_fast|degrade]
+        [histogram_pool_size=<MB> memory_policy=fail_fast|degrade] \\
+        [snapshot_dir=<dir> snapshot_freq=<K>] \\
+        [num_machines=<n> machine_list_file=<file> \\
+         collective_timeout_s=<s> distributed_heartbeat_ms=<ms> \\
+         distributed_consistency_check=<K> desync_policy=fail_fast|resync]
     python -m lightgbm_tpu_torch task=predict input_model=model.txt \\
         data=rows.csv output_result=preds.txt [device=cuda|cpu] \\
         [is_predict_leaf_index=true]
@@ -26,8 +30,12 @@ Every objective of the JAX package trains.  Training goes through
 ``engine.train`` as in the JAX CLI: it continues from ``input_model``,
 stops early after ``early_stopping_round`` rounds without a better valid
 metric (and still saves every round it trained), and logs the metrics
-every ``output_freq`` rounds.  ``is_predict_leaf_index=true`` writes
-each row's leaf in every tree instead of scores.  ``python -m
+every ``output_freq`` rounds; with ``snapshot_dir`` it snapshots every
+``snapshot_freq`` rounds and resumes from the newest valid snapshot.
+A distributed run that the collective watchdog aborts (a dead or hung
+peer) exits with code 75, for the launcher to restart it.
+``is_predict_leaf_index=true`` writes each row's leaf in every tree
+instead of scores.  ``python -m
 lightgbm_tpu_torch serve ...`` is sugar for ``task=serve``.
 """
 
@@ -79,18 +87,26 @@ def run_predict(config: Config, params: Dict[str, str]) -> None:
             read_header(config.data)[0] if config.has_header else None)
     start = time.monotonic()
     out = config.output_result or "LightGBM_predict_result.txt"
-    tmp = f"{out}.tmp{os.getpid()}"
     n_rows = 0
-    with open(tmp, "w") as fh:
-        for _, X in parse_file_chunks(config.data, config.has_header,
-                                      label_idx, b.max_feature_idx + 1):
-            part = booster.predict(
-                X, num_iteration=config.num_iteration_predict,
-                raw_score=config.is_predict_raw_score,
-                pred_leaf=config.is_predict_leaf_index)
-            _write_prediction_rows(fh, np.asarray(part))
-            n_rows += X.shape[0]
-    os.replace(tmp, out)
+    # the result is an artifact: a failed write fails the task with a
+    # named error that says how many rows landed (utils/diskguard.py)
+    from .utils.diskguard import SinkWriteError, artifact_write
+    try:
+        with artifact_write(out, "predict_output") as fh:
+            for _, X in parse_file_chunks(config.data, config.has_header,
+                                          label_idx, b.max_feature_idx + 1):
+                part = booster.predict(
+                    X, num_iteration=config.num_iteration_predict,
+                    raw_score=config.is_predict_raw_score,
+                    pred_leaf=config.is_predict_leaf_index)
+                _write_prediction_rows(fh, np.asarray(part))
+                n_rows += X.shape[0]
+    except SinkWriteError as exc:
+        log.fatal("task=predict: output stream %s died (%s) after %d "
+                  "row(s) were written; the partial result file is NOT "
+                  "a complete prediction — free space (or point "
+                  "output_result elsewhere) and re-run",
+                  out, exc.classification, n_rows)
     log.info("%f seconds elapsed, finished prediction of %d rows",
              time.monotonic() - start, n_rows)
     log.info("Finished prediction. Results saved to %s", out)
@@ -135,6 +151,9 @@ def run_train(config: Config, params: Dict[str, str]) -> None:
     log.info("Finished training. Model saved to %s", config.output_model)
     if distributed:
         import torch.distributed as dist
+
+        from .parallel import watchdog
+        watchdog.stop_active()
         dist.destroy_process_group()
 
 
@@ -166,15 +185,33 @@ def main(argv=None) -> int:
     params = parse_cli_args(argv)
     config = Config(params)
     log.set_verbosity(config.verbose)
-    if config.task == "train":
-        run_train(config, params)
-    elif config.task in ("predict", "prediction", "test"):
-        run_predict(config, params)
-    elif config.task == "serve":
-        run_serve(config, params)
-    else:
-        log.fatal("task=%s is not ported to the torch package yet "
-                  "(train, predict and serve are)", config.task)
+    # the sinks' write-failure policy for every task (train sets it
+    # again in engine.train)
+    from .utils import diskguard
+    diskguard.set_default_policy(config.sink_error_policy or None)
+    from .parallel.watchdog import (DISTRIBUTED_ABORT_EXIT_CODE,
+                                    DistributedAborted)
+    try:
+        if config.task == "train":
+            run_train(config, params)
+        elif config.task in ("predict", "prediction", "test"):
+            run_predict(config, params)
+        elif config.task == "serve":
+            run_serve(config, params)
+        else:
+            log.fatal("task=%s is not ported to the torch package yet "
+                      "(train, predict and serve are)", config.task)
+    except DistributedAborted as e:
+        # a peer died or hung and the watchdog's cooperative check
+        # tripped (its hard abort exits with the same code): exit so a
+        # launcher restarts the pod, which resumes from the coordinated
+        # snapshots.  os._exit: the group's shutdown would wait on the
+        # dead peer
+        log.warning("%s; exiting with code %d for the launcher to "
+                    "restart", e, DISTRIBUTED_ABORT_EXIT_CODE)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(DISTRIBUTED_ABORT_EXIT_CODE)
     return 0
 
 

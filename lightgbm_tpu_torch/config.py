@@ -261,15 +261,21 @@ _DEFAULTS: Dict[str, Any] = {
     "time_out": 120,
     "distributed_init_retries": 3,
     "distributed_init_backoff": 2.0,
-    # the JAX package's collective watchdog: the heartbeat only warns,
-    # the other two are refused (REFUSED)
+    # the collective watchdog (parallel/watchdog.py) and the
+    # consistency check (models/gbdt.py)
     "distributed_heartbeat_ms": 500.0,
     "collective_timeout_s": 0.0,
     "distributed_consistency_check": 0,
+    "desync_policy": "fail_fast",
+    # crash-safe snapshots (snapshot.py) and the sinks' write-failure
+    # policy (utils/diskguard.py)
+    "snapshot_dir": "",
+    "snapshot_freq": 0,
+    "snapshot_keep": 3,
+    "sink_error_policy": "disable",
     # read only to be refused (REFUSED)
     "bad_data_policy": "fail_fast",
     "use_two_round_loading": False,
-    "snapshot_dir": "",
 }
 
 #: key -> (refused(value), what the JAX package does with it): a value
@@ -283,26 +289,13 @@ REFUSED: Dict[str, tuple] = {
         bool,
         "the JAX package's streaming loader samples the rows it bins "
         "from differently; the torch port loads the whole file"),
-    "snapshot_dir": (
-        bool,
-        "the JAX package writes snapshots there and resumes training "
-        "from the newest one"),
-    "collective_timeout_s": (
-        lambda v: v > 0,
-        "the JAX package arms its collective watchdog with a per-round "
-        "deadline and aborts a hung distributed run"),
-    "distributed_consistency_check": (
-        lambda v: v > 0,
-        "the JAX package compares the ranks' replicated state every K "
-        "rounds and resynchronizes or aborts a diverged rank"),
 }
 
 #: keys that cannot change a tree, a prediction, a file the run writes
 #: or its outcome in the port: accepted with one warning each.
-#: ``desync_policy`` acts only under the refused
-#: ``distributed_consistency_check``; the quarantine budgets only under
-#: ``bad_data_policy=quarantine``; ``snapshot_freq`` / ``snapshot_keep``
-#: only with a ``snapshot_dir``; ``seed``, ``enable_load_from_binary_file``, ``tpu_histogram_impl``,
+#: The quarantine budgets act only under the refused
+#: ``bad_data_policy=quarantine``; ``seed``,
+#: ``enable_load_from_binary_file``, ``tpu_histogram_impl``,
 #: ``tpu_double_hist``, ``is_save_binary_file`` and ``is_pre_partition``
 #: are read by nothing in the JAX package outside its config (the first
 #: through its aliases only; only ``Dataset.save_binary`` writes a
@@ -311,9 +304,7 @@ INERT = frozenset({
     "seed", "num_threads", "enable_load_from_binary_file",
     "is_save_binary_file", "is_pre_partition",
     "tpu_histogram_impl", "tpu_double_hist",
-    "snapshot_freq", "snapshot_keep", "sink_error_policy",
     "events_flush_every", "max_bad_rows", "max_bad_row_fraction",
-    "desync_policy",
     "events_file", "trace_dir", "trace_start_iter", "trace_num_iters",
     "metrics_port", "metrics_host", "compile_ledger_file", "memwatch",
     "devprof", "trace_events_file", "compile_cache_dir",
@@ -458,6 +449,12 @@ class Config:
             raise ValueError(
                 f"Unknown nan_policy {v['nan_policy']} "
                 "(expected none, fail_fast, or skip_tree)")
+        if v["snapshot_freq"] < 0:
+            raise ValueError("snapshot_freq must be >= 0")
+        if v["sink_error_policy"] not in ("disable", "fatal"):
+            raise ValueError(
+                f"Unknown sink_error_policy {v['sink_error_policy']} "
+                "(expected disable or fatal)")
         for key, (refused, why) in REFUSED.items():
             if refused(v[key]):
                 value = v[key]
@@ -616,21 +613,18 @@ class Config:
                              "(0 disables the collective watchdog)")
         if v["collective_timeout_s"] < 0:
             raise ValueError("collective_timeout_s must be >= 0 (0 = "
-                             "no deadline)")
+                             "auto, derived from the comm_seconds EWMA)")
         if v["distributed_consistency_check"] < 0:
             raise ValueError("distributed_consistency_check must be >= 0 "
-                             "(0 disables it)")
+                             "(0 disables the desync detector)")
+        if v["desync_policy"] not in ("fail_fast", "resync"):
+            raise ValueError(
+                f"Unknown desync_policy {v['desync_policy']} "
+                "(expected fail_fast or resync)")
         if v["num_machines"] <= 1:
             v["tree_learner"] = "serial"
         elif v["tree_learner"] == "serial":
             v["num_machines"] = 1
-        if v["num_machines"] > 1 and v["distributed_heartbeat_ms"] > 0:
-            log.warn_once(
-                "distributed_heartbeat_ms",
-                "distributed_heartbeat_ms=%g: the JAX package's heartbeat "
-                "watchdog is not ported to the torch package; a dead rank "
-                "surfaces as a collective error or the rendezvous "
-                "time_out", v["distributed_heartbeat_ms"])
 
     def check_trainable(self) -> None:
         """Raise for an unknown objective or boosting type; nothing here

@@ -10,9 +10,17 @@ round (``learning_rates``), then ``print_evaluation`` (``verbose_eval``),
 (``early_stopping_rounds``), which stops the loop and sets the Booster's
 ``best_iteration``.  ``cv`` trains one Booster a fold (``CVBooster``) on
 row subsets that share the full Dataset's mappers and aggregates their
-valid metrics into means and standard deviations.  The JAX ``train``'s
-snapshots, telemetry, compile cache, metrics port and watchdog are not
-ported (their keys are ignored with one warning each).  ``train_delta``
+valid metrics into means and standard deviations.
+
+Crash safety, as in the JAX ``train``: ``snapshot_dir`` with
+``snapshot_freq`` (alias ``save_period``) writes a snapshot every K
+rounds (``snapshot.py``; the newest ``snapshot_keep`` are kept), and a
+run that finds a valid snapshot there resumes from it, through the
+ranks' consensus (``coordinated_resume``) under a distributed learner;
+``sink_error_policy`` sets the sinks' write-failure policy
+(``utils/diskguard.py``).  The JAX ``train``'s telemetry, compile cache
+and metrics port are not ported (their keys are ignored with one
+warning each).  ``train_delta``
 continues a base model on fresh data and warns when the fresh rows
 drifted from the base model's training fingerprint.
 """
@@ -20,6 +28,8 @@ drifted from the base model's training fingerprint.
 from __future__ import annotations
 
 import collections
+import copy
+import sys
 from typing import List
 
 import numpy as np
@@ -39,6 +49,40 @@ def _pop_rounds(params: dict, num_boost_round: int) -> int:
         if alias in params:
             return int(params.pop(alias))
     return num_boost_round
+
+
+def _snapshot_settings(p: dict):
+    """(``snapshot_dir`` or None, ``snapshot_freq``, ``snapshot_keep``)
+    from alias-resolved params (the CLI's strings too)."""
+    directory = str(p.get("snapshot_dir") or "") or None
+    try:
+        freq = int(p.get("snapshot_freq", 0) or 0)
+    except (TypeError, ValueError):
+        raise ValueError(f"snapshot_freq={p['snapshot_freq']!r} "
+                         "is not an integer")
+    try:
+        keep = int(p.get("snapshot_keep", 3) or 0)
+    except (TypeError, ValueError):
+        keep = 3
+    if freq > 0 and not directory:
+        log.warning("snapshot_freq=%d but no snapshot_dir given; "
+                    "snapshots are DISABLED", freq)
+    return directory, freq, keep
+
+
+def _find_resume(snapshot_dir):
+    """The snapshot to resume from: the ranks' consensus under a group
+    of more than one rank, else the newest valid file."""
+    from .parallel.multihost import process_rank_world
+    from .snapshot import coordinated_resume, load_latest_snapshot
+    if process_rank_world()[1] > 1:
+        return coordinated_resume(snapshot_dir)
+    return load_latest_snapshot(snapshot_dir)
+
+
+def _flush_stdio() -> None:
+    sys.stdout.flush()
+    sys.stderr.flush()
 
 
 def _order(cb) -> int:
@@ -71,8 +115,33 @@ def train(params, train_set: Dataset, num_boost_round: int = 100,
     (``free_raw_data=False``).  ``verbose_eval`` is a bool or a logging
     period; ``learning_rates`` a list (one a round) or a function of the
     round; ``callbacks`` more callables of ``callback.CallbackEnv``.
-    Training stops early when a tree cannot split."""
+    Training stops early when a tree cannot split.
+
+    With ``snapshot_dir`` the run resumes from the newest valid snapshot
+    there (it takes precedence over ``init_model``), restoring the
+    booster, ``evals_result`` and the registry, and writes one every
+    ``snapshot_freq`` rounds.  The early-stopping counter restarts at
+    the resume point."""
     params = dict(params or {})
+    # each run's sink policy holds, and sinks an earlier run's full disk
+    # disabled are re-armed (this run may write elsewhere)
+    from .config import apply_aliases
+    from .utils import diskguard
+    aliased = apply_aliases(dict(params))
+    diskguard.set_default_policy(aliased.get("sink_error_policy") or None)
+    diskguard.reset_disabled()
+    snapshot_dir, snapshot_freq, snapshot_keep = _snapshot_settings(aliased)
+    resume_state = None
+    if snapshot_dir:
+        found = _find_resume(snapshot_dir)
+        if found is not None:
+            resume_path, resume_state = found
+            if init_model is not None:
+                log.warning("snapshot %s takes precedence over "
+                            "init_model for resume", resume_path)
+                init_model = None
+            log.info("Resuming from snapshot %s (%d rounds done)",
+                     resume_path, int(resume_state.get("rounds_done", 0)))
     if fobj is not None:
         params["objective"] = "none"
     num_boost_round = _pop_rounds(params, num_boost_round)
@@ -124,6 +193,24 @@ def train(params, train_set: Dataset, num_boost_round: int = 100,
     for vs, name in valid:
         booster.add_valid(vs, name)
 
+    # the resume state after the valid sets, so their saved scores land
+    # on their buffers
+    resume_done = 0
+    if resume_state is not None:
+        from .snapshot import restore_booster_state
+        resume_done = restore_booster_state(booster, resume_state)
+        init_iteration = booster._booster.num_init_iteration
+        if early_stopping_rounds is not None:
+            log.warning("resuming with early_stopping_rounds=%d: the "
+                        "early-stopping counter restarts at iteration %d "
+                        "(its pre-crash best-score baseline is not part "
+                        "of the snapshot)", early_stopping_rounds,
+                        init_iteration + resume_done)
+        if resume_done >= num_boost_round:
+            log.warning("snapshot already holds %d rounds >= "
+                        "num_boost_round=%d; nothing left to train",
+                        resume_done, num_boost_round)
+
     cbs = set(callbacks or [])
     if verbose_eval is True:
         cbs.add(callback.print_evaluation())
@@ -137,31 +224,52 @@ def train(params, train_set: Dataset, num_boost_round: int = 100,
     if evals_result is not None:
         cbs.add(callback.record_evaluation(evals_result))
     before, after = _split_callbacks(cbs)
+    # the history restored after record_evaluation cleared the dict: the
+    # resumed run's evals_result continues the interrupted one's
+    if resume_state is not None and evals_result is not None \
+            and resume_state.get("evals_result"):
+        evals_result.update(copy.deepcopy(resume_state["evals_result"]))
 
-    end = init_iteration + num_boost_round
-    for i in range(init_iteration, end):
-        for cb in before:
-            cb(callback.CallbackEnv(model=booster, params=params,
-                                    iteration=i,
-                                    begin_iteration=init_iteration,
-                                    end_iteration=end,
-                                    evaluation_result_list=None))
-        finished = booster.update(fobj=fobj)
-        results = booster.eval_train(feval) if with_train else []
-        if valid:
-            results += booster.eval_valid(feval)
-        try:
-            for cb in after:
+    # a watchdog's hard abort (parallel/watchdog.py) skips every finally:
+    # it flushes the log streams first
+    from .parallel.watchdog import active_watchdog
+    watchdog = active_watchdog()
+    if watchdog is not None:
+        watchdog.register_flush(_flush_stdio)
+    try:
+        end = init_iteration + num_boost_round
+        for i in range(init_iteration + resume_done, end):
+            for cb in before:
                 cb(callback.CallbackEnv(model=booster, params=params,
                                         iteration=i,
                                         begin_iteration=init_iteration,
                                         end_iteration=end,
-                                        evaluation_result_list=results))
-        except callback.EarlyStopException as e:
-            booster.best_iteration = e.best_iteration + 1
-            break
-        if finished:
-            break
+                                        evaluation_result_list=None))
+            finished = booster.update(fobj=fobj)
+            results = booster.eval_train(feval) if with_train else []
+            if valid:
+                results += booster.eval_valid(feval)
+            try:
+                for cb in after:
+                    cb(callback.CallbackEnv(model=booster, params=params,
+                                            iteration=i,
+                                            begin_iteration=init_iteration,
+                                            end_iteration=end,
+                                            evaluation_result_list=results))
+            except callback.EarlyStopException as e:
+                booster.best_iteration = e.best_iteration + 1
+                break
+            if snapshot_dir and snapshot_freq > 0 \
+                    and (i + 1 - init_iteration) % snapshot_freq == 0:
+                from .snapshot import save_snapshot
+                save_snapshot(snapshot_dir, booster,
+                              rounds_done=i + 1 - init_iteration,
+                              evals_result=evals_result, keep=snapshot_keep)
+            if finished:
+                break
+    finally:
+        if watchdog is not None:
+            watchdog.unregister_flush(_flush_stdio)
     return booster
 
 

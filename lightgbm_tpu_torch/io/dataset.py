@@ -395,8 +395,10 @@ class BinnedDataset:
     def save_binary(self, path: str) -> None:
         """The token, then an npz archive of the arrays with the mappers,
         names and bundle plan as a JSON blob (no pickle: loading a file
-        runs no code).  Written to ``<path>.tmp`` and moved over ``path``,
-        so a failed save keeps the previous file."""
+        runs no code).  Written to ``<path>.tmp`` and moved over ``path``
+        (``utils/diskguard.artifact_write``): a failed save is a named
+        ``SinkWriteError`` (sink ``binary_dataset``) and keeps the
+        previous file."""
         meta_json = json.dumps({
             "mappers": [m.to_state() for m in self.mappers],
             "used_feature_map": self.used_feature_map,
@@ -417,11 +419,11 @@ class BinnedDataset:
             value = getattr(self.metadata, key)
             if value is not None:
                 arrays[key] = value
-        tmp = f"{path}.tmp"
-        with open(tmp, "wb") as fh:
+        from ..utils.diskguard import artifact_write
+        with artifact_write(path, "binary_dataset", mode="wb",
+                            atomic=True) as fh:
             fh.write(_BINARY_TOKEN)
             np.savez_compressed(fh, **arrays)
-        os.replace(tmp, path)
         log.info("Saved binary dataset to %s", path)
 
     @classmethod

@@ -21,6 +21,7 @@ from typing import List
 
 import numpy as np
 
+from ..utils import log
 from .gbdt import GBDT
 
 
@@ -110,6 +111,28 @@ class DART(GBDT):
             if not self.uniform_drop:
                 self.sum_weight -= self.tree_weights[it] * weight_sub
                 self.tree_weights[it] *= factor_dropped
+
+    # -- snapshot / resume (snapshot.py) ---------------------------------
+    def snapshot_state(self):
+        state = super().snapshot_state()
+        state["dart"] = {
+            "tree_weights": list(self.tree_weights),
+            "sum_weight": float(self.sum_weight),
+            "drop_rng": self._drop_rng.get_state(),
+        }
+        return state
+
+    def restore_state(self, state):
+        super().restore_state(state)
+        d = state.get("dart")
+        if d is None:
+            log.fatal("snapshot has no DART state; it was not taken from "
+                      "a dart booster")
+        self.tree_weights = list(d["tree_weights"])
+        self.sum_weight = float(d["sum_weight"])
+        self._drop_rng.set_state(d["drop_rng"])
+        # drop_index is a round's scratch: snapshots fall between rounds
+        self.drop_index = []
 
     def train_one_iter(self, grad=None, hess=None) -> bool:
         self._select_dropping_trees()

@@ -93,13 +93,29 @@ round are folded into the screener's average when the JAX package
 would: a round late for ``gbdt`` and GOSS (the JAX booster materialises
 a round's trees during the next one, or when ``models`` is read), in the
 round itself for DART (``_screen_observes_late``).
+
+Crash safety (``snapshot.py``): ``snapshot_state`` captures what a
+resume needs under the JAX package's field names (the trees, the score
+buffers read to the host, every RNG stream mid-sequence, the bag mask,
+the screener) and ``restore_state`` writes it back into a booster of
+the same config and data, refusing a config mismatch.  Under a
+distributed learner each round's grow runs in the collective watchdog's
+``Comm::grow`` phase (``parallel/watchdog.py``), and every
+``distributed_consistency_check`` rounds the ranks compare digests of
+their replicated state (``_maybe_check_consistency``), then stop or
+take rank 0's state (``desync_policy``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import hashlib
 import io
 import os
+import pickle
 import re
+import time
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -311,6 +327,19 @@ class _DeviceData:
         return self.score.cpu().numpy().astype(np.float64)
 
 
+def _tree_bytes(tree: Tree) -> bytes:
+    """A tree's content as bytes, its fields in name order (the desync
+    digest: a pickle of equal trees can differ in its memo references)."""
+    parts = []
+    for name, v in sorted(vars(tree).items()):
+        if name == "_inner_mappers":
+            continue
+        parts.append(name.encode())
+        parts.append(np.ascontiguousarray(v).tobytes()
+                     if isinstance(v, np.ndarray) else repr(v).encode())
+    return b"".join(parts)
+
+
 def _all_finite(*tensors) -> bool:
     """Every element of every tensor is finite (one host read)."""
     ok = torch.ones((), dtype=torch.bool, device=tensors[0].device)
@@ -419,6 +448,9 @@ class GBDT:
                              if config.row_buckets else self.num_data)
         # the admission gate, before any training buffer is allocated
         self._check_memory_budget(config, train_set)
+        # the collectives' account over the booster's life (snapshots
+        # carry it)
+        self._cum_comm_calls = self._cum_comm_bytes = 0
         self._grow = self._make_grow_fn()
         self.num_bin = torch.from_numpy(
             train_set.num_bin_per_feature()).to(device)
@@ -451,6 +483,13 @@ class GBDT:
             config.feature_fraction_seed)
         self._nan_policy = config.nan_policy
         self._nan_skips = 0
+        # the JAX GBDT's best-iteration bookkeeping, carried by snapshots
+        self.best_iteration = -1
+        self.best_score: Dict = {}
+        self.best_msg: Dict = {}
+        # the desync detector (a world of one never calls it)
+        self._consistency_every = int(config.distributed_consistency_check)
+        self._desync_policy = config.desync_policy
         # TreeArrays (host) of each tree this booster grew: the last
         # len(tree_arrays) trees of ``models`` (a rollback pops them; a
         # merge, which appends other trees, drops them)
@@ -597,7 +636,11 @@ class GBDT:
         if scr is None:
             return self._full_view
         it = self.iter_ - self.num_init_iteration
-        if scr.round_mode(it) != "screened":
+        mode = scr.round_mode(it)
+        if mode != "screened":
+            if mode == "refresh":
+                obs.inc("screen_refresh_total")
+                scr.refresh_total += 1
             self._screen_mask = None
             return self._full_view
         period = scr.period(it)
@@ -865,11 +908,38 @@ class GBDT:
         self._parallel_grow = fn
 
         def grow(grad, hess):
+            from ..parallel import watchdog
             view = self._view
-            out = fn(view.bins, self.num_bin, self.is_cat, self._feat_mask,
-                     grad, hess, self._round_weight, self.shrinkage_rate,
-                     bundle=view.bundle)
+            wd = watchdog.active_watchdog()
+            t0 = time.perf_counter()
+            # Comm::grow: the tree's collectives under the watchdog's
+            # deadline and peer check; a raised collective error waits
+            # for the heartbeats before it unwinds (a killed peer is a
+            # named abort with exit code 75)
+            try:
+                with obs.span("Comm::grow"), (
+                        wd.phase("Comm::grow") if wd is not None
+                        else contextlib.nullcontext()):
+                    out = fn(view.bins, self.num_bin, self.is_cat,
+                             self._feat_mask, grad, hess,
+                             self._round_weight, self.shrinkage_rate,
+                             bundle=view.bundle)
+            except watchdog.DistributedAborted:
+                raise
+            except Exception as e:
+                if wd is not None:
+                    wd.classify_collective_error(e, "Comm::grow")
+                raise
+            # the collectives block until every rank took part: a real
+            # duration, the sample the auto deadline derives from
+            dt = time.perf_counter() - t0
+            obs.observe("comm_seconds", dt)
+            if wd is not None:
+                wd.note_comm_seconds(dt)
             observe_traffic(self._comm_traffic)
+            calls, nbytes = self._comm_traffic_totals
+            self._cum_comm_calls += calls
+            self._cum_comm_bytes += nbytes
             return out
         return grow
 
@@ -1119,7 +1189,17 @@ class GBDT:
 
         ``nan_policy`` other than ``none`` checks the gradients before
         growing and the training scores after: a non-finite round is
-        rolled back (``_contain_poisoned_iter``)."""
+        rolled back (``_contain_poisoned_iter``).
+
+        The desync check runs first, before this round's gradients read
+        a state that may have diverged (``_maybe_check_consistency``)."""
+        resynced = self._maybe_check_consistency()
+        if resynced and grad is not None:
+            log.warning(
+                "desync resync at iteration %d arrived after this "
+                "round's custom-objective gradients were computed from "
+                "the pre-resync scores; the pod stays consistent but "
+                "this one round ingests the stale gradients", self.iter_)
         it = self.iter_
         # the screening view and mask, before any mask draw reads them
         self._view = self._select_view()
@@ -1256,6 +1336,244 @@ class GBDT:
                     "(non-finite %s, objective=%s); %d iteration(s) "
                     "dropped so far", it, what, obj, self._nan_skips)
         return False
+
+    # -- distributed desync detection ----------------------------------
+    def _maybe_check_consistency(self) -> bool:
+        """Every ``distributed_consistency_check`` rounds of a group of
+        more than one rank, check that every rank holds the same trees,
+        scores and RNG streams.  One process, or K = 0: returns before
+        any collective.  True when a resync restored state."""
+        K = self._consistency_every
+        if K <= 0:
+            return False
+        from ..parallel.multihost import process_rank_world
+        rank, world = process_rank_world()
+        if world <= 1:
+            return False
+        it = self.iter_ - self.num_init_iteration
+        if it <= 0 or it % K != 0:
+            return False
+        # the same guard as Comm::grow: a rank dying in this gather is a
+        # bounded, named abort
+        from ..parallel.watchdog import active_watchdog
+        wd = active_watchdog()
+        with obs.span("Dist::consistency"):
+            if wd is not None:
+                with wd.guard("Dist::consistency"):
+                    return self._check_distributed_consistency(rank, world)
+            return self._check_distributed_consistency(rank, world)
+
+    def _portable_trees(self) -> List[Tree]:
+        """Shallow copies of ``models`` that name their bin mappers
+        instead of holding them: ``"train"`` for this booster's training
+        mappers, None for any other (a replay then bins the thresholds
+        again).  A snapshot pickles these."""
+        mappers = self.train_set.mappers
+        out = []
+        for t in self._models:
+            c = copy.copy(t)
+            c._inner_mappers = ("train" if t._inner_mappers is mappers
+                                else None)
+            out.append(c)
+        return out
+
+    def _consistency_digests(self) -> Dict[str, int]:
+        """A uint64 digest (a sha256 prefix) of each field of the
+        replicated training state, so a divergence names what diverged."""
+        def d(blob: bytes) -> int:
+            return int.from_bytes(hashlib.sha256(blob).digest()[:8],
+                                  "little")
+
+        return {
+            "iter": d(np.int64([self.iter_, len(self._models)]).tobytes()),
+            "trees": d(b"".join(_tree_bytes(t) for t in self._models)),
+            "score": d(self.train_data.score.cpu().numpy().tobytes()),
+            "rng": d(np.asarray(self._bag_key, np.uint32).tobytes()
+                     + pickle.dumps(self._feature_rng.get_state())
+                     + self._row_weight.cpu().numpy().tobytes()),
+        }
+
+    def _check_distributed_consistency(self, rank: int,
+                                       world: int) -> bool:
+        """Gather the digests, compare, and on a divergence apply
+        ``desync_policy``: ``fail_fast`` raises naming the diverged
+        rank(s) and field(s) (every rank runs the same gather, so every
+        rank stops); ``resync`` broadcasts rank 0's ``snapshot_state``
+        and restores it on the other ranks (True)."""
+        from ..parallel import comm
+        fields = self._consistency_digests()
+        names = list(fields)
+        mine = np.array([fields[n] for n in names], np.uint64)
+        gathered = np.asarray(comm.allgather_host_array(mine))  # [world, F]
+        if bool((gathered == gathered[0]).all()):
+            return False
+        obs.inc("desync_detected_total")
+        diverged: Dict[str, List[int]] = {}
+        for fi, name in enumerate(names):
+            col = gathered[:, fi]
+            vals, counts = np.unique(col, return_counts=True)
+            top = int(counts.max())
+            majority = {int(v) for v, c in zip(vals, counts)
+                        if int(c) == top}
+            # the majority wins; a tie (any pair of ranks) defers to
+            # rank 0, the source a resync trusts
+            ref = (int(col[0]) if int(col[0]) in majority
+                   else next(iter(sorted(majority))))
+            bad = [r for r in range(world) if int(col[r]) != ref]
+            if bad:
+                diverged[name] = bad
+        detail = "; ".join(
+            f"field {name!r} diverged on rank(s) {bad}"
+            for name, bad in diverged.items())
+        if self._desync_policy == "fail_fast":
+            log.fatal(
+                "distributed state desync detected at iteration %d "
+                "(%d-process run): %s.  Every rank must hold identical "
+                "replicated training state; set desync_policy=resync to "
+                "broadcast rank 0's state instead of stopping, and see "
+                "docs/FAULT_TOLERANCE.md §Distributed.",
+                self.iter_, world, detail)
+        if any(0 in bad for bad in diverged.values()):
+            # the majority voted rank 0, the resync's source, the
+            # diverged one: broadcasting it would spread the corruption
+            log.fatal(
+                "distributed state desync detected at iteration %d: %s — "
+                "rank 0 is the resync source of truth but is itself the "
+                "diverged rank; refusing to propagate its state "
+                "(desync_policy=resync falls back to failing fast here).",
+                self.iter_, detail)
+        log.warning("distributed state desync detected at iteration %d: "
+                    "%s — resyncing every rank from rank 0's state",
+                    self.iter_, detail)
+        payload = (pickle.dumps(self.snapshot_state(),
+                                protocol=pickle.HIGHEST_PROTOCOL)
+                   if rank == 0 else None)
+        blob = comm.broadcast_host_bytes(payload, is_source=(rank == 0))
+        if rank != 0:
+            self.restore_state(pickle.loads(blob))
+        obs.inc("desync_resyncs_total")
+        return True
+
+    # -- crash-safe snapshot / resume (snapshot.py) ----------------------
+    def _snapshot_fingerprint(self) -> Dict:
+        return {
+            "objective": getattr(self.objective, "name", "?"),
+            "num_class": int(self.num_class),
+            "num_data": int(self.num_data),
+            "num_features": int(self.num_features),
+            "num_leaves": int(self.grow_params.num_leaves),
+        }
+
+    def snapshot_state(self) -> Dict:
+        """The resumable training state on the host, under the JAX
+        package's field names.  Restoring it onto a booster of the same
+        config and data is bit-exact: the score buffers are saved as
+        arrays (a replay of the trees would add in another order) and
+        every RNG stream resumes mid-sequence.  The port adds its own
+        fields: the screener's drawn view and its pending round, and the
+        linear fallback count.  ``tree_arrays`` restarts empty (it holds
+        the last trees this booster object grew)."""
+        if not hasattr(self, "train_set"):
+            log.fatal("snapshot_state requires a training booster "
+                      "(loaded prediction-only models have no "
+                      "resumable state)")
+        scr = self._screener
+        return {
+            "submodel": self.submodel_name,
+            "fingerprint": self._snapshot_fingerprint(),
+            "models": self._portable_trees(),
+            "iter_": int(self.iter_),
+            "num_init_iteration": int(self.num_init_iteration),
+            "best_iteration": int(self.best_iteration),
+            "best_score": dict(self.best_score),
+            "best_msg": dict(self.best_msg),
+            "shrinkage_rate": float(self.shrinkage_rate),
+            # rounds run synchronously: a saturated round reports itself
+            # from its own call, so no stop signal is ever pending
+            "no_more_splits": False,
+            "train_score": self.train_data.score.cpu().numpy(),
+            "valid_scores": [dd.score.cpu().numpy()
+                             for dd in self.valid_data],
+            "bag_key": np.asarray(self._bag_key, np.uint32),
+            "row_weight": self._row_weight.cpu().numpy(),
+            "bag_cnt": int(self._bag_cnt),
+            "feature_rng": self._feature_rng.get_state(),
+            "cum_comm": (int(self._cum_comm_calls),
+                         int(self._cum_comm_bytes)),
+            "nan_skips": int(self._nan_skips),
+            "screen_state": scr.state() if scr is not None else None,
+            "screen_view": ((self._screen_period, list(self.screen_periods),
+                             self._screen_pending)
+                            if scr is not None else None),
+            "linear_fallbacks": int(self.linear_fallbacks),
+        }
+
+    def restore_state(self, state: Dict) -> None:
+        """The inverse of ``snapshot_state`` on a new booster of the same
+        params and data.  Valid sets attached before get their saved
+        scores back by position; one the snapshot lacks replays the
+        restored trees.  The score buffers are written in place."""
+        if state.get("submodel") != self.submodel_name:
+            log.fatal("snapshot was taken by a %r booster; this run is "
+                      "configured as %r", state.get("submodel"),
+                      self.submodel_name)
+        fp = state.get("fingerprint", {})
+        mine = self._snapshot_fingerprint()
+        if fp and fp != mine:
+            diff = {k: (fp.get(k), mine[k]) for k in mine
+                    if fp.get(k) != mine[k]}
+            log.fatal("snapshot/config mismatch, refusing to resume "
+                      "(snapshot vs current): %s", diff)
+        dev = self.device
+        self._models = list(state["models"])
+        for t in self._models:
+            t._inner_mappers = (self.train_set.mappers
+                                if isinstance(t._inner_mappers, str)
+                                else None)
+        self.iter_ = int(state["iter_"])
+        self.num_init_iteration = int(state["num_init_iteration"])
+        self.best_iteration = int(state["best_iteration"])
+        self.best_score = dict(state["best_score"])
+        self.best_msg = dict(state["best_msg"])
+        self.shrinkage_rate = float(state["shrinkage_rate"])
+        self.train_data.score.copy_(torch.from_numpy(
+            np.asarray(state["train_score"], np.float32)))
+        saved_valid = state.get("valid_scores", [])
+        for vi, dd in enumerate(self.valid_data):
+            saved = saved_valid[vi] if vi < len(saved_valid) else None
+            if saved is not None and tuple(np.shape(saved)) \
+                    == tuple(dd.score.shape):
+                dd.score.copy_(torch.from_numpy(
+                    np.asarray(saved, np.float32)))
+            else:
+                for i, tree in enumerate(self._models):
+                    self._add_host_tree_to(dd, tree, i % self.num_class)
+        self._bag_key = tuple(int(v) for v in state["bag_key"])
+        rw = np.asarray(state["row_weight"], np.float32)[:self.num_data]
+        self._row_weight = (self._ones_weight if bool(np.all(rw == 1.0))
+                            else _to_device(torch.from_numpy(rw.copy()),
+                                            dev))
+        self._bag_cnt = int(state["bag_cnt"])
+        self._feature_rng.set_state(state["feature_rng"])
+        self._cum_comm_calls, self._cum_comm_bytes = \
+            (int(v) for v in state["cum_comm"])
+        self._nan_skips = int(state.get("nan_skips", 0))
+        self.linear_fallbacks = int(state.get("linear_fallbacks", 0))
+        scr = self._screener
+        if scr is not None:
+            scr.restore(state.get("screen_state"))
+            period, periods, pending = state.get("screen_view") \
+                or (-1, [], None)
+            self._screen_period = int(period)
+            self.screen_periods = list(periods)
+            self._screen_pending = pending
+            self._screen_mask = self._active_view = None
+            if self._screen_period >= 0 and self.screen_periods:
+                # the view drawn for the current period, as it was
+                cols = self.screen_periods[-1][1]
+                self._screen_mask = _to_device(
+                    torch.from_numpy(scr.screen_mask(cols)), dev)
+                self._active_view = self._build_active_view(cols)
 
     def _metric_sets(self):
         return [("training", self.train_data, self.train_metrics)] + [

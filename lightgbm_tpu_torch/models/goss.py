@@ -20,6 +20,7 @@ objective-agnostic), on the gradients' device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..utils import log
@@ -57,6 +58,21 @@ class GOSS(GBDT):
 
     def _bagging_mask(self, iter_: int) -> torch.Tensor:
         return self._row_weight
+
+    # -- snapshot / resume (snapshot.py): the row mask and bag count ride
+    # in the base state; the sampling key is GOSS's own
+    def snapshot_state(self):
+        state = super().snapshot_state()
+        state["goss"] = {"key": np.asarray(self._goss_key, np.uint32)}
+        return state
+
+    def restore_state(self, state):
+        super().restore_state(state)
+        g = state.get("goss")
+        if g is None:
+            log.fatal("snapshot has no GOSS state; it was not taken from "
+                      "a goss booster")
+        self._goss_key = tuple(int(v) for v in g["key"])
 
     def _sample(self, grad, hess):
         """(the 0/1 row mask, the amplified gradients and hessians) of

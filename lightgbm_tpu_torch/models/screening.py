@@ -16,13 +16,15 @@ the average is updated every round.
 Screening is column-granular, so it composes with EFB bundles: a column
 stays active while any of its features does.  ``GBDT`` gathers the
 active columns into a compacted view that the histogram kernels run
-over (``models/gbdt.py`` ``_build_active_view``).  The JAX package's
-snapshot state (``state`` / ``restore``) comes with the snapshots.
+over (``models/gbdt.py`` ``_build_active_view``).  ``state`` /
+``restore`` carry the averages and the refresh count through a snapshot
+(``snapshot.py``).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -44,6 +46,7 @@ class GainScreener:
             1, int(math.ceil((1.0 - self.ratio) * self.num_columns)))
         self.ewma = np.zeros(self.num_features, np.float64)
         self._round_gain = np.zeros(self.num_features, np.float64)
+        self.refresh_total = 0
 
     def observe_trees(self, trees) -> None:
         """Fold one round's trees into the average.  Split features are
@@ -86,3 +89,16 @@ class GainScreener:
         keep = np.zeros(self.num_columns, bool)
         keep[np.asarray(active_cols, np.int64)] = True
         return keep[self.feature_col]
+
+    # -- snapshot / resume (snapshot.py) ---------------------------------
+    def state(self) -> Dict:
+        return {"ewma": self.ewma.copy(),
+                "refresh_total": int(self.refresh_total)}
+
+    def restore(self, state: Optional[Dict]) -> None:
+        if not state:
+            return
+        saved = np.asarray(state.get("ewma", ()), np.float64)
+        if saved.shape == self.ewma.shape:
+            self.ewma = saved.copy()
+        self.refresh_total = int(state.get("refresh_total", 0))

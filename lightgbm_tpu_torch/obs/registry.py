@@ -54,6 +54,14 @@ class _Hist:
         return {"buckets": list(self.bounds), "counts": list(self.counts),
                 "sum": self.sum, "count": self.count}
 
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "_Hist":
+        h = cls(d["buckets"])
+        h.counts = [int(c) for c in d["counts"]]
+        h.sum = float(d["sum"])
+        h.count = int(d["count"])
+        return h
+
 
 def histogram_quantile(hist: Optional[Mapping[str, Any]],
                        q: float) -> Optional[float]:
@@ -135,6 +143,17 @@ class Registry:
                                for k, h in self._histograms.items()},
             }
 
+    def restore(self, snap: Mapping[str, Any]) -> None:
+        """Overwrite this registry's values with a ``snapshot()``'s:
+        counters and gauges set, histograms replaced exactly (a resumed
+        run continues the interrupted run's account, ``snapshot.py``)."""
+        with self._lock:
+            for name, v in dict(snap.get("counters", {})).items():
+                self._counters[name] = int(v)
+            self._gauges.update(dict(snap.get("gauges", {})))
+            for name, hd in dict(snap.get("histograms", {})).items():
+                self._histograms[name] = _Hist.from_dict(hd)
+
     def reset(self) -> None:
         with self._lock:
             self._counters.clear()
@@ -172,6 +191,10 @@ def get_histogram(name: str) -> Optional[Dict[str, Any]]:
 
 def snapshot() -> Dict[str, Any]:
     return REGISTRY.snapshot()
+
+
+def restore(snap: Mapping[str, Any]) -> None:
+    REGISTRY.restore(snap)
 
 
 def reset() -> None:

@@ -189,13 +189,25 @@ def observe_traffic(traffic, trees: int = 1) -> None:
 # host collectives (between rounds, outside the growers)
 
 
+def _host_collective_device(group=None) -> torch.device:
+    """Where a host array travels: the rank's card under NCCL (which
+    takes no CPU tensor), else the CPU."""
+    if dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
 def allgather_host_array(x, group=None):
-    """Every rank's small host array, stacked ``[P, ...]`` (numpy)."""
+    """Every rank's small host array, stacked ``[P, ...]`` (numpy).  A
+    uint64 array travels as int64 bits (gloo has no uint64 gather)."""
     import numpy as np
-    a = torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+    x = np.ascontiguousarray(np.asarray(x))
     if not dist.is_initialized():
-        return a.numpy()[None]
-    return all_gather(a, group, kind="host").numpy()
+        return x[None]
+    wire = x.view(np.int64) if x.dtype == np.uint64 else x
+    a = torch.from_numpy(wire).to(_host_collective_device(group))
+    out = all_gather(a, group, kind="host").cpu().numpy()
+    return out.view(np.uint64) if x.dtype == np.uint64 else out
 
 
 def broadcast_host_bytes(payload, is_source: bool, group=None) -> bytes:
@@ -209,7 +221,8 @@ def broadcast_host_bytes(payload, is_source: bool, group=None) -> bytes:
     if is_source:
         buf[:size] = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
     if dist.is_initialized():
-        broadcast(buf, 0, group, kind="host")
+        buf = broadcast(buf.to(_host_collective_device(group)), 0, group,
+                        kind="host").cpu()
     return buf.numpy().tobytes()
 
 

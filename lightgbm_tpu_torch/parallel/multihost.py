@@ -15,11 +15,9 @@ The backend is fixed once, when the group is built, by a rule
 (:func:`choose_backend`), and logged: ``nccl`` when every local rank has
 a card of its own, ``gloo`` when ranks share a card or run on the CPU.
 A rank's card is ``cuda:<local rank % device_count>``
-(:func:`rank_device`).  The JAX package's collective watchdog
-(``distributed_heartbeat_ms``, ``collective_timeout_s``) and its
-consistency check are not ported: ``config.py`` refuses
-``collective_timeout_s`` and ``distributed_consistency_check`` by name
-and warns for the heartbeat.
+(:func:`rank_device`).  Once the group is up, ``distributed_heartbeat_ms
+> 0`` arms the collective watchdog (``parallel/watchdog.py``) over the
+same machine list, with ``collective_timeout_s`` as its deadline.
 """
 
 from __future__ import annotations
@@ -205,6 +203,15 @@ def maybe_initialize_distributed(config) -> bool:
     if num_machines <= 1 or not mlist:
         return False
     if dist.is_initialized():
+        # a group the caller built: the machine list only arms the
+        # watchdog, and a bad one degrades to a warning
+        try:
+            machines = parse_machine_list(mlist)[:num_machines]
+            _maybe_start_watchdog(config, machines, dist.get_rank())
+        except Exception as e:  # noqa: BLE001 - never fatal here
+            log.warning("machine_list_file %s is unusable for the "
+                        "collective watchdog (%s); watchdog disabled",
+                        mlist, e)
         return dist.get_world_size() > 1
     machines = parse_machine_list(mlist)
     if len(machines) < num_machines:
@@ -239,4 +246,18 @@ def maybe_initialize_distributed(config) -> bool:
         retries=int(config.distributed_init_retries or 0),
         backoff_s=float(config.distributed_init_backoff or 0.0),
         timeout_s=timeout_s)
+    _maybe_start_watchdog(config, machines, pid)
     return True
+
+
+def _maybe_start_watchdog(config, machines: List[Tuple[str, int]],
+                          pid: int):
+    """Arm the collective watchdog for this rank once the group is up;
+    ``distributed_heartbeat_ms=0`` leaves it off."""
+    hb_ms = float(config.get("distributed_heartbeat_ms", 0.0) or 0.0)
+    if hb_ms <= 0:
+        return None
+    from . import watchdog
+    return watchdog.start_watchdog(
+        machines, int(pid), heartbeat_s=hb_ms / 1000.0,
+        timeout_s=float(config.get("collective_timeout_s", 0.0) or 0.0))

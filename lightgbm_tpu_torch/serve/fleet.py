@@ -40,7 +40,6 @@ The JAX fleet's causal-trace spans (``Serve::dispatch``,
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import threading
@@ -841,25 +840,24 @@ class ModelManager:
 
     def _write_state(self, mutate: Callable[[Dict[str, Any]], None]) -> None:
         """One serialized read-modify-write of the state file, written
-        atomically (tmp file + ``os.replace``).  Best-effort: a failed
-        write warns and keeps the previous file; the next write
-        retries."""
+        atomically (``utils/diskguard.write_file_atomic``).  A failed
+        write is counted (``sink_write_errors_serve_state``) and warned,
+        the last-good file is kept, and the next write retries."""
         if not self.state_file:
             return
+        from ..utils import diskguard
         with self._state_lock:
-            tmp = f"{self.state_file}.tmp{os.getpid()}"
             try:
                 state = self.read_state(self.state_file)
                 mutate(state)
-                with open(tmp, "w") as fh:
-                    fh.write(json.dumps(state))
-                os.replace(tmp, self.state_file)
+                diskguard.write_file_atomic(
+                    self.state_file, json.dumps(state).encode(),
+                    sink="serve_state", fsync=False)
             except OSError as exc:
-                log.warning("serve: state file %s not written (%r); the "
-                            "last-good state is kept", self.state_file,
-                            exc)
-                with contextlib.suppress(OSError):
-                    os.remove(tmp)
+                diskguard.note_sink_error(
+                    "serve_state", self.state_file, exc,
+                    action="the last-good state file is kept; the next "
+                    "successful write retries")
 
     @staticmethod
     def read_state(state_file: str) -> Dict[str, Any]:

@@ -1,10 +1,30 @@
-"""Serving fault injectors: make the failures the fleet claims to
-survive happen, deterministically, in-process.
+"""Fault injectors: make the failures the port claims to survive
+happen, deterministically, through the real code paths.
 
-The port's own copy of the serving half of the JAX package's
-testing/faults.py, over the port's ``serve/fleet.py`` ``Replica``.
-Each injector is a context manager that patches one seam and restores
-it on exit:
+The port's own copy of the JAX package's testing/faults.py.
+
+Crash-safe training (``snapshot.py``, ``utils/diskguard.py``):
+
+- ``torn_snapshot_write``: every snapshot write dies after N bytes of
+  its ``.tmp``; ``truncate_file`` / ``flip_byte``: a committed file
+  torn or bit-rotted afterwards;
+- ``fail_writes`` / ``disk_full_after``: every guarded write (through
+  diskguard's one hook) raises a real ``OSError`` (ENOSPC, EDQUOT,
+  EROFS, EMFILE), at once or after a byte budget.
+
+Ranks of a distributed learner (``parallel/watchdog.py``, the
+consistency check): callback factories for ``engine.train``'s loop, each
+gated on a rank:
+
+- ``kill_rank``: SIGKILL at a round (the preempted worker);
+- ``hang_rank``: a round blocks until its ``release`` event (alive, its
+  heartbeats flowing, its collectives never arriving);
+- ``delay_rank``: added latency (the straggler);
+- ``corrupt_rank_state``: one rank's score buffer or newest tree
+  silently changed after a round (the desync).
+
+Serving, over the port's ``serve/fleet.py`` ``Replica``.  Each injector
+is a context manager that patches one seam and restores it on exit:
 
 - ``wedge_replica``: a replica's predict blocks until release (the hung
   device the watchdog's stall detector is for);
@@ -28,6 +48,7 @@ sees, and a probe succeeds only once the fault is lifted.
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from typing import Iterator, Optional
@@ -35,6 +56,209 @@ from typing import Iterator, Optional
 
 class InjectedCrash(RuntimeError):
     """The error an injector raises where the real failure would."""
+
+
+# ---------------------------------------------------------------------------
+# snapshots and disk
+
+
+@contextlib.contextmanager
+def torn_snapshot_write(after_bytes: int = 64) -> Iterator[dict]:
+    """Every ``snapshot.write_snapshot`` writes ``after_bytes`` bytes of
+    its ``.tmp`` and dies (a preemption mid-checkpoint): no snapshot file
+    is made or damaged.  Yields stats with the ``torn`` paths."""
+    from .. import snapshot as snapmod
+
+    stats = {"torn": []}
+    orig = snapmod.write_snapshot
+
+    def torn_write(path, state):
+        blob = snapmod._encode(state)
+        directory = os.path.dirname(path)
+        if directory:
+            os.makedirs(directory, exist_ok=True)
+        with open(path + ".tmp", "wb") as fh:
+            fh.write(blob[:max(int(after_bytes), 0)])
+        stats["torn"].append(path)
+        raise InjectedCrash(
+            f"snapshot write to {path} torn after {after_bytes} bytes")
+
+    snapmod.write_snapshot = torn_write
+    try:
+        yield stats
+    finally:
+        snapmod.write_snapshot = orig
+
+
+def truncate_file(path: str, keep_bytes: Optional[int] = None) -> None:
+    """Truncate ``path`` in place (default: to half its size)."""
+    size = os.path.getsize(path)
+    keep = size // 2 if keep_bytes is None else max(int(keep_bytes), 0)
+    with open(path, "r+b") as fh:
+        fh.truncate(keep)
+
+
+def flip_byte(path: str, offset: int = -1) -> None:
+    """XOR one byte of ``path`` (default the last: past every header
+    field), bit rot under a valid length."""
+    with open(path, "r+b") as fh:
+        fh.seek(0, os.SEEK_END)
+        size = fh.tell()
+        pos = offset if offset >= 0 else size + offset
+        fh.seek(pos)
+        b = fh.read(1)
+        fh.seek(pos)
+        fh.write(bytes([b[0] ^ 0xFF]))
+
+
+def _install_write_hook(hook) -> None:
+    from ..utils import diskguard
+    if diskguard._fault_hook is not None:
+        raise RuntimeError("a diskguard fault hook is already installed")
+    diskguard._fault_hook = hook
+
+
+def _remove_write_hook() -> None:
+    from ..utils import diskguard
+    diskguard._fault_hook = None
+
+
+@contextlib.contextmanager
+def fail_writes(errno_code: int, path_glob: str = "*",
+                armed: bool = True) -> Iterator[dict]:
+    """Every guarded write to a path matching ``path_glob`` raises a real
+    ``OSError(errno_code)`` while ``stats["armed"]`` holds (start with
+    ``armed=False`` and set it from a callback to strike mid-run).
+    Yields stats: ``fired``, ``paths`` and ``armed``."""
+    import fnmatch
+    stats = {"fired": 0, "paths": [], "armed": bool(armed)}
+
+    def hook(path: str, nbytes: int) -> None:
+        if stats["armed"] and fnmatch.fnmatch(path, path_glob):
+            stats["fired"] += 1
+            stats["paths"].append(path)
+            raise OSError(int(errno_code), os.strerror(int(errno_code)),
+                          path)
+
+    _install_write_hook(hook)
+    try:
+        yield stats
+    finally:
+        _remove_write_hook()
+
+
+@contextlib.contextmanager
+def disk_full_after(n_bytes: int, path_glob: str = "*") -> Iterator[dict]:
+    """The disk takes ``n_bytes`` more guarded writes (to paths matching
+    ``path_glob``), then every write raises ENOSPC.  Yields stats:
+    ``written``, ``fired``, ``budget``."""
+    import errno
+    import fnmatch
+    stats = {"written": 0, "fired": 0, "budget": int(n_bytes)}
+
+    def hook(path: str, nbytes: int) -> None:
+        if not fnmatch.fnmatch(path, path_glob):
+            return
+        if stats["written"] + int(nbytes) > stats["budget"]:
+            stats["fired"] += 1
+            raise OSError(errno.ENOSPC, os.strerror(errno.ENOSPC), path)
+        stats["written"] += int(nbytes)
+
+    _install_write_hook(hook)
+    try:
+        yield stats
+    finally:
+        _remove_write_hook()
+
+
+# ---------------------------------------------------------------------------
+# ranks of a distributed learner: callbacks of engine.train's loop
+
+
+def _this_rank() -> int:
+    from ..parallel.multihost import process_rank_world
+    return process_rank_world()[0]
+
+
+def _rank_matches(rank: Optional[int]) -> bool:
+    return rank is None or int(rank) == _this_rank()
+
+
+def kill_rank(at_iteration: int, rank: Optional[int] = None):
+    """Before-round callback: SIGKILL this process when round
+    ``at_iteration`` begins on ``rank`` (None: any rank).  The other
+    ranks wait in that round's collectives until the watchdog aborts
+    them."""
+    import signal
+
+    def cb(env):
+        if env.iteration >= int(at_iteration) and _rank_matches(rank):
+            os.kill(os.getpid(), signal.SIGKILL)
+    cb.before_iteration = True
+    cb.order = -99
+    return cb
+
+
+def hang_rank(at_iteration: int, rank: Optional[int] = None,
+              hang_s: float = 3600.0):
+    """Before-round callback: round ``at_iteration`` on ``rank`` blocks
+    for ``hang_s`` or until ``cb.release`` is set; its heartbeats keep
+    flowing, so the peers' round deadline is what trips."""
+    release = threading.Event()
+
+    def cb(env):
+        if env.iteration == int(at_iteration) and _rank_matches(rank):
+            release.wait(float(hang_s))
+    cb.before_iteration = True
+    cb.order = -99
+    cb.release = release
+    return cb
+
+
+def delay_rank(at_iteration: int, delay_s: float, times: int = 1,
+               rank: Optional[int] = None):
+    """Before-round callback: ``delay_s`` more latency on ``times``
+    rounds from ``at_iteration`` on ``rank`` (the straggler; the answers
+    stay right)."""
+    fired = [0]
+
+    def cb(env):
+        if env.iteration >= int(at_iteration) and fired[0] < int(times) \
+                and _rank_matches(rank):
+            fired[0] += 1
+            time.sleep(float(delay_s))
+    cb.before_iteration = True
+    cb.order = -99
+    cb.fired = fired
+    return cb
+
+
+def corrupt_rank_state(at_iteration: int, rank: Optional[int] = None,
+                       field: str = "score", scale: float = 2.0):
+    """After-round callback: after round ``at_iteration``, silently
+    corrupt ``rank``'s replicated state, which
+    ``distributed_consistency_check`` must catch.  ``field``: ``score``
+    adds ``scale`` to one element of the training score buffer, in place
+    (every later gradient of that rank changes); ``tree`` scales the
+    newest tree's leaf values."""
+    if field not in ("score", "tree"):
+        raise ValueError(f"corrupt_rank_state: unknown field {field!r}")
+    fired = [False]
+
+    def cb(env):
+        if fired[0] or env.iteration < int(at_iteration) \
+                or not _rank_matches(rank):
+            return
+        fired[0] = True
+        gb = getattr(env.model, "_booster", env.model)
+        if field == "score":
+            gb.train_data.score[0, 0] += float(scale)
+        elif gb._models:
+            tree = gb._models[-1]
+            tree.leaf_value = tree.leaf_value * float(scale)
+    cb.order = 99
+    cb.fired = fired
+    return cb
 
 
 def _find_replica(fleet, replica_id: int, model: str = "primary"):

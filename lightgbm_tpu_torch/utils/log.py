@@ -43,6 +43,18 @@ def warn_once(key: str, msg: str, *args) -> None:
     warning(msg, *args)
 
 
+def reset_warn_once(prefix: str = "") -> None:
+    """Forget the warn_once history; with a ``prefix``, only the keys
+    that start with it (``diskguard.reset_disabled`` re-arms the
+    per-sink warnings so a re-armed sink's next failure is named
+    again)."""
+    if prefix:
+        for key in [k for k in _warned_once if k.startswith(prefix)]:
+            _warned_once.discard(key)
+    else:
+        _warned_once.clear()
+
+
 def inc(name: str, n: int = 1) -> None:
     """Add ``n`` to the named counter of the process registry
     (``obs/registry.py``; the JAX package's ``obs.inc``:

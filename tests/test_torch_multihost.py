@@ -102,6 +102,10 @@ def _example(tmp_path):
 
 
 ROUNDS = "num_trees=2"
+# the two CLI ranks' bound: they took 14 s alone and 59.3 s under the
+# full suite's load at -n 6 (two torch imports and a gloo rendezvous
+# competing with six busy workers)
+RANKS_TIMEOUT_S = 300
 
 
 def test_parallel_learning_conf_as_written_trains_serial(tmp_path,
@@ -128,7 +132,8 @@ def test_parallel_learning_conf_on_two_cli_processes(tmp_path,
              ROUNDS, f"output_model=model_{r}.txt"] for r in range(2)]
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    codes, outs = run_ranks(argv, timeout=60, env=env, cwd=str(work))
+    codes, outs = run_ranks(argv, timeout=RANKS_TIMEOUT_S, env=env,
+                            cwd=str(work))
     assert codes == [0, 0], outs[0][-3000:] + outs[1][-3000:]
     assert "Using data-parallel tree learner over 2 ranks" in outs[0]
     texts = [(work / f"model_{r}.txt").read_text() for r in range(2)]
@@ -148,3 +153,41 @@ def test_parallel_learning_conf_on_two_cli_processes(tmp_path,
         scale = float(np.abs(ts.leaf_value).max())
         np.testing.assert_allclose(tp.leaf_value, ts.leaf_value, rtol=0,
                                    atol=1e-5 * scale)
+
+
+# ---------------------------------------------------------------------------
+# the launcher (parallel/launch.py)
+
+
+def test_machine_list_ports_sit_below_the_ephemeral_range(tmp_path):
+    import socket
+
+    from lightgbm_tpu_torch.parallel import launch
+    path = machine_list(str(tmp_path / "m.txt"), 4)
+    ports = [int(line.split()[1]) for line in open(path)]
+    assert len(set(ports)) == 4
+    floor = launch._ephemeral_floor()
+    for port in ports:
+        assert launch.PORT_FLOOR <= port < floor
+        # free over TCP (the rendezvous) and UDP (the heartbeats)
+        for kind in (socket.SOCK_STREAM, socket.SOCK_DGRAM):
+            with socket.socket(socket.AF_INET, kind) as s:
+                s.bind(("", port))
+
+
+def test_run_ranks_stops_early_unless_told_to_wait_all():
+    fail = [sys.executable, "-c", "import sys; sys.exit(3)"]
+    slow = [sys.executable, "-c",
+            "import os, time; time.sleep(1.5); "
+            "print(os.environ['OMP_NUM_THREADS'], "
+            "os.environ['LIGHTGBM_TPU_PROCESS_ID'])"]
+    codes, _ = run_ranks([fail, slow], timeout=RANKS_TIMEOUT_S)
+    assert codes == [3, -9]
+    env = {k: v for k, v in os.environ.items() if k != "OMP_NUM_THREADS"}
+    codes, outs = run_ranks([fail, slow], timeout=RANKS_TIMEOUT_S,
+                            env=env, wait_all=True)
+    assert codes == [3, 0]
+    threads = max(1, (os.cpu_count() or 1) // 2)
+    assert outs[1].split() == [str(threads), "1"]
+    codes, _ = run_ranks([slow], timeout=0.5)
+    assert codes == [-9]

@@ -405,15 +405,18 @@ def test_every_jax_key_is_read_refused_or_inert():
         assert (key in read) + (key in refused) + (key in inert) == 1, key
     # the port's own key, and nothing else the JAX package lacks
     assert read - set(JAX_DEFAULTS) == {"device"}
-    # the distributed learners' keys are read; the collective
-    # watchdog's deadline and the consistency check refused; memwatch
-    # waits for the span hooks
+    # the distributed learners' keys are read, and since the
+    # crash-safe slice the collective watchdog, the consistency check,
+    # the snapshots and the sink policy; memwatch waits for the span
+    # hooks
     assert {"num_machines", "tree_learner", "top_k", "machine_list_file",
             "local_listen_port", "time_out", "distributed_init_retries",
-            "distributed_init_backoff", "distributed_heartbeat_ms"} <= read
+            "distributed_init_backoff", "distributed_heartbeat_ms",
+            "collective_timeout_s", "distributed_consistency_check",
+            "desync_policy", "snapshot_dir", "snapshot_freq",
+            "snapshot_keep", "sink_error_policy"} <= read
     assert "memwatch" in inert
-    assert {"collective_timeout_s",
-            "distributed_consistency_check"} <= refused
+    assert refused == {"bad_data_policy", "use_two_round_loading"}
     assert inert <= set(JAX_DEFAULTS)
     for alias, key in JAX_ALIASES.items():
         assert tconfig.PARAM_ALIASES[alias] == key
@@ -455,6 +458,12 @@ def test_keys_that_change_the_answer_are_refused_by_name(params, what):
         # ported since: read as the JAX package reads it
         assert tconfig.Config(params)[key] == JaxConfig(params)[key] == 0.3
         return
+    if what == "snapshot_dir":
+        # ported since (crash-safe snapshots): read as the JAX package
+        # reads it
+        assert tconfig.Config(params)[key] == JaxConfig(params)[key] \
+            == "snaps"
+        return
     if what == "serve_canary_model":
         # ported since (the serving fleet's canary): read as the JAX
         # package reads it
@@ -470,19 +479,17 @@ def test_keys_that_change_the_answer_are_refused_by_name(params, what):
         return
     if what == "num_machines":
         # ported since (the distributed learners): read as the JAX
-        # package reads it (a serial learner runs on one machine); the
-        # watchdog's keys are refused by name instead
+        # package reads it (a serial learner runs on one machine); so
+        # are the watchdog's deadline and the consistency check since
         for extra in ({}, {"tree_learner": "voting"}):
             ours = tconfig.Config({**params, **extra})
             theirs = JaxConfig({**params, **extra})
             assert ours[key] == theirs[key]
             assert ours.tree_learner == theirs.tree_learner
-        for refused in ("collective_timeout_s",
-                        "distributed_consistency_check"):
-            with pytest.raises(LightGBMError,
-                               match=f"not ported yet.*{refused}"):
-                tconfig.Config({refused: 3})
-            tconfig.Config({refused: tconfig._DEFAULTS[refused]})
+        for read in ("collective_timeout_s",
+                     "distributed_consistency_check"):
+            assert tconfig.Config({read: 3})[read] \
+                == JaxConfig({read: 3})[read]
         return
     with pytest.raises(LightGBMError, match=f"not ported yet.*{what}"):
         tconfig.Config(params)

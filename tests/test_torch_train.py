@@ -370,7 +370,7 @@ def test_unported_training_settings_raise(extra, what):
     if what in ("num_machines", "tree_learner"):
         # ported since (the distributed learners): read as the JAX
         # package reads them; without a group of ranks the run warns
-        # and trains serial, and the watchdog's keys are refused instead
+        # and trains serial
         from lightgbm_tpu.config import Config as JaxConfig
         ours, theirs = Config(extra), JaxConfig(extra)
         assert (ours.num_machines, ours.tree_learner) == \
@@ -379,11 +379,15 @@ def test_unported_training_settings_raise(extra, what):
                        "tree_learner": "data"}, lt.Dataset(X, y), 1,
                       device="cpu", verbose_eval=False)
         assert bt._booster.grow_kind == "ordered"
+        # the watchdog's deadline and the consistency check are read
+        # since: one process makes no collective, so the model is the
+        # same
+        plain = lt.train(PARAMS, lt.Dataset(X, y), 2, device="cpu",
+                         verbose_eval=False).model_to_string()
         for key in ("collective_timeout_s", "distributed_consistency_check"):
-            with pytest.raises(lt.LightGBMError,
-                               match=f"not ported yet.*{key}"):
-                lt.train({**PARAMS, key: 5}, lt.Dataset(X, y), 1,
-                         device="cpu")
+            bk = lt.train({**PARAMS, key: 5}, lt.Dataset(X, y), 2,
+                          device="cpu", verbose_eval=False)
+            assert bk.model_to_string() == plain
         return
     with pytest.raises(lt.LightGBMError, match="not ported yet") as exc:
         lt.train({**PARAMS, **extra}, lt.Dataset(X, y), 1, device="cpu")
