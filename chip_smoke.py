@@ -292,10 +292,39 @@ probes' own lines); any failure raises and exits non-zero.
    round, metrics as the examples phase holds them).  Prints the
    seconds a round of the continued runs beside the base runs', the
    init-score ms, the K1 and K4 launches and the ``cv`` seconds.
+   ``estimators``: the scikit-learn estimators at the Higgs cell's
+   width (28 features, 63 leaves, 255 bins).  ``LGBMClassifier`` fitted
+   on 250k rows, 20 rounds, with a 50k-row ``eval_set`` and
+   ``early_stopping_rounds=5``: its model text byte-equal to ``train``
+   on the card with the parameters ``_params_for_engine`` gives (K1
+   once a grown leaf), ``predict_proba`` on the 50k rows (K4) within
+   1e-6 of that booster's ``predict``, K1 on the fit's own bins and
+   both walks on the 50k rows bit-equal to their plain versions;
+   ``LGBMRegressor`` over a 2 x 2 grid (``learning_rate``,
+   ``n_estimators``) with 3 folds on 30k rows (``grid_search``:
+   GridSearchCV's protocol of estimators rebuilt from ``get_params()``,
+   so that the script needs no scikit-learn), ``device="cuda"`` in all
+   13 fits; ``LGBMRanker`` on 100k MSLR-like rows and their query groups
+   (``mslr_like``), 10 rounds.  Prints the fits' seconds, the predict
+   ms and the K1 and K4 launches.
+   ``boundary``: the guarded data boundary.  A 190k x 28 Higgs-like TSV
+   (below ``bin_construct_sample_cnt``, so both loaders bin from every
+   row), damaged by ``mangle_rows`` (1%) and ``ragged_rows`` (0.5%),
+   loaded with ``use_two_round_loading=true
+   bad_data_policy=quarantine max_bad_row_fraction=0.05`` and trained 20
+   rounds (K1): the quarantine file's lines equal the injected ones,
+   ``bad_rows_total`` their count, and the model text equals that of a
+   one-round fail-fast load of the clean file with those lines deleted,
+   trained the same way, up to the one-round load's fingerprint section
+   (the two-round loader builds none, as in the JAX package);
+   ``concurrent_append`` during a two-round load raises the named drift
+   error, ``max_bad_rows=10`` the budget error.  Prints the seconds and
+   the peak host RSS of the two-round and the one-round load of the
+   dirty file, each in a process of its own.
    ``sparse``: the JAX package's wide-sparse operating point
    (``bench.py:505-531``: ``make_ctr_like`` of 2000 features in blocks
    of 20 exclusive ones, ~97% zeros; binary, 63 leaves, 255 bins, a
-   binning sample of 50k rows), cut to 125k rows with a 25k-row valid
+   binning sample of 50k rows), cut to 75k rows with a 25k-row valid
    set from the same draw, fed to ``Dataset`` as a scipy CSR matrix and
    binned twice: with the default ``enable_bundle=true`` (100 columns,
    one bundle of 20 features each, no sample conflict: checked) and
@@ -514,14 +543,17 @@ SAMPLING_GOSS_ROUNDS, SAMPLING_MULTICLASS_ROUNDS = 15, 3
 # 255 bins, a binning sample of 50k rows; cut from 500k rows to 250k
 # (the phase took 215 s at 500k, 125 s of it host binning), then to
 # 125k to make room for the resilience phase (164-183 s at 250k, 71 s
-# of it host set-up), with a 25k-row valid set from the same draw; 10 rounds, 3 for ordered (the
+# of it host set-up), then to 75k for the estimators and boundary
+# phases (99.4 s at 125k, the script 1070.8 s, on an NVIDIA H100 80GB
+# HBM3 at 700 W), with a 25k-row valid
+# set from the same draw; 10 rounds, 3 for ordered (the
 # cached fallback), nocache, fused and linear, 5 for the sampled twins,
 # 15 for screening (docs/SPARSE.md's recipe: ratio 0.3, 6 warmup rounds,
 # a refresh every 4) and its unbundled reference, whose final valid AUC
 # the screened run's is held to within the JAX package's pin; GOSS at
 # learning rate 0.5, so that its 5 rounds sample after int(1 / 0.5) = 2
 # warmup rounds
-SPARSE_ROWS, SPARSE_VALID_ROWS, SPARSE_FEATURES = 125_000, 25_000, 2000
+SPARSE_ROWS, SPARSE_VALID_ROWS, SPARSE_FEATURES = 75_000, 25_000, 2000
 SPARSE_PARAMS = {"objective": "binary", "metric": "auc", "num_leaves": 63,
                  "max_bin": 255, "learning_rate": 0.1,
                  "min_data_in_leaf": 50, "bin_construct_sample_cnt": 50_000}
@@ -5107,6 +5139,422 @@ def phase_engine(seed, datasets, workdir):
 
 
 # ---------------------------------------------------------------------------
+# the scikit-learn estimators, and the guarded data boundary
+
+
+EST_ROWS = 250_000
+EST_EVAL_ROWS = 50_000
+EST_PARAMS = {"num_leaves": 63, "n_estimators": 20}
+EST_PATIENCE = 5
+EST_PROBA_TOL = 1e-6
+GRID_ROWS = 30_000
+GRID = {"learning_rate": [0.05, 0.1], "n_estimators": [10, 20]}
+GRID_CV = 3
+RANKER_ROWS = 100_000
+RANKER_ROUNDS = 10
+BOUNDARY_ROWS = 190_000        # below bin_construct_sample_cnt = 200000
+BOUNDARY_MANGLE = 0.01
+BOUNDARY_RAGGED = 0.005
+BOUNDARY_PARAMS = {"objective": "binary", "metric": "auc", "num_leaves": 63,
+                   "max_bin": 255, "learning_rate": 0.1,
+                   "min_data_in_leaf": 50}
+BOUNDARY_GUARD = {"use_two_round_loading": True,
+                  "bad_data_policy": "quarantine",
+                  "max_bad_row_fraction": 0.05}
+BOUNDARY_ROUNDS = 20
+BOUNDARY_APPEND_ROWS = 5_000
+BOUNDARY_MAX_BAD_ROWS = 10
+LOAD_PROBE_CAL_MB = 256
+LOAD_PROBE = r"""
+import json, os, sys, threading, time
+import numpy as np
+import lightgbm_tpu_torch as lt
+
+PAGE_KB = os.sysconf("SC_PAGE_SIZE") // 1024
+
+
+def rss_kb():
+    # the resident set now (/proc/self/statm's second field, in pages)
+    try:
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * PAGE_KB
+    except (OSError, ValueError, IndexError):
+        return None
+
+
+def used_kb():
+    # the whole machine's memory in use (/proc/meminfo), to tell the two
+    # readings apart
+    try:
+        with open("/proc/meminfo") as fh:
+            f = {k: int(v.split()[0]) for k, v in
+                 (ln.split(":", 1) for ln in fh)}
+        return f["MemTotal"] - f["MemAvailable"]
+    except (OSError, ValueError, KeyError):
+        return None
+
+
+path, params = sys.argv[1], json.loads(sys.argv[2])
+cal_mb = int(sys.argv[3])
+# the reading's rise over a known allocation, written and freed
+before = rss_kb()
+block = np.ones(cal_mb << 17)
+after = rss_kb()
+del block
+cal = (None if None in (before, after) else (after - before) / 1024)
+base, used = rss_kb(), used_kb()
+peak = [base]
+done = threading.Event()
+
+
+def sample():
+    while not done.wait(0.002):
+        now = rss_kb()
+        if now is not None and peak[0] is not None:
+            peak[0] = max(peak[0], now)
+
+
+sampler = threading.Thread(target=sample, daemon=True)
+sampler.start()
+t0 = time.perf_counter()
+ds = lt.Dataset(path, params=params).construct()
+seconds = time.perf_counter() - t0
+done.set()
+sampler.join()
+print(json.dumps({"seconds": seconds, "rows": ds.num_data(),
+                  "baseline_rss_kb": base, "peak_rss_kb": peak[0],
+                  "machine_used_kb_at_baseline": used,
+                  "calibration_alloc_mb": cal_mb,
+                  "calibration_rss_rise_mb": cal}))
+"""
+
+
+def rebuilt(est):
+    """``est``'s class built again from ``get_params()`` (what
+    scikit-learn's ``clone`` does)."""
+    return type(est)(**est.get_params(deep=False))
+
+
+def grid_search(est, grid, X, y, folds):
+    """``GridSearchCV(est, grid, cv=folds).fit(X, y)`` without
+    scikit-learn, which the script does not need: each combination
+    fitted on ``folds`` contiguous folds of estimators rebuilt from
+    ``get_params()`` and given the combination by ``set_params``, scored
+    by R^2 on the held-out fold, and the best refitted on every row.
+    Returns (the refitted estimator, its combination, and for every fit
+    the estimator's ``device`` and the device its booster trained on)."""
+    import itertools
+    bounds = np.linspace(0, len(y), folds + 1).astype(int)
+    keys = sorted(grid)
+    scores, fits = [], []
+    for values in itertools.product(*(grid[k] for k in keys)):
+        combo = dict(zip(keys, values))
+        r2 = []
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            keep = np.r_[0:lo, hi:len(y)]
+            fold = rebuilt(est).set_params(**combo).fit(
+                X[keep], y[keep], verbose=False)
+            fits.append((fold.device, fold.booster_.device.type))
+            err = fold.predict(X[lo:hi]) - y[lo:hi]
+            r2.append(1 - np.sum(err ** 2)
+                      / np.sum((y[lo:hi] - y[lo:hi].mean()) ** 2))
+        scores.append((float(np.mean(r2)), combo))
+    best = max(scores, key=lambda s: s[0])[1]
+    refit = rebuilt(est).set_params(**best).fit(X, y, verbose=False)
+    fits.append((refit.device, refit.booster_.device.type))
+    return refit, best, fits
+
+
+def first_line_diff(a: str, b: str) -> str:
+    """The first line where two texts differ, both sides."""
+    for i, (x, z) in enumerate(zip(a.splitlines(), b.splitlines())):
+        if x != z:
+            return f"line {i + 1}: {x[:160]!r} against {z[:160]!r}"
+    return f"{len(a.splitlines())} against {len(b.splitlines())} lines"
+
+
+def k1_on_booster(booster, label):
+    """K1 on a trained booster's own card bins with its round-0
+    gradients, bit-equal to its plain version (``k1_on_run``)."""
+    gbdt = booster._booster
+    score = torch.zeros_like(gbdt.train_data.score)
+    grad, hess = gbdt.objective.gradients_with(gbdt._grad_arrays, score)
+    return k1_on_run(gbdt, grad[0], hess[0], label)
+
+
+def phase_estimators(seed, workdir, errs):
+    """The scikit-learn estimators on the card at the Higgs cell's width
+    (28 features, 63 leaves, 255 bins).  ``LGBMClassifier`` on 250k rows
+    with a 50k-row ``eval_set`` and early stopping: its model text
+    byte-equal to ``train`` with the parameters ``_params_for_engine``
+    gives, ``predict_proba`` (K4) within 1e-6 of that booster's
+    ``predict``, K1 on the fit's bins and K4 on the eval rows held
+    against their plain versions; ``LGBMRegressor`` over a 2 x 2 grid
+    with 3 folds on 30k rows (``grid_search``: GridSearchCV's protocol,
+    so that the script needs no scikit-learn), ``device="cuda"`` in
+    every rebuilt estimator's fit; ``LGBMRanker`` on 100k MSLR-like
+    rows and their query groups, 10 rounds.  The launch counters are set
+    to 0 before each counted call and read after it.  Returns the
+    launches."""
+    import lightgbm_tpu_torch as lt
+    t_phase = time.perf_counter()
+    X, y = make_higgs_like(EST_ROWS + EST_EVAL_ROWS, seed=seed + 160)
+    Xt, yt = X[:EST_ROWS], y[:EST_ROWS]
+    Xe, ye = X[EST_ROWS:], y[EST_ROWS:]
+    clf = lt.LGBMClassifier(**EST_PARAMS, device="cuda")
+    check(rebuilt(clf).device == "cuda", "a rebuilt estimator lost device")
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clf.fit(Xt, yt, eval_set=[(Xe, ye)],
+            early_stopping_rounds=EST_PATIENCE, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    k1_fit = _launches()[0]
+    trees = clf.booster_.num_trees()
+    check(k1_fit > 0 and k1_fit == sum(
+        int(ta.num_leaves) for ta in clf.booster_._booster.tree_arrays),
+        f"classifier fit: K1 launches {k1_fit}")
+    # the same run through train, with the estimator's parameters
+    params = clf._params_for_engine()
+    yt_enc = clf._le.transform(yt)
+    ds = lt.Dataset(Xt, label=yt_enc, params=params)
+    direct = lt.train(params, ds, clf.n_estimators,
+                      valid_sets=[ds.create_valid(Xe, clf._le.transform(
+                          ye))],
+                      early_stopping_rounds=EST_PATIENCE,
+                      verbose_eval=False)
+    text = clf.booster_.model_to_string()
+    check(text == direct.model_to_string(),
+          "classifier: model text differs from train's: "
+          + first_line_diff(text, direct.model_to_string()))
+    check(clf.best_iteration_ == direct.best_iteration,
+          f"classifier best_iteration {clf.best_iteration_} != "
+          f"{direct.best_iteration}")
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proba = clf.predict_proba(Xe)
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    k4_pred = _launches()[1]
+    check(sum(k4_pred.values()) > 0, "predict_proba launched no K4")
+    want = direct.predict(Xe)
+    d_proba = float(np.abs(proba[:, 1] - want).max())
+    check(proba.shape == (EST_EVAL_ROWS, 2) and np.isfinite(proba).all()
+          and d_proba <= EST_PROBA_TOL,
+          f"predict_proba against train's booster: {d_proba}")
+    labels = clf.predict(Xe)
+    check(set(np.unique(labels)) <= {0.0, 1.0}, "predict's labels")
+    k1_windows = k1_on_booster(clf.booster_, "classifier")
+    walk = compare_kernels(clf.booster_._compiled(-1), Xe,
+                           (4096, EST_EVAL_ROWS), "classifier", errs)
+
+    # a 2 x 2 grid, 3 folds: every rebuilt estimator keeps device="cuda"
+    Xg, yg = make_higgs_like(GRID_ROWS, seed=seed + 161)
+    target = Xg[:, 0] - 0.5 * Xg[:, 1] + 0.3 * Xg[:, 14] + yg
+    _reset_launches()
+    t0 = time.perf_counter()
+    best, best_params, fits = grid_search(lt.LGBMRegressor(device="cuda"),
+                                          GRID, Xg, target, GRID_CV)
+    grid_s = time.perf_counter() - t0
+    k1_grid, k4_grid = _launches()
+    n_fits = GRID_CV * len(GRID["learning_rate"]) * len(
+        GRID["n_estimators"]) + 1
+    check(len(fits) == n_fits and all(f == ("cuda", "cuda") for f in fits),
+          f"grid search fits: {fits}")
+    check(best.device == "cuda" and k1_grid > 0
+          and sum(k4_grid.values()) > 0,
+          f"grid search: K1 {k1_grid}, K4 {k4_grid}")
+
+    # LGBMRanker on the objectives phase's MSLR-like groups
+    Xr, yr, sizes = mslr_like(RANKER_ROWS, seed + 62)
+    ranker = lt.LGBMRanker(num_leaves=63, n_estimators=RANKER_ROUNDS,
+                           device="cuda")
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranker.fit(Xr, yr, group=sizes, verbose=False)
+    torch.cuda.synchronize()
+    rank_fit_s = time.perf_counter() - t0
+    k1_rank = _launches()[0]
+    _reset_launches()
+    scores = ranker.predict(Xr[:4096])
+    k4_rank = _launches()[1]
+    check(ranker.booster_.num_trees() == RANKER_ROUNDS and k1_rank > 0
+          and sum(k4_rank.values()) > 0 and np.isfinite(scores).all(),
+          f"ranker: trees {ranker.booster_.num_trees()}, K1 {k1_rank}, "
+          f"K4 {k4_rank}")
+    k1_total = k1_fit + k1_grid + k1_rank
+    k4_total = {name: k4_grid.get(name, 0) + k4_pred.get(name, 0)
+                + k4_rank.get(name, 0)
+                for name in {*k4_grid, *k4_pred, *k4_rank}}
+    emit({"phase": "estimators",
+          "classifier": {"rows": EST_ROWS, "eval_rows": EST_EVAL_ROWS,
+                         "params": EST_PARAMS, "trees": trees,
+                         "best_iteration": clf.best_iteration_,
+                         "fit_s": fit_s, "predict_proba_ms": predict_ms,
+                         "model_text_equal_to_train": True,
+                         "predict_proba_max_abs_diff": d_proba,
+                         "k1_launches": k1_fit, "k4_launches": k4_pred,
+                         "k1_bit_equal_on_run_bins": k1_windows,
+                         "walk_vs_plain": walk},
+          "grid_search": {"rows": GRID_ROWS, "grid": GRID, "cv": GRID_CV,
+                          "fits": len(fits), "seconds": grid_s,
+                          "best_params": best_params,
+                          "k1_launches": k1_grid, "k4_launches": k4_grid},
+          "ranker": {"rows": RANKER_ROWS, "queries": int(len(sizes)),
+                     "rounds": RANKER_ROUNDS, "fit_s": rank_fit_s,
+                     "k1_launches": k1_rank, "k4_launches": k4_rank},
+          "k1_launches": k1_total, "k4_launches": k4_total,
+          "seconds": time.perf_counter() - t_phase})
+    return {"digit_histogram": k1_total, **k4_total}
+
+
+def boundary_load_probe(path, params):
+    """Seconds and peak host RSS of one ``Dataset(path).construct()`` in
+    a process of its own: the resident set after its imports, and the
+    largest a thread reading ``/proc/self/statm`` every 2 ms saw during
+    the load (some kernels' ``/proc`` has no ``VmHWM``, and a child's
+    ``ru_maxrss`` keeps its parent's peak).  Before the load the reading
+    is checked against a known allocation (``LOAD_PROBE_CAL_MB`` written
+    and freed), and the machine's memory in use is read beside it, so
+    that the rise is seen to be the process's own."""
+    out = subprocess.run(
+        [sys.executable, "-c", LOAD_PROBE, path, json.dumps(params),
+         str(LOAD_PROBE_CAL_MB)],
+        capture_output=True, text=True, cwd=REPO, timeout=300)
+    check(out.returncode == 0, f"load probe {params}: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def phase_boundary(seed, workdir):
+    """The guarded data boundary on the card.  A 190k x 28 Higgs-like TSV
+    (below ``bin_construct_sample_cnt``, so both loaders bin from every
+    row), damaged by the port's injectors (``mangle_rows`` 1%,
+    ``ragged_rows`` 0.5%), loaded in two rounds under
+    ``bad_data_policy=quarantine`` and trained 20 rounds (K1): the
+    quarantine file's lines equal the injected ones, the
+    ``bad_rows_total`` counter their number, and the model text equals
+    that of a one-round fail-fast load of the clean file with those
+    lines deleted, trained the same way, up to the one-round load's
+    drift fingerprint section, which the two-round loader does not build
+    (nor does the JAX package's).  A ``concurrent_append`` during a
+    two-round load raises the named drift error; ``max_bad_rows`` below
+    the injected count raises the budget error.  Prints each load's
+    seconds and peak host RSS (two rounds beside one, the same dirty
+    file, each in a process of its own).  Returns the launches."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.io.guard import read_quarantine
+    from lightgbm_tpu_torch.obs.drift import SECTION_HEADER
+    from lightgbm_tpu_torch.testing import faults
+    from lightgbm_tpu_torch.utils.log import LightGBMError
+    t_phase = time.perf_counter()
+    X, y = make_higgs_like(BOUNDARY_ROWS, seed=seed + 170)
+    t0 = time.perf_counter()
+    fmt = "%g" + "\t%.6g" * X.shape[1]
+    rows = [fmt % tuple(r) for r in np.column_stack([y, X]).tolist()]
+    dirty = os.path.join(workdir, "boundary.tsv")
+    with open(dirty, "w") as fh:
+        fh.write("\n".join(rows) + "\n")
+    mangled = faults.mangle_rows(dirty, fraction=BOUNDARY_MANGLE, seed=seed)
+    ragged = faults.ragged_rows(dirty, fraction=BOUNDARY_RAGGED,
+                                seed=seed + 1)
+    bad = sorted(set(mangled) | set(ragged))
+    check(1 not in bad, "the first data row was damaged: it sets the "
+                        "field count, pick another seed")
+    drop = set(bad)
+    clean = os.path.join(workdir, "boundary_clean.tsv")
+    with open(clean, "w") as fh:
+        fh.write("\n".join(r for i, r in enumerate(rows, start=1)
+                           if i not in drop) + "\n")
+    write_s = time.perf_counter() - t0
+
+    guarded = {**BOUNDARY_PARAMS, **BOUNDARY_GUARD}
+    loads = {"two_round": boundary_load_probe(dirty, guarded),
+             "one_round": boundary_load_probe(
+                 dirty, {**guarded, "use_two_round_loading": False})}
+    for kind, load in loads.items():
+        check(load["rows"] == BOUNDARY_ROWS - len(bad),
+              f"{kind} load kept {load['rows']} rows")
+        load["load_peak_mb"] = (
+            (load["peak_rss_kb"] - load["baseline_rss_kb"]) / 1024
+            if load["peak_rss_kb"] is not None else "not measured")
+
+    before = obs.get_counter("bad_rows_total")
+    t0 = time.perf_counter()
+    dirty_set = lt.Dataset(dirty, params=guarded).construct()
+    load_s = time.perf_counter() - t0
+    counted = obs.get_counter("bad_rows_total") - before
+    quarantined = [r["line"] for r in read_quarantine(dirty)]
+    check(quarantined == bad and counted == len(bad),
+          f"quarantine: {len(quarantined)} lines, {counted} counted, "
+          f"{len(bad)} injected")
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    booster = lt.train(BOUNDARY_PARAMS, dirty_set, BOUNDARY_ROUNDS,
+                       verbose_eval=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    k1_dirty = _launches()[0]
+    _reset_launches()
+    clean_booster = lt.train(BOUNDARY_PARAMS,
+                             lt.Dataset(clean, params=BOUNDARY_PARAMS),
+                             BOUNDARY_ROUNDS, verbose_eval=False)
+    k1_clean = _launches()[0]
+    a = booster.model_to_string()
+    b = clean_booster.model_to_string()
+    head = "\n" + SECTION_HEADER
+    check(head not in a and head in b,
+          "boundary: the fingerprint sections are not as expected")
+    check(a == b.split(head)[0],
+          "boundary: the quarantined model differs from the clean one: "
+          + first_line_diff(a, b.split(head)[0]))
+    check(k1_dirty == k1_clean > 0, f"boundary: K1 {k1_dirty}, {k1_clean}")
+    k1_windows = k1_on_booster(booster, "boundary")
+    _reset_launches()
+    pred = booster.predict(X[:4096])
+    k4 = _launches()[1]
+    check(sum(k4.values()) > 0 and np.isfinite(pred).all(),
+          f"boundary: K4 {k4}")
+
+    # a producer still appending: the named drift error
+    small = os.path.join(workdir, "boundary_append.tsv")
+    with open(small, "w") as fh:
+        fh.write("\n".join(rows[:BOUNDARY_APPEND_ROWS]) + "\n")
+    try:
+        with faults.concurrent_append(small, rows[0] + "\n") as state:
+            lt.Dataset(small, params=guarded).construct()
+        drift = None
+    except LightGBMError as exc:
+        drift = str(exc)
+    check(drift is not None and "changed between rounds" in drift
+          and state["appended"], f"concurrent append: {drift}")
+    # a budget below the injected count
+    try:
+        lt.Dataset(dirty, params={**guarded, "max_bad_rows":
+                                  BOUNDARY_MAX_BAD_ROWS}).construct()
+        budget = None
+    except LightGBMError as exc:
+        budget = str(exc)
+    check(budget is not None
+          and f"max_bad_rows={BOUNDARY_MAX_BAD_ROWS}" in budget,
+          f"max_bad_rows: {budget}")
+    emit({"phase": "boundary", "rows": BOUNDARY_ROWS,
+          "features": X.shape[1], "mangled": len(mangled),
+          "ragged": len(ragged), "quarantined": len(bad),
+          "write_s": write_s, "load_s_in_process": load_s,
+          "loads": loads, "train_s": train_s, "rounds": BOUNDARY_ROUNDS,
+          "model_equal_to_clean_one_round": True,
+          "k1_launches": k1_dirty + k1_clean, "k4_launches": k4,
+          "k1_bit_equal_on_run_bins": k1_windows,
+          "drift_error": drift[:160], "budget_error": budget[:160],
+          "seconds": time.perf_counter() - t_phase})
+    return {"digit_histogram": k1_dirty + k1_clean, **k4}
+
+
+# ---------------------------------------------------------------------------
 # wide-sparse data: EFB bundles and gain screening at the JAX package's
 # wide-sparse operating point (bench.py:505-531)
 
@@ -6339,6 +6787,10 @@ def main(argv=None) -> int:
                                       workdir).items()]:
             launches[name] += n
         del datasets
+        for name, n in [*phase_estimators(args.seed, workdir,
+                                          errs).items(),
+                        *phase_boundary(args.seed, workdir).items()]:
+            launches[name] += n
         for name, n in phase_sparse(args.seed, workdir,
                                     args.timing_reps).items():
             launches[name] += n

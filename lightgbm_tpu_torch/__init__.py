@@ -21,8 +21,18 @@ screens the lowest-gain columns out of rounds.  ``train_delta``
 continues a model on fresh data with the train/serve skew check.  The
 server (``serve/``) is a replica fleet with admission control, hot
 reload, a health watchdog, a guarded canary lifecycle, drift monitoring
-and ``/metrics``.  Entry points run on the first CUDA card unless the
-caller passes ``device="cpu"``.
+and ``/metrics``.  ``LGBMRegressor``, ``LGBMClassifier`` and
+``LGBMRanker`` are the scikit-learn estimators over ``train`` and
+``predict`` (``sklearn.py``), with ``device`` among their parameters so
+that ``GridSearchCV``'s clones keep it.  ``plot_importance``,
+``plot_metric`` and ``plot_tree`` draw a model with matplotlib, and are
+exported only where matplotlib imports (``plotting.py``).  A data file
+may be loaded in two rounds (``use_two_round_loading``: binned from a
+row sample without holding the float matrix, ``io/streaming.py``), and
+``bad_data_policy=quarantine`` skips malformed rows into
+``<data>.quarantine`` under an error budget (``io/guard.py``).  Entry
+points run on the first CUDA card unless the caller passes
+``device="cpu"``.
 """
 
 from .basic import Booster, Dataset
@@ -30,10 +40,20 @@ from .callback import (early_stopping, print_evaluation, record_evaluation,
                        reset_parameter)
 from .engine import CVBooster, cv, train, train_delta
 from .serve.forest import CompiledForest
+from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
 from .utils.log import LightGBMError
+
+try:
+    import matplotlib  # noqa: F401
+    from .plotting import plot_importance, plot_metric, plot_tree
+    _PLOTTING = ["plot_importance", "plot_metric", "plot_tree"]
+except ImportError:  # matplotlib not installed
+    _PLOTTING = []
 
 __version__ = "0.4.0"
 
 __all__ = ["Booster", "CVBooster", "CompiledForest", "Dataset",
-           "LightGBMError", "__version__", "cv", "early_stopping", "print_evaluation", "record_evaluation",
-           "reset_parameter", "train", "train_delta"]
+           "LGBMClassifier", "LGBMModel", "LGBMRanker", "LGBMRegressor",
+           "LightGBMError", "__version__", "cv", "early_stopping",
+           "print_evaluation", "record_evaluation", "reset_parameter",
+           "train", "train_delta"] + _PLOTTING

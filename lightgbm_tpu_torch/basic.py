@@ -35,7 +35,10 @@ from .config import Config
 from .device import DeviceLike, resolve_device
 from .io.column_roles import resolve_label_idx, resolve_roles
 from .io.dataset import BinnedDataset
+from .io.guard import IngestGuard, check_side_files_alignment
 from .io.parser import parse_file, parse_file_chunks, read_header
+from .io.streaming import (_probe_format, load_file_two_round,
+                           read_header_names)
 from .models import create_boosting
 from .utils import log
 from .utils.log import LightGBMError
@@ -142,12 +145,12 @@ class Dataset:
         self._predictor = predictor
         return self
 
-    def _read_file(self, cfg: Config):
-        """(features, label, column roles or None) of the file ``data``,
-        densified to the reference's width for a valid set; the header's
-        names become ``feature_name`` unless it was given."""
-        path = self.data
-        full_names = read_header(path)[0] if cfg.has_header else None
+    def _file_layout(self, cfg: Config):
+        """(label column index, column roles or None) of the file
+        ``data``: the label against the full header, the other roles
+        against the header without the label (dataset_loader.cpp
+        SetHeader)."""
+        full_names = read_header(self.data)[0] if cfg.has_header else None
         label_idx = resolve_label_idx(cfg.label_column, full_names)
         names = None
         if full_names is not None:
@@ -160,17 +163,88 @@ class Dataset:
             roles = resolve_roles(cfg.weight_column, cfg.group_column,
                                   cfg.ignore_column, cfg.categorical_column,
                                   feature_names=names)
+        return label_idx, roles
+
+    def _guard(self, cfg: Config) -> IngestGuard:
+        return IngestGuard(self.data, policy=cfg.bad_data_policy,
+                           max_bad_rows=cfg.max_bad_rows,
+                           max_bad_row_fraction=cfg.max_bad_row_fraction)
+
+    def _read_file(self, cfg: Config, label_idx: int, guard: IngestGuard):
+        """(features, label) of the file ``data`` in one round, its bad
+        lines through ``guard``, densified to the reference's width for a
+        valid set; the header's names become ``feature_name`` unless it
+        was given."""
         width = None
         if self.reference is not None:
             width = self.reference.construct()._binned.num_total_features
-        label, X, header = parse_file(path, has_header=cfg.has_header,
+        label, X, header = parse_file(self.data, has_header=cfg.has_header,
                                       label_idx=label_idx,
-                                      num_features=width)
+                                      num_features=width, guard=guard)
         if not len(label):
-            raise LightGBMError(f"{path}: no data rows")
+            raise LightGBMError(f"{self.data}: no data rows")
         if header and self.feature_name == "auto":
             self.feature_name = header
-        return X, label, roles
+        return X, label
+
+    def _load_two_round(self, cfg: Config, label_idx: int, roles):
+        """The binned dataset of the file ``data`` from the two-round
+        loader (``io/streaming.py``).  Categorical names resolve before
+        the load, against ``feature_name`` or the file's header."""
+        names = (None if self.feature_name in ("auto", None)
+                 else list(self.feature_name))
+        if names is None and cfg.has_header:
+            names = read_header_names(self.data, label_idx)
+        cat = set(roles.categorical if roles is not None else ())
+        for c in ([] if self.categorical_feature in ("auto", None)
+                  else self.categorical_feature):
+            if isinstance(c, str):
+                if names is None or c not in names:
+                    raise LightGBMError(
+                        f"Unknown categorical feature name {c!r} (two-round "
+                        f"loading resolves names from the file header)")
+                cat.add(names.index(c))
+            else:
+                cat.add(int(c))
+        ref = (self.reference.construct()._binned
+               if self.reference is not None else None)
+        binned = load_file_two_round(
+            self.data, has_header=cfg.has_header, label_idx=label_idx,
+            guard=self._guard(cfg), max_bin=cfg.max_bin,
+            min_data_in_bin=cfg.min_data_in_bin,
+            min_data_in_leaf=cfg.min_data_in_leaf,
+            bin_construct_sample_cnt=cfg.bin_construct_sample_cnt,
+            categorical_features=sorted(cat),
+            ignore_features=roles.ignore if roles is not None else (),
+            weight_idx=roles.weight_idx if roles is not None else -1,
+            group_idx=roles.group_idx if roles is not None else -1,
+            data_random_seed=cfg.data_random_seed, reference=ref,
+            enable_bundle=cfg.enable_bundle,
+            max_conflict_rate=cfg.max_conflict_rate,
+            is_enable_sparse=cfg.is_enable_sparse)
+        if self.feature_name not in ("auto", None) and \
+                len(self.feature_name) == binned.num_total_features:
+            binned.feature_names = list(self.feature_name)
+        return binned
+
+    def _streamed_init_scores(self, cfg: Config, label_idx: int
+                              ) -> np.ndarray:
+        """The predictor's raw scores of a two-round file, read again in
+        chunks (never the whole float matrix) through a shadow guard:
+        the two-round load classified and counted the bad rows, and this
+        pass skips the same ones without counting them again or writing
+        the sink, so the scores align with the binned rows."""
+        width = (self._binned.num_total_features
+                 if _probe_format(self.data, cfg.has_header) == "libsvm"
+                 else None)
+        # the policy without the budgets, which the load has passed
+        shadow = IngestGuard(self.data, policy=cfg.bad_data_policy,
+                             record=False)
+        return np.concatenate([
+            np.asarray(self._predictor.predict(X, raw_score=True))
+            for _, X in parse_file_chunks(self.data, cfg.has_header,
+                                          label_idx, num_features=width,
+                                          guard=shadow)], axis=0)
 
     def _categorical_indices(self, extra=()) -> List[int]:
         cat = self.categorical_feature
@@ -201,13 +275,22 @@ class Dataset:
                       "task": "train"})
         roles = None
         label = self.label
+        guard = None
+        streamed = False
+        data = None
         if isinstance(self.data, str) and \
                 BinnedDataset.is_binary_file(self.data):
             return self._load_binary()
         if isinstance(self.data, str):
-            data, file_label, roles = self._read_file(cfg)
-            if label is None:
-                label = file_label
+            label_idx, roles = self._file_layout(cfg)
+            if cfg.use_two_round_loading:
+                self._binned = self._load_two_round(cfg, label_idx, roles)
+                streamed = True
+            else:
+                guard = self._guard(cfg)
+                data, file_label = self._read_file(cfg, label_idx, guard)
+                if label is None:
+                    label = file_label
         else:
             if _has_roles(cfg):
                 log.warn_once(
@@ -219,10 +302,10 @@ class Dataset:
                 _data_from_pandas(self.data, self.feature_name,
                                   self.categorical_feature)
             data = _to_dense(data)
-        if self.reference is not None:
+        if not streamed and self.reference is not None:
             self._binned = self.reference.construct()._binned.create_valid(
                 data, label)
-        else:
+        elif not streamed:
             names = (None if self.feature_name in ("auto", None)
                      else list(self.feature_name))
             self._binned = BinnedDataset.from_matrix(
@@ -243,16 +326,24 @@ class Dataset:
         # the JAX package's order: the arguments, then the side files
         # over them, then the file's weight and group columns over both
         # where no argument was given (Metadata::Init,
-        # dataset_loader.cpp:101-131)
+        # dataset_loader.cpp:101-131).  The two-round loader has read
+        # the side files and the columns already, so there the
+        # arguments come last.
+        if streamed and label is not None:
+            md.set_label(label)
         if self.weight is not None:
             md.set_weights(self.weight)
         if self.group is not None:
             md.set_query(self.group)
         if self.init_score is not None:
             md.set_init_score(self.init_score)
-        if isinstance(self.data, str):
+        if guard is not None:
+            # quarantined rows leave positional side files unalignable:
+            # a named refusal, not a silent shift
+            check_side_files_alignment(self.data, guard.bad_total)
+        if isinstance(self.data, str) and not streamed:
             md.load_side_files(self.data)
-        if roles is not None:
+        if roles is not None and not streamed:
             for what, idx in (("weight_column", roles.weight_idx),
                               ("group_column", roles.group_idx)):
                 if idx >= data.shape[1]:
@@ -265,7 +356,9 @@ class Dataset:
         if self._predictor is not None:
             # continued training (dataset_loader.cpp:10): the init model's
             # raw predictions, class-major for multiclass
-            raw = np.asarray(self._predictor.predict(data, raw_score=True))
+            raw = (self._streamed_init_scores(cfg, label_idx) if streamed
+                   else np.asarray(self._predictor.predict(data,
+                                                           raw_score=True)))
             md.set_init_score(raw.reshape(-1, order="F"))
         if self.free_raw_data:
             self.data = None

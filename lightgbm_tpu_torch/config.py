@@ -11,10 +11,11 @@ exactly one of three tables (pinned by a test):
   change a tree, a prediction, a file the run writes or the run's
   outcome, and which the port has not ported: such a value raises a
   ``LightGBMError`` naming the key when the ``Config`` is built (under
-  the key's aliases too);
+  the key's aliases too).  It is empty now; the mechanism stays for a
+  later key;
 * :data:`INERT`: keys that cannot change a tree, a prediction or the
-  run's outcome (thread counts, telemetry, compile caches, and the keys
-  only the refused features read): each is accepted with one warning.
+  run's outcome (thread counts, telemetry, compile caches): each is
+  accepted with one warning.
 
 A key of neither package is ignored with one warning too.
 :meth:`Config.check_trainable` refuses an unknown objective or boosting
@@ -273,28 +274,22 @@ _DEFAULTS: Dict[str, Any] = {
     "snapshot_freq": 0,
     "snapshot_keep": 3,
     "sink_error_policy": "disable",
-    # read only to be refused (REFUSED)
+    # the data boundary (io/guard.py) and the two-round loader
+    # (io/streaming.py)
     "bad_data_policy": "fail_fast",
+    "max_bad_rows": 0,
+    "max_bad_row_fraction": 0.1,
     "use_two_round_loading": False,
 }
 
 #: key -> (refused(value), what the JAX package does with it): a value
-#: for which ``refused`` holds raises when the Config is built
-REFUSED: Dict[str, tuple] = {
-    "bad_data_policy": (
-        lambda v: v != "fail_fast",
-        "the JAX loader quarantines malformed rows; the torch port reads "
-        "data files fail-fast: the first malformed line raises"),
-    "use_two_round_loading": (
-        bool,
-        "the JAX package's streaming loader samples the rows it bins "
-        "from differently; the torch port loads the whole file"),
-}
+#: for which ``refused`` holds raises when the Config is built.  Empty:
+#: every key of the JAX package that changes an answer is ported.
+REFUSED: Dict[str, tuple] = {}
 
 #: keys that cannot change a tree, a prediction, a file the run writes
 #: or its outcome in the port: accepted with one warning each.
-#: The quarantine budgets act only under the refused
-#: ``bad_data_policy=quarantine``; ``seed``,
+#: ``seed``,
 #: ``enable_load_from_binary_file``, ``tpu_histogram_impl``,
 #: ``tpu_double_hist``, ``is_save_binary_file`` and ``is_pre_partition``
 #: are read by nothing in the JAX package outside its config (the first
@@ -304,7 +299,7 @@ INERT = frozenset({
     "seed", "num_threads", "enable_load_from_binary_file",
     "is_save_binary_file", "is_pre_partition",
     "tpu_histogram_impl", "tpu_double_hist",
-    "events_flush_every", "max_bad_rows", "max_bad_row_fraction",
+    "events_flush_every",
     "events_file", "trace_dir", "trace_start_iter", "trace_num_iters",
     "metrics_port", "metrics_host", "compile_ledger_file", "memwatch",
     "devprof", "trace_events_file", "compile_cache_dir",
@@ -428,6 +423,12 @@ class Config:
             raise ValueError(
                 f"Unknown bad_data_policy {v['bad_data_policy']} "
                 "(expected fail_fast or quarantine)")
+        if v["max_bad_rows"] < 0:
+            raise ValueError("max_bad_rows must be >= 0 (0 = no absolute "
+                             "quarantine budget)")
+        if not (0.0 <= v["max_bad_row_fraction"] <= 1.0):
+            raise ValueError("max_bad_row_fraction must be in [0, 1] "
+                             "(0 = no fractional quarantine budget)")
         if not (0.0 <= v["max_conflict_rate"] < 1.0):
             raise ValueError(
                 "max_conflict_rate must be in [0, 1): it bounds the share "

@@ -1,1 +1,2 @@
-"""Host-side data representation: bin mappers and binned datasets."""
+"""Host-side data: the parsers and their ingest guard, the two-round
+loader, bin mappers and binned datasets."""

@@ -11,12 +11,14 @@ and empty fields become NaN.  Blank lines are not data: they are skipped
 and not counted toward a chunk, so chunked predictions stay aligned with
 the data rows.
 
-Reading is fail-fast: the first malformed line (an unparseable token, a
-ragged row, a bad LibSVM column index) raises a ``LightGBMError`` naming
-the file, the line and the token.  The JAX package's ``IngestGuard``
-quarantine policies and its native C++ loader are not ported
-(``bad_data_policy`` other than ``fail_fast`` is refused by
-``config.py``).
+Every bad line (an unparseable token, a ragged row, a bad LibSVM column
+index, a row of empty fields) goes through the file's
+:class:`~.guard.IngestGuard`: under ``bad_data_policy=fail_fast`` (the
+default) it raises a ``LightGBMError`` naming ``file:line``, the reason
+and the token; under ``quarantine`` the row is skipped into
+``<data>.quarantine`` under an error budget.  The JAX package's native
+C++ loader is not ported: its one-round path reads a clean file with
+it and a dirty one with the Python path this module ports.
 """
 
 from __future__ import annotations
@@ -26,35 +28,10 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..utils.log import LightGBMError
+from .guard import IngestGuard, column_index, feature_value
 
-#: NA spellings read as missing (NaN), case-insensitive, plus the empty
-#: field (the JAX io/guard.py NA_TOKENS)
-NA_TOKENS = frozenset({"", "na", "nan", "null", "none"})
-#: LibSVM column indices above this are refused: the rows are densified,
-#: so one corrupt index must not size the matrix
-MAX_COLUMN_INDEX = 1 << 20
 #: lines that decide the format
 PROBE_LINES = 32
-
-
-def feature_value(token: str) -> float:
-    """One label or feature token -> float (NA and empty -> NaN); raises
-    ``ValueError`` on anything else."""
-    t = token.strip()
-    if t.lower() in NA_TOKENS:
-        return float("nan")
-    return float(t)
-
-
-def column_index(token: str) -> int:
-    """One LibSVM column-index token -> an int in [0, MAX_COLUMN_INDEX];
-    raises ``ValueError`` otherwise."""
-    idx = int(token.strip())
-    if idx < 0:
-        raise ValueError(f"negative column index {idx}")
-    if idx > MAX_COLUMN_INDEX:
-        raise ValueError(f"column index {idx} exceeds {MAX_COLUMN_INDEX}")
-    return idx
 
 
 def detect_format(lines: Sequence[str]) -> str:
@@ -69,40 +46,82 @@ def detect_format(lines: Sequence[str]) -> str:
     return "csv"
 
 
-def _bad(path: str, line_no: int, reason: str, detail: str):
-    return LightGBMError(f"{path}:{line_no}: {reason}: {detail}")
+def _line_no(line_numbers: Optional[Sequence[int]], i: int) -> int:
+    return int(line_numbers[i]) if line_numbers is not None else i + 1
 
 
-def _parse_delimited(lines: Sequence[str], line_numbers: Sequence[int],
-                     delim: str, label_idx: int, path: str,
-                     width: Optional[int] = None
+class _BadLine(Exception):
+    """One classified bad line (reason, detail), turned into the guard's
+    verdict (raise or skip) by the per-line loop."""
+
+    def __init__(self, reason: str, detail: str):
+        super().__init__(f"{reason}: {detail}")
+        self.reason = reason
+        self.detail = detail
+
+
+def _parse_delimited(lines: Sequence[str], delim: str, label_idx: int,
+                     guard: Optional[IngestGuard] = None,
+                     line_numbers: Optional[Sequence[int]] = None
                      ) -> Tuple[np.ndarray, np.ndarray]:
     """(label [n], features [n, F]) of delimited lines; ``label_idx`` < 0
-    reads every column as a feature and gives zero labels.  ``width``:
-    the field count of the file's earlier rows, if any."""
+    reads every column as a feature and gives zero labels.  The field
+    count is the guard's: the first data row it has seen, in this call
+    or an earlier chunk of the file."""
+    g = guard if guard is not None else IngestGuard("<data>")
     rows: List[List[float]] = []
-    for line, no in zip(lines, line_numbers):
-        parts = line.strip().split(delim)
+    good = 0        # good rows not yet given to the guard
+
+    def bad(i, line, reason, detail):
+        nonlocal good
+        g.good_rows(good)       # the budget sees the rows before this one
+        good = 0
+        g.bad_row(_line_no(line_numbers, i), line, reason, detail)
+
+    for i, line in enumerate(lines):
+        line = line.strip()
+        if not line:
+            continue
+        parts = line.split(delim)
+        if len(parts) == g._expected_fields:
+            try:
+                # the common row: float() of a token it accepts is
+                # feature_value()'s value, and a row of empty fields
+                # fails it
+                rows.append(list(map(float, parts)))
+                good += 1
+                continue
+            except ValueError:
+                pass
+        # the full classification, in the JAX package's order
         if all(not p.strip() for p in parts):
-            raise _bad(path, no, "empty", "row has no fields")
-        if width is None:
-            width = len(parts)
-        elif len(parts) != width:
-            raise _bad(path, no, "ragged_row",
-                       f"{len(parts)} fields where the file has {width}")
+            bad(i, line, "empty", "row has no fields")
+            continue
+        expected = g.expect_fields(len(parts))
+        if len(parts) != expected:
+            bad(i, line, "ragged_row",
+                f"{len(parts)} fields where the file has {expected}")
+            continue
         try:
-            rows.append([feature_value(p) for p in parts])
+            vals = [feature_value(p) for p in parts]
         except ValueError:
-            bad = next(p for p in parts if not _is_value(p))
-            raise _bad(path, no, "unparseable_token", f"token {bad!r}")
-    mat = np.asarray(rows, dtype=np.float64).reshape(len(rows), width or 0)
+            token = next(p for p in parts if not _is_value(p))
+            bad(i, line, "unparseable_token", f"token {token!r}")
+            continue
+        rows.append(vals)
+        good += 1
+    g.good_rows(good)
+    width = len(rows[0]) if rows else (g._expected_fields or 0)
+    mat = np.asarray(rows, dtype=np.float64).reshape(len(rows), width)
     if label_idx >= mat.shape[1] and mat.shape[0]:
         raise LightGBMError(
-            f"{path}: label column index {label_idx} out of range (file "
+            f"{g.path}: label column index {label_idx} out of range (file "
             f"rows have {mat.shape[1]} fields)")
     if label_idx < 0:
         return np.zeros(mat.shape[0]), mat
-    label = mat[:, label_idx].copy() if mat.shape[0] else np.zeros(0)
+    if label_idx >= width:
+        return np.zeros(0), np.zeros((0, max(width - 1, 0)))
+    label = mat[:, label_idx].copy()
     return label, np.delete(mat, label_idx, axis=1)
 
 
@@ -114,49 +133,71 @@ def _is_value(token: str) -> bool:
         return False
 
 
-def _parse_libsvm(lines: Sequence[str], line_numbers: Sequence[int],
-                  num_features: Optional[int], path: str
+def _libsvm_entries(line: str, num_features: Optional[int]
+                    ) -> Tuple[float, List[Tuple[int, float]]]:
+    """(label, [(column, value)]) of one LibSVM line: an optional leading
+    label, then ``index:value`` pairs with 0-based indices.  Raises
+    :class:`_BadLine` on the first malformed token."""
+    parts = line.split()
+    lab, start = 0.0, 0
+    if ":" not in parts[0]:
+        try:
+            lab = feature_value(parts[0])
+        except ValueError:
+            raise _BadLine("unparseable_token",
+                           f"label token {parts[0]!r}")
+        start = 1
+    entries: List[Tuple[int, float]] = []
+    for tok in parts[start:]:
+        col_s, sep, val_s = tok.partition(":")
+        if not sep:
+            raise _BadLine("unparseable_token",
+                           f"token {tok!r} is not index:value")
+        try:
+            col = column_index(col_s)
+        except ValueError:
+            raise _BadLine("bad_column_index",
+                           f"column index {col_s!r} in token {tok!r}")
+        if num_features is not None and col >= num_features:
+            raise _BadLine("bad_column_index",
+                           f"column index {col} out of range (file has "
+                           f"{num_features} feature columns) in token "
+                           f"{tok!r}")
+        try:
+            val = feature_value(val_s)
+        except ValueError:
+            raise _BadLine("unparseable_token",
+                           f"value {val_s!r} in token {tok!r}")
+        entries.append((col, val))
+    return lab, entries
+
+
+def _parse_libsvm(lines: Sequence[str], num_features: Optional[int] = None,
+                  guard: Optional[IngestGuard] = None,
+                  line_numbers: Optional[Sequence[int]] = None
                   ) -> Tuple[np.ndarray, np.ndarray]:
-    """(label [n], dense features [n, F]) of LibSVM lines: an optional
-    leading label, then ``index:value`` pairs with 0-based indices."""
+    """(label [n], dense features [n, F]) of LibSVM lines."""
+    g = guard if guard is not None else IngestGuard("<data>")
     labels: List[float] = []
     rows: List[int] = []
     cols: List[int] = []
     vals: List[float] = []
-    for r, (line, no) in enumerate(zip(lines, line_numbers)):
-        parts = line.split()
-        lab, start = 0.0, 0
-        if ":" not in parts[0]:
-            try:
-                lab = feature_value(parts[0])
-            except ValueError:
-                raise _bad(path, no, "unparseable_token",
-                           f"label token {parts[0]!r}")
-            start = 1
-        for tok in parts[start:]:
-            col_s, sep, val_s = tok.partition(":")
-            if not sep:
-                raise _bad(path, no, "unparseable_token",
-                           f"token {tok!r} is not index:value")
-            try:
-                col = column_index(col_s)
-            except ValueError:
-                raise _bad(path, no, "bad_column_index",
-                           f"column index {col_s!r} in token {tok!r}")
-            if num_features is not None and col >= num_features:
-                raise _bad(path, no, "bad_column_index",
-                           f"column index {col} out of range (the data has "
-                           f"{num_features} feature columns) in token "
-                           f"{tok!r}")
-            try:
-                val = feature_value(val_s)
-            except ValueError:
-                raise _bad(path, no, "unparseable_token",
-                           f"value {val_s!r} in token {tok!r}")
-            rows.append(r)
+    for i, line in enumerate(lines):
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            lab, entries = _libsvm_entries(line, num_features)
+        except _BadLine as bl:
+            g.bad_row(_line_no(line_numbers, i), line, bl.reason,
+                      bl.detail)
+            continue
+        for col, val in entries:
+            rows.append(len(labels))
             cols.append(col)
             vals.append(val)
         labels.append(lab)
+        g.good_rows(1)
     ncol = num_features if num_features is not None else (
         max(cols) + 1 if cols else 0)
     feats = np.zeros((len(labels), ncol), dtype=np.float64)
@@ -168,7 +209,8 @@ def _parse_libsvm(lines: Sequence[str], line_numbers: Sequence[int],
 def _numbered_lines(path: str, has_header: bool
                     ) -> Iterator[Tuple[int, str]]:
     """(1-based line number, line) of every non-blank data line; the
-    header line is consumed."""
+    header line is consumed.  Undecodable bytes are replaced, so they
+    fail token parsing and are classified."""
     with open(path, "r", errors="replace") as fh:
         lineno = 0
         if has_header:
@@ -180,16 +222,18 @@ def _numbered_lines(path: str, has_header: bool
                 yield lineno, line
 
 
-def _parse_chunk(lines: Sequence[str], line_numbers: Sequence[int],
-                 fmt: str, label_idx: int, num_features: Optional[int],
-                 path: str, width: Optional[int] = None
+def _parse_chunk(lines: Sequence[str], fmt: str, label_idx: int,
+                 num_features: Optional[int],
+                 guard: Optional[IngestGuard] = None,
+                 line_numbers: Optional[Sequence[int]] = None
                  ) -> Tuple[np.ndarray, np.ndarray]:
     if fmt == "libsvm":
-        label, feats = _parse_libsvm(lines, line_numbers, num_features, path)
+        label, feats = _parse_libsvm(lines, num_features, guard=guard,
+                                     line_numbers=line_numbers)
     else:
-        label, feats = _parse_delimited(lines, line_numbers,
-                                        "," if fmt == "csv" else "\t",
-                                        label_idx, path, width)
+        label, feats = _parse_delimited(lines, "," if fmt == "csv" else "\t",
+                                        label_idx, guard=guard,
+                                        line_numbers=line_numbers)
     if num_features is not None and feats.shape[1] != num_features:
         fixed = np.zeros((feats.shape[0], num_features), np.float64)
         upto = min(num_features, feats.shape[1])
@@ -201,14 +245,18 @@ def _parse_chunk(lines: Sequence[str], line_numbers: Sequence[int],
 def parse_file_chunks(path: str, has_header: bool = False,
                       label_idx: int = 0,
                       num_features: Optional[int] = None,
-                      chunk_rows: int = 1 << 16):
+                      chunk_rows: int = 1 << 16,
+                      guard: Optional[IngestGuard] = None):
     """Yield (label, features) chunks of at most ``chunk_rows`` data rows
     (blank lines not counted).  The format comes from the first 32 data
     lines; each chunk is widened or cut to ``num_features`` columns when
-    it is given, so every chunk has the same width."""
+    it is given, so every chunk has the same width.  ``guard`` defaults
+    to a fail-fast guard on ``path`` (predictions are positional: a
+    skipped row would shift every later one); it is finished after the
+    last chunk."""
+    g = guard if guard is not None else IngestGuard(path)
     probe: List[str] = []
     fmt: Optional[str] = None
-    width = None              # fields per delimited row, from chunk 1
     chunk: List[str] = []
     nums: List[int] = []
     for lineno, line in _numbered_lines(path, has_header):
@@ -218,16 +266,14 @@ def parse_file_chunks(path: str, has_header: bool = False,
         nums.append(lineno)
         if len(chunk) >= chunk_rows:
             fmt = fmt or detect_format(probe)
-            if width is None and fmt != "libsvm":
-                width = len(chunk[0].strip().split(
-                    "," if fmt == "csv" else "\t"))
-            yield _parse_chunk(chunk, nums, fmt, label_idx, num_features,
-                               path, width)
+            yield _parse_chunk(chunk, fmt, label_idx, num_features,
+                               guard=g, line_numbers=nums)
             chunk, nums = [], []
     if chunk:
         fmt = fmt or detect_format(probe)
-        yield _parse_chunk(chunk, nums, fmt, label_idx, num_features, path,
-                           width)
+        yield _parse_chunk(chunk, fmt, label_idx, num_features, guard=g,
+                           line_numbers=nums)
+    g.finish()
 
 
 def read_header(path: str) -> Tuple[List[str], str]:
@@ -241,11 +287,13 @@ def read_header(path: str) -> Tuple[List[str], str]:
 
 
 def parse_file(path: str, has_header: bool = False, label_idx: int = 0,
-               num_features: Optional[int] = None
+               num_features: Optional[int] = None,
+               guard: Optional[IngestGuard] = None
                ) -> Tuple[np.ndarray, np.ndarray, Optional[List[str]]]:
     """(label [N], features [N, F], the header's feature names or None)
-    of a whole data file.  The header's names leave out the label
-    column (not for LibSVM, whose header is not column-aligned)."""
+    of a whole data file, its bad lines through ``guard`` (default: fail
+    fast).  The header's names leave out the label column (not for
+    LibSVM, whose header is not column-aligned)."""
     header: Optional[List[str]] = None
     if has_header:
         names, fmt = read_header(path)
@@ -253,7 +301,7 @@ def parse_file(path: str, has_header: bool = False, label_idx: int = 0,
             names = names[:label_idx] + names[label_idx + 1:]
         header = names
     parts = list(parse_file_chunks(path, has_header, label_idx,
-                                   num_features))
+                                   num_features, guard=guard))
     if not parts:
         return np.zeros(0), np.zeros((0, num_features or 0)), header
     # LibSVM chunks densify to their own widths without num_features

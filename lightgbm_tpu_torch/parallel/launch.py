@@ -62,9 +62,12 @@ def _port_is_free(port: int) -> bool:
 
 
 def free_port(exclude: Sequence[int] = ()) -> int:
-    """A port below the ephemeral range, free for TCP and UDP."""
+    """A port in ``[PORT_FLOOR, ephemeral floor)``, free for TCP and UDP.
+
+    Only where the ephemeral range starts at or below ``PORT_FLOOR``
+    does the draw fall back to ``[floor // 2, floor)``, under it."""
     hi = _ephemeral_floor()
-    lo = min(PORT_FLOOR, hi // 2)
+    lo = PORT_FLOOR if PORT_FLOOR < hi else hi // 2
     rng = random.SystemRandom()
     for _ in range(1000):
         port = rng.randrange(lo, hi)

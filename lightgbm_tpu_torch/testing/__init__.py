@@ -1,1 +1,2 @@
-"""Fault injection for the port's serving fleet (``faults``)."""
+"""Fault injection (``faults``): the serving fleet, distributed ranks,
+crash-safe training and the data boundary."""

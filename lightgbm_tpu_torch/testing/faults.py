@@ -43,6 +43,18 @@ is a context manager that patches one seam and restores it on exit:
 The predict injectors patch the replica's forest as well as its live
 batcher, so the watchdog's synthetic probes see the fault the traffic
 sees, and a probe succeeds only once the fault is lifted.
+
+Data files, for the ingest guard (``io/guard.py``) and the two-round
+loader (``io/streaming.py``); each returns the 1-based line numbers it
+damaged, the ground truth the quarantine file is checked against:
+
+- ``mangle_rows``: one feature field of a share of the rows replaced by
+  an unparseable token;
+- ``ragged_rows``: the last field of a share of the rows dropped or
+  repeated;
+- ``truncate_mid_row``: the file cut in the middle of its last row;
+- ``concurrent_append``: rows appended while the two-round loader reads
+  (its named drift error).
 """
 
 from __future__ import annotations
@@ -414,6 +426,131 @@ def fail_warmup(times: int = 1) -> Iterator[dict]:
         yield stats
     finally:
         CompiledForest.warmup = orig
+
+
+# ---------------------------------------------------------------------------
+# data-file injectors: seeded mutators making exactly the dirt the
+# ingest guard (io/guard.py) classifies
+
+
+def _detect_delim(line: str) -> str:
+    if "\t" in line:
+        return "\t"
+    if "," in line:
+        return ","
+    return " "
+
+
+def mangle_rows(path: str, fraction: float = 0.05, seed: int = 0,
+                token: str = "##garbage##", skip_header: bool = False
+                ) -> list:
+    """Replace one feature field of ~``fraction`` of the data rows with
+    an unparseable token (the classic exporter bug: a stray string in a
+    numeric column).  Returns the SORTED 1-based file line numbers
+    mangled — the ground truth the quarantine sink is checked against."""
+    import numpy as np
+
+    with open(path, "r") as fh:
+        lines = fh.read().splitlines()
+    first = 1 if skip_header else 0
+    data_idx = [i for i in range(first, len(lines)) if lines[i].strip()]
+    k = max(1, int(round(fraction * len(data_idx))))
+    rng = np.random.RandomState(seed)
+    chosen = sorted(rng.choice(len(data_idx), size=min(k, len(data_idx)),
+                               replace=False))
+    mangled = []
+    for c in chosen:
+        i = data_idx[int(c)]
+        delim = _detect_delim(lines[i])
+        parts = lines[i].split(delim)
+        parts[min(1, len(parts) - 1)] = token  # a feature, not the label
+        lines[i] = delim.join(parts)
+        mangled.append(i + 1)
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return mangled
+
+
+def ragged_rows(path: str, fraction: float = 0.05, seed: int = 0,
+                mode: str = "drop", skip_header: bool = False) -> list:
+    """Drop (``mode="drop"``) or duplicate (``mode="add"``) the last
+    field of ~``fraction`` of the data rows — the torn-write /
+    schema-drift shape of dirt.  Returns sorted 1-based line numbers."""
+    import numpy as np
+
+    if mode not in ("drop", "add"):
+        raise ValueError(f"ragged_rows: unknown mode {mode!r}")
+    with open(path, "r") as fh:
+        lines = fh.read().splitlines()
+    first = 1 if skip_header else 0
+    data_idx = [i for i in range(first, len(lines)) if lines[i].strip()]
+    k = max(1, int(round(fraction * len(data_idx))))
+    rng = np.random.RandomState(seed)
+    chosen = sorted(rng.choice(len(data_idx), size=min(k, len(data_idx)),
+                               replace=False))
+    out = []
+    for c in chosen:
+        i = data_idx[int(c)]
+        delim = _detect_delim(lines[i])
+        parts = lines[i].split(delim)
+        if mode == "drop" and len(parts) > 1:
+            parts = parts[:-1]
+        else:
+            parts = parts + [parts[-1]]
+        lines[i] = delim.join(parts)
+        out.append(i + 1)
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return out
+
+
+def truncate_mid_row(path: str) -> int:
+    """Chop the file in the MIDDLE of its last data row (a torn
+    write/partial download): the resulting final line is ragged or
+    holds a half-number.  Returns the 1-based line number truncated."""
+    with open(path, "rb") as fh:
+        blob = fh.read()
+    body = blob.rstrip(b"\n")
+    last_nl = body.rfind(b"\n")
+    last_line = body[last_nl + 1:]
+    keep = last_nl + 1 + max(1, len(last_line) // 2)
+    with open(path, "wb") as fh:
+        fh.write(blob[:keep])
+    return body[:last_nl + 1].count(b"\n") + 1
+
+
+@contextlib.contextmanager
+def concurrent_append(path: str, extra_text: str,
+                      after_reads: int = 2) -> Iterator[dict]:
+    """Append ``extra_text`` to ``path`` after its ``after_reads``-th
+    full read pass (patching ``io/streaming.py``'s line reader): for the
+    two-round loader (round 1a count, round 1b sample, round 2 fill) the
+    default lands the append between rounds 1 and 2, a producer still
+    writing the file.  The loader must refuse with its named drift
+    ``LightGBMError``.  Yields ``completed`` read passes and the
+    ``appended`` flag."""
+    from ..io import streaming
+
+    orig = streaming._numbered_data_lines
+    state = {"completed": 0, "appended": False}
+
+    def racing_lines(p, skip_header):
+        if os.path.abspath(str(p)) == os.path.abspath(path):
+            if state["completed"] >= int(after_reads) \
+                    and not state["appended"]:
+                state["appended"] = True
+                with open(path, "a") as fh:
+                    fh.write(extra_text)
+            yield from orig(p, skip_header)
+            state["completed"] += 1
+        else:
+            yield from orig(p, skip_header)
+
+    streaming._numbered_data_lines = racing_lines
+    try:
+        yield state
+    finally:
+        streaming._numbered_data_lines = orig
 
 
 def corrupt_model_file(path: str, mode: str = "truncate_tree") -> str:

@@ -33,6 +33,7 @@ from lightgbm_tpu_torch.io.dataset import BinnedDataset
 from lightgbm_tpu_torch.utils import log
 
 from test_torch_sparse import one_hot_data
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = [pytest.mark.torch, pytest.mark.sparse]
 

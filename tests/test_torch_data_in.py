@@ -17,8 +17,9 @@ The same files and matrices go through both packages:
   flags and every ``Metadata`` array equal to the JAX package's;
 * the CLI trains with each role key, and its model header marks the
   ignored columns as the JAX dataset does;
-* what stays refused: ``bad_data_policy=quarantine`` and
-  ``use_two_round_loading=true``, by name.
+* ``bad_data_policy=quarantine`` and ``use_two_round_loading=true``
+  (refused until the data boundary was ported) read as in the JAX
+  package: the CLI's model, the bins and the quarantine file are its.
 """
 
 import numpy as np
@@ -367,13 +368,49 @@ def test_name_role_without_header_raises():
     ("two_round", "true", "use_two_round_loading"),
 ])
 def test_unported_loading_keys_are_refused(tmp_path, key, value, what):
-    data = _write(tmp_path / "train.csv", _table())
-    with pytest.raises(LightGBMError, match=what):
-        cli.main(["task=train", f"data={data}", "device=cpu",
-                  f"output_model={tmp_path / 'm.txt'}", f"{key}={value}"])
-    with pytest.raises(LightGBMError, match=what):
-        lt.Dataset(data, params={key: value}).construct()
-    assert not (tmp_path / "m.txt").exists()
+    """Ported since (the data boundary): the key is read as the JAX
+    package reads it.  On a file with one malformed row the CLI trains
+    the JAX CLI's model under it, the Dataset bins as the JAX package's
+    does, and the quarantine file is the JAX package's."""
+    from unittest import mock
+
+    from lightgbm_tpu import cli as jax_cli
+
+    import chip_smoke as cs
+    tab = _table()
+    path = _write(tmp_path / "train.csv", tab)
+    lines = open(path).read().splitlines()
+    lines[17] = lines[17].replace(",", ",@@,", 1)   # a ragged, bad row
+    open(path, "w").write("\n".join(lines) + "\n")
+    quarantine = {key: value, "bad_data_policy": "quarantine"}
+    out = {}
+    for name, main, extra in (("jax", jax_cli.main, []),
+                              ("torch", cli.main, ["device=cpu"])):
+        model = tmp_path / f"{name}.txt"
+        with mock.patch("lightgbm_tpu.io.native.parse_file_native",
+                        return_value=None):
+            cs.run_main(main, ["task=train", f"data={path}",
+                               "objective=regression", "num_leaves=4",
+                               "num_iterations=2", "min_data_in_leaf=5",
+                               f"output_model={model}"] + extra
+                        + [f"{k}={v}" for k, v in quarantine.items()])
+        out[name] = (model.read_text(),
+                     open(path + ".quarantine", "rb").read())
+    assert out["torch"][1] == out["jax"][1]
+    assert out["torch"][1].splitlines()[3].startswith(b"18\tragged_row\t")
+    trees, flip, _ = cs.compare_model_texts(
+        out["torch"][0], out["jax"][0], what, names=("torch", "jax"),
+        tie_rtol=1e-5, leaf_rtol=1e-5)
+    assert trees == 2 and flip is None
+    with mock.patch("lightgbm_tpu.io.native.parse_file_native",
+                    return_value=None):
+        j, t = _both_construct(path, {**quarantine, "min_data_in_leaf": 5})
+    _same_binned(j, t)
+    assert t.num_data == len(tab) - 1
+    # without quarantine the malformed row is named, in both packages
+    if key != "bad_data_policy":
+        with pytest.raises(LightGBMError, match=f"train.csv:18: "):
+            lt.Dataset(path, params={key: value}).construct()
 
 
 def test_cli_predict_honours_label_column_and_libsvm(tmp_path):

@@ -175,6 +175,21 @@ def test_machine_list_ports_sit_below_the_ephemeral_range(tmp_path):
                 s.bind(("", port))
 
 
+@pytest.mark.parametrize("ephemeral", [32768, 16000])
+def test_free_port_never_draws_below_port_floor(monkeypatch, ephemeral):
+    # 300 draws: a lower bound that let ~22% of draws under PORT_FLOOR
+    # through would show here in every run, not one run in two
+    from lightgbm_tpu_torch.parallel import launch
+    monkeypatch.setattr(launch, "_ephemeral_floor", lambda: ephemeral)
+    monkeypatch.setattr(launch, "_port_is_free", lambda port: True)
+    lo = (launch.PORT_FLOOR if launch.PORT_FLOOR < ephemeral
+          else ephemeral // 2)
+    draws = [launch.free_port() for _ in range(300)]
+    assert all(lo <= p < ephemeral for p in draws)
+    # the draws spread over the whole window, not just its top
+    assert min(draws) < lo + (ephemeral - lo) // 4
+
+
 def test_run_ranks_stops_early_unless_told_to_wait_all():
     fail = [sys.executable, "-c", "import sys; sys.exit(3)"]
     slow = [sys.executable, "-c",

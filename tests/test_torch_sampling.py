@@ -416,7 +416,11 @@ def test_every_jax_key_is_read_refused_or_inert():
             "desync_policy", "snapshot_dir", "snapshot_freq",
             "snapshot_keep", "sink_error_policy"} <= read
     assert "memwatch" in inert
-    assert refused == {"bad_data_policy", "use_two_round_loading"}
+    # the data boundary is read since (bad_data_policy, the budgets, the
+    # two-round loader): nothing is refused
+    assert refused == set()
+    assert {"bad_data_policy", "use_two_round_loading", "max_bad_rows",
+            "max_bad_row_fraction"} <= read
     assert inert <= set(JAX_DEFAULTS)
     for alias, key in JAX_ALIASES.items():
         assert tconfig.PARAM_ALIASES[alias] == key

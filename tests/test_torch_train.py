@@ -389,6 +389,24 @@ def test_unported_training_settings_raise(extra, what):
                           device="cpu", verbose_eval=False)
             assert bk.model_to_string() == plain
         return
+    if what == "bad_data_policy=quarantine":
+        # ported since (the data boundary): read as the JAX package reads
+        # it; a matrix has no line to quarantine, so the model is the
+        # plain one, and the JAX package's
+        from lightgbm_tpu.config import Config as JaxConfig
+        assert Config(extra).bad_data_policy == \
+            JaxConfig(extra).bad_data_policy == "quarantine"
+        bt = lt.train({**PARAMS, **extra}, lt.Dataset(X, y), 2,
+                      device="cpu", verbose_eval=False)
+        plain = lt.train(PARAMS, lt.Dataset(X, y), 2, device="cpu",
+                         verbose_eval=False)
+        assert bt.model_to_string() == plain.model_to_string()
+        bj = lgb.train({**PARAMS, **extra}, lgb.Dataset(X, y), 2,
+                       verbose_eval=False)
+        for a, b in zip(bj._booster.models, bt._booster.models):
+            np.testing.assert_array_equal(
+                b.split_feature, a.split_feature[:a.num_leaves - 1])
+        return
     with pytest.raises(lt.LightGBMError, match="not ported yet") as exc:
         lt.train({**PARAMS, **extra}, lt.Dataset(X, y), 1, device="cpu")
     assert what in str(exc.value)
