@@ -5,7 +5,14 @@ NVIDIA card.
     python3 chip_smoke.py [--seed 0] [--timing-reps 20]
 
 Every phase prints one JSON line (the probes phase first prints the
-probes' own lines); any failure raises and exits non-zero.
+probes' own lines) and a ``phase_wall`` line with its wall seconds (also
+on stderr); any failure raises and exits non-zero.  ``examples``,
+``estimators``, ``boundary`` and ``sparse`` need none of the other
+phases' datasets or models: they run in order in a second process
+(``--side``, SIDE_PHASES) started after ``memory`` and joined before
+``telemetry``, beside ``distributed``, ``resilience``, ``objectives``,
+``sampling`` and ``engine``; their lines are printed at the join, and
+their round times are taken beside that load.
 
 1. ``build``: nvcc builds every kernel under ``lightgbm_tpu_torch/csrc/``
    for ``sm_90a`` (one nvcc per source, all started together); every
@@ -178,8 +185,9 @@ probes' own lines); any failure raises and exits non-zero.
    collective), K2 launches a rank, collective bytes a tree (equal to
    ``traffic_per_tree``).
    Then ``examples/parallel_learning/train.conf`` through the CLI as
-   written (one process: it warns and trains serial) and as two CLI
-   processes with ``num_machines=2`` and a machine list (10 trees),
+   written but for its 100 trees (in the script's process: it warns and
+   trains serial) and as two CLI processes with ``num_machines=2`` and a
+   machine list, 10 trees each,
    byte-equal models.  A rank that fails or outlives its timeout fails
    the phase; every rank's process group is killed at the end.
    ``resilience``: crash-safe training.  (a) On the train phase's
@@ -190,10 +198,10 @@ probes' own lines); any failure raises and exits non-zero.
    run's model text and training score buffer, bit for bit, K1 launched
    once per leaf of the resumed trees.  Each snapshot's write ms and
    bytes, the load and restore ms.  (b) Two gloo ranks on the card
-   (``chip_smoke.py --resilience-rank``), each building the Higgs cell's
-   1M rows from the seed, the nocache data-parallel learner (K2), a
-   snapshot every round, ``distributed_heartbeat_ms=100``,
-   ``collective_timeout_s=20``, ``kill_rank(3, rank=1)``: rank 1 dies
+   (``chip_smoke.py --resilience-rank``), each building 250k rows of
+   the Higgs cell from the seed, the nocache data-parallel learner (K2),
+   a snapshot every round, ``distributed_heartbeat_ms=100``,
+   ``collective_timeout_s=8``, ``kill_rank(3, rank=1)``: rank 1 dies
    with SIGKILL, rank 0 exits 75 within the timeout + 10 s naming
    ``Comm::grow`` and rank 1; restarted on fresh ports, both ranks
    agree on round 3 (``coordinated_resume``) and end with a model
@@ -227,9 +235,9 @@ probes' own lines); any failure raises and exits non-zero.
    ``objectives``: every objective the port added, at the train phase's
    operating point (``num_leaves=63``, ``max_bin=255``): multiclass (5
    classes, labels the quintiles of a seeded latent over
-   ``make_higgs_like(1000000)`` features) and LambdaRank (MSLR-WEB10K's
+   ``make_higgs_like(100000)`` features) and LambdaRank (MSLR-WEB10K's
    shape: 136 dense features, relevance 0-4, query sizes from the seed
-   in [1, 1024], mean ~120, 1M rows), 10 rounds each; regression,
+   in [1, 1024], mean ~120, 100k rows), 10 rounds each; regression,
    regression_l1, huber and fair on the same latent and poisson on
    counts from it, 5 rounds each.  Each run: K1's launches equal Σ over
    trees of (1 + splits); the first tree of each class re-grown through
@@ -268,7 +276,7 @@ probes' own lines); any failure raises and exits non-zero.
    training cell: 1M rows, 28 features, 63 leaves, 255 bins, the
    ordered grower, the 100k-row valid set).  An early-stopped run
    (learning rate 1.0, patience 3) must stop, its ``best_iteration`` the
-   best round of its recorded valid logloss; a 5-fold stratified ``cv``
+   best round of its recorded valid logloss; a 3-fold stratified ``cv``
    of 10 rounds, timed.  Then 10 rounds saved and continued 10 more
    from the file and from the in-memory Booster (and the same with
    ``linear_tree=true``, 5 + 5): the init scores come from K4 (the
@@ -292,6 +300,31 @@ probes' own lines); any failure raises and exits non-zero.
    round, metrics as the examples phase holds them).  Prints the
    seconds a round of the continued runs beside the base runs', the
    init-score ms, the K1 and K4 launches and the ``cv`` seconds.
+   ``telemetry``: the run's record on the train phase's datasets.  The
+   ordered grower 10 rounds four times in turn: bare, with
+   ``events_file``, ``trace_events_file`` and ``metrics_port`` while a
+   process of its own scrapes ``/metrics`` every 0.2 s, so again, and
+   bare again: the four model texts byte-equal, the same host reads a tree and K1
+   launches, and in each instrumented run 10 event records whose
+   ``trees`` are the model's trees' leaves and depths, 10
+   ``GBDT::iteration`` roots in the trace, every scrape parsed and the
+   last (the last round's callback) counting 10 rounds, the listener
+   closed after ``train``; ``python -m lightgbm_tpu_torch obs-report
+   --format=json`` over the first one's events file and (``--traces``)
+   trace exiting 0.  One fused round bare and instrumented: one host
+   read a tree, K3 once a step.  Then the Higgs forest through
+   ``serve_from_config`` from four servers in turn, untraced, traced,
+   traced, untraced (the traced ones with ``trace_events_file`` in their
+   configuration; no key disarms the tracer), each one warm-up request a
+   size and then 4 client threads x 16 requests (1, 64 and 4096 rows in
+   turn); each traced server's export at ``stop()``: every
+   ``Serve::request``'s critical path ends queue -> batch ->
+   ``Predict::forest``, the ``Predict::forest`` spans number that
+   server's K4 launches, ``summarize_traces`` reads both exports.  Prints
+   the seconds a round bare and instrumented (pooled and by run), the
+   scrapes' ms and bytes, each scrape's parse ms (timed after ``train``:
+   what it would cost the training process), the exports' seconds and bytes, p50 and p99 by size
+   untraced and traced (pooled and by server), spans a request.
    ``estimators``: the scikit-learn estimators at the Higgs cell's
    width (28 features, 63 leaves, 255 bins).  ``LGBMClassifier`` fitted
    on 250k rows, 20 rounds, with a 50k-row ``eval_set`` and
@@ -301,13 +334,13 @@ probes' own lines); any failure raises and exits non-zero.
    1e-6 of that booster's ``predict``, K1 on the fit's own bins and
    both walks on the 50k rows bit-equal to their plain versions;
    ``LGBMRegressor`` over a 2 x 2 grid (``learning_rate``,
-   ``n_estimators``) with 3 folds on 30k rows (``grid_search``:
+   ``n_estimators``) with 2 folds on 30k rows (``grid_search``:
    GridSearchCV's protocol of estimators rebuilt from ``get_params()``,
    so that the script needs no scikit-learn), ``device="cuda"`` in all
-   13 fits; ``LGBMRanker`` on 100k MSLR-like rows and their query groups
+   9 fits; ``LGBMRanker`` on 100k MSLR-like rows and their query groups
    (``mslr_like``), 10 rounds.  Prints the fits' seconds, the predict
    ms and the K1 and K4 launches.
-   ``boundary``: the guarded data boundary.  A 190k x 28 Higgs-like TSV
+   ``boundary``: the guarded data boundary.  A 100k x 28 Higgs-like TSV
    (below ``bin_construct_sample_cnt``, so both loaders bin from every
    row), damaged by ``mangle_rows`` (1%) and ``ragged_rows`` (0.5%),
    loaded with ``use_two_round_loading=true
@@ -405,6 +438,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -493,7 +527,9 @@ EXAMPLE_ROUNDS = 10
 EXAMPLE_LEAF_RTOL = 2e-4
 # the objectives phase: the train phase's operating point, the MSLR-like
 # width, and (objective, extra params, rounds, labels) for each run
-OBJ_ROWS = 1_000_000
+# cut from 1M rows to 100k to bring the script to half its time limit
+# (1M x 136 took 29 s of host binning alone)
+OBJ_ROWS = 100_000
 OBJ_PARAMS = {"num_leaves": 63, "max_bin": 255, "learning_rate": 0.1,
               "min_data_in_leaf": 50}
 RANK_FEATURES = 136
@@ -522,7 +558,10 @@ ENGINE_ROUNDS, ENGINE_LINEAR_ROUNDS, ENGINE_ROLLBACKS = 10, 5, 12
 LINEAR_LEAF_RTOL = 1e-3
 ES_PARAMS = {"learning_rate": 1.0, "metric": "binary_logloss"}
 ES_ROUNDS, ES_PATIENCE = 40, 3
-CV_FOLDS = 5
+CV_FOLDS = 5                   # the example conf's cv, card against CPU
+# the 1M-row cv: 3 folds, cut from 5 to pay for the telemetry phase's
+# alternated runs
+HIGGS_CV_FOLDS = 3
 HOST_WALK_ROWS = 200_000
 EXAMPLE_ES_LR = 0.3
 # the sampling phase: the regression example conf's bagging and feature
@@ -598,8 +637,10 @@ DIST_AUC_PIN = 1e-3
 # hung round, the deadline: two of them and a round bound the abort, the
 # hung rank wakes after; the corrupted round); each launch's timeout
 RES_ROUNDS, RES_SNAP_FREQ, RES_CRASH_AT = 8, 2, 5
-RES_DIST_ROWS, RES_DIST_ROUNDS, RES_KILL_AT = TRAIN_ROWS, 8, 3
-RES_HEARTBEAT_MS, RES_KILL_TIMEOUT_S, RES_ABORT_SLACK_S = 100.0, 20.0, 10.0
+# (the kill's ranks cut from 1M rows to 250k and its deadline from 20 s
+# to 8 s, for the script's time)
+RES_DIST_ROWS, RES_DIST_ROUNDS, RES_KILL_AT = 250_000, 8, 3
+RES_HEARTBEAT_MS, RES_KILL_TIMEOUT_S, RES_ABORT_SLACK_S = 100.0, 8.0, 10.0
 RES_SMALL_ROWS, RES_SMALL_ROUNDS, RES_HANG_AT = 250_000, 6, 2
 RES_HANG_TIMEOUT_S, RES_CORRUPT_AT = 5.0, 2
 RES_LAUNCH_TIMEOUT_S = 240
@@ -611,6 +652,27 @@ RES_DIST_PARAMS = {**TRAIN_PARAMS, **CONST, "tree_learner": "data",
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+class PhaseClock:
+    """The wall seconds of each phase of ``main``, each printed as the
+    phase ends (on stdout, and on stderr, whose tail a run cut by its
+    time limit still shows)."""
+
+    def __init__(self, prefix=""):
+        self.t = time.perf_counter()
+        self.walls = {}
+        self.prefix = prefix
+
+    def lap(self, name):
+        now = time.perf_counter()
+        self.walls[name] = now - self.t
+        self.t = now
+        line = json.dumps({"phase_wall": self.prefix + name,
+                           "seconds": self.walls[name],
+                           "total": sum(self.walls.values())})
+        print(line, flush=True)
+        print(line, file=sys.stderr, flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3447,8 +3509,8 @@ def dist_rank(job_path) -> int:
 
 def _dist_cli(workdir):
     """``examples/parallel_learning/train.conf`` through the CLI: as
-    written (one process), then as two CLI processes with a machine
-    list."""
+    written but for DIST_CLI_TREES trees (in this process), then as two
+    CLI processes with a machine list."""
     from lightgbm_tpu_torch.parallel.launch import machine_list, run_ranks
     root = os.path.join(workdir, "parallel_cli")
     work = os.path.join(root, "parallel_learning")
@@ -3456,15 +3518,14 @@ def _dist_cli(workdir):
     copy_example("binary", "binary_classification",
                  os.path.join(root, "binary_classification"))
     t0 = time.perf_counter()
-    one = subprocess.run(
-        [sys.executable, "-m", "lightgbm_tpu_torch", "config=train.conf"],
-        cwd=work, capture_output=True, text=True,
-        timeout=DIST_CLI_TIMEOUT_S, env=dict(os.environ, PYTHONPATH=REPO))
+    # in this process (without a machine list the CLI joins no group):
+    # a process of its own would cost the run a torch import and a CUDA
+    # context
+    with in_dir(work):
+        one = _cli(["config=train.conf", f"num_trees={DIST_CLI_TREES}"])
     one_s = time.perf_counter() - t0
-    check(one.returncode == 0, f"distributed: the conf as written failed: "
-                               f"{one.stderr[-2000:]}")
     check("requested but only 1 device(s) available; falling back to "
-          "serial" in one.stderr,
+          "serial" in one,
           "distributed: the conf as written did not warn of the serial "
           "fallback")
     mlist = machine_list(os.path.join(work, "mlist.txt"), 2)
@@ -4936,23 +4997,23 @@ def engine_early_stop(train_set, valid_set):
 
 
 def engine_cv(seed, train_set):
-    """5-fold stratified ``cv`` at 1M rows, 10 rounds, timed; K1 in every
+    """3-fold stratified ``cv`` at 1M rows, 10 rounds, timed; K1 in every
     fold's rounds."""
     import lightgbm_tpu_torch as lt
     _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = lt.cv({**TRAIN_PARAMS, **CONST}, train_set, ENGINE_ROUNDS,
-                nfold=CV_FOLDS, stratified=True, seed=seed)
+                nfold=HIGGS_CV_FOLDS, stratified=True, seed=seed)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     k1, k4 = _launches()
     auc = res["valid auc-mean"]
     check(len(auc) == ENGINE_ROUNDS and np.all(np.isfinite(auc))
           and auc[-1] > auc[0] > 0.5, f"cv: AUC means {auc}")
-    check(k1 >= CV_FOLDS * ENGINE_ROUNDS and sum(k4.values()) == 0,
+    check(k1 >= HIGGS_CV_FOLDS * ENGINE_ROUNDS and sum(k4.values()) == 0,
           f"cv: K1 {k1}, K4 {k4}")
-    return {"folds": CV_FOLDS, "rounds": ENGINE_ROUNDS, "seconds": secs,
+    return {"folds": HIGGS_CV_FOLDS, "rounds": ENGINE_ROUNDS, "seconds": secs,
             "k1_launches": k1, "auc_mean": auc,
             "auc_stdv": res["valid auc-stdv"]}, k1
 
@@ -5139,6 +5200,470 @@ def phase_engine(seed, datasets, workdir):
 
 
 # ---------------------------------------------------------------------------
+# causal tracing and the run's record
+
+
+TEL_ROUNDS = 10
+TEL_SCRAPE_S = 0.2             # the scraper's period
+# a serving client's requests a server, sizes in turn: 4 servers x 4
+# clients x 32, so each mode takes 2 x 4 x 32 = 256 requests
+TEL_REQUESTS = 16
+TEL_FAMILY = "lightgbm_tpu_phase_seconds_gbdt_iteration"
+
+
+class _timed_exports:
+    """The seconds of every ``TRACER.maybe_export()`` made inside the
+    block (the export at the end of a run or at a server's stop)."""
+
+    def __enter__(self):
+        from lightgbm_tpu_torch.obs import tracing
+        self.tracer, self.seconds = tracing.TRACER, []
+        orig = self.tracer.maybe_export
+
+        def timed():
+            t0 = time.perf_counter()
+            out = orig()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+        self.tracer.maybe_export = timed
+        return self
+
+    def __exit__(self, *exc):
+        del self.tracer.maybe_export
+
+
+def _scrape_metrics(port):
+    """One ``/metrics`` scrape: (ms, the text)."""
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as resp:
+        text = resp.read().decode()
+    return (time.perf_counter() - t0) * 1e3, text
+
+
+# a scraper in a process of its own, as Prometheus scrapes a training job:
+# standard library only, so that its fetches take nothing of the training
+# process but the listener's render.  One JSON line a scrape, {"ms",
+# "text"}, or {"error"} for a failure after the first answer.
+SCRAPER = r"""
+import json, sys, time, urllib.error, urllib.request
+port, out, period = int(sys.argv[1]), sys.argv[2], float(sys.argv[3])
+answered = False
+with open(out, "w") as fh:
+    while True:
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/metrics", timeout=30) as resp:
+                text = resp.read().decode()
+        except (urllib.error.URLError, OSError) as exc:
+            if answered:
+                fh.write(json.dumps({"error": repr(exc)}) + "\n")
+                fh.flush()
+            time.sleep(0.01 if not answered else period)
+            continue
+        answered = True
+        fh.write(json.dumps({"ms": (time.perf_counter() - t0) * 1e3,
+                             "text": text}) + "\n")
+        fh.flush()
+        time.sleep(period)
+"""
+
+
+class _Scraper:
+    """The SCRAPER process against the training listener, every
+    TEL_SCRAPE_S from the moment it answers; ``final`` (the run's last
+    round's callback) stops it and makes the last scrape from this
+    process.  ``results`` parses every text after ``train`` (timed: the
+    seconds a scrape's parse would take in the training process)."""
+
+    def __init__(self, port, path):
+        self.port, self.path, self.final_scrape = port, path, None
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", SCRAPER, str(port), path,
+             str(TEL_SCRAPE_S)], stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.terminate()
+        self.proc.wait(30)
+
+    def final(self, env):
+        if env.iteration != env.end_iteration - 1:
+            return
+        self.stop()
+        self.final_scrape = _scrape_metrics(self.port)
+
+    def results(self):
+        from lightgbm_tpu_torch.obs import prom
+        lines = []          # a run shorter than the process's start has none
+        if os.path.exists(self.path):
+            with open(self.path) as fh:
+                lines = [json.loads(ln) for ln in fh if ln.endswith("\n")]
+        scrapes = [ln for ln in lines if "text" in ln]
+        if self.final_scrape is not None:
+            ms, text = self.final_scrape
+            scrapes.append({"ms": ms, "text": text})
+        out = {"scrape_ms": [], "scrape_counts": [], "parse_ms": [],
+               "scrape_bytes": [], "scrape_errors": [
+                   ln["error"] for ln in lines if "error" in ln]}
+        for sc in scrapes:
+            t0 = time.perf_counter()
+            try:
+                parsed = prom.parse_text(sc["text"])
+            except ValueError as exc:      # checked by the phase
+                out["scrape_errors"].append(repr(exc))
+                continue
+            out["parse_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["scrape_ms"].append(sc["ms"])
+            out["scrape_bytes"].append(len(sc["text"]))
+            out["scrape_counts"].append(
+                prom.histogram_series(parsed, TEL_FAMILY)["count"] or 0)
+        return out
+
+
+def telemetry_run(name, params, rounds, train_set, valid_set, workdir):
+    """``rounds`` rounds of the training cell, bare or (``name`` ending
+    in ``instrumented``) with ``events_file``, ``trace_events_file`` and a
+    ``metrics_port`` scraped from a process of its own.  The launch and
+    host-read counters set to 0 before, read after."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.obs import metrics_server
+    from lightgbm_tpu_torch.ops import children_hist as ch
+    from lightgbm_tpu_torch.ops import grow as gr
+    from lightgbm_tpu_torch.ops import leafhist as lh
+    from lightgbm_tpu_torch.ops import ordered_grow as og
+    from lightgbm_tpu_torch.parallel.launch import free_port
+    out = {"name": name}
+    callbacks, scraper = [], None
+    if "instrumented" in name:
+        port = free_port()
+        out.update(events=f"{workdir}/tel_{name}.jsonl",
+                   trace=f"{workdir}/tel_{name}_trace.json", port=port)
+        params = {**params, "events_file": out["events"],
+                  "trace_events_file": out["trace"], "metrics_port": port}
+        hist = obs.get_histogram("phase_seconds_gbdt_iteration")
+        out["count0"] = hist["count"] if hist else 0
+        scraper = _Scraper(port, f"{workdir}/tel_{name}_scrapes.jsonl")
+        callbacks.append(scraper.final)
+    lh.reset_launch_counts()
+    ch.reset_launch_counts()
+    og.reset_host_syncs()
+    gr.reset_host_syncs()
+    torch.cuda.synchronize()
+    try:
+        with _timed_calls() as timer, _timed_exports() as exports:
+            booster = lt.train(params, train_set, rounds,
+                               valid_sets=[valid_set],
+                               valid_names=["valid"], verbose_eval=False,
+                               callbacks=callbacks)
+    finally:
+        if scraper is not None:
+            scraper.stop()
+    torch.cuda.synchronize()
+    out.update(booster=booster, round_s=timer.seconds,
+               k1=lh.launch_counts()["digit_histogram"],
+               k3=ch.launch_counts()["fused_split_candidates"],
+               syncs_per_tree=(og.host_syncs() + gr.host_syncs())
+               / booster.num_trees(), export_s=exports.seconds,
+               listener_after=metrics_server.active_server())
+    if scraper is not None:
+        out.update(scraper.results())
+        try:
+            urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                   timeout=2)
+            out["port_open_after"] = True
+        except OSError:
+            out["port_open_after"] = False
+    return out
+
+
+def _load(base, bodies, clients):
+    """``clients`` threads, each sending TEL_REQUESTS requests, the
+    sizes of SERVE_SIZES in turn (bodies encoded beforehand); the
+    latency ms of each request by size."""
+    lat = {n: [] for n in SERVE_SIZES}
+    failures = []
+
+    def client(c):
+        try:
+            for i in range(TEL_REQUESTS):
+                n = SERVE_SIZES[(i + c) % len(SERVE_SIZES)]
+                req = urllib.request.Request(
+                    base + "/predict", data=bodies[n],
+                    headers={"Content-Type": "application/json"})
+                t0 = time.perf_counter()
+                resp = json.loads(urllib.request.urlopen(
+                    req, timeout=120).read())
+                lat[n].append((time.perf_counter() - t0) * 1e3)
+                check(resp["num_rows"] == n, "num_rows mismatch")
+        except BaseException as exc:        # re-raised below
+            failures.append(repr(exc))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    check(not failures, f"telemetry serving clients: {failures}")
+    return lat
+
+
+def _percentiles(lat):
+    every = [v for vs in lat.values() for v in vs]
+    return {"p50_ms": float(np.percentile(every, 50)),
+            "p99_ms": float(np.percentile(every, 99)),
+            **{str(n): {"p50_ms": float(np.percentile(v, 50)),
+                        "p99_ms": float(np.percentile(v, 99))}
+               for n, v in lat.items()}}
+
+
+def _serve_pass(model_path, bodies, trace=None):
+    """One server of the Higgs forest from ``serve_from_config``, with
+    ``trace_events_file=trace`` in its configuration when ``trace`` is
+    given (no key disarms the tracer): one warm-up request a size from
+    one client, then the measured load; ``stop()`` exports the trace.
+    Returns the load's latencies, the K4 launches of the warm-up and the
+    load, and the export's seconds."""
+    from lightgbm_tpu_torch.config import Config, parse_cli_args
+    from lightgbm_tpu_torch.obs import tracing
+    from lightgbm_tpu_torch.ops import forest_walk as fw
+    from lightgbm_tpu_torch.serve.server import serve_from_config
+    argv = ["task=serve", f"input_model={model_path}", "serve_port=0",
+            "serve_max_batch=4096", "serve_max_delay_ms=2"]
+    if trace:
+        argv.append(f"trace_events_file={trace}")
+    srv = serve_from_config(Config(parse_cli_args(argv))).start()
+    try:
+        check(tracing.TRACER.enabled == bool(trace),
+              f"serve_from_config left the tracer enabled="
+              f"{tracing.TRACER.enabled} with trace_events_file={trace}")
+        host, port = srv.address
+        base = f"http://{host}:{port}"
+        fw.reset_launch_counts()
+        for n in SERVE_SIZES:
+            urllib.request.urlopen(urllib.request.Request(
+                base + "/predict", data=bodies[n],
+                headers={"Content-Type": "application/json"}),
+                timeout=120).read()
+        lat = _load(base, bodies, SERVE_CLIENTS)
+        torch.cuda.synchronize()
+        k4 = {k: v for k, v in fw.launch_counts().items() if v}
+    finally:
+        with _timed_exports() as exports:
+            srv.stop()
+    return lat, k4, exports.seconds
+
+
+def _check_serve_trace(trace, k4):
+    """Every request of one traced server (the warm-ups included) has
+    ``Serve::queue -> Serve::batch -> Predict::forest`` on its critical
+    path, and the ``Predict::forest`` spans are the server's K4
+    launches.  Returns the trace's counts."""
+    from lightgbm_tpu_torch.obs import tracing
+    events = tracing.read_trace(trace)
+    tree = tracing.span_trees(events)
+    spans = tree["spans"]
+    requests = [s for s, e in spans.items() if e["name"] == "Serve::request"]
+    n_req = SERVE_CLIENTS * TEL_REQUESTS + len(SERVE_SIZES)
+    check(len(requests) == n_req,
+          f"{len(requests)} Serve::request spans for {n_req} requests")
+    margins = []
+    for r in requests:
+        path_names = [st["name"] for st in tracing.critical_path(tree, r)]
+        check(path_names[0] == "Serve::request" and path_names[-3:] == [
+            "Serve::queue", "Serve::batch", "Predict::forest"],
+            f"request {spans[r]['args']['request_id']}: critical path "
+            f"{path_names}")
+        kids = {spans[k]["name"]: spans[k]["dur"]
+                for k in tree["children"][r]}
+        margins.append(kids["Serve::queue"] - kids["Serve::dispatch"])
+    forests = sum(1 for e in spans.values()
+                  if e["name"] == "Predict::forest")
+    check(forests == sum(k4.values()),
+          f"{forests} Predict::forest spans, K4 launches {k4}")
+    return {"requests": n_req, "predict_forest_spans": forests,
+            "spans_per_request": sum(1 for e in events if e.get("ph") == "X")
+            / n_req, "queue_minus_dispatch_us_min": float(min(margins)),
+            "export_bytes": os.path.getsize(trace)}
+
+
+def telemetry_serving(seed, higgs_model, higgs_grid, workdir):
+    """The Higgs forest served with the same load from four servers in
+    turn, untraced, traced, traced, untraced (the traced ones with
+    ``trace_events_file`` in their configuration, as a user sets it), so
+    that warm-up and order weigh on both modes alike.  Returns the
+    phase's serving fields and its K4 launches."""
+    from lightgbm_tpu_torch.obs import tracing
+    path = f"{workdir}/tel_higgs_model.txt"
+    with open(path, "w") as fh:
+        fh.write(higgs_model.save_model_to_string())
+    rng = np.random.RandomState(seed + 70)
+    bodies = {n: json.dumps({"rows": random_rows(
+        rng, n, higgs_grid, tie_frac=0.02).tolist()}).encode()
+        for n in SERVE_SIZES}
+    lat = {"untraced": [], "traced": []}
+    passes, k4_all = [], {}
+    for i, mode in enumerate(("untraced", "traced", "traced", "untraced")):
+        trace = f"{workdir}/tel_serve_trace{i}.json" \
+            if mode == "traced" else None
+        got, k4, export_s = _serve_pass(path, bodies, trace)
+        lat[mode].append(got)
+        one = {"mode": mode, **_percentiles(got), "k4_launches": k4}
+        if trace:
+            one.update(_check_serve_trace(trace, k4), export_s=export_s,
+                       summary_roots=tracing.summarize_traces(
+                           [trace], top_k=3)["roots"])
+        passes.append(one)
+        for k, v in k4.items():
+            k4_all[k] = k4_all.get(k, 0) + v
+    check(not tracing.TRACER.enabled, "the tracer armed after the last "
+          "untraced server")
+    traces = [f"{workdir}/tel_serve_trace{i}.json" for i in (1, 2)]
+    summary = tracing.summarize_traces(traces, top_k=3)
+    check(summary["traces"] >= 2 * SERVE_CLIENTS * TEL_REQUESTS,
+          "summarize_traces lost traces")
+    pooled = {mode: _percentiles({n: [v for got in runs for v in got[n]]
+                                  for n in SERVE_SIZES})
+              for mode, runs in lat.items()}
+    return {**pooled, "order": [p["mode"] for p in passes],
+            "passes": passes, "batches": summary["coalesce"],
+            "roots": summary["roots"]}, k4_all
+
+
+def _check_instrumented(inst):
+    """One instrumented run's record: the events file's records are the
+    model's trees (leaves, depths) with their valid AUC, the trace's
+    GBDT::iteration roots one a round, every scrape parsed and the last
+    counting every round, the listener closed after ``train``."""
+    from lightgbm_tpu_torch.obs import read_events, tracing
+    name = inst["name"]
+    records = read_events(inst["events"])
+    models = inst["booster"]._booster.models
+    check([r["iter"] for r in records] == list(range(TEL_ROUNDS)),
+          f"{name}: event records {[r['iter'] for r in records]}")
+    check([r["trees"] for r in records] == [
+        [{"num_leaves": int(t.num_leaves), "max_depth": int(t.max_depth())}]
+        for t in models], f"{name}: event trees differ from the model's")
+    check(all("auc" in r["eval"]["valid"] for r in records),
+          f"{name}: a record without its valid AUC")
+    tree = tracing.span_trees(tracing.read_trace(inst["trace"]))
+    roots = [tree["spans"][s]["name"] for s in tree["roots"]]
+    check(roots == ["GBDT::iteration"] * TEL_ROUNDS,
+          f"{name}: trace roots {roots}")
+    check(not inst["scrape_errors"],
+          f"{name}: scrapes failed: {inst['scrape_errors']}")
+    done = [c - inst["count0"] for c in inst["scrape_counts"]]
+    check(len(done) >= 2 and done[-1] == TEL_ROUNDS
+          and done == sorted(done), f"{name}: scraped rounds {done}")
+    check(inst["listener_after"] is None and not inst["port_open_after"],
+          f"{name}: the /metrics listener outlived train()")
+
+
+def phase_telemetry(seed, datasets, higgs_model, higgs_grid, workdir):
+    """Causal tracing and the run's record on the card.  The training
+    cell (the train phase's datasets; ordered grower), TEL_ROUNDS rounds
+    four times in turn: bare, with ``events_file``, ``trace_events_file``
+    and ``metrics_port`` scraped every TEL_SCRAPE_S from a process of its
+    own (``SCRAPER``), so
+    instrumented again, and bare again (order and warm-up weigh on both
+    modes alike).  The four model texts byte-equal, the host reads a
+    tree and K1's launches unchanged, each instrumented run's record
+    checked (``_check_instrumented``), and ``python -m lightgbm_tpu_torch
+    obs-report`` over the first one's two files exits 0.  One
+    fused-grower round bare and with ``events_file``: one host read a
+    tree (K3).  Then ``telemetry_serving``.  Returns the launches."""
+    train_set, valid_set, _, _ = datasets
+    t_phase = time.perf_counter()
+    params = {**TRAIN_PARAMS, **CONST}
+    runs = [telemetry_run(name, params, TEL_ROUNDS, train_set, valid_set,
+                          workdir)
+            for name in ("bare", "instrumented", "instrumented_2",
+                         "bare_2")]
+    text = runs[0]["booster"].model_to_string()
+    for run in runs[1:]:
+        check(run["booster"].model_to_string() == text,
+              f"telemetry: the {run['name']} model text differs from the "
+              f"bare")
+        check(run["k1"] == runs[0]["k1"] > 0,
+              f"telemetry: K1 launches {run['k1']} against {runs[0]['k1']}")
+        check(run["syncs_per_tree"] == runs[0]["syncs_per_tree"],
+              f"telemetry {run['name']}: host reads a tree "
+              f"{run['syncs_per_tree']} against {runs[0]['syncs_per_tree']}")
+    insts = [run for run in runs if "instrumented" in run["name"]]
+    for inst in insts:
+        _check_instrumented(inst)
+    inst = insts[0]
+    # the two reports in two processes at once (each imports torch)
+    t0 = time.perf_counter()
+    procs = {flag: subprocess.Popen(
+        [sys.executable, "-m", "lightgbm_tpu_torch", "obs-report",
+         "--format=json", *([flag] if flag else []), path], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for flag, path in (("", inst["events"]),
+                           ("--traces", inst["trace"]))}
+    reports = {}
+    for flag, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        check(proc.returncode == 0, f"obs-report {flag}: {err[-2000:]}")
+        reports[flag or "events"] = json.loads(out)
+    check(reports["events"]["iterations"] == TEL_ROUNDS,
+          "obs-report: rounds")
+    check(reports["--traces"]["roots"]["GBDT::iteration"]["count"]
+          == TEL_ROUNDS, "obs-report --traces: rounds")
+    report_s = time.perf_counter() - t0
+    fused = [telemetry_run(name, {**params, "serial_grow": "fused"}, 1,
+                           train_set, valid_set, workdir)
+             for name in ("fused_bare", "fused_instrumented")]
+    for run in fused:
+        check(run["syncs_per_tree"] == 1 and run["k3"] > 0,
+              f"telemetry {run['name']}: {run['syncs_per_tree']} host "
+              f"reads a tree, K3 {run['k3']}")
+    check(fused[0]["booster"].model_to_string()
+          == fused[1]["booster"].model_to_string(),
+          "telemetry: the fused model texts differ")
+    serving, k4 = telemetry_serving(seed, higgs_model, higgs_grid, workdir)
+    # rounds 3-10 of each run, pooled by mode and run by run
+    median = {mode: float(np.median([v for run in runs
+                                     if run["name"].startswith(mode)
+                                     for v in run["round_s"][2:]]))
+              for mode in ("bare", "instrumented")}
+    k1 = sum(run["k1"] for run in runs)
+    scrape_ms = [v for run in insts for v in run["scrape_ms"]]
+    parse_ms = [v for run in insts for v in run["parse_ms"]]
+    emit({"phase": "telemetry", "rows": train_set.num_data(),
+          "params": params, "rounds": TEL_ROUNDS,
+          "order": [run["name"] for run in runs],
+          "round_s_median_3_10": median,
+          "round_s_median_3_10_by_run": {
+              run["name"]: float(np.median(run["round_s"][2:]))
+              for run in runs},
+          "round_s": {run["name"]: run["round_s"] for run in runs},
+          "host_syncs_per_tree": {run["name"]: run["syncs_per_tree"]
+                                  for run in (*runs, *fused)},
+          "k1_launches": k1,
+          "k3_launches": sum(run["k3"] for run in fused),
+          "scrapes": len(scrape_ms),
+          "scrape_ms_median": float(np.median(scrape_ms)),
+          "scrape_ms_max": float(max(scrape_ms)),
+          "scrape_parse_ms_median": float(np.median(parse_ms)),
+          "scrape_parse_ms_max": float(max(parse_ms)),
+          "scrape_bytes_max": max(v for run in insts
+                                  for v in run["scrape_bytes"]),
+          "train_export_s": [s for run in insts for s in run["export_s"]],
+          "train_trace_bytes": os.path.getsize(inst["trace"]),
+          "events_bytes": os.path.getsize(inst["events"]),
+          "obs_report_s": report_s, "serving": serving,
+          "seconds": time.perf_counter() - t_phase})
+    return {"digit_histogram": k1,
+            "fused_split_candidates": sum(run["k3"] for run in fused),
+            **k4}
+
+
+# ---------------------------------------------------------------------------
 # the scikit-learn estimators, and the guarded data boundary
 
 
@@ -5149,10 +5674,10 @@ EST_PATIENCE = 5
 EST_PROBA_TOL = 1e-6
 GRID_ROWS = 30_000
 GRID = {"learning_rate": [0.05, 0.1], "n_estimators": [10, 20]}
-GRID_CV = 3
+GRID_CV = 2
 RANKER_ROWS = 100_000
 RANKER_ROUNDS = 10
-BOUNDARY_ROWS = 190_000        # below bin_construct_sample_cnt = 200000
+BOUNDARY_ROWS = 100_000        # below bin_construct_sample_cnt = 200000
 BOUNDARY_MANGLE = 0.01
 BOUNDARY_RAGGED = 0.005
 BOUNDARY_PARAMS = {"objective": "binary", "metric": "auc", "num_leaves": 63,
@@ -5349,7 +5874,7 @@ def phase_estimators(seed, workdir, errs):
     walk = compare_kernels(clf.booster_._compiled(-1), Xe,
                            (4096, EST_EVAL_ROWS), "classifier", errs)
 
-    # a 2 x 2 grid, 3 folds: every rebuilt estimator keeps device="cuda"
+    # a 2 x 2 grid, 2 folds: every rebuilt estimator keeps device="cuda"
     Xg, yg = make_higgs_like(GRID_ROWS, seed=seed + 161)
     target = Xg[:, 0] - 0.5 * Xg[:, 1] + 0.3 * Xg[:, 14] + yg
     _reset_launches()
@@ -5428,7 +5953,7 @@ def boundary_load_probe(path, params):
 
 
 def phase_boundary(seed, workdir):
-    """The guarded data boundary on the card.  A 190k x 28 Higgs-like TSV
+    """The guarded data boundary on the card.  A 100k x 28 Higgs-like TSV
     (below ``bin_construct_sample_cnt``, so both loaders bin from every
     row), damaged by the port's injectors (``mangle_rows`` 1%,
     ``ragged_rows`` 0.5%), loaded in two rounds under
@@ -6720,6 +7245,86 @@ def probe_timing(dev, reps):
     return rows
 
 
+# the side process (``--side JOB``): the phases that need none of the main
+# sequence's datasets and models, run in order in a process of their own
+# beside ``distributed``, ``resilience``, ``objectives``, ``sampling`` and
+# ``engine`` (started after ``memory``, whose real OOM must have the card
+# to itself, and joined before ``telemetry``, whose round times compare
+# two modes); its torch threads, and how long the main process waits
+SIDE_PHASES = ("examples", "estimators", "boundary", "sparse")
+SIDE_THREADS = 4
+SIDE_TIMEOUT_S = 900
+
+
+def side_main(job_path) -> int:
+    """The side process: SIDE_PHASES in order in the job's workdir, each
+    phase's lines on stdout (the main process prints them when it joins),
+    then one line with their launches, the largest kernel errors and
+    each phase's wall seconds."""
+    with open(job_path) as fh:
+        job = json.load(fh)
+    torch.set_num_threads(SIDE_THREADS)
+    seed, workdir, reps = job["seed"], job["workdir"], job["reps"]
+    errs = {name: 0.0 for name in SOURCE}
+    launches = {}
+    clock = PhaseClock("side:")
+    runs = {"examples": lambda: phase_examples(workdir),
+            "estimators": lambda: phase_estimators(seed, workdir, errs),
+            "boundary": lambda: phase_boundary(seed, workdir),
+            "sparse": lambda: phase_sparse(seed, workdir, reps)}
+    for name in SIDE_PHASES:
+        for kernel, n in runs[name]().items():
+            launches[kernel] = launches.get(kernel, 0) + n
+        clock.lap(name)
+    emit({"side": {"launches": launches, "errs": errs,
+                   "walls": clock.walls}})
+    return 0
+
+
+class SideProcess:
+    """``chip_smoke.py --side`` started in a session of its own, its
+    stdout into a file of the workdir; ``join`` waits for it and returns
+    its last line's result, ``kill`` ends it wherever it is."""
+
+    def __init__(self, seed, reps, workdir):
+        side_dir = os.path.join(workdir, "side")
+        os.makedirs(side_dir)
+        job = os.path.join(side_dir, "job.json")
+        with open(job, "w") as fh:
+            json.dump({"seed": seed, "workdir": side_dir, "reps": reps}, fh)
+        self.out_path = os.path.join(workdir, "side_stdout.jsonl")
+        self.out = open(self.out_path, "w")
+        env = {k: v for k, v in os.environ.items()
+               if k != "LGBT_DEVICE_MEMORY_BYTES"}
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--side", job],
+            cwd=REPO, stdout=self.out, env=env, start_new_session=True)
+
+    def join(self) -> dict:
+        try:
+            rc = self.proc.wait(timeout=SIDE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            check(False, f"side: still running after {SIDE_TIMEOUT_S} s")
+        self.out.close()
+        with open(self.out_path) as fh:
+            lines = fh.read().splitlines()
+        for ln in lines[:-1]:
+            print(ln, flush=True)
+        check(rc == 0 and lines and lines[-1].startswith('{"side"'),
+              f"side: the side process exited {rc}")
+        return json.loads(lines[-1])["side"]
+
+    def kill(self):
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            self.proc.wait()
+        self.out.close()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6730,6 +7335,9 @@ def main(argv=None) -> int:
     ap.add_argument("--resilience-rank", default=None,
                     help="run one rank of the resilience phase (its job "
                          "file); the phase starts these itself")
+    ap.add_argument("--side", default=None,
+                    help="run the side process's phases (its job file); "
+                         "the script starts it itself")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -6739,6 +7347,8 @@ def main(argv=None) -> int:
         return dist_rank(args.dist_rank)
     if args.resilience_rank:
         return resilience_rank(args.resilience_rank)
+    if args.side:
+        return side_main(args.side)
     from lightgbm_tpu_torch.ops import children_hist as ch
     from lightgbm_tpu_torch.ops import forest_walk as fw
     from lightgbm_tpu_torch.ops import leafhist as lh
@@ -6746,61 +7356,86 @@ def main(argv=None) -> int:
     from lightgbm_tpu_torch.ops import window_hist as wh
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    clock = PhaseClock()
     smi = phase_build()
+    clock.lap("build")
     higgs_model, higgs_grid = random_model(args.seed, **HIGGS)
     lin_model, lin_grid, linear_set = linear_forests(args.seed, higgs_model,
                                                      higgs_grid)
     errs = {name: 0.0 for name in SOURCE}
+    clock.lap("forests")
     phase_kernels(args.seed, dev, higgs_model, higgs_grid, linear_set, errs)
+    clock.lap("kernels")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         served = phase_serve(args.seed, dev, higgs_model, higgs_grid,
                              workdir, errs)
         launches = dict(served)
+        clock.lap("serve")
         launches.update(phase_serve_linear(args.seed, dev, lin_model,
                                            lin_grid, higgs_model, workdir,
                                            errs))
+        clock.lap("serve_linear")
         for name, n in phase_fleet(args.seed, dev, higgs_model, higgs_grid,
                                    workdir).items():
             launches[name] += n
+        clock.lap("fleet")
         trained, windows, datasets, ordered_round_s = phase_train(
             args.seed, dev, workdir)
         launches.update(trained)
+        clock.lap("train")
         for name, n in fleet_train_delta(args.seed, workdir).items():
             launches[name] += n
+        clock.lap("train_delta")
         phase_memory(datasets, dev)
-        for name, n in phase_distributed(args.seed, datasets, dev,
-                                         workdir).items():
+        clock.lap("memory")
+        side = SideProcess(args.seed, args.timing_reps, workdir)
+        try:
+            for name, n in phase_distributed(args.seed, datasets, dev,
+                                             workdir).items():
+                launches[name] += n
+            clock.lap("distributed")
+            for name, n in phase_resilience(args.seed, datasets,
+                                            workdir).items():
+                launches[name] += n
+            clock.lap("resilience")
+            objectives, multiclass = phase_objectives(args.seed, workdir)
+            clock.lap("objectives")
+            # sampling before the engine phase, whose continued runs give
+            # the training set init scores
+            sampled = phase_sampling(args.seed, datasets, multiclass,
+                                     workdir, ordered_round_s,
+                                     args.timing_reps)
+            del multiclass
+            clock.lap("sampling")
+            for name, n in [*objectives.items(), *sampled.items(),
+                            *phase_engine(args.seed, datasets,
+                                          workdir).items()]:
+                launches[name] += n
+            clock.lap("engine")
+            done = side.join()
+        finally:
+            side.kill()
+        for name, n in done["launches"].items():
             launches[name] += n
-        for name, n in phase_resilience(args.seed, datasets,
-                                        workdir).items():
+        for name, e in done["errs"].items():
+            errs[name] = max(errs[name], e)
+        clock.lap("side_join")
+        for name, n in phase_telemetry(args.seed, datasets, higgs_model,
+                                       higgs_grid, workdir).items():
             launches[name] += n
-        examples = phase_examples(workdir)
-        objectives, multiclass = phase_objectives(args.seed, workdir)
-        # sampling before the engine phase, whose continued runs give the
-        # training set init scores
-        sampled = phase_sampling(args.seed, datasets, multiclass, workdir,
-                                 ordered_round_s, args.timing_reps)
-        del multiclass
-        for name, n in [*examples.items(), *objectives.items(),
-                        *sampled.items(),
-                        *phase_engine(args.seed, datasets,
-                                      workdir).items()]:
-            launches[name] += n
+        clock.lap("telemetry")
         del datasets
-        for name, n in [*phase_estimators(args.seed, workdir,
-                                          errs).items(),
-                        *phase_boundary(args.seed, workdir).items()]:
-            launches[name] += n
-        for name, n in phase_sparse(args.seed, workdir,
-                                    args.timing_reps).items():
-            launches[name] += n
     launches.update(phase_probes(args.timing_reps))
+    clock.lap("probes")
     timing = phase_timing(args.seed, dev, higgs_model, higgs_grid,
                           lin_model, lin_grid, args.timing_reps)
+    clock.lap("timing")
     emit({"phase": "k1_windows",
           **k1_window_timing(args.seed, dev, args.timing_reps)})
+    clock.lap("k1_windows")
     emit({"phase": "k3_occupancy",
           **k3_occupancy_timing(args.seed, dev, args.timing_reps)})
+    clock.lap("k3_occupancy")
     # the walks at B=4096, the histograms at the training root (S = 1M),
     # the probes at the probe's shapes
     at = {r["kernel"]: r for r in timing
@@ -6810,6 +7445,9 @@ def main(argv=None) -> int:
           | set(rc.LAUNCHES) | set(wh.LAUNCHES) == set(REPLACES),
           "a kernel is missing a row")
     phase_rule2(args.seed, dev, args.timing_reps, at, windows, launches)
+    clock.lap("rule2")
+    emit({"phase": "walls", "seconds": clock.walls,
+          "side": done["walls"]})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": launches[name],

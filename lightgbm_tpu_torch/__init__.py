@@ -30,14 +30,19 @@ exported only where matplotlib imports (``plotting.py``).  A data file
 may be loaded in two rounds (``use_two_round_loading``: binned from a
 row sample without holding the float matrix, ``io/streaming.py``), and
 ``bad_data_policy=quarantine`` skips malformed rows into
-``<data>.quarantine`` under an error budget (``io/guard.py``).  Entry
-points run on the first CUDA card unless the caller passes
+``<data>.quarantine`` under an error budget (``io/guard.py``).  A run
+records itself: ``events_file`` writes one JSONL record a round,
+``trace_events_file`` the span trees of rounds and requests as Chrome
+trace-event JSON, ``metrics_port`` serves ``/metrics`` while training
+(``obs/``), and ``python -m lightgbm_tpu_torch obs-report`` summarises
+them.  Entry points run on the first CUDA card unless the caller passes
 ``device="cpu"``.
 """
 
+from . import obs
 from .basic import Booster, Dataset
-from .callback import (early_stopping, print_evaluation, record_evaluation,
-                       reset_parameter)
+from .callback import (early_stopping, log_telemetry, print_evaluation,
+                       record_evaluation, reset_parameter)
 from .engine import CVBooster, cv, train, train_delta
 from .serve.forest import CompiledForest
 from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
@@ -55,5 +60,6 @@ __version__ = "0.4.0"
 __all__ = ["Booster", "CVBooster", "CompiledForest", "Dataset",
            "LGBMClassifier", "LGBMModel", "LGBMRanker", "LGBMRegressor",
            "LightGBMError", "__version__", "cv", "early_stopping",
-           "print_evaluation", "record_evaluation", "reset_parameter",
-           "train", "train_delta"] + _PLOTTING
+           "log_telemetry", "obs", "print_evaluation",
+           "record_evaluation", "reset_parameter", "train",
+           "train_delta"] + _PLOTTING

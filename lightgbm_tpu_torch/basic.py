@@ -27,7 +27,7 @@ JAX package.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -772,6 +772,31 @@ class Booster:
             raw = self._compiled(num_iteration).raw_scores(X)
         return raw if raw_score else np.asarray(
             b.objective.convert_output(raw))
+
+    # -- telemetry (obs/) ------------------------------------------------
+    def set_event_recorder(self, recorder) -> "Booster":
+        """Attach an ``obs.EventRecorder`` for the per-iteration JSONL
+        event stream (``train``'s ``events_file`` does this); the caller
+        owns the recorder and closes it.  ``None`` detaches."""
+        self._booster.set_event_recorder(recorder)
+        return self
+
+    def telemetry(self) -> Dict[str, Any]:
+        """The process registry's snapshot (``counters``, ``gauges``,
+        ``histograms``; ``phase_seconds`` stays empty until the TIMETAG
+        timers are ported) and this booster's collective account
+        (``comm``: cumulative bytes and calls, the per-tree traffic of a
+        distributed learner)."""
+        from . import obs
+        snap = obs.snapshot()
+        snap.setdefault("phase_seconds", {})
+        b = self._booster
+        snap["comm"] = {
+            "bytes_cum": int(getattr(b, "_cum_comm_bytes", 0)),
+            "calls_cum": int(getattr(b, "_cum_comm_calls", 0)),
+            "per_tree": getattr(b, "_comm_traffic", None),
+        }
+        return snap
 
     # -- introspection ---------------------------------------------------
     def dump_model(self, num_iteration: int = -1) -> dict:

@@ -4,10 +4,11 @@ The port's copy of the JAX package's callback.py (reference
 python-package/lightgbm/callback.py): a callback receives a
 ``CallbackEnv`` before or after every round; ``before_iteration`` puts
 it before the round and ``order`` sorts each group (reset_parameter 10
-before; print_evaluation 10, record_evaluation 20, early_stopping 30
-after, so the stopped round's values are recorded).  Early stopping
-unwinds the loop through ``EarlyStopException``.  The JAX package's
-``log_telemetry`` feeds its event stream, which the port has not.
+before; print_evaluation 10, record_evaluation 20, log_telemetry 25,
+early_stopping 30 after, so the stopped round's values are recorded).
+Early stopping unwinds the loop through ``EarlyStopException``.
+``log_telemetry`` feeds each round's metric values into the event
+stream (``obs/events.py``).
 ``early_stopping`` reads each evaluation entry by position, as the
 reference does, so that it also takes ``cv``'s five-field entries (the
 JAX package's unpacks four fields and raises on them).
@@ -69,6 +70,28 @@ def record_evaluation(eval_result):
             eval_result.setdefault(data_name, collections.OrderedDict())
             eval_result[data_name].setdefault(eval_name, []).append(result)
     callback.order = 20
+    return callback
+
+
+def log_telemetry(recorder=None):
+    """Feed each round's metric values into the event stream
+    (``obs/events.py``).  With ``recorder=None`` the callback takes the
+    recorder attached to the booster (``train``'s ``events_file``);
+    an ``obs.EventRecorder`` pins one.  Runs after record_evaluation and
+    before early_stopping, so the stopped round's values are kept."""
+    def callback(env: CallbackEnv):
+        rec = recorder
+        if rec is None:
+            inner = getattr(env.model, "_booster", None)
+            rec = getattr(inner, "_telemetry", None)
+        if rec is None or not env.evaluation_result_list:
+            return
+        ev = {}
+        for item in env.evaluation_result_list:
+            data_name, eval_name, value = item[0], item[1], item[2]
+            ev.setdefault(data_name, {})[eval_name] = float(value)
+        rec.note(env.iteration, eval=ev)
+    callback.order = 25
     return callback
 
 

@@ -17,6 +17,8 @@ tasks.
         [is_predict_leaf_index=true]
     python -m lightgbm_tpu_torch task=serve input_model=model.txt \\
         serve_port=8080 [serve_max_batch=8192 serve_max_delay_ms=5]
+    python -m lightgbm_tpu_torch obs-report run.jsonl [--traces] \\
+        [--format=json|table] [--top=K] [--compile=ledger.jsonl]
 
 Parameters parse as in the JAX CLI (``key=value`` tokens, ``config=``
 file first, command line wins, the same aliases); keys this port does not
@@ -35,7 +37,9 @@ every ``output_freq`` rounds; with ``snapshot_dir`` it snapshots every
 A distributed run that the collective watchdog aborts (a dead or hung
 peer) exits with code 75, for the launcher to restart it.
 ``is_predict_leaf_index=true`` writes each row's leaf in every tree
-instead of scores.  ``python -m
+instead of scores.  ``events_file=``, ``trace_events_file=`` and
+``metrics_port=`` record a run (``obs/``), and ``obs-report`` summarises
+its files (``obs/report.py``).  ``python -m
 lightgbm_tpu_torch serve ...`` is sugar for ``task=serve``.
 """
 
@@ -179,8 +183,18 @@ def main(argv=None) -> int:
               "[device=cuda|cpu]\n"
               "       python -m lightgbm_tpu_torch serve "
               "input_model=<model> [serve_port=<p> serve_max_batch=<n> "
-              "serve_max_delay_ms=<ms> predict_buckets=<b,...>]")
+              "serve_max_delay_ms=<ms> predict_buckets=<b,...>]\n"
+              "       python -m lightgbm_tpu_torch obs-report "
+              "<events.jsonl ...> [--format=json|table] [--top=K] "
+              "[--compile=<ledger.jsonl>]\n"
+              "       python -m lightgbm_tpu_torch obs-report --traces "
+              "<trace_events.json ...>")
         return 1
+    # the offline run report takes positional files: it routes before
+    # the key=value parser
+    if argv[0] == "obs-report":
+        from .obs.report import main as obs_report_main
+        return obs_report_main(argv[1:])
     argv = ["task=serve" if tok == "serve" else tok for tok in argv]
     params = parse_cli_args(argv)
     config = Config(params)

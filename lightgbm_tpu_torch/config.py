@@ -280,6 +280,13 @@ _DEFAULTS: Dict[str, Any] = {
     "max_bad_rows": 0,
     "max_bad_row_fraction": 0.1,
     "use_two_round_loading": False,
+    # run telemetry (obs/): the per-iteration event stream and its flush
+    # cadence, the causal trace export, the training /metrics listener
+    "events_file": "",
+    "events_flush_every": 1,
+    "trace_events_file": "",
+    "metrics_port": 0,
+    "metrics_host": "127.0.0.1",
 }
 
 #: key -> (refused(value), what the JAX package does with it): a value
@@ -287,22 +294,22 @@ _DEFAULTS: Dict[str, Any] = {
 #: every key of the JAX package that changes an answer is ported.
 REFUSED: Dict[str, tuple] = {}
 
-#: keys that cannot change a tree, a prediction, a file the run writes
-#: or its outcome in the port: accepted with one warning each.
-#: ``seed``,
+#: keys that cannot change a tree, a prediction or the run's outcome in
+#: the port: accepted with one warning each.  ``seed``,
 #: ``enable_load_from_binary_file``, ``tpu_histogram_impl``,
 #: ``tpu_double_hist``, ``is_save_binary_file`` and ``is_pre_partition``
 #: are read by nothing in the JAX package outside its config (the first
 #: through its aliases only; only ``Dataset.save_binary`` writes a
-#: binary file).
+#: binary file).  ``trace_dir``, ``trace_start_iter``, ``trace_num_iters``,
+#: ``compile_ledger_file``, ``memwatch`` and ``devprof`` belong to the
+#: device-time attribution, not ported yet; ``compile_cache_dir`` has no
+#: counterpart (the kernels' builds are cached by hash in ``build/``).
 INERT = frozenset({
     "seed", "num_threads", "enable_load_from_binary_file",
     "is_save_binary_file", "is_pre_partition",
     "tpu_histogram_impl", "tpu_double_hist",
-    "events_flush_every",
-    "events_file", "trace_dir", "trace_start_iter", "trace_num_iters",
-    "metrics_port", "metrics_host", "compile_ledger_file", "memwatch",
-    "devprof", "trace_events_file", "compile_cache_dir",
+    "trace_dir", "trace_start_iter", "trace_num_iters",
+    "compile_ledger_file", "memwatch", "devprof", "compile_cache_dir",
 })
 
 _BOOL_KEYS = {k for k, v in _DEFAULTS.items() if isinstance(v, bool)}
@@ -456,6 +463,12 @@ class Config:
             raise ValueError(
                 f"Unknown sink_error_policy {v['sink_error_policy']} "
                 "(expected disable or fatal)")
+        if v["events_flush_every"] < 1:
+            raise ValueError("events_flush_every must be >= 1 (flush "
+                             "after every K committed event records)")
+        if not (0 <= v["metrics_port"] < 65536):
+            raise ValueError("metrics_port must be in [0, 65536) "
+                             "(0 disables the metrics listener)")
         for key, (refused, why) in REFUSED.items():
             if refused(v[key]):
                 value = v[key]

@@ -18,9 +18,12 @@ rounds (``snapshot.py``; the newest ``snapshot_keep`` are kept), and a
 run that finds a valid snapshot there resumes from it, through the
 ranks' consensus (``coordinated_resume``) under a distributed learner;
 ``sink_error_policy`` sets the sinks' write-failure policy
-(``utils/diskguard.py``).  The JAX ``train``'s telemetry, compile cache
-and metrics port are not ported (their keys are ignored with one
-warning each).  ``train_delta``
+(``utils/diskguard.py``).  Telemetry as in the JAX ``train``:
+``events_file`` streams one record a round, ``trace_events_file``
+exports the rounds' span trees, ``metrics_port`` serves ``/metrics``
+while the run lasts (``_RunTelemetry``).  The JAX compile cache has no
+counterpart (``compile_cache_dir`` is ignored with one warning).
+``train_delta``
 continues a base model on fresh data and warns when the fresh rows
 drifted from the base model's training fingerprint.
 """
@@ -96,12 +99,63 @@ def _split_callbacks(cbs):
     return sorted(before, key=_order), sorted(after, key=_order)
 
 
+class _RunTelemetry:
+    """A ``train`` run's telemetry (the JAX ``train``'s): the causal
+    tracer armed at the start from ``trace_events_file`` (a run without
+    it disarms the tracer), the event recorder on the booster
+    (``events_file``) and the ``/metrics`` listener (``metrics_port``),
+    shut down on every exit of the run, an exception's too, where the
+    span trees are exported."""
+
+    def __init__(self, params: dict, events_file=None):
+        self.params = params
+        self.events_file = events_file or params.get("events_file") or None
+        self.recorder = None
+        self.metrics = None
+        self._gbdt = None
+        self._watchdog = None
+
+    def __enter__(self) -> "_RunTelemetry":
+        obs.TRACER.configure(self.params.get("trace_events_file") or None)
+        return self
+
+    def record(self, booster: Booster) -> None:
+        """Attach the event recorder to ``booster``, when asked for."""
+        if not self.events_file:
+            return
+        flush_every = int(self.params.get("events_flush_every", 1) or 1)
+        self.recorder = obs.EventRecorder(str(self.events_file),
+                                          flush_every=flush_every)
+        self._gbdt = booster._booster
+        self._gbdt.set_event_recorder(self.recorder)
+
+    def start(self, watchdog) -> None:
+        """Start the listener after the set-up that can raise, and hand
+        the recorder to the collective watchdog, whose hard abort skips
+        every finally."""
+        from .obs.metrics_server import maybe_start
+        self.metrics = maybe_start(self.params)
+        if watchdog is not None and self.recorder is not None:
+            self._watchdog = watchdog
+            watchdog.register_flush(self.recorder.close)
+
+    def __exit__(self, *exc) -> None:
+        if self.recorder is not None:
+            self.recorder.close()
+            self._gbdt.set_event_recorder(None)
+        if self.metrics is not None:
+            self.metrics.stop()
+        if self._watchdog is not None:
+            self._watchdog.unregister_flush(self.recorder.close)
+        obs.TRACER.maybe_export()
+
+
 def train(params, train_set: Dataset, num_boost_round: int = 100,
           valid_sets=None, valid_names=None, fobj=None, feval=None,
           init_model=None, feature_name="auto", categorical_feature="auto",
           early_stopping_rounds=None, evals_result=None, verbose_eval=True,
           learning_rates=None, callbacks=None,
-          device: DeviceLike = None) -> Booster:
+          device: DeviceLike = None, events_file=None) -> Booster:
     """Train a GBDT; returns the Booster.
 
     ``valid_sets`` may include ``train_set`` itself (its metrics are then
@@ -121,156 +175,172 @@ def train(params, train_set: Dataset, num_boost_round: int = 100,
     there (it takes precedence over ``init_model``), restoring the
     booster, ``evals_result`` and the registry, and writes one every
     ``snapshot_freq`` rounds.  The early-stopping counter restarts at
-    the resume point."""
+    the resume point.
+
+    Telemetry, as in the JAX ``train``: ``events_file`` (the argument
+    or the key) streams one JSONL record a round (``obs/events.py``,
+    fed by ``callback.log_telemetry``), ``trace_events_file`` exports
+    the rounds' span trees as Chrome trace-event JSON when the run ends
+    (``LIGHTGBM_TPU_TRACE_EVENTS`` wins), and ``metrics_port``
+    (``LIGHTGBM_TPU_METRICS_PORT`` wins) serves ``GET /metrics`` while
+    the run lasts.  All three shut down on every exit of ``train``."""
     params = dict(params or {})
     # each run's sink policy holds, and sinks an earlier run's full disk
     # disabled are re-armed (this run may write elsewhere)
     from .config import apply_aliases
     from .utils import diskguard
     aliased = apply_aliases(dict(params))
-    diskguard.set_default_policy(aliased.get("sink_error_policy") or None)
-    diskguard.reset_disabled()
-    snapshot_dir, snapshot_freq, snapshot_keep = _snapshot_settings(aliased)
-    resume_state = None
-    if snapshot_dir:
-        found = _find_resume(snapshot_dir)
-        if found is not None:
-            resume_path, resume_state = found
-            if init_model is not None:
-                log.warning("snapshot %s takes precedence over "
-                            "init_model for resume", resume_path)
-                init_model = None
-            log.info("Resuming from snapshot %s (%d rounds done)",
-                     resume_path, int(resume_state.get("rounds_done", 0)))
-    if fobj is not None:
-        params["objective"] = "none"
-    num_boost_round = _pop_rounds(params, num_boost_round)
+    with _RunTelemetry(aliased, events_file) as telemetry:
+        diskguard.set_default_policy(aliased.get("sink_error_policy") or None)
+        diskguard.reset_disabled()
+        snapshot_dir, snapshot_freq, snapshot_keep = \
+            _snapshot_settings(aliased)
+        resume_state = None
+        if snapshot_dir:
+            found = _find_resume(snapshot_dir)
+            if found is not None:
+                resume_path, resume_state = found
+                if init_model is not None:
+                    log.warning("snapshot %s takes precedence over "
+                                "init_model for resume", resume_path)
+                    init_model = None
+                log.info("Resuming from snapshot %s (%d rounds done)",
+                         resume_path, int(resume_state.get("rounds_done", 0)))
+        if fobj is not None:
+            params["objective"] = "none"
+        num_boost_round = _pop_rounds(params, num_boost_round)
 
-    predictor = None
-    if isinstance(init_model, str):
-        predictor = Booster(model_file=init_model, device=device)
-    elif isinstance(init_model, Booster):
-        predictor = init_model._to_predictor()
-    init_iteration = 0
-    if predictor is not None:
-        # every earlier round, those the predictor itself continued from
-        init_iteration = len(predictor._booster.models) // max(
-            predictor._booster.num_class, 1)
+        predictor = None
+        if isinstance(init_model, str):
+            predictor = Booster(model_file=init_model, device=device)
+        elif isinstance(init_model, Booster):
+            predictor = init_model._to_predictor()
+        init_iteration = 0
+        if predictor is not None:
+            # every earlier round, those the predictor itself continued from
+            init_iteration = len(predictor._booster.models) // max(
+                predictor._booster.num_class, 1)
 
-    if not isinstance(train_set, Dataset):
-        raise TypeError("Training only accepts Dataset object")
-    # the predictor first: on a constructed Dataset it unbinds it, and
-    # the params then reach the new binning (the JAX package's order of
-    # effects)
-    train_set._set_predictor(predictor)._update_params(params) \
-        .set_feature_name(feature_name) \
-        .set_categorical_feature(categorical_feature)
-    booster = Booster(params=params, train_set=train_set, device=device)
-    if predictor is not None:
-        gb = booster._booster
-        gb.models = list(predictor._booster.models) + gb.models
-        gb.num_init_iteration = init_iteration
-        gb.iter_ = init_iteration
+        if not isinstance(train_set, Dataset):
+            raise TypeError("Training only accepts Dataset object")
+        # the predictor first: on a constructed Dataset it unbinds it, and
+        # the params then reach the new binning (the JAX package's order of
+        # effects)
+        train_set._set_predictor(predictor)._update_params(params) \
+            .set_feature_name(feature_name) \
+            .set_categorical_feature(categorical_feature)
+        booster = Booster(params=params, train_set=train_set, device=device)
+        if predictor is not None:
+            gb = booster._booster
+            gb.models = list(predictor._booster.models) + gb.models
+            gb.num_init_iteration = init_iteration
+            gb.iter_ = init_iteration
 
-    with_train, train_name = False, "training"
-    valid = []
-    if isinstance(valid_sets, Dataset):
-        valid_sets = [valid_sets]
-    if isinstance(valid_names, str):
-        valid_names = [valid_names]
-    for i, vs in enumerate(valid_sets or []):
-        if vs is train_set:
-            with_train = True
-            if valid_names is not None:
-                train_name = valid_names[i]
-            continue
-        if not isinstance(vs, Dataset):
-            raise TypeError("Validation data should be Dataset instance")
-        valid.append((vs._update_params(params),
-                      valid_names[i] if valid_names is not None
-                      else f"valid_{i}"))
-    booster.set_train_data_name(train_name)
-    for vs, name in valid:
-        booster.add_valid(vs, name)
+        with_train, train_name = False, "training"
+        valid = []
+        if isinstance(valid_sets, Dataset):
+            valid_sets = [valid_sets]
+        if isinstance(valid_names, str):
+            valid_names = [valid_names]
+        for i, vs in enumerate(valid_sets or []):
+            if vs is train_set:
+                with_train = True
+                if valid_names is not None:
+                    train_name = valid_names[i]
+                continue
+            if not isinstance(vs, Dataset):
+                raise TypeError("Validation data should be Dataset instance")
+            valid.append((vs._update_params(params),
+                          valid_names[i] if valid_names is not None
+                          else f"valid_{i}"))
+        booster.set_train_data_name(train_name)
+        for vs, name in valid:
+            booster.add_valid(vs, name)
 
-    # the resume state after the valid sets, so their saved scores land
-    # on their buffers
-    resume_done = 0
-    if resume_state is not None:
-        from .snapshot import restore_booster_state
-        resume_done = restore_booster_state(booster, resume_state)
-        init_iteration = booster._booster.num_init_iteration
+        # the resume state after the valid sets, so their saved scores land
+        # on their buffers
+        resume_done = 0
+        if resume_state is not None:
+            from .snapshot import restore_booster_state
+            resume_done = restore_booster_state(booster, resume_state)
+            init_iteration = booster._booster.num_init_iteration
+            if early_stopping_rounds is not None:
+                log.warning("resuming with early_stopping_rounds=%d: the "
+                            "early-stopping counter restarts at iteration %d "
+                            "(its pre-crash best-score baseline is not part "
+                            "of the snapshot)", early_stopping_rounds,
+                            init_iteration + resume_done)
+            if resume_done >= num_boost_round:
+                log.warning("snapshot already holds %d rounds >= "
+                            "num_boost_round=%d; nothing left to train",
+                            resume_done, num_boost_round)
+
+        telemetry.record(booster)
+
+        cbs = set(callbacks or [])
+        if telemetry.recorder is not None:
+            cbs.add(callback.log_telemetry())
+        if verbose_eval is True:
+            cbs.add(callback.print_evaluation())
+        elif isinstance(verbose_eval, int) and verbose_eval is not False:
+            cbs.add(callback.print_evaluation(verbose_eval))
         if early_stopping_rounds is not None:
-            log.warning("resuming with early_stopping_rounds=%d: the "
-                        "early-stopping counter restarts at iteration %d "
-                        "(its pre-crash best-score baseline is not part "
-                        "of the snapshot)", early_stopping_rounds,
-                        init_iteration + resume_done)
-        if resume_done >= num_boost_round:
-            log.warning("snapshot already holds %d rounds >= "
-                        "num_boost_round=%d; nothing left to train",
-                        resume_done, num_boost_round)
+            cbs.add(callback.early_stopping(early_stopping_rounds,
+                                            verbose=bool(verbose_eval)))
+        if learning_rates is not None:
+            cbs.add(callback.reset_parameter(learning_rate=learning_rates))
+        if evals_result is not None:
+            cbs.add(callback.record_evaluation(evals_result))
+        before, after = _split_callbacks(cbs)
+        # the history restored after record_evaluation cleared the dict: the
+        # resumed run's evals_result continues the interrupted one's
+        if resume_state is not None and evals_result is not None \
+                and resume_state.get("evals_result"):
+            evals_result.update(copy.deepcopy(resume_state["evals_result"]))
 
-    cbs = set(callbacks or [])
-    if verbose_eval is True:
-        cbs.add(callback.print_evaluation())
-    elif isinstance(verbose_eval, int) and verbose_eval is not False:
-        cbs.add(callback.print_evaluation(verbose_eval))
-    if early_stopping_rounds is not None:
-        cbs.add(callback.early_stopping(early_stopping_rounds,
-                                        verbose=bool(verbose_eval)))
-    if learning_rates is not None:
-        cbs.add(callback.reset_parameter(learning_rate=learning_rates))
-    if evals_result is not None:
-        cbs.add(callback.record_evaluation(evals_result))
-    before, after = _split_callbacks(cbs)
-    # the history restored after record_evaluation cleared the dict: the
-    # resumed run's evals_result continues the interrupted one's
-    if resume_state is not None and evals_result is not None \
-            and resume_state.get("evals_result"):
-        evals_result.update(copy.deepcopy(resume_state["evals_result"]))
-
-    # a watchdog's hard abort (parallel/watchdog.py) skips every finally:
-    # it flushes the log streams first
-    from .parallel.watchdog import active_watchdog
-    watchdog = active_watchdog()
-    if watchdog is not None:
-        watchdog.register_flush(_flush_stdio)
-    try:
-        end = init_iteration + num_boost_round
-        for i in range(init_iteration + resume_done, end):
-            for cb in before:
-                cb(callback.CallbackEnv(model=booster, params=params,
-                                        iteration=i,
-                                        begin_iteration=init_iteration,
-                                        end_iteration=end,
-                                        evaluation_result_list=None))
-            finished = booster.update(fobj=fobj)
-            results = booster.eval_train(feval) if with_train else []
-            if valid:
-                results += booster.eval_valid(feval)
-            try:
-                for cb in after:
+        # a watchdog's hard abort (parallel/watchdog.py) skips every finally:
+        # it flushes the log streams first
+        from .parallel.watchdog import active_watchdog
+        watchdog = active_watchdog()
+        if watchdog is not None:
+            watchdog.register_flush(_flush_stdio)
+        telemetry.start(watchdog)
+        try:
+            end = init_iteration + num_boost_round
+            for i in range(init_iteration + resume_done, end):
+                for cb in before:
                     cb(callback.CallbackEnv(model=booster, params=params,
                                             iteration=i,
                                             begin_iteration=init_iteration,
                                             end_iteration=end,
-                                            evaluation_result_list=results))
-            except callback.EarlyStopException as e:
-                booster.best_iteration = e.best_iteration + 1
-                break
-            if snapshot_dir and snapshot_freq > 0 \
-                    and (i + 1 - init_iteration) % snapshot_freq == 0:
-                from .snapshot import save_snapshot
-                save_snapshot(snapshot_dir, booster,
-                              rounds_done=i + 1 - init_iteration,
-                              evals_result=evals_result, keep=snapshot_keep)
-            if finished:
-                break
-    finally:
-        if watchdog is not None:
-            watchdog.unregister_flush(_flush_stdio)
-    return booster
+                                            evaluation_result_list=None))
+                finished = booster.update(fobj=fobj)
+                results = booster.eval_train(feval) if with_train else []
+                if valid:
+                    results += booster.eval_valid(feval)
+                try:
+                    for cb in after:
+                        cb(callback.CallbackEnv(
+                            model=booster, params=params, iteration=i,
+                            begin_iteration=init_iteration,
+                            end_iteration=end,
+                            evaluation_result_list=results))
+                except callback.EarlyStopException as e:
+                    booster.best_iteration = e.best_iteration + 1
+                    break
+                if snapshot_dir and snapshot_freq > 0 \
+                        and (i + 1 - init_iteration) % snapshot_freq == 0:
+                    from .snapshot import save_snapshot
+                    save_snapshot(snapshot_dir, booster,
+                                  rounds_done=i + 1 - init_iteration,
+                                  evals_result=evals_result,
+                                  keep=snapshot_keep)
+                if finished:
+                    break
+        finally:
+            if watchdog is not None:
+                watchdog.unregister_flush(_flush_stdio)
+        return booster
 
 
 def _base_fingerprint(base_model):

@@ -29,6 +29,7 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
+from .. import obs
 from ..utils import log
 from .binning import NUMERICAL
 
@@ -169,8 +170,9 @@ def plan_bundles(sample: np.ndarray, mappers, used_feature_map, *,
     None (the plain per-feature layout)."""
     if not enable_bundle or not is_enable_sparse or len(mappers) == 0:
         return None
-    plan = _plan_bundles_impl(sample, mappers, used_feature_map,
-                              max_conflict_rate, max_total_bin)
+    with obs.span("Bin::bundle"):
+        plan = _plan_bundles_impl(sample, mappers, used_feature_map,
+                                  max_conflict_rate, max_total_bin)
     if plan is not None:
         n_sparse = sum(1 for m in mappers if _is_candidate(m))
         log.info("EFB: %d sparse feature(s), %d bundled into %d bundle(s) "

@@ -393,6 +393,9 @@ class GBDT:
     #: loop.  The port has one round that keeps whichever order the JAX
     #: package would take.
     _masks_before_gradients = True
+    #: the per-iteration event stream (``obs.EventRecorder``;
+    #: ``set_event_recorder``), None when off
+    _telemetry = None
 
     def __init__(self, config=None, train_set=None,
                  device: Optional[torch.device] = None):
@@ -1192,7 +1195,11 @@ class GBDT:
         rolled back (``_contain_poisoned_iter``).
 
         The desync check runs first, before this round's gradients read
-        a state that may have diverged (``_maybe_check_consistency``)."""
+        a state that may have diverged (``_maybe_check_consistency``).
+
+        The round is one ``GBDT::iteration`` span: a wall-time histogram
+        observe and, with the tracer armed, the root of the round's span
+        tree; it never synchronizes the device."""
         resynced = self._maybe_check_consistency()
         if resynced and grad is not None:
             log.warning(
@@ -1200,7 +1207,14 @@ class GBDT:
                 "round's custom-objective gradients were computed from "
                 "the pre-resync scores; the pod stays consistent but "
                 "this one round ingests the stale gradients", self.iter_)
+        with obs.span("GBDT::iteration"):
+            return self._train_one_iter_impl(grad, hess)
+
+    def _train_one_iter_impl(self, grad, hess) -> bool:
+        """Body of one boosting round (``train_one_iter``)."""
         it = self.iter_
+        t_iter0 = time.perf_counter() if self._telemetry is not None \
+            else 0.0
         # the screening view and mask, before any mask draw reads them
         self._view = self._select_view()
         guard = self._nan_policy != "none"
@@ -1304,14 +1318,45 @@ class GBDT:
             self._screen_pending = trees
             if not self._screen_observes_late:
                 self._observe_pending()
-        if all(t.num_leaves <= 1 for t in trees):
+        saturated = all(t.num_leaves <= 1 for t in trees)
+        rec = self._telemetry
+        if rec is not None:
+            # the shapes of trees already on the host: no device read
+            shapes = [{"num_leaves": int(t.num_leaves),
+                       "max_depth": int(t.max_depth())} for t in trees]
+            if saturated:
+                rec.note(it, saturated=True, trees=shapes)
+            else:
+                rec.note(it, trees=shapes)
+        if saturated:
             log.warning("Stopped training because there are no more "
                         "leaves that meet the split requirements.")
             del self.tree_arrays[-self.num_class:]
-            return True
-        self._models.extend(trees)
-        self.iter_ += 1
-        return False
+        else:
+            self._models.extend(trees)
+            self.iter_ += 1
+        self._note_iter_event(it, t_iter0)
+        return saturated
+
+    # -- telemetry (obs/) ----------------------------------------------
+    def set_event_recorder(self, recorder) -> None:
+        """Attach an ``obs.EventRecorder``: one JSONL record per boosting
+        iteration (wall time, bag count, grown-tree shapes, cumulative
+        collective account; eval values arrive through
+        ``callback.log_telemetry``).  ``None`` detaches."""
+        self._telemetry = recorder
+
+    def _note_iter_event(self, it: int, t0: float) -> None:
+        """The round's host-side fields of its event record.  ``phases``
+        stays empty: the TIMETAG deltas come with device-time
+        attribution (the JAX booster's, with TIMETAG off)."""
+        rec = self._telemetry
+        if rec is None:
+            return
+        rec.note(it, wall_s=round(time.perf_counter() - t0, 6),
+                 phases={}, bag_cnt=int(self._bag_cnt),
+                 comm_bytes_cum=int(self._cum_comm_bytes),
+                 comm_calls_cum=int(self._cum_comm_calls))
 
     def _contain_poisoned_iter(self, it: int, what: str, score0,
                                vscores0) -> bool:
@@ -1323,6 +1368,9 @@ class GBDT:
         self.train_data.score = score0
         for dd, s0 in zip(self.valid_data, vscores0):
             dd.score = s0
+        rec = self._telemetry
+        if rec is not None:
+            rec.note(it, nan_poisoned=what, nan_policy=self._nan_policy)
         obj = getattr(self.objective, "name", "?")
         if self._nan_policy == "fail_fast":
             log.fatal(

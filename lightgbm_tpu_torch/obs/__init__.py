@@ -1,46 +1,69 @@
-"""Serving telemetry: the counter/gauge/histogram registry, its
-Prometheus rendering, wall-time spans and the drift observatory.
+"""Run telemetry: the registry, its Prometheus rendering, wall-time
+spans, causal span trees, the per-iteration event stream, its offline
+report, the training ``/metrics`` listener and the drift observatory.
 
-The port's counterpart of the part of the JAX package's ``obs`` that the
-serving fleet writes and ``GET /stats`` / ``GET /metrics`` read:
-``registry`` (process-wide counters, gauges, histograms), ``prom``
-(exposition text and its parser), ``span(name)`` (one wall-time
-histogram observe into ``phase_seconds_<name>``, the JAX package's
-``obs.span`` without its trace and TIMETAG sinks) and ``drift``
-(``DataFingerprint`` and the serve-side ``DriftCollector``).  The
-causal tracer, the event log, device profiling and the compile ledger
-are not ported.
+The port's counterpart of the JAX package's ``obs``:
+
+- ``registry`` (process-wide counters, gauges, histograms) and ``prom``
+  (exposition text and its parser);
+- ``spans``: ``span(name)`` / ``timed(name)``, one wall-time histogram
+  observe into ``phase_seconds_<name>`` a span, and a trace span when
+  the tracer is armed; ``phases`` is the taxonomy of span names;
+- ``tracing``: parent-linked span trees with trace ids, one trace a
+  serve request (request -> queue -> coalesced batch -> ``Predict::
+  forest``) and one a boosting round, exported as Chrome trace-event
+  JSON (``trace_events_file`` / ``LIGHTGBM_TPU_TRACE_EVENTS``);
+- ``events``: the per-iteration JSONL stream (``events_file``) that
+  ``GBDT.train_one_iter`` and ``callback.log_telemetry`` write;
+- ``report``: ``python -m lightgbm_tpu_torch obs-report`` over event
+  streams, trace exports, compile ledgers and registry snapshots;
+- ``metrics_server``: the training ``GET /metrics`` listener
+  (``metrics_port`` / ``LIGHTGBM_TPU_METRICS_PORT``);
+- ``drift`` (``DataFingerprint`` and the serve-side ``DriftCollector``)
+  and ``memwatch`` (the caching allocator's watermarks).
+
+Device-time attribution (the JAX ``devprof``, ``devcaps``, ``trace``,
+the compile ledger and the TIMETAG sink of ``span``) is not ported yet.
 """
 
 from __future__ import annotations
 
-import time
-from contextlib import contextmanager
-
-from . import registry
-from .prom import labeled_name, sanitize, split_series
+from . import registry  # noqa: F401
+from .events import SCHEMA_VERSION, EventRecorder, read_events
+from .phases import HOST_PHASES, span_series
+from .prom import labeled_name, split_series
 from .registry import (DEFAULT_TIME_BUCKETS, REGISTRY, get_counter,
                        get_gauge, get_histogram, histogram_quantile, inc,
-                       observe, reset, set_gauge, snapshot)
+                       merge, observe, reset, set_gauge, snapshot)
+from .spans import span, timed
+from .tracing import TRACER
 
 
-def span_series(name: str) -> str:
-    """Histogram series of a phase's span timer: ``Serve::reload`` ->
-    ``phase_seconds_serve_reload`` (the JAX package's naming)."""
-    return "phase_seconds_" + sanitize(name)
+def trace_span(name, args=None, parent=None):
+    """Context manager: one causal-tracing span (no histogram observe:
+    ``span`` times a phase).  A no-op while the tracer is disarmed."""
+    return TRACER.span(name, args=args, parent=parent)
 
 
-@contextmanager
-def span(name: str):
-    """Time the block into the ``span_series(name)`` histogram."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        registry.observe(span_series(name), time.perf_counter() - t0)
+def trace_begin(name, parent=None, args=None):
+    """Open a tracing span that ``trace_end`` closes, possibly from
+    another thread (the batcher's worker ends each request's queue
+    span).  None while the tracer is disarmed."""
+    return TRACER.begin(name, parent=parent, args=args)
 
 
-__all__ = ["DEFAULT_TIME_BUCKETS", "REGISTRY", "get_counter", "get_gauge",
-           "get_histogram", "histogram_quantile", "inc", "labeled_name",
-           "observe", "reset", "set_gauge", "snapshot", "span",
-           "span_series", "split_series"]
+def trace_end(handle, args=None):
+    TRACER.end(handle, args=args)
+
+
+def trace_link(src, dst):
+    """Record a many-to-one coalesce edge ``src -> dst``."""
+    TRACER.link(src, dst)
+
+
+__all__ = ["DEFAULT_TIME_BUCKETS", "EventRecorder", "HOST_PHASES",
+           "REGISTRY", "SCHEMA_VERSION", "TRACER", "get_counter",
+           "get_gauge", "get_histogram", "histogram_quantile", "inc",
+           "labeled_name", "merge", "observe", "read_events", "reset",
+           "set_gauge", "snapshot", "span", "span_series", "split_series",
+           "timed", "trace_begin", "trace_end", "trace_link", "trace_span"]

@@ -20,24 +20,14 @@ import math
 import re
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
+from .phases import sanitize
+
 NAMESPACE = "lightgbm_tpu_"
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 _SAMPLE_RE = re.compile(
     r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})?\s+(\S+)$")
 _LABEL_RE = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
-
-
-def sanitize(name: str) -> str:
-    """Prometheus-safe stem of a series or phase name
-    (``Serve::reload`` -> ``serve_reload``)."""
-    stem = []
-    for ch in str(name).replace("::", "_").lower():
-        stem.append(ch if (ch.isalnum() or ch == "_") else "_")
-    s = "".join(stem).strip("_") or "unnamed"
-    if s[0].isdigit():
-        s = "_" + s
-    return s
 
 
 def metric_name(name: str) -> str:
@@ -88,8 +78,11 @@ def split_series(key: str) -> Tuple[str, Dict[str, str]]:
     return key[:brace], labels
 
 
-def _labels_str(labels: Mapping[str, str]) -> str:
-    return "{" + _labels_inner(labels) + "}" if labels else ""
+def _labels_str(labels: Optional[Mapping[str, str]],
+                extra: Optional[Mapping[str, str]] = None) -> str:
+    merged: Dict[str, str] = dict(labels or {})
+    merged.update(extra or {})
+    return "{" + _labels_inner(merged) + "}" if merged else ""
 
 
 def _fmt(v: float) -> str:
@@ -116,9 +109,11 @@ def _families(keys):
         yield base, sorted(fams[base], key=lambda e: e[0])
 
 
-def render(snap: Optional[Mapping[str, Any]] = None) -> str:
+def render(snap: Optional[Mapping[str, Any]] = None,
+           labels: Optional[Mapping[str, str]] = None) -> str:
     """A registry snapshot (default: the process registry) as
-    exposition text."""
+    exposition text; ``labels`` (``{"rank": "1"}`` under a multi-process
+    run, ``metrics_server.rank_labels``) go on every sample."""
     if snap is None:
         from . import registry
         snap = registry.snapshot()
@@ -127,7 +122,7 @@ def render(snap: Optional[Mapping[str, Any]] = None) -> str:
         m = metric_name(base)
         lines.append(f"# TYPE {m} counter")
         for key, embedded in entries:
-            lines.append(f"{m}{_labels_str(embedded)} "
+            lines.append(f"{m}{_labels_str(labels, embedded)} "
                          f"{_fmt(snap['counters'][key])}")
     gauges = {k: v for k, v in snap.get("gauges", {}).items()
               if not isinstance(v, bool) and isinstance(v, (int, float))}
@@ -135,7 +130,7 @@ def render(snap: Optional[Mapping[str, Any]] = None) -> str:
         m = metric_name(base)
         lines.append(f"# TYPE {m} gauge")
         for key, embedded in entries:
-            lines.append(f"{m}{_labels_str(embedded)} "
+            lines.append(f"{m}{_labels_str(labels, embedded)} "
                          f"{_fmt(gauges[key])}")
     for base, entries in _families(snap.get("histograms", {})):
         m = metric_name(base)
@@ -147,16 +142,16 @@ def render(snap: Optional[Mapping[str, Any]] = None) -> str:
                 cum += int(c)
                 lines.append(
                     f"{m}_bucket"
-                    f"{_labels_str({**embedded, 'le': _fmt(bound)})}"
+                    f"{_labels_str(labels, {**embedded, 'le': _fmt(bound)})}"
                     f" {cum}")
             cum += int(h["counts"][len(h["buckets"])])
             lines.append(
                 f"{m}_bucket"
-                f"{_labels_str({**embedded, 'le': '+Inf'})} {cum}")
+                f"{_labels_str(labels, {**embedded, 'le': '+Inf'})} {cum}")
             lines.append(
-                f"{m}_sum{_labels_str(embedded)} {_fmt(h['sum'])}")
+                f"{m}_sum{_labels_str(labels, embedded)} {_fmt(h['sum'])}")
             lines.append(
-                f"{m}_count{_labels_str(embedded)} "
+                f"{m}_count{_labels_str(labels, embedded)} "
                 f"{_fmt(h['count'])}")
     return "\n".join(lines) + "\n"
 

@@ -1,11 +1,12 @@
 """Process-wide registry of monotonic counters, gauges and histograms.
 
-The port's own copy of the JAX package's obs/registry.py, cut to what
-serving reads: counters only ever increase, gauges record last-written
-values, histograms hold fixed-bucket distributions (span wall times,
-serve latency) that ``obs/prom.py`` renders cumulatively.  The batcher,
-the fleet, the health watchdog, the lifecycle controller and the drift
-collector write here; ``GET /stats`` and ``GET /metrics`` read a
+The port's own copy of the JAX package's obs/registry.py: counters only
+ever increase, gauges record last-written values, histograms hold
+fixed-bucket distributions (span wall times, serve latency) that
+``obs/prom.py`` renders cumulatively.  Training (spans, the distributed
+learners' traffic), the batcher, the fleet, the health watchdog, the
+lifecycle controller and the drift collector write here; ``GET /stats``,
+both ``GET /metrics`` listeners and ``Booster.telemetry()`` read a
 ``snapshot()``.  One dict update under a lock per call: cheap enough to
 stay on, and nothing here touches the device.
 """
@@ -61,6 +62,25 @@ class _Hist:
         h.sum = float(d["sum"])
         h.count = int(d["count"])
         return h
+
+    def fold(self, other: Mapping[str, Any]) -> None:
+        """Add another histogram's account into this one: equal bounds
+        add bucket by bucket; other bounds land each incoming bucket in
+        the first local bucket that covers its upper edge."""
+        bounds = tuple(float(b) for b in other["buckets"])
+        counts = [int(c) for c in other["counts"]]
+        if bounds == self.bounds:
+            for i, c in enumerate(counts):
+                self.counts[i] += c
+        else:
+            for i, c in enumerate(counts):
+                if not c:
+                    continue
+                j = (bisect.bisect_left(self.bounds, bounds[i])
+                     if i < len(bounds) else len(self.bounds))
+                self.counts[j] += c
+        self.sum += float(other["sum"])
+        self.count += int(other["count"])
 
 
 def histogram_quantile(hist: Optional[Mapping[str, Any]],
@@ -143,6 +163,21 @@ class Registry:
                                for k, h in self._histograms.items()},
             }
 
+    def merge(self, snap: Mapping[str, Any]) -> None:
+        """Fold another registry's ``snapshot()`` in: counters and
+        histogram buckets add, gauges last-write-wins (``obs-report
+        --profile`` / ``--drift`` over several snapshot files)."""
+        with self._lock:
+            for name, v in dict(snap.get("counters", {})).items():
+                self._counters[name] += int(v)
+            self._gauges.update(dict(snap.get("gauges", {})))
+            for name, hd in dict(snap.get("histograms", {})).items():
+                h = self._histograms.get(name)
+                if h is None:
+                    self._histograms[name] = _Hist.from_dict(hd)
+                else:
+                    h.fold(hd)
+
     def restore(self, snap: Mapping[str, Any]) -> None:
         """Overwrite this registry's values with a ``snapshot()``'s:
         counters and gauges set, histograms replaced exactly (a resumed
@@ -191,6 +226,10 @@ def get_histogram(name: str) -> Optional[Dict[str, Any]]:
 
 def snapshot() -> Dict[str, Any]:
     return REGISTRY.snapshot()
+
+
+def merge(snap: Mapping[str, Any]) -> None:
+    REGISTRY.merge(snap)
 
 
 def restore(snap: Mapping[str, Any]) -> None:

@@ -2,8 +2,9 @@
 
 Port of the JAX package's ops/predict.py (``predict_binned_tree`` /
 ``predict_binned_forest`` / ``predict_binned_forest_linear``): every row
-advances one tree level per step; rows that reached a leaf (negative
-child code ``~leaf``) stay put.  The per-class forest sum is the same
+advances one tree level per step, in every tree of a stack at once
+(:func:`forest_leaves`); rows that reached a leaf (negative child code
+``~leaf``) stay put.  The per-class forest sum is the same
 Kahan fold, in the same tree order, so per-tree contributions and their
 f32 total match the JAX walk bit for bit for constant leaves; a linear
 leaf's affine part sums its slots in ascending order (the JAX gather
@@ -65,6 +66,48 @@ def predict_binned_tree(split_feature, split_bin, is_cat_node, left_child,
     return leaf_value[leaf], leaf
 
 
+# trees x rows of one block of the forest walks: bounds each [T, N] int64
+# temporary of a level (128 MB)
+FOREST_BLOCK_ELEMS = 1 << 24
+
+
+def forest_leaves(split_feature, split_bin, is_cat_node, left_child,
+                  right_child, num_leaves: int, bins: torch.Tensor,
+                  max_steps: int) -> torch.Tensor:
+    """[T, N] int64 leaf indices of a [T, ...] tree stack on binned rows:
+    :func:`predict_binned_tree`'s walk, one level of every tree of a
+    block at a time (blocks of trees keep a level's [T, N] temporaries
+    within FOREST_BLOCK_ELEMS).  ``num_leaves`` is the stack's leaf
+    width: a width of 1 (or no nodes) walks nothing, as for one tree."""
+    T, N = split_feature.shape[0], bins.shape[1]
+    dev = bins.device
+    if num_leaves <= 1 or split_feature.shape[1] == 0 or T == 0:
+        return torch.zeros((T, N), dtype=torch.int64, device=dev)
+    b64 = bins.long()
+    step = max(1, FOREST_BLOCK_ELEMS // max(N, 1))
+    out = []
+    for t0 in range(0, T, step):
+        sf = split_feature[t0:t0 + step].long()
+        sb = split_bin[t0:t0 + step].long()
+        ic = is_cat_node[t0:t0 + step].bool()
+        lc = left_child[t0:t0 + step].long()
+        rc = right_child[t0:t0 + step].long()
+        node = torch.zeros((sf.shape[0], N), dtype=torch.int64, device=dev)
+        for _ in range(max_steps):
+            live = node >= 0
+            if not bool(live.any()):
+                break
+            idx = node.clamp(min=0)
+            fbin = b64.gather(0, sf.gather(1, idx))
+            tbin = sb.gather(1, idx)
+            go_left = torch.where(ic.gather(1, idx), fbin == tbin,
+                                  fbin <= tbin)
+            nxt = torch.where(go_left, lc.gather(1, idx), rc.gather(1, idx))
+            node = torch.where(live, nxt, node)
+        out.append(torch.where(node < 0, ~node, torch.zeros_like(node)))
+    return torch.cat(out, 0)
+
+
 def predict_binned_forest(split_feature, split_bin, is_cat_node, left_child,
                           right_child, leaf_value, bins: torch.Tensor,
                           max_steps: int
@@ -75,19 +118,15 @@ def predict_binned_forest(split_feature, split_bin, is_cat_node, left_child,
     N = bins.shape[1]
     acc = torch.zeros(N, dtype=torch.float32, device=bins.device)
     comp = torch.zeros_like(acc)
-    leaves = []
-    for t in range(split_feature.shape[0]):
-        val, leaf = predict_binned_tree(
-            split_feature[t], split_bin[t], is_cat_node[t], left_child[t],
-            right_child[t], leaf_value[t], bins, max_steps)
-        y = val - comp
+    leaves = forest_leaves(split_feature, split_bin, is_cat_node,
+                           left_child, right_child, leaf_value.shape[1],
+                           bins, max_steps)
+    for t in range(leaves.shape[0]):
+        y = leaf_value[t][leaves[t]] - comp
         tot = acc + y
         comp = (tot - acc) - y
         acc = tot
-        leaves.append(leaf)
-    if leaves:
-        return acc, torch.stack(leaves, 0)
-    return acc, torch.zeros((0, N), dtype=torch.int64, device=bins.device)
+    return acc, leaves
 
 
 def affine_rows(coeff_rows: torch.Tensor, feat_rows: torch.Tensor,
@@ -124,17 +163,15 @@ def predict_binned_forest_linear(split_feature, split_bin, is_cat_node,
     N = bins.shape[1]
     acc = torch.zeros(N, dtype=torch.float32, device=bins.device)
     comp = torch.zeros_like(acc)
-    leaves = []
-    for t in range(split_feature.shape[0]):
-        val, leaf = predict_binned_tree(
-            split_feature[t], split_bin[t], is_cat_node[t], left_child[t],
-            right_child[t], leaf_value[t], bins, max_steps)
-        val = val + affine_rows(leaf_coeff[t][leaf], leaf_feat[t][leaf], raw)
+    leaves = forest_leaves(split_feature, split_bin, is_cat_node,
+                           left_child, right_child, leaf_value.shape[1],
+                           bins, max_steps)
+    for t in range(leaves.shape[0]):
+        leaf = leaves[t]
+        val = leaf_value[t][leaf] + affine_rows(leaf_coeff[t][leaf],
+                                                leaf_feat[t][leaf], raw)
         y = val - comp
         tot = acc + y
         comp = (tot - acc) - y
         acc = tot
-        leaves.append(leaf)
-    if leaves:
-        return acc, torch.stack(leaves, 0)
-    return acc, torch.zeros((0, N), dtype=torch.int64, device=bins.device)
+    return acc, leaves

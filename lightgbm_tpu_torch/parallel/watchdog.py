@@ -25,7 +25,8 @@ outside the collectives they guard:
     training thread;
   * hard: while a phase is active, the watchdog thread compares the
     clock with the phase's deadline and the peers' heartbeat ages; on
-    expiry it runs the registered flushes, logs the diagnostic and
+    expiry it runs the registered flushes (the event stream's close
+    among them), exports the causal trace, logs the diagnostic and
     ``os._exit``s with ``DISTRIBUTED_ABORT_EXIT_CODE`` (75), the code a
     launcher restarts on (the restart resumes from the coordinated
     snapshots, ``snapshot.py``).
@@ -453,6 +454,11 @@ class CollectiveWatchdog:
                 fn()
             except Exception:
                 pass
+        try:
+            from ..obs import tracing
+            tracing.TRACER.maybe_export()
+        except Exception:
+            pass
         log.inc("distributed_aborts_total")
         self._abort_fn(DISTRIBUTED_ABORT_EXIT_CODE)
 

@@ -22,7 +22,11 @@ carries ``metric_labels`` (the fleet's replicas do).  ``max_queue``
 bounds the pending queue (:class:`QueueFull`, the fleet's 429);
 ``abort()`` fails every queued and in-flight request at once (replica
 ejection), and ``stalled_for_s()`` is the health watchdog's wedge
-signal.
+signal.  With the tracer armed a request's ``Serve::queue`` span opens
+at enqueue under the submitting thread's span and ends when its batch
+starts (or with ``closed`` / ``shed`` / ``expired`` / ``failed``); the
+``Serve::batch`` span links each request into it, records
+``coalesced`` and holds the ``Predict::forest`` span.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..obs import tracing
 
 
 class QueueFull(RuntimeError):
@@ -118,7 +123,8 @@ def pad_rows(X: np.ndarray, bucket: int):
 
 
 class _Pending:
-    __slots__ = ("rows", "done", "result", "error", "t0", "deadline")
+    __slots__ = ("rows", "done", "result", "error", "t0", "deadline",
+                 "tspan")
 
     def __init__(self, rows: np.ndarray, deadline: Optional[float] = None):
         self.rows = rows
@@ -127,6 +133,13 @@ class _Pending:
         self.error: Optional[BaseException] = None
         self.t0 = time.perf_counter()
         self.deadline = deadline      # absolute time.monotonic() instant
+        # the queue-wait span (enqueue -> batch pickup), a child of the
+        # submitting thread's current span (the request's, or its
+        # hedge's); the worker thread, which inherits no context, ends
+        # it at pickup.  None while the tracer is disarmed.
+        self.tspan = obs.trace_begin("Serve::queue",
+                                     parent=tracing.current(),
+                                     args={"rows": int(rows.shape[0])})
 
 
 class MicroBatcher:
@@ -204,8 +217,10 @@ class MicroBatcher:
         req = _Pending(rows, deadline=deadline)
         with self._cond:
             if self._closed:
+                obs.trace_end(req.tspan, args={"closed": True})
                 raise BatcherClosed("MicroBatcher is closed")
             if self.max_queue and len(self._queue) >= self.max_queue:
+                obs.trace_end(req.tspan, args={"shed": True})
                 raise QueueFull(
                     f"queue at max_queue={self.max_queue} pending requests")
             self._queue.append(req)
@@ -221,10 +236,19 @@ class MicroBatcher:
             # hold batch capacity ahead of live requests
             with self._cond:
                 settled = req.done.is_set()
-                if not settled and req in self._queue:
+                shed = not settled and req in self._queue
+                if shed:
                     self._queue.remove(req)
             if not settled:
-                if deadline is not None and time.monotonic() >= deadline:
+                expired = (deadline is not None
+                           and time.monotonic() >= deadline)
+                if shed:
+                    # never picked up: the worker will not end its queue
+                    # span (a picked-up request's ended at batch start)
+                    obs.trace_end(
+                        req.tspan,
+                        args={"expired" if expired else "shed": True})
+                if expired:
                     self._inc("serve_deadline_expired_total")
                     raise DeadlineExpired("deadline expired in queue")
                 self._inc("serve_timeouts_shed")
@@ -234,17 +258,21 @@ class MicroBatcher:
         self._note_latency((time.perf_counter() - req.t0) * 1000.0)
         return req.result
 
-    def _fail_pending_locked(self) -> List[_Pending]:
-        """Detach every queued and in-flight request (cond held)."""
-        doomed = [r for r in self._queue + self._active
-                  if not r.done.is_set()]
+    def _fail_pending_locked(self) -> List[Tuple[_Pending, bool]]:
+        """Detach every queued and in-flight request (cond held), as
+        ``(request, still queued)``: only a still-queued request owns
+        its queue span (the worker ended a picked-up one's)."""
+        doomed = [(r, True) for r in self._queue if not r.done.is_set()]
+        doomed += [(r, False) for r in self._active if not r.done.is_set()]
         self._queue.clear()
         return doomed
 
     @staticmethod
-    def _complete_failed(doomed: Sequence[_Pending],
+    def _complete_failed(doomed: Sequence[Tuple[_Pending, bool]],
                          error: BaseException) -> None:
-        for req in doomed:
+        for req, still_queued in doomed:
+            if still_queued:
+                obs.trace_end(req.tspan, args={"failed": True})
             req.error = error
             req.done.set()
 
@@ -269,7 +297,8 @@ class MicroBatcher:
             already_aborted = self._aborted
             self._closed = True
             if not drain:
-                doomed = [r for r in self._queue if not r.done.is_set()]
+                doomed = [(r, True) for r in self._queue
+                          if not r.done.is_set()]
                 self._queue.clear()
                 self._complete_failed(doomed,
                                       BatcherClosed("MicroBatcher closed"))
@@ -293,6 +322,7 @@ class MicroBatcher:
             return
         self._queue[:] = [r for r in self._queue if r not in expired]
         for req in expired:
+            obs.trace_end(req.tspan, args={"expired": True})
             req.error = DeadlineExpired("deadline expired in queue")
             req.done.set()
         self._inc("serve_deadline_expired_total", len(expired))
@@ -339,10 +369,20 @@ class MicroBatcher:
 
     def _serve(self, batch: List[_Pending]) -> None:
         try:
-            with obs.span("Serve::batch"):
+            with obs.span("Serve::batch") as sp:
+                if sp.trace is not None:
+                    # the many-to-one coalesce edges: each request's
+                    # queue span ends here, linked into this batch
+                    for req in batch:
+                        obs.trace_link(req.tspan, sp.trace)
+                        obs.trace_end(req.tspan)
+                    sp.trace.args["coalesced"] = len(batch)
                 rows = (batch[0].rows if len(batch) == 1 else
                         np.concatenate([r.rows for r in batch], axis=0))
-                out = self.predict_fn(rows)
+                # the forest call: the walk kernel K4 on a card
+                with obs.trace_span("Predict::forest",
+                                    args={"rows": int(rows.shape[0])}):
+                    out = self.predict_fn(rows)
             self._inc("serve_batches")
             self._inc("serve_batch_rows", int(rows.shape[0]))
             obs.set_gauge("serve_last_batch_rows", int(rows.shape[0]))

@@ -32,14 +32,16 @@ K4 on its own card):
   ``serve_retry_limit``, and :class:`~.health.NoHealthyReplicas` (503)
   at zero dispatchable replicas.
 
-The JAX fleet's causal-trace spans (``Serve::dispatch``,
-``Serve::hedge``) are not ported; its timed spans (``Serve::reload``,
+Spans as in the JAX fleet: the timed ones (``Serve::reload``,
 ``Serve::drain``, ``Serve::eject``, ``Serve::probe``) land in the
-``phase_seconds_*`` histograms as there.
+``phase_seconds_*`` histograms; with the tracer armed each dispatch
+attempt is a ``Serve::dispatch`` span and each retried attempt runs
+under a ``Serve::hedge`` span, in the request's trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -491,9 +493,15 @@ class Fleet:
             # the shed ONCE, base + model= labeled series), so an
             # expired request — fresh or mid-hedge — still never
             # reaches the device
+            hedge = (obs.trace_span(
+                "Serve::hedge",
+                args={"attempt": attempt,
+                      "failed_replica": last_fault.replica_id})
+                if attempt else contextlib.nullcontext())
             try:
-                return self._submit_once(rows, timeout, deadline_s, tried,
-                                         rs_holder)
+                with hedge:
+                    return self._submit_once(rows, timeout, deadline_s,
+                                             tried, rs_holder)
             except _ReplicaFault as fault:
                 last_fault = fault
                 attempt += 1
@@ -524,53 +532,59 @@ class Fleet:
         conditions (Overloaded / QueueFull / deadline / client timeout)
         propagate unwrapped — retrying those on another replica would
         amplify the very overload they signal."""
-        with self._cond:
-            if self._closed:
-                raise RuntimeError("fleet is closed")
-            rs = rs_holder[0]
-            if rs is None:
-                rs = self._route()
-            else:
-                # hedges stay on the model the request was routed
-                # to, but a concurrent reload may have swapped the
-                # set: re-resolve by slot so the retry lands on the
-                # LIVE generation
-                live = (self._canary if rs.model == "canary"
-                        else self._primary)
-                rs = live if live is not None else rs
-            rs_holder[0] = rs
-            if self.max_inflight and self._inflight >= self.max_inflight:
-                raise self._shed(
-                    rs.model,
-                    f"fleet at max in-flight ({self.max_inflight})")
-            cands = [r for r in rs.replicas if r.eligible()]
-            if not cands and rs is self._canary:
-                # the canary slice must not become a hard 503 share
-                # while healthy PRIMARY capacity sits idle: canary
-                # traffic is best-effort A/B, so it falls back (the
-                # reverse never happens — primary traffic is not
-                # silently routed to an unvetted canary)
-                fallback = [r for r in self._primary.replicas
-                            if r.eligible()]
-                if fallback:
-                    obs.inc("serve_canary_fallback_total")
-                    log.warn_once(
-                        "serve_canary_fallback",
-                        "serve: canary has 0 dispatchable replicas; "
-                        "its traffic share falls back to the primary "
-                        "until a probe re-admits one")
-                    rs = rs_holder[0] = self._primary
-                    cands = fallback
-            if not cands:
-                obs.inc("serve_unavailable_total")
-                raise NoHealthyReplicas(
-                    f"model {rs.model!r}: 0 of {len(rs.replicas)} "
-                    f"replicas dispatchable")
-            fresh = [r for r in cands if r.replica_id not in tried]
-            rep = min(fresh or cands, key=Replica.load_score)
-            rs.outstanding += 1
-            rep.inflight += 1
-            self._inflight += 1
+        # the routing decision, a child of the request's (or hedge's)
+        # span; the batcher's queue wait is its sibling
+        with obs.trace_span("Serve::dispatch") as d:
+            with self._cond:
+                if self._closed:
+                    raise RuntimeError("fleet is closed")
+                rs = rs_holder[0]
+                if rs is None:
+                    rs = self._route()
+                else:
+                    # hedges stay on the model the request was routed
+                    # to, but a concurrent reload may have swapped the
+                    # set: re-resolve by slot so the retry lands on the
+                    # LIVE generation
+                    live = (self._canary if rs.model == "canary"
+                            else self._primary)
+                    rs = live if live is not None else rs
+                rs_holder[0] = rs
+                if self.max_inflight and self._inflight >= self.max_inflight:
+                    raise self._shed(
+                        rs.model,
+                        f"fleet at max in-flight ({self.max_inflight})")
+                cands = [r for r in rs.replicas if r.eligible()]
+                if not cands and rs is self._canary:
+                    # the canary slice must not become a hard 503 share
+                    # while healthy PRIMARY capacity sits idle: canary
+                    # traffic is best-effort A/B, so it falls back (the
+                    # reverse never happens — primary traffic is not
+                    # silently routed to an unvetted canary)
+                    fallback = [r for r in self._primary.replicas
+                                if r.eligible()]
+                    if fallback:
+                        obs.inc("serve_canary_fallback_total")
+                        log.warn_once(
+                            "serve_canary_fallback",
+                            "serve: canary has 0 dispatchable replicas; "
+                            "its traffic share falls back to the primary "
+                            "until a probe re-admits one")
+                        rs = rs_holder[0] = self._primary
+                        cands = fallback
+                if not cands:
+                    obs.inc("serve_unavailable_total")
+                    raise NoHealthyReplicas(
+                        f"model {rs.model!r}: 0 of {len(rs.replicas)} "
+                        f"replicas dispatchable")
+                fresh = [r for r in cands if r.replica_id not in tried]
+                rep = min(fresh or cands, key=Replica.load_score)
+                rs.outstanding += 1
+                rep.inflight += 1
+                self._inflight += 1
+            if d is not None:
+                d.args.update(model=rs.model, generation=rs.generation,
+                              replica=rep.replica_id)
         t0 = time.perf_counter()
         served = False
         failed = None

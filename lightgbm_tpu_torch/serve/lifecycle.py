@@ -30,8 +30,9 @@ registry (``obs/registry.py``):
 
 All of it is host-side bookkeeping over the frozen forests; the
 canary's and the shadow batches' predictions run through K4 like any
-other.  The JAX package's ``Serve::verdict`` and ``Serve::shadow``
-trace spans are not ported.
+other.  With the tracer armed a verdict is a ``Serve::verdict`` span
+(outcome, candidate, a drift rollback's offending features) and each
+mirrored batch a ``Serve::shadow`` span, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -438,16 +439,19 @@ class ShadowScorer:
             rep = self._pick_canary()
             if rep is None:
                 continue
-            try:
-                rep.batcher.submit(rows, timeout=self.timeout_s)
-                obs.inc("lifecycle_shadow_total")
-            except QueueFull:
-                obs.inc("lifecycle_shadow_dropped_total")
-            except Exception:
-                # a wedged/poisoned canary is the guardrails' problem
-                # (and their evidence) — the shadow path just counts
-                # and moves on
-                obs.inc("lifecycle_shadow_errors_total")
+            with obs.trace_span("Serve::shadow",
+                                args={"rows": int(rows.shape[0]),
+                                      "replica": rep.replica_id}):
+                try:
+                    rep.batcher.submit(rows, timeout=self.timeout_s)
+                    obs.inc("lifecycle_shadow_total")
+                except QueueFull:
+                    obs.inc("lifecycle_shadow_dropped_total")
+                except Exception:
+                    # a wedged/poisoned canary is the guardrails' problem
+                    # (and their evidence) — the shadow path just counts
+                    # and moves on
+                    obs.inc("lifecycle_shadow_errors_total")
 
     def stats(self) -> Dict[str, Any]:
         with self._cond:
@@ -649,34 +653,37 @@ class PromotionController:
         manual operator call uses, on the SAME forest object the canary
         replicas serve — post-swap predictions are bit-identical to the
         canary's by construction."""
-        snap = self.fleet.canary_snapshot()
-        if snap is None:
-            log.warning("serve lifecycle: verdict was promote but "
-                        "the canary slot is empty — nothing to do")
+        with obs.trace_span("Serve::verdict",
+                            args={"outcome": "promote",
+                                  "candidate": self._candidate}):
+            snap = self.fleet.canary_snapshot()
+            if snap is None:
+                log.warning("serve lifecycle: verdict was promote but "
+                            "the canary slot is empty — nothing to do")
+                with self._lock:
+                    self._phase = IDLE
+                    self._persist()
+                return
+            forest, model_path, _gen = snap
+            # a canary slot built directly (Fleet.build(canary_forest=))
+            # carries no model_path; the reload path the window opened
+            # with is the authoritative name
+            model_path = model_path or self._candidate
+            new_set = self.fleet.promote(forest, target="primary",
+                                         model_path=model_path)
+            self.fleet.drop_canary()
+            self.manager.note_good(model_path, target="primary",
+                                   generation=new_set.generation)
+            self.manager.clear_slot("canary")
             with self._lock:
                 self._phase = IDLE
+                self._consecutive_rollbacks = 0
+                self._last_verdict = {
+                    "outcome": "promote", "reason": None,
+                    "candidate": model_path,
+                    "generation": new_set.generation,
+                    "verdict": verdict}
                 self._persist()
-            return
-        forest, model_path, _gen = snap
-        # a canary slot built directly (Fleet.build(canary_forest=))
-        # carries no model_path; the reload path the window opened
-        # with is the authoritative name
-        model_path = model_path or self._candidate
-        new_set = self.fleet.promote(forest, target="primary",
-                                     model_path=model_path)
-        self.fleet.drop_canary()
-        self.manager.note_good(model_path, target="primary",
-                               generation=new_set.generation)
-        self.manager.clear_slot("canary")
-        with self._lock:
-            self._phase = IDLE
-            self._consecutive_rollbacks = 0
-            self._last_verdict = {
-                "outcome": "promote", "reason": None,
-                "candidate": model_path,
-                "generation": new_set.generation,
-                "verdict": verdict}
-            self._persist()
         obs.inc("lifecycle_promotions_total")
         log.info("serve lifecycle: candidate %s PROMOTED to primary "
                  "(generation %d)", model_path, new_set.generation)
@@ -685,28 +692,34 @@ class PromotionController:
                   ) -> None:
         """Drop the canary and arm the sticky cooldown (exponential
         backoff per consecutive rollback, capped)."""
-        # a drift verdict names its offending features in per-feature
-        # counters and the log: the alarm says which columns moved
+        # a drift verdict names its offending features in the trace
+        # span, per-feature counters and the log: the alarm says which
+        # columns moved
         offenders = list(((verdict or {}).get("gates", {})
                           .get("drift", {}) or {}).get("offenders", ()))
-        self.fleet.drop_canary()
-        self.manager.clear_slot("canary")
-        with self._lock:
-            self._phase = IDLE
-            self._consecutive_rollbacks += 1
-            backoff = min(
-                self.cooldown_s
-                * (2.0 ** (self._consecutive_rollbacks - 1)),
-                _COOLDOWN_MAX_S)
-            if self.cooldown_s > 0:
-                self._cooldown_until = time.monotonic() + backoff
-            self._last_verdict = {
-                "outcome": "rollback", "reason": reason,
-                "candidate": self._candidate,
-                "cooldown_s": round(backoff, 3),
-                "verdict": verdict}
-            candidate = self._candidate
-            self._persist()
+        span_args = {"outcome": "rollback", "reason": reason,
+                     "candidate": self._candidate}
+        if offenders:
+            span_args["drift_features"] = offenders
+        with obs.trace_span("Serve::verdict", args=span_args):
+            self.fleet.drop_canary()
+            self.manager.clear_slot("canary")
+            with self._lock:
+                self._phase = IDLE
+                self._consecutive_rollbacks += 1
+                backoff = min(
+                    self.cooldown_s
+                    * (2.0 ** (self._consecutive_rollbacks - 1)),
+                    _COOLDOWN_MAX_S)
+                if self.cooldown_s > 0:
+                    self._cooldown_until = time.monotonic() + backoff
+                self._last_verdict = {
+                    "outcome": "rollback", "reason": reason,
+                    "candidate": self._candidate,
+                    "cooldown_s": round(backoff, 3),
+                    "verdict": verdict}
+                candidate = self._candidate
+                self._persist()
         obs.inc("lifecycle_rollbacks_total")
         obs.inc(f"lifecycle_rollback_{reason}")
         for feat in offenders:

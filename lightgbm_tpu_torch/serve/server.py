@@ -29,11 +29,14 @@ forest-walk kernel K4 behind its own micro-batcher.
   ``GET /readyz`` (503 once draining), ``GET /stats``
   (the registry as JSON, the fleet, lifecycle and drift blocks, and the
   forest-walk kernels' launch counts) and ``GET /metrics`` (the
-  registry as Prometheus text, ``obs/prom.py``).
+  registry as Prometheus text, ``obs/prom.py``, with ``rank_labels()``).
 
-Every response echoes ``X-Request-Id``.  Shutdown (SIGINT/SIGTERM or
-``stop()``) stops accepting, stops the lifecycle daemons, drains every
-replica's batcher, then closes the socket.
+Every response echoes ``X-Request-Id``.  With ``trace_events_file``
+each ``/predict`` and ``/reload`` is a ``Serve::request`` trace (its
+``request_id`` and reply status as args), exported at ``stop()``.
+Shutdown (SIGINT/SIGTERM or ``stop()``) stops accepting, stops the
+lifecycle daemons, drains every replica's batcher, closes the socket,
+then exports the trace.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ import numpy as np
 from .. import obs
 from ..obs import prom
 from ..obs.drift import DriftCollector
+from ..obs.metrics_server import rank_labels
 from ..ops.forest_walk import launch_counts
 from ..utils import log
 from ..utils.log import LightGBMError
@@ -182,7 +186,8 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _reply(self, code: int, payload: dict,
                request_id: Optional[int] = None,
-               headers: Optional[Mapping[str, str]] = None) -> None:
+               headers: Optional[Mapping[str, str]] = None) -> int:
+        """Send a JSON reply; returns its status code."""
         body = json.dumps(payload).encode("utf-8")
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
@@ -193,6 +198,7 @@ class _Handler(BaseHTTPRequestHandler):
             self.send_header(k, str(v))
         self.end_headers()
         self.wfile.write(body)
+        return code
 
     def do_GET(self):  # noqa: N802 - stdlib handler naming
         srv: "PredictServer" = self.server.predict_server
@@ -220,7 +226,7 @@ class _Handler(BaseHTTPRequestHandler):
                               "drift": srv.drift_stats(),
                               "kernel_launches": launch_counts()}, req_id)
         elif self.path == "/metrics":
-            body = prom.render().encode("utf-8")
+            body = prom.render(labels=rank_labels()).encode("utf-8")
             self.send_response(200)
             self.send_header("Content-Type", prom.CONTENT_TYPE)
             self.send_header("Content-Length", str(len(body)))
@@ -243,6 +249,18 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path != "/predict":
             self._reply(404, {"error": f"unknown path {self.path}"}, req_id)
             return
+        # the causal-trace root: one trace a request.  What the request
+        # causes (dispatch, queue wait, the coalesced batch it rides, the
+        # device predict) hangs off this span; it closes on every exit,
+        # 4xx, shed and timeout replies included, with the reply's status
+        with obs.trace_span("Serve::request",
+                            args={"request_id": req_id}) as rh:
+            status = self._do_predict(srv, req_id)
+            if rh is not None:
+                rh.args["status"] = status
+
+    def _do_predict(self, srv: "PredictServer", req_id: int) -> int:
+        """``POST /predict``; returns the reply's status code."""
         # ingress: the size cap, per-row validation and the non-finite
         # policy all answer before any device time
         try:
@@ -250,21 +268,19 @@ class _Handler(BaseHTTPRequestHandler):
         except (TypeError, ValueError):
             obs.inc("serve_bad_requests")
             self.close_connection = True
-            self._reply(400, {"error": "bad request: malformed "
-                                       "Content-Length header"},
-                        req_id)
-            return
+            return self._reply(400, {"error": "bad request: malformed "
+                                              "Content-Length header"},
+                               req_id)
         if srv.max_body_bytes and length > srv.max_body_bytes:
             obs.inc("serve_bad_requests")
             obs.inc("serve_oversize_requests")
             # the unread body makes the connection unusable for
             # keep-alive; tell the client and close it
             self.close_connection = True
-            self._reply(413, {
+            return self._reply(413, {
                 "error": f"request body {length} bytes exceeds "
                          f"serve_max_body_bytes="
                          f"{srv.max_body_bytes}"}, req_id)
-            return
         try:
             body = self.rfile.read(length)
             rows, opts = _parse_rows(
@@ -288,14 +304,13 @@ class _Handler(BaseHTTPRequestHandler):
                         f"NaN/Inf through)")
         except Exception as exc:
             obs.inc("serve_bad_requests")
-            self._reply(400, {"error": f"bad request: {exc}"}, req_id)
-            return
+            return self._reply(400, {"error": f"bad request: {exc}"},
+                               req_id)
         ready, why = srv.readiness()
         if not ready:
             # not in rotation: draining
-            self._reply(503, {"error": f"server {why}"}, req_id,
-                        headers={"Retry-After": 1})
-            return
+            return self._reply(503, {"error": f"server {why}"}, req_id,
+                               headers={"Retry-After": 1})
         deadline_s = None
         if opts["deadline_ms"] is not None:
             deadline_s = time.monotonic() + opts["deadline_ms"] / 1000.0
@@ -311,7 +326,7 @@ class _Handler(BaseHTTPRequestHandler):
             if srv.feedback is not None and len(preds) == 1 \
                     and isinstance(preds[0], float):
                 srv.feedback.note(req_id, res.model, preds[0])
-            self._reply(200, {
+            code = self._reply(200, {
                 "predictions": preds,
                 "num_rows": int(rows.shape[0]),
                 "request_id": req_id,
@@ -324,58 +339,69 @@ class _Handler(BaseHTTPRequestHandler):
             # request we just served
             if srv.shadow is not None and res.model == "primary":
                 srv.shadow.offer(rows)
+            return code
         except Overloaded as exc:
             # admission control shed: bend p99, don't break it.  The
             # Retry-After hint is the observed p50 service time —
             # integral seconds per RFC 9110, never below 1.
             retry = max(1, int(math.ceil(exc.retry_after_s)))
-            self._reply(429, {"error": f"overloaded: {exc}",
-                              "retry_after_s": retry}, req_id,
-                        headers={"Retry-After": retry})
+            return self._reply(429, {"error": f"overloaded: {exc}",
+                                     "retry_after_s": retry}, req_id,
+                               headers={"Retry-After": retry})
         except DeadlineExpired as exc:
             # the request's own budget ran out: 504, shed before
             # device time wherever possible (serve/batcher.py)
-            self._reply(504, {"error": f"deadline expired: {exc}"},
-                        req_id)
+            return self._reply(504, {"error": f"deadline expired: {exc}"},
+                               req_id)
         except NoHealthyReplicas as exc:
             # zero dispatchable replicas: fail fast, never hang —
             # the watchdog's probes re-admit recovered replicas
-            self._reply(503, {"error": f"no healthy replicas: {exc}"},
-                        req_id, headers={"Retry-After": 1})
+            return self._reply(503,
+                               {"error": f"no healthy replicas: {exc}"},
+                               req_id, headers={"Retry-After": 1})
         except TimeoutError:
             obs.inc("serve_timeouts")
-            self._reply(503, {"error": "prediction timed out"}, req_id)
+            return self._reply(503, {"error": "prediction timed out"},
+                               req_id)
         except RuntimeError as exc:
             # fleet/batcher closed (graceful shutdown) or retries
             # exhausted against ejected replicas — retryable
             obs.inc("serve_shedding")
-            self._reply(503, {"error": f"retry later: {exc}"}, req_id)
+            return self._reply(503, {"error": f"retry later: {exc}"},
+                               req_id)
         except Exception as exc:
             obs.inc("serve_errors")
-            self._reply(500, {"error": str(exc)}, req_id)
+            return self._reply(500, {"error": str(exc)}, req_id)
 
     def _do_reload(self, srv: "PredictServer", req_id: int) -> None:
         """``POST /reload {"model": path[, "target": "primary"]}`` —
         zero-downtime hot swap via the ModelManager; replies with the
-        new generation once the old one has drained."""
+        new generation once the old one has drained.  A
+        ``Serve::request`` trace of its own, with the reply's status."""
+        with obs.trace_span("Serve::request",
+                            args={"request_id": req_id,
+                                  "path": "/reload"}) as rh:
+            status = self._reload(srv, req_id)
+            if rh is not None:
+                rh.args["status"] = status
+
+    def _reload(self, srv: "PredictServer", req_id: int) -> int:
         try:
             length = int(self.headers.get("Content-Length", 0) or 0)
         except (TypeError, ValueError):
             obs.inc("serve_bad_requests")
             self.close_connection = True
-            self._reply(400, {"error": "bad request: malformed "
-                                       "Content-Length header"},
-                        req_id)
-            return
+            return self._reply(400, {"error": "bad request: malformed "
+                                              "Content-Length header"},
+                               req_id)
         if srv.max_body_bytes and length > srv.max_body_bytes:
             obs.inc("serve_bad_requests")
             obs.inc("serve_oversize_requests")
             self.close_connection = True
-            self._reply(413, {
+            return self._reply(413, {
                 "error": f"request body {length} bytes exceeds "
                          f"serve_max_body_bytes="
                          f"{srv.max_body_bytes}"}, req_id)
-            return
         try:
             payload = json.loads(self.rfile.read(length) or b"{}")
             model = (payload or {}).get("model", "")
@@ -384,8 +410,8 @@ class _Handler(BaseHTTPRequestHandler):
                 raise ValueError('body must carry {"model": "<path>"}')
         except Exception as exc:
             obs.inc("serve_bad_requests")
-            self._reply(400, {"error": f"bad request: {exc}"}, req_id)
-            return
+            return self._reply(400, {"error": f"bad request: {exc}"},
+                               req_id)
         try:
             gen = srv.manager.reload(str(model), target=str(target))
             # the reload built fresh replica forests: re-attach the
@@ -397,17 +423,19 @@ class _Handler(BaseHTTPRequestHandler):
                 # the post-rollback cooldown, roll the candidate
                 # straight back — GET /stats names the verdict)
                 srv.controller.begin(str(model), gen)
-            self._reply(200, {"status": "ok", "generation": gen,
-                              "target": str(target),
-                              "request_id": req_id}, req_id)
+            return self._reply(200, {"status": "ok", "generation": gen,
+                                     "target": str(target),
+                                     "request_id": req_id}, req_id)
         except (OSError, ValueError, LightGBMError) as exc:
             # client-side rejections: missing/bad model file, width
             # mismatch vs the other live model, no canary slot — a
             # retry of the same request cannot succeed, so 400
-            self._reply(400, {"error": f"reload failed: {exc}"}, req_id)
+            return self._reply(400, {"error": f"reload failed: {exc}"},
+                               req_id)
         except Exception as exc:
             obs.inc("serve_errors")
-            self._reply(500, {"error": f"reload failed: {exc}"}, req_id)
+            return self._reply(500, {"error": f"reload failed: {exc}"},
+                               req_id)
 
     def _do_feedback(self, srv: "PredictServer", req_id: int) -> None:
         """``POST /feedback {"request_id": id, "label": y}`` — deliver a
@@ -658,6 +686,9 @@ class PredictServer:
             col.close()
         self.fleet.close(drain=True)
         self.httpd.server_close()
+        # the causal trace after the drain, so the last batch's spans
+        # are in the export
+        obs.TRACER.maybe_export()
         log.info("serve: shut down cleanly (%d requests, %d batches, "
                  "%d shed)",
                  obs.get_counter("serve_requests"),
@@ -704,6 +735,9 @@ def serve_from_config(config, params=None) -> PredictServer:
 
     if not config.input_model:
         log.fatal("No model file specified (input_model=...)")
+    # the causal trace export (LIGHTGBM_TPU_TRACE_EVENTS wins); a server
+    # configured without one disarms the tracer
+    obs.TRACER.configure(config.trace_events_file or None)
     max_batch = int(config.serve_max_batch)
     buckets = list(config.predict_buckets) or default_ladder()
     buckets = [b for b in buckets if b <= max_batch] or [max_batch]

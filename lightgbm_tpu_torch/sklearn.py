@@ -305,6 +305,12 @@ class LGBMModel(_SKBase):
             raise LightGBMError("No booster found, call fit first")
         return self._Booster.feature_importance()
 
+    @property
+    def telemetry_(self) -> Dict[str, Any]:
+        """The fitted booster's ``telemetry()``: the registry snapshot
+        and its collective account."""
+        return self.booster_.telemetry()
+
 
 class LGBMRegressor(LGBMModel, _SKRegressor):
 

@@ -138,6 +138,27 @@ def test_leaf_indices_equal_jax(forests, kind):
         np.testing.assert_array_equal(leaves[k].numpy(), ref)
 
 
+@pytest.mark.parametrize("kind", ["binary", "multiclass", "categorical"])
+def test_plain_walk_in_tree_blocks_matches_jax(forests, kind, monkeypatch):
+    """The plain walk steps a block of trees a level at a time; blocks of
+    two trees (``FOREST_BLOCK_ELEMS``) give JAX's leaf indices and the
+    interpreted fused walk's scores, as one block does."""
+    from lightgbm_tpu_torch.ops import predict
+    _, X, jf, jg, tf, stacked = forests[kind]
+    bins = _bins(jf, X)
+    monkeypatch.setattr(predict, "FOREST_BLOCK_ELEMS", 2 * bins.shape[1])
+    scores, leaves = fw.walk_plain(tf._tables, torch.from_numpy(bins))
+    ref = np.asarray(jax_forest_walk(
+        *jf._walk_dev, bins, num_class=jf.num_class,
+        nan_bin=int(jf._nan_bin), interpret=True))
+    np.testing.assert_allclose(scores.numpy(), ref, rtol=0, atol=1e-6)
+    bins_j = jg.bin_rows(np.asarray(X, np.float64))
+    for k in range(jg.num_class):
+        want = np.asarray(predict_leaf_indices_forest(
+            *(a[k] for a in stacked), bins_j, max_steps=jg.num_leaves))
+        np.testing.assert_array_equal(leaves[k].numpy(), want)
+
+
 def test_from_booster_equals_from_arrays(forests):
     bst, X, _, _, tf, _ = forests["categorical"]
     tb = lt.Booster(model_str=bst.model_to_string(), device="cpu")

@@ -116,7 +116,10 @@ def _warnings(capsys):
             if "[Warning]" in ln]
 
 
-def test_degrade_warns_once(capsys):
+def test_degrade_warns_once(capsys, monkeypatch):
+    # an earlier in-process CLI run with verbose=-1 (test_torch_train.py)
+    # leaves the process's log level below warnings
+    monkeypatch.setattr(log, "_current_level", 1)
     log._warned_once.discard("resource_degrade_hist_cache")
     X, y = make_higgs_like(600, seed=5)
     params = {**PARAMS, "histogram_pool_size": 0.001,
@@ -136,7 +139,9 @@ def test_degrade_warns_once(capsys):
 
 
 @pytest.mark.parametrize("serial_grow", ["ordered", "cached"])
-def test_fail_fast_small_pool_warns_and_keeps_cache(capsys, serial_grow):
+def test_fail_fast_small_pool_warns_and_keeps_cache(capsys, monkeypatch,
+                                                   serial_grow):
+    monkeypatch.setattr(log, "_current_level", 1)
     log._warned_once.discard("histogram_pool_size")
     X, y = make_higgs_like(600, seed=6)
     b = lt.Booster(params={**PARAMS, "histogram_pool_size": 0.001,
