@@ -325,6 +325,27 @@ their round times are taken beside that load.
    scrapes' ms and bytes, each scrape's parse ms (timed after ``train``:
    what it would cost the training process), the exports' seconds and bytes, p50 and p99 by size
    untraced and traced (pooled and by server), spans a request.
+   ``attribution``: device-time attribution on the same datasets and the
+   Higgs forest.  The ordered grower 10 rounds with ``devprof`` off,
+   ``full`` and ``sample:4``: model texts byte-equal, host reads a tree
+   and K1's launches unchanged, every dispatch of a program a sample under
+   ``full`` and a quarter under ``sample:4``, no forced sync; per program
+   the seconds charged, samples and roofline against the ``h100`` row of
+   ``obs/devcaps.py``, and the rounds' host/device split.  Fused and
+   nocache 3 rounds under ``full`` (K3's and K2's bytes in
+   ``train_step``).  A ``trace_dir`` window over rounds 1-2 of 3, after
+   CUPTI's first start outside it: the device busy share (the union of
+   kernel, memcpy and memset intervals over the window), K1's kernels
+   against its launches, the time under ``hist`` / ``find_split`` /
+   ``split``.  TIMETAG over 5 rounds with ``events_file`` (phase totals,
+   forced syncs, the round beside the bare), ``memwatch`` over 2 (the
+   ``GBDT::iteration`` watermark beside ``max_memory_allocated``), one
+   ``devprof=full`` server (4 clients x 16 requests: the
+   ``serve_forest_walk`` bucket series, its roofline, K4's bound at 4096
+   rows), one nvcc build of ``roll_chain`` in a subprocess with the
+   compile ledger armed (one line, read back by ``obs-report
+   --compile``), and ``poison_gradients`` over 6 updates under
+   ``nan_policy=skip_tree`` (5 trees, the clean run's).
    ``estimators``: the scikit-learn estimators at the Higgs cell's
    width (28 features, 63 leaves, 255 bins).  ``LGBMClassifier`` fitted
    on 250k rows, 20 rounds, with a 50k-row ``eval_set`` and
@@ -407,7 +428,7 @@ their round times are taken beside that load.
    shapes (P1 beside three launch floors and a CUDA graph's replay; P2
    at each of the probe's runs, beside K1 on the same window and
    ``index_add_`` on the unpacked window; both timed four ways), each
-   beside its bound.  ``k1_windows``: K1's small path, large
+   beside its bound (the bytes are the kernel module's ``launch_cost``).  ``k1_windows``: K1's small path, large
    path, the wrapper as the growers call it and
    ``index_add_`` at every window class the train phase counts (2^10 to
    2^20 rows), each alone (``single_ms``: events around one call, the
@@ -5664,6 +5685,501 @@ def phase_telemetry(seed, datasets, higgs_model, higgs_grid, workdir):
 
 
 # ---------------------------------------------------------------------------
+# device-time attribution: devprof, the trace window, TIMETAG, memwatch,
+# the compile ledger, the last fault injectors
+
+
+ATTR_ROUNDS = 10               # ordered rounds a devprof mode
+ATTR_FULL_ROUNDS = 3           # fused and nocache rounds under devprof=full
+ATTR_TIMETAG_ROUNDS = 5
+ATTR_POISON_UPDATES = 6
+DEVPROF_SERIES = ("devprof_", "device_seconds", "memwatch_",
+                  "compile_count", "nan_iterations_dropped")
+# a subprocess builds P1's source into an empty directory with the ledger
+# armed (nvcc for roll_chain, a plain C interface, takes seconds)
+LEDGER_BUILD = r"""
+import json, pathlib, sys, time
+from lightgbm_tpu_torch.obs import compile_ledger
+from lightgbm_tpu_torch.ops import _build
+_build.BUILD_DIR = pathlib.Path(sys.argv[1])
+compile_ledger.configure(sys.argv[2])
+t0 = time.perf_counter()
+secs = _build.build_all(("roll_chain",))
+print(json.dumps({"seconds": secs, "wall_s": time.perf_counter() - t0}))
+"""
+
+
+def _series_delta(before, after):
+    """The attribution series of a block: counters and histograms
+    ([count, sum]) by difference, gauges by their value after (a sample
+    sets its program's gauges anew)."""
+    def keep(n):
+        return n.startswith(DEVPROF_SERIES)
+    out = {"counters": {}, "histograms": {}, "gauges": {}}
+    for n, v in after["counters"].items():
+        d = v - before["counters"].get(n, 0)
+        if keep(n) and d:
+            out["counters"][n] = d
+    for n, h in after["histograms"].items():
+        h0 = before["histograms"].get(n, {"count": 0, "sum": 0.0})
+        if keep(n) and h["count"] != h0["count"]:
+            out["histograms"][n] = [h["count"] - h0["count"],
+                                    h["sum"] - h0["sum"]]
+    for n, v in after["gauges"].items():
+        if keep(n):
+            out["gauges"][n] = v
+    return out
+
+
+def attribution_run(name, params, rounds, train_set, valid_set,
+                    callbacks=()):
+    """``rounds`` rounds of the training cell through ``lt.train`` with
+    ``params`` (a devprof mode among them), devprof's accumulators and
+    the launch and host-read counters set to 0 before and read after;
+    the synchronized seconds of each round and the attribution series
+    the run changed."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.obs import devprof
+    from lightgbm_tpu_torch.ops import children_hist as ch
+    from lightgbm_tpu_torch.ops import grow as gr
+    from lightgbm_tpu_torch.ops import leafhist as lh
+    from lightgbm_tpu_torch.ops import ordered_grow as og
+    devprof.reset()
+    lh.reset_launch_counts()
+    ch.reset_launch_counts()
+    og.reset_host_syncs()
+    gr.reset_host_syncs()
+    torch.cuda.synchronize()
+    before = obs.snapshot()
+    with _timed_calls() as timer:
+        booster = lt.train(params, train_set, rounds,
+                           valid_sets=[valid_set] if valid_set else None,
+                           valid_names=["valid"] if valid_set else None,
+                           verbose_eval=False, callbacks=list(callbacks))
+    torch.cuda.synchronize()
+    delta = _series_delta(before, obs.snapshot())
+    k = {**lh.launch_counts(), **ch.launch_counts()}
+    return {"name": name, "booster": booster, "round_s": timer.seconds,
+            "launches": {n: v for n, v in k.items() if v},
+            "syncs_per_tree": (og.host_syncs() + gr.host_syncs())
+            / booster.num_trees(), "est": devprof.estimates(),
+            "delta": delta}
+
+
+def _program_rows(run):
+    """Per program of a devprof run: the estimate, samples, dispatches,
+    the last sample's kernel bytes and roofline against the card's
+    capability row."""
+    g = run["delta"]["gauges"]
+    return {p: {**e, "roofline_pct": g.get(f"devprof_roofline_pct_{p}")}
+            for p, e in sorted(run["est"].items())}
+
+
+def _round_split(run):
+    h = run["delta"]["histograms"]
+    host = h.get("devprof_round_host_seconds", [0, 0.0])
+    dev = h.get("devprof_round_device_seconds", [0, 0.0])
+    return {"rounds": host[0], "host_s": host[1], "device_s": dev[1],
+            "device_share": dev[1] / (host[1] + dev[1])
+            if host[1] + dev[1] > 0 else None}
+
+
+def _check_sampled(run, stride):
+    """Every program of a ``stride`` run has dispatches // stride samples
+    (less any discarded during a build), and no sample's own wait was
+    counted as a forced sync."""
+    c = run["delta"]["counters"]
+    skipped = c.get("devprof_samples_skipped_compile", 0)
+    for prog, e in run["est"].items():
+        want = e["dispatches"] // stride
+        check(want - skipped <= e["samples"] <= want,
+              f"attribution {run['name']}: {prog} {e['samples']} samples "
+              f"of {e['dispatches']} dispatches at stride {stride}")
+    check(c.get("devprof_forced_syncs_total", 0) == 0,
+          f"attribution {run['name']}: forced syncs "
+          f"{c.get('devprof_forced_syncs_total')}")
+    check("train_step" in run["est"] and run["est"]["train_step"][
+        "bytes_accessed"], f"attribution {run['name']}: no train_step "
+          f"kernel bytes")
+
+
+def _union_us(intervals):
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def trace_window_summary(path):
+    """One exported window: the device busy share (the union of kernel,
+    memcpy and memset intervals over the window's wall, first event to
+    last), K1's kernels, and the time under each grower range (the host
+    ``record_function`` ranges and, where the profiler recorded them,
+    their device-side projections)."""
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    dev = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy = _union_us([(e["ts"], e["ts"] + e["dur"]) for e in dev])
+    first = min(e["ts"] for e in dev) if dev else t0
+    last = max(e["ts"] + e["dur"] for e in dev) if dev else t1
+    k1 = [e for e in dev if e.get("cat") == "kernel"
+          and "digit_hist_kernel" in e.get("name", "")]
+    ranges = {}
+    for cat in ("user_annotation", "gpu_user_annotation"):
+        for name in ("hist", "find_split", "split"):
+            sel = [e for e in events if e.get("cat") == cat
+                   and e.get("name") == name]
+            if sel:
+                ranges.setdefault(cat, {})[name] = {
+                    "count": len(sel),
+                    "ms": sum(e["dur"] for e in sel) / 1e3}
+    return {"wall_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / (t1 - t0),
+            "device_span_ms": (last - first) / 1e3,
+            "device_busy_share_of_span": busy / max(last - first, 1e-9),
+            "device_events": len(dev),
+            "kernels": sum(1 for e in dev if e.get("cat") == "kernel"),
+            "k1_kernels": len(k1),
+            "k1_kernel_ms": sum(e["dur"] for e in k1) / 1e3,
+            "ranges": ranges}
+
+
+def attribution_serving(model_path, seed, higgs_grid):
+    """The Higgs forest through ``serve_from_config`` with
+    ``devprof=full`` in its configuration: one warm-up request a size,
+    then 4 clients x TEL_REQUESTS requests of 1, 64 and 4096 rows.  The
+    ``serve_forest_walk`` bucket series, samples against dispatches, and
+    the program's roofline beside K4's bound at B = 4096 (the timing
+    phase's: ``forest_walk.launch_cost`` over the card's bandwidth)."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.config import Config, parse_cli_args
+    from lightgbm_tpu_torch.obs import devprof
+    from lightgbm_tpu_torch.ops import forest_walk as fw
+    from lightgbm_tpu_torch.serve.forest import CompiledForest
+    from lightgbm_tpu_torch.serve.server import serve_from_config
+    rng = np.random.RandomState(seed + 75)
+    bodies = {n: json.dumps({"rows": random_rows(
+        rng, n, higgs_grid, tie_frac=0.02).tolist()}).encode()
+        for n in SERVE_SIZES}
+    devprof.reset()
+    fw.reset_launch_counts()
+    before = obs.snapshot()
+    srv = serve_from_config(Config(parse_cli_args([
+        "task=serve", f"input_model={model_path}", "serve_port=0",
+        "serve_max_batch=4096", "serve_max_delay_ms=2",
+        "devprof=full"]))).start()
+    try:
+        check(devprof.MODE == "full", f"serve_from_config left devprof "
+              f"{devprof.MODE}")
+        host, port = srv.address
+        base = f"http://{host}:{port}"
+        for n in SERVE_SIZES:
+            urllib.request.urlopen(urllib.request.Request(
+                base + "/predict", data=bodies[n],
+                headers={"Content-Type": "application/json"}),
+                timeout=120).read()
+        lat = _load(base, bodies, SERVE_CLIENTS)
+        torch.cuda.synchronize()
+        k4 = {k: v for k, v in fw.launch_counts().items() if v}
+    finally:
+        srv.stop()
+    delta = _series_delta(before, obs.snapshot())
+    est = devprof.estimates()
+    walk = est.get("serve_forest_walk")
+    check(walk is not None and walk["samples"] == walk["dispatches"] > 0,
+          f"attribution serving: serve_forest_walk {walk}")
+    prefix = "device_seconds_serve_forest_walk_bucket_"
+    buckets = {int(k[len(prefix):]): {"samples": v[0],
+                                      "mean_ms": v[1] / v[0] * 1e3}
+               for k, v in delta["histograms"].items()
+               if k.startswith(prefix)}
+    # 1-row requests land in the ladder's smallest bucket
+    check(4096 in buckets and len(buckets) >= 2,
+          f"attribution serving: bucket series {sorted(buckets)}")
+    cf = CompiledForest.from_booster(lt.Booster(model_file=model_path),
+                                     device="cuda")
+    bound_ms = fw.launch_cost(cf.walk_tables, cf.num_features, 4096, True,
+                              cut_cols=cf.cut_tables()[0].shape[1]) \
+        / HBM_BYTES_PER_S * 1e3
+    return {"programs": {p: {**e, "roofline_pct": delta["gauges"].get(
+        f"devprof_roofline_pct_{p}")} for p, e in sorted(est.items())},
+        "buckets": dict(sorted(buckets.items())),
+        "k4_bound_ms_b4096": bound_ms,
+        "b4096_mean_over_bound": buckets[4096]["mean_ms"] / bound_ms,
+        "k4_launches": k4, **_percentiles(lat)}
+
+
+def attribution_ledger(proc, ledger, events_file):
+    """Join the ledger's build subprocess: one line, ``roll_chain``,
+    whose seconds are the nvcc wall the build returned, read back by
+    ``obs-report --compile``."""
+    from lightgbm_tpu_torch.obs import compile_ledger
+    from lightgbm_tpu_torch.obs.report import main as obs_report_main
+    out, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"ledger build: {err[-2000:]}")
+    built = json.loads(out.strip().splitlines()[-1])
+    rows = compile_ledger.read_ledger(ledger)
+    check(len(rows) == 1 and rows[0]["program"] == "roll_chain",
+          f"ledger: {rows}")
+    check(abs(rows[0]["seconds"] - built["seconds"]["roll_chain"]) < 1e-5,
+          f"ledger seconds {rows[0]['seconds']} against nvcc's "
+          f"{built['seconds']}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(obs_report_main([events_file, f"--compile={ledger}",
+                               "--format=json"]) == 0,
+              "obs-report --compile")
+    section = json.loads(buf.getvalue())["compile"]
+    check(section["count"] == 1, f"obs-report --compile: {section}")
+    return {"line": rows[0], "build_wall_s": built["wall_s"],
+            "report": section}
+
+
+def attribution_poison(train_set, off_text, workdir):
+    """``poison_gradients(at_iteration=2)`` under ``nan_policy=skip_tree``
+    over ATTR_POISON_UPDATES updates of the training cell: one tree
+    fewer, ``nan_iterations_dropped`` up by one, the event record naming
+    iteration 2, and the trees those of the clean run (the retry grows
+    from the same gradients)."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.testing import faults
+    path = f"{workdir}/attr_poison.jsonl"
+    b = lt.Booster(params={**TRAIN_PARAMS, **CONST,
+                           "nan_policy": "skip_tree"}, train_set=train_set)
+    rec = obs.EventRecorder(path)
+    b.set_event_recorder(rec)
+    d0 = obs.get_counter("nan_iterations_dropped")
+    t0 = time.perf_counter()
+    with faults.poison_gradients(b, at_iteration=2):
+        for _ in range(ATTR_POISON_UPDATES):
+            b.update()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rec.close()
+    b.set_event_recorder(None)
+    n = ATTR_POISON_UPDATES - 1
+    hit = [r for r in obs.read_events(path) if r.get("nan_poisoned")]
+    check(b.num_trees() == n, f"poison: {b.num_trees()} trees")
+    check(obs.get_counter("nan_iterations_dropped") == d0 + 1,
+          "poison: nan_iterations_dropped")
+    check([(r["iter"], r["nan_poisoned"]) for r in hit]
+          == [(2, "gradients/hessians")], f"poison: records {hit}")
+    check(trees_text(b.model_to_string(), 0, n) == trees_text(off_text, 0, n),
+          "poison: the retried trees differ from the clean run's")
+    return {"updates": ATTR_POISON_UPDATES, "trees": n, "dropped": 1,
+            "record": hit[0], "seconds": seconds}
+
+
+def phase_attribution(seed, datasets, higgs_model, higgs_grid, workdir):
+    """Device-time attribution on the card, on the training cell (the
+    train phase's datasets; ordered grower) and the Higgs forest.
+    ATTR_ROUNDS rounds with ``devprof`` off, ``full`` and ``sample:4``:
+    model texts byte-equal, host reads a tree and K1's launches
+    unchanged; under ``full`` every dispatch a sample, under ``sample:4``
+    a quarter; no forced sync in either; per program the estimate,
+    samples and roofline against the H100 row, and the rounds' host and
+    device split.  The fused and nocache growers ATTR_FULL_ROUNDS rounds
+    under ``full`` (K3's and K2's bytes in ``train_step``).  A trace
+    window over 2 rounds after CUPTI's initialization outside it: the
+    device busy share of the window, K1's kernels against its launches,
+    the time under hist / find_split / split.  TIMETAG over 5 rounds (the
+    phase totals, the forced-sync seconds, the round time beside the
+    bare), memwatch over 2 (the ``GBDT::iteration`` watermark beside
+    ``torch.cuda.max_memory_allocated``), one devprof server
+    (``attribution_serving``), one ledger line from a build in a
+    subprocess (``attribution_ledger``) and ``poison_gradients``
+    (``attribution_poison``).  Returns the launches."""
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.obs import compile_ledger, devprof, memwatch
+    from lightgbm_tpu_torch.ops import leafhist as lh
+    from lightgbm_tpu_torch.utils import timetag
+    train_set, valid_set, _, _ = datasets
+    t_phase = time.perf_counter()
+    ledger = f"{workdir}/attr_compile_ledger.jsonl"
+    ledger_proc = subprocess.Popen(
+        [sys.executable, "-c", LEDGER_BUILD, f"{workdir}/attr_build",
+         ledger], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    launches = {}
+
+    def count(run):
+        for name, n in run["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+
+    try:
+        params = {**TRAIN_PARAMS, **CONST}
+        modes = {}
+        for mode in ("off", "full", "sample:4"):
+            modes[mode] = run = attribution_run(
+                f"ordered_{mode}", {**params, "devprof": mode},
+                ATTR_ROUNDS, train_set, valid_set)
+            count(run)
+        off = modes["off"]
+        off_text = off["booster"].model_to_string()
+        for mode, run in modes.items():
+            check(run["booster"].model_to_string() == off_text,
+                  f"attribution: the devprof={mode} model text differs")
+            check(run["syncs_per_tree"] == off["syncs_per_tree"]
+                  and run["launches"] == off["launches"],
+                  f"attribution {mode}: host reads a tree "
+                  f"{run['syncs_per_tree']}, launches {run['launches']} "
+                  f"against off's {off['syncs_per_tree']}, "
+                  f"{off['launches']}")
+        check(off["est"] == {} and not any(
+            k.startswith("devprof_dispatches")
+            for k in off["delta"]["counters"]),
+            f"attribution off: devprof counted {off['delta']['counters']}")
+        _check_sampled(modes["full"], 1)
+        _check_sampled(modes["sample:4"], 4)
+        median = {mode: float(np.median(run["round_s"][2:]))
+                  for mode, run in modes.items()}
+        growers = {}
+        for name, extra, _ in GROWERS[2:4]:
+            run = attribution_run(name, {**TRAIN_PARAMS, **extra,
+                                         "devprof": "full"},
+                                  ATTR_FULL_ROUNDS, train_set, None)
+            count(run)
+            _check_sampled(run, 1)
+            growers[name] = {"programs": _program_rows(run),
+                             "round_split": _round_split(run),
+                             "launches": run["launches"],
+                             "round_s": run["round_s"]}
+        # the trace window: CUPTI initialized by a window of its own
+        # first, outside the timed rounds
+        t0 = time.perf_counter()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts):
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+        cupti_s = time.perf_counter() - t0
+        trace_dir = f"{workdir}/attr_trace"
+        k1_after = []
+
+        def after_round(env):
+            k1_after.append(lh.launch_counts()["digit_histogram"])
+        traced = attribution_run(
+            "trace", {**params, "trace_dir": trace_dir,
+                      "trace_start_iter": 1, "trace_num_iters": 2}, 3,
+            train_set, None, callbacks=(after_round,))
+        count(traced)
+        check(trees_text(traced["booster"].model_to_string(), 0, 3)
+              == trees_text(off_text, 0, 3),
+              "attribution: the traced trees differ")
+        files = sorted(os.listdir(trace_dir))
+        check(files == ["trace_iter1.json"], f"trace window files {files}")
+        window = trace_window_summary(os.path.join(trace_dir, files[0]))
+        window["k1_launches"] = k1_after[2] - k1_after[0]
+        window["round_s"] = traced["round_s"]
+        window["cupti_init_s"] = cupti_s
+        check(0 < window["k1_kernels"] <= window["k1_launches"],
+              f"trace window: {window['k1_kernels']} K1 kernels for "
+              f"{window['k1_launches']} launches")
+        check({"hist", "find_split", "split"} <= set(
+            window["ranges"].get("user_annotation", {})),
+            f"trace window ranges {window['ranges']}")
+        # TIMETAG, with an events file (each record's phases)
+        timetag.reset()
+        timetag.enable(True)
+        events_file = f"{workdir}/attr_timetag.jsonl"
+        try:
+            tt = attribution_run("timetag", {**params,
+                                             "events_file": events_file},
+                                 ATTR_TIMETAG_ROUNDS, train_set, valid_set)
+        finally:
+            timetag.enable(False)
+        count(tt)
+        totals, calls = timetag.get_timings(), timetag.get_counts()
+        timetag.reset()
+        check(trees_text(tt["booster"].model_to_string(), 0,
+                         ATTR_TIMETAG_ROUNDS)
+              == trees_text(off_text, 0, ATTR_TIMETAG_ROUNDS),
+              "attribution: the TIMETAG trees differ")
+        records = obs.read_events(events_file)
+        check(len(records) == ATTR_TIMETAG_ROUNDS and all(
+            {"GBDT::tree", "GBDT::host_tree"} <= set(r["phases"])
+            for r in records), "attribution: TIMETAG event phases")
+        fs = tt["delta"]["histograms"].get("devprof_forced_sync_seconds",
+                                           [0, 0.0])
+        # memwatch over 2 rounds, peaks restarted
+        memwatch.reset_peak()
+        torch.cuda.reset_peak_memory_stats()
+        check(obs.get_gauge("memwatch_device_bytes_in_use_gbdt_iteration")
+              is None, "attribution memwatch: sampled before it was on")
+        mw = attribution_run("memwatch", {**params, "memwatch": True}, 2,
+                             train_set, valid_set)
+        count(mw)
+        g = mw["delta"]["gauges"]
+        mark = g.get("memwatch_device_bytes_in_use_gbdt_iteration")
+        check(mark is not None and g.get("memwatch_device_peak_bytes"),
+              f"attribution memwatch: gauges {sorted(g)}")
+        memory = {"gbdt_iteration_bytes_in_use": mark,
+                  "peak_bytes": g["memwatch_device_peak_bytes"],
+                  "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                  "reserved_bytes": g.get("memwatch_device_reserved_bytes")}
+        check(memory["peak_bytes"] <= memory["max_memory_allocated"],
+              f"attribution memwatch: {memory}")
+        devprof.configure(None)
+        memwatch.configure(None)
+        model_path = f"{workdir}/attr_higgs_model.txt"
+        with open(model_path, "w") as fh:
+            fh.write(higgs_model.save_model_to_string())
+        serving = attribution_serving(model_path, seed, higgs_grid)
+        for name, n in serving["k4_launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        devprof.configure(None)
+        memwatch.configure(None)
+        compile_ledger.configure(None)
+        poison = attribution_poison(train_set, off_text, workdir)
+        ledger_out = attribution_ledger(ledger_proc, ledger, events_file)
+    finally:
+        if ledger_proc.poll() is None:
+            ledger_proc.kill()
+        devprof.configure(None)
+        memwatch.configure(None)
+        timetag.enable(False)
+    emit({"phase": "attribution", "rows": train_set.num_data(),
+          "params": params, "rounds": ATTR_ROUNDS,
+          "device": obs.devcaps.capabilities(torch.device("cuda", 0)),
+          "round_s_median_3_10": median,
+          "full_over_off": median["full"] / median["off"],
+          "sample4_over_off": median["sample:4"] / median["off"],
+          "host_syncs_per_tree": off["syncs_per_tree"],
+          "k1_launches": {m: r["launches"].get("digit_histogram")
+                          for m, r in modes.items()},
+          "programs": {m: _program_rows(modes[m])
+                       for m in ("full", "sample:4")},
+          "round_split": {m: _round_split(modes[m])
+                          for m in ("full", "sample:4")},
+          "samples_skipped_compile": {
+              m: r["delta"]["counters"].get(
+                  "devprof_samples_skipped_compile", 0)
+              for m, r in modes.items()},
+          "growers": growers, "trace_window": window,
+          "timetag": {"rounds": ATTR_TIMETAG_ROUNDS, "totals_s": totals,
+                      "calls": calls, "forced_syncs": fs[0],
+                      "forced_sync_s": fs[1],
+                      "round_s_median_3_5": float(
+                          np.median(tt["round_s"][2:])),
+                      "bare_round_s_median_3_10": median["off"]},
+          "memwatch": memory, "serving": serving, "ledger": ledger_out,
+          "poison": poison, "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the scikit-learn estimators, and the guarded data boundary
 
 
@@ -6707,7 +7223,7 @@ def phase_rule2(seed, dev, reps, at, windows, launches):
     k1 = []
     for cls, n in windows.get("digit_histogram", {}).items():
         S = min(int(cls), TRAIN_ROWS)
-        nbytes = S * F + 9 * S + 4 * F * 9 * B
+        nbytes = lh.launch_cost(S, F, bins.element_size(), B)
         ops = int((dig[:S] != 0).sum()) * F
         k1.append({"window_class": int(cls), "S": S, "launches": n,
                    "ms": cuda_ms(lambda: lh.digit_histogram(bins, dig, B, 0,
@@ -6809,7 +7325,6 @@ def phase_timing(seed, dev, higgs_model, higgs_grid, lin_model, lin_grid,
         bnd, cats, is_cat = cfs[0].cut_tables()
         depth = torch.from_numpy(leaf_depths(base)).to(dev)
         K, T = base.num_class, base.trees_per_class
-        cut_bytes = bnd.numel() * 4 + cats.numel() * 4 + is_cat.numel()
         search_steps = int(np.ceil(np.log2(bnd.shape[1] + 1)))
         for B in TIMING_SIZES:
             X = random_rows(rng, B, grid, cat, ncat, tie_frac=0.02)
@@ -6826,11 +7341,8 @@ def phase_timing(seed, dev, higgs_model, higgs_grid, lin_model, lin_grid,
             for cf in cfs:
                 t = cf.walk_tables
                 cov = xt if t.linear else None
-                table_bytes = (t.nodes.numel() * 4 + t.leaves.numel()
-                               * t.leaves.element_size())
                 slots = None
                 if t.linear:
-                    table_bytes += t.coeff.numel() * 4 + t.feat.numel() * 4
                     slots = (t.feat >= 0).sum(dim=2).reshape(K, T, -1)
                 for raw in (False, True):
                     name = t.variant(raw)
@@ -6843,16 +7355,16 @@ def phase_timing(seed, dev, higgs_model, higgs_grid, lin_model, lin_grid,
                         def plain():
                             return fw.forest_walk_raw_plain(
                                 t, bnd, cats, is_cat, xr)
-                        nbytes = xr.numel() * 4 + cut_bytes
+                        nbytes = fw.launch_cost(t, F, B, True,
+                                                cut_cols=bnd.shape[1])
                     else:
                         def run():
                             return fw.forest_walk(t, bins, cov)
 
                         def plain():
                             return fw.forest_walk_plain(t, bins, cov)
-                        nbytes = bins.numel() * bins.element_size() + (
-                            cov.numel() * 4 if t.linear else 0)
-                    nbytes += table_bytes + K * B * 4
+                        nbytes = fw.launch_cost(t, F, B, False,
+                                                bins.element_size())
                     visits = int(depth.gather(2, lv).sum())
                     ops = visits + 4 * K * T * B + (
                         B * F * search_steps if raw else 0)
@@ -6902,7 +7414,7 @@ def leaf_hist_timing(seed, dev, reps):
         p_ms = cuda_ms(lambda: lh.digit_histogram_plain(bins, dig, B, 0, S),
                        2)
         lib_ms = cuda_ms(index_add_call(bins, dig, S, F, B), 2)
-        nbytes = S * F * bins.element_size() + 9 * S + 4 * F * 9 * B
+        nbytes = lh.launch_cost(S, F, bins.element_size(), B)
         ops = int((dig[:S] != 0).sum()) * F
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_OPS_PER_S * 1e3
@@ -6957,13 +7469,12 @@ def children_hist_timing(seed, dev, reps):
                           device=dev)
         lib_ms = cuda_ms(lambda: acc.index_add_(0, seg, vals), 2)
         del seg, vals, acc
-        in_bytes = S * F * bins.element_size() + 16 * S
-        for name, ms, plain_ms, lib, out_bytes, ops in (
-                ("children_histograms", k2_ms, p2_ms, lib_ms,
-                 2 * F * B * 3 * 4, 3 * S * F),
-                ("fused_split_candidates", k3_ms, p3_ms, None,
-                 2 * F * 8 * 4, 3 * S * F + 20 * 2 * F * B)):
-            nbytes = in_bytes + out_bytes
+        for name, ms, plain_ms, lib, scan, ops in (
+                ("children_histograms", k2_ms, p2_ms, lib_ms, False,
+                 3 * S * F),
+                ("fused_split_candidates", k3_ms, p3_ms, None, True,
+                 3 * S * F + 20 * 2 * F * B)):
+            nbytes = ch.launch_cost(S, F, bins.element_size(), B, scan)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / F32_OPS_PER_S * 1e3
             rows.append({"kernel": name, "S": S, "F": F, "max_bin": B,
@@ -7197,7 +7708,7 @@ def probe_timing(dev, reps):
              # one SM's shared-memory traffic: per stage and column one
              # 8-byte (key, source) read and one 8-byte write
              "smem_bytes": rc.STAGES * rc.NB * 16,
-             **bound(2 * x.numel() * 4,
+             **bound(rc.launch_cost(x.numel()),
                      rc.STAGES * rc.NB * 2 * (rc.WORDS + 1)),
              "kernels_line": True}]
 
@@ -7218,14 +7729,12 @@ def probe_timing(dev, reps):
     del seg, vals, acc
     plain = {m: cuda_ms(lambda: wh.window_digit_histogram_plain(
         bw, dmat if m else dw, win, pd.F, pd.B), 2) for m in (False, True)}
-    out_bytes = 4 * pd.F * 9 * pd.B
 
     def p2_row(name, nb, matrix):
         dig = dmat if matrix else dw
         t = timed(lambda: wh.window_digit_histogram(
             bw, dig, win, pd.F, pd.B), reps)
-        nbytes = count * (len(bw) * 4 + (9 if matrix else 12)) + 8 \
-            + out_bytes
+        nbytes = wh.launch_cost(count, len(bw), matrix, pd.F, pd.B)
         return {"kernel": "window_digit_histogram", "layout": name,
                 "nb": nb, "digits": "matrix" if matrix else "words",
                 "plan": wh.card_plan(bw, dig, pd.F, pd.B)._asdict(),
@@ -7424,6 +7933,10 @@ def main(argv=None) -> int:
                                        higgs_grid, workdir).items():
             launches[name] += n
         clock.lap("telemetry")
+        for name, n in phase_attribution(args.seed, datasets, higgs_model,
+                                         higgs_grid, workdir).items():
+            launches[name] = launches.get(name, 0) + n
+        clock.lap("attribution")
         del datasets
     launches.update(phase_probes(args.timing_reps))
     clock.lap("probes")

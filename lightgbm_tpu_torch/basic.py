@@ -700,8 +700,11 @@ class Booster:
         return cf
 
     def _compiled(self, num_iteration: int):
+        """The forest ``predict`` walks: its buckets' transfers are the
+        training side's ``predict`` account."""
         if self._forest is None or self._forest[0] != int(num_iteration):
             self.compile(num_iteration)
+            self._forest[1]._xfer_phase = "predict"
         return self._forest[1]
 
     #: data rows a chunk of a predicted file
@@ -783,13 +786,12 @@ class Booster:
 
     def telemetry(self) -> Dict[str, Any]:
         """The process registry's snapshot (``counters``, ``gauges``,
-        ``histograms``; ``phase_seconds`` stays empty until the TIMETAG
-        timers are ported) and this booster's collective account
-        (``comm``: cumulative bytes and calls, the per-tree traffic of a
+        ``histograms`` and ``phase_seconds``, the TIMETAG totals when
+        TIMETAG is on) and this booster's collective account (``comm``:
+        cumulative bytes and calls, the per-tree traffic of a
         distributed learner)."""
         from . import obs
         snap = obs.snapshot()
-        snap.setdefault("phase_seconds", {})
         b = self._booster
         snap["comm"] = {
             "bytes_cum": int(getattr(b, "_cum_comm_bytes", 0)),

@@ -39,7 +39,14 @@ peer) exits with code 75, for the launcher to restart it.
 ``is_predict_leaf_index=true`` writes each row's leaf in every tree
 instead of scores.  ``events_file=``, ``trace_events_file=`` and
 ``metrics_port=`` record a run (``obs/``), and ``obs-report`` summarises
-its files (``obs/report.py``).  ``python -m
+its files (``obs/report.py``).  Device-time attribution (the JAX CLI's
+keys): ``--trace-dir=<dir>`` (or LIGHTGBM_TPU_TRACE_DIR) writes a
+``torch.profiler`` Chrome trace over a window of iterations
+(``trace_start_iter``, ``trace_num_iters``); ``compile_ledger_file=``
+writes an append-only JSONL of every nvcc build (program, shapes,
+seconds); ``devprof=full|sample:N`` times each named unit of device work
+with CUDA events; ``memwatch=true`` samples the allocator's watermarks
+at span boundaries.  ``python -m
 lightgbm_tpu_torch serve ...`` is sugar for ``task=serve``.
 """
 
@@ -177,7 +184,11 @@ def main(argv=None) -> int:
               "data=<csv|tsv|libsvm> objective=<regression|regression_l1|"
               "huber|fair|poisson|binary|multiclass|lambdarank> "
               "[output_model=<file>] [valid_data=<file>] "
-              "[device=cuda|cpu]\n"
+              "[device=cuda|cpu] "
+              "[--events-file=<jsonl>] [--trace-dir=<dir>] "
+              "[metrics_port=<p>] "
+              "[compile_ledger_file=<jsonl>] [trace_events_file=<json>] "
+              "[memwatch=true] [devprof=off|full|sample:N]\n"
               "       python -m lightgbm_tpu_torch task=predict "
               "input_model=<model> data=<file> [output_result=<file>] "
               "[device=cuda|cpu]\n"
@@ -187,6 +198,8 @@ def main(argv=None) -> int:
               "       python -m lightgbm_tpu_torch obs-report "
               "<events.jsonl ...> [--format=json|table] [--top=K] "
               "[--compile=<ledger.jsonl>]\n"
+              "       python -m lightgbm_tpu_torch obs-report --profile "
+              "[<snapshot.json> ...]\n"
               "       python -m lightgbm_tpu_torch obs-report --traces "
               "<trace_events.json ...>")
         return 1

@@ -14,8 +14,9 @@ exactly one of three tables (pinned by a test):
   the key's aliases too).  It is empty now; the mechanism stays for a
   later key;
 * :data:`INERT`: keys that cannot change a tree, a prediction or the
-  run's outcome (thread counts, telemetry, compile caches): each is
-  accepted with one warning.
+  run's outcome and that the port does not read (thread counts, the
+  JAX compile cache): each is accepted with one warning.  The telemetry
+  keys, device-time attribution's among them, are read.
 
 A key of neither package is ignored with one warning too.
 :meth:`Config.check_trainable` refuses an unknown objective or boosting
@@ -287,6 +288,15 @@ _DEFAULTS: Dict[str, Any] = {
     "trace_events_file": "",
     "metrics_port": 0,
     "metrics_host": "127.0.0.1",
+    # device-time attribution (obs/devprof.py, obs/trace.py,
+    # obs/compile_ledger.py, obs/memwatch.py); each env variable wins
+    "trace_dir": "",            # LIGHTGBM_TPU_TRACE_DIR
+    "trace_start_iter": 5,
+    "trace_num_iters": 2,
+    "compile_ledger_file": "",  # LIGHTGBM_TPU_COMPILE_LEDGER
+    "memwatch": False,          # LIGHTGBM_TPU_MEMWATCH
+    "devprof": "off",           # off | full | sample:N
+                                # (LIGHTGBM_TPU_DEVPROF)
 }
 
 #: key -> (refused(value), what the JAX package does with it): a value
@@ -300,16 +310,12 @@ REFUSED: Dict[str, tuple] = {}
 #: ``tpu_double_hist``, ``is_save_binary_file`` and ``is_pre_partition``
 #: are read by nothing in the JAX package outside its config (the first
 #: through its aliases only; only ``Dataset.save_binary`` writes a
-#: binary file).  ``trace_dir``, ``trace_start_iter``, ``trace_num_iters``,
-#: ``compile_ledger_file``, ``memwatch`` and ``devprof`` belong to the
-#: device-time attribution, not ported yet; ``compile_cache_dir`` has no
-#: counterpart (the kernels' builds are cached by hash in ``build/``).
+#: binary file).  ``compile_cache_dir`` has no counterpart (the
+#: kernels' builds are cached by hash in ``build/``).
 INERT = frozenset({
     "seed", "num_threads", "enable_load_from_binary_file",
     "is_save_binary_file", "is_pre_partition",
-    "tpu_histogram_impl", "tpu_double_hist",
-    "trace_dir", "trace_start_iter", "trace_num_iters",
-    "compile_ledger_file", "memwatch", "devprof", "compile_cache_dir",
+    "tpu_histogram_impl", "tpu_double_hist", "compile_cache_dir",
 })
 
 _BOOL_KEYS = {k for k, v in _DEFAULTS.items() if isinstance(v, bool)}
@@ -453,6 +459,10 @@ class Config:
             raise ValueError("feature_screen_warmup must be >= 0")
         if not (0.0 < v["feature_screen_decay"] <= 1.0):
             raise ValueError("feature_screen_decay must be in (0, 1]")
+        # the devprof grammar is obs/devprof.parse_mode's: a typo dies
+        # here, not as a profile silently off
+        from .obs.devprof import parse_mode as _devprof_parse
+        _devprof_parse(v["devprof"])
         if v["nan_policy"] not in ("none", "fail_fast", "skip_tree"):
             raise ValueError(
                 f"Unknown nan_policy {v['nan_policy']} "

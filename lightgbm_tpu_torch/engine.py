@@ -101,11 +101,13 @@ def _split_callbacks(cbs):
 
 class _RunTelemetry:
     """A ``train`` run's telemetry (the JAX ``train``'s): the causal
-    tracer armed at the start from ``trace_events_file`` (a run without
-    it disarms the tracer), the event recorder on the booster
-    (``events_file``) and the ``/metrics`` listener (``metrics_port``),
-    shut down on every exit of the run, an exception's too, where the
-    span trees are exported."""
+    tracer, the compile ledger's sink, ``devprof`` and ``memwatch``
+    configured at the start from the run's keys (a run without them
+    disarms each; the env variables win), the event recorder on the
+    booster (``events_file``) and the ``/metrics`` listener
+    (``metrics_port``), shut down on every exit of the run, an
+    exception's too, where the span trees are exported and a device
+    trace window still open is closed."""
 
     def __init__(self, params: dict, events_file=None):
         self.params = params
@@ -116,17 +118,22 @@ class _RunTelemetry:
         self._watchdog = None
 
     def __enter__(self) -> "_RunTelemetry":
-        obs.TRACER.configure(self.params.get("trace_events_file") or None)
+        p = self.params
+        obs.TRACER.configure(p.get("trace_events_file") or None)
+        obs.compile_ledger.configure(p.get("compile_ledger_file") or None)
+        obs.devprof.configure(p.get("devprof"))
+        obs.memwatch.configure(p.get("memwatch"))
         return self
 
     def record(self, booster: Booster) -> None:
-        """Attach the event recorder to ``booster``, when asked for."""
+        """Hold the run's booster (its trace window closes with the run)
+        and attach the event recorder to it, when asked for."""
+        self._gbdt = booster._booster
         if not self.events_file:
             return
         flush_every = int(self.params.get("events_flush_every", 1) or 1)
         self.recorder = obs.EventRecorder(str(self.events_file),
                                           flush_every=flush_every)
-        self._gbdt = booster._booster
         self._gbdt.set_event_recorder(self.recorder)
 
     def start(self, watchdog) -> None:
@@ -140,6 +147,9 @@ class _RunTelemetry:
             watchdog.register_flush(self.recorder.close)
 
     def __exit__(self, *exc) -> None:
+        if self._gbdt is not None:
+            # a trace window the run ended inside is written now
+            self._gbdt.close_trace()
         if self.recorder is not None:
             self.recorder.close()
             self._gbdt.set_event_recorder(None)

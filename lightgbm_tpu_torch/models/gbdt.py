@@ -130,7 +130,7 @@ from ..ops.bundle import BundleDecode
 from ..ops.grow import GrowParams, SerialComm, _read, grow_tree
 from ..ops.ordered_grow import grow_tree_ordered
 from ..ops.predict import predict_binned_tree
-from ..utils import log, resource
+from ..utils import log, resource, timetag
 from ..utils import random as jrandom
 from ..utils.log import LightGBMError
 from .linear import (LinearParams, affine_epilogue, attach_linear,
@@ -321,6 +321,10 @@ class _DeviceData:
             self.raw = torch.from_numpy(np.where(
                 np.isnan(dataset.raw), np.float32(0.0),
                 dataset.raw).astype(np.float32)).to(device)
+        up = [t for t in (self.bins, self.bins_rm, self.score, self.raw)
+              if t is not None]
+        obs.devprof.transfer("h2d", "dataset",
+                             sum(int(t.nbytes) for t in up), len(up))
 
     def host_score(self) -> np.ndarray:
         """[num_models, num_data] f64 host copy of the score buffer."""
@@ -393,6 +397,8 @@ class GBDT:
     #: loop.  The port has one round that keeps whichever order the JAX
     #: package would take.
     _masks_before_gradients = True
+    # the torch.profiler window (obs/trace.py), set by _setup
+    _trace = None
     #: the per-iteration event stream (``obs.EventRecorder``;
     #: ``set_event_recorder``), None when off
     _telemetry = None
@@ -498,6 +504,8 @@ class GBDT:
         # merge, which appends other trees, drops them)
         self.tree_arrays: list = []
         self.linear_fallbacks = 0
+        # the torch.profiler window (trace_dir / LIGHTGBM_TPU_TRACE_DIR)
+        self._trace = obs.TraceCapture.from_config(config, device)
 
     @staticmethod
     def _make_grow_params(config) -> GrowParams:
@@ -1050,7 +1058,8 @@ class GBDT:
         # class i % num_class (the JAX add_valid_dataset)
         with resource.oom_guard("valid_replay",
                                 lambda: resource.render_shapes(dd.bins,
-                                                               dd.score)):
+                                                               dd.score),
+                                self.device, profile="predict_forest"):
             for i, tree in enumerate(self.models):
                 self._add_host_tree_to(dd, tree, i % self.num_class)
         self.valid_data.append(dd)
@@ -1199,7 +1208,8 @@ class GBDT:
 
         The round is one ``GBDT::iteration`` span: a wall-time histogram
         observe and, with the tracer armed, the root of the round's span
-        tree; it never synchronizes the device."""
+        tree; it never synchronizes the device.  With ``devprof`` on,
+        ``round_scope`` splits the round into host and device shares."""
         resynced = self._maybe_check_consistency()
         if resynced and grad is not None:
             log.warning(
@@ -1207,14 +1217,35 @@ class GBDT:
                 "round's custom-objective gradients were computed from "
                 "the pre-resync scores; the pod stays consistent but "
                 "this one round ingests the stale gradients", self.iter_)
-        with obs.span("GBDT::iteration"):
+        with obs.devprof.round_scope(), obs.span("GBDT::iteration"):
             return self._train_one_iter_impl(grad, hess)
 
+    def close_trace(self) -> None:
+        """Stop a trace window the training loop ended inside."""
+        if self._trace is not None:
+            self._trace.close()
+
     def _train_one_iter_impl(self, grad, hess) -> bool:
-        """Body of one boosting round (``train_one_iter``)."""
+        """Body of one boosting round (``train_one_iter``).
+
+        The TIMETAG scopes are the JAX round's: a standard round (the
+        JAX fused step) is ``GBDT::bagging``, one ``GBDT::tree`` over the
+        gradients and every class's growth, and ``GBDT::valid_score`` a
+        class; a custom objective or GOSS (the JAX per-stage path) is
+        ``GBDT::boosting``, ``GBDT::bagging``, then a class's
+        ``GBDT::tree``, ``Bin::linear_fit``, ``GBDT::train_score`` and
+        ``GBDT::valid_score``; both end in one ``GBDT::host_tree``, the
+        grown trees built on the host.  Off, each scope is one flag
+        read.  Each unit of device work runs under its OOM guard, the
+        devprof seam, on the training device."""
         it = self.iter_
-        t_iter0 = time.perf_counter() if self._telemetry is not None \
-            else 0.0
+        rec = self._telemetry
+        t_iter0 = time.perf_counter() if rec is not None else 0.0
+        tt0 = (timetag.get_timings()
+               if rec is not None and timetag.ENABLED else None)
+        if self._trace is not None:
+            self._trace.iter_begin(it)
+        dev = self.device
         # the screening view and mask, before any mask draw reads them
         self._view = self._select_view()
         guard = self._nan_policy != "none"
@@ -1224,77 +1255,103 @@ class GBDT:
         poisoned = None
         feat_masks = None
         td = self.train_data
-        if grad is None and hess is None and self._masks_before_gradients:
-            with resource.oom_guard("bag_mask",
-                                    lambda: resource.render_shapes(
-                                        td.score[0])):
-                row_weight = self._bagging_mask(it)
-            feat_masks = [self._feature_mask()
-                          for _ in range(self.num_class)]
-            with resource.oom_guard("train_gradients",
-                                    lambda: resource.render_shapes(
-                                        td.score)):
-                grad, hess = self._gradients()
-        else:
-            if grad is None or hess is None:
+        fused = (grad is None and hess is None
+                 and self._masks_before_gradients)
+        # the JAX fused step is one GBDT::tree over gradients and growth
+        tree_scope = (timetag.scope("GBDT::tree") if fused
+                      else contextlib.nullcontext())
+        with tree_scope as tt_fused:
+            if fused:
+                with timetag.scope("GBDT::bagging"), resource.oom_guard(
+                        "bag_mask", lambda: resource.render_shapes(
+                            td.score[0]), dev):
+                    row_weight = self._bagging_mask(it)
+                feat_masks = [self._feature_mask()
+                              for _ in range(self.num_class)]
                 with resource.oom_guard("train_gradients",
                                         lambda: resource.render_shapes(
-                                            td.score)):
+                                            td.score), dev):
                     grad, hess = self._gradients()
             else:
-                grad, hess = (_to_device(torch.from_numpy(
-                    np.ascontiguousarray(a, np.float32).reshape(
-                        self.num_class, -1)), self.device)
-                    for a in (grad, hess))
-            grad, hess = self._transform_gradients(grad, hess)
-        if guard and not _all_finite(grad, hess):
-            # caught before growing: the round grows nothing
-            poisoned = "gradients/hessians"
-        if feat_masks is None:
-            with resource.oom_guard("bag_mask",
-                                    lambda: resource.render_shapes(
-                                        td.score[0])):
-                row_weight = self._bagging_mask(it)
-        self._round_weight = row_weight
-        # every class's tree and deltas first, the commits after: a unit
-        # that dies in an allocation leaves the booster as it was
-        grown = []
-        for cls in range(self.num_class) if poisoned is None else ():
-            self._feat_mask = (feat_masks[cls] if feat_masks is not None
-                               else self._feature_mask())
-            view = self._view
-            with resource.oom_guard(
-                    "train_step", lambda: resource.render_shapes(
-                        grad[cls], hess[cls], self._round_weight,
-                        view.bins, view.bins_rm)):
-                ta, leaf_id, delta = self._grow(grad[cls], hess[cls])
-            host_lin = None
-            if self._linear is not None:
-                # the grower's leaf of every row is the leaf a re-walk of
-                # the grown structure over the bins finds (tested)
-                with resource.oom_guard(
-                        "linear_fit", lambda: resource.render_shapes(
-                            td.raw, grad[cls], leaf_id)):
-                    ta, host_lin, delta = self._fit_linear(
-                        ta, leaf_id, grad[cls], hess[cls])
-            tree = Tree.from_arrays(ta, self.train_set.mappers,
-                                    self.train_set.used_feature_map,
-                                    self.shrinkage_rate)
-            if host_lin is not None:
-                attach_linear(tree, *host_lin,
-                              self.train_set.used_feature_map)
-            grown.append((cls, ta, tree, delta))
-        replays = []
-        for dd in self.valid_data:
-            with resource.oom_guard("valid_replay",
-                                    lambda: resource.render_shapes(
-                                        dd.bins, dd.score)):
-                replays.append([self._host_tree_delta(dd, tree)
-                                for _, _, tree, _ in grown])
+                with timetag.scope("GBDT::boosting") as tt:
+                    if grad is None or hess is None:
+                        with resource.oom_guard(
+                                "train_gradients",
+                                lambda: resource.render_shapes(td.score),
+                                dev):
+                            grad, hess = self._gradients()
+                    else:
+                        grad, hess = (_to_device(torch.from_numpy(
+                            np.ascontiguousarray(a, np.float32).reshape(
+                                self.num_class, -1)), dev)
+                            for a in (grad, hess))
+                    grad, hess = self._transform_gradients(grad, hess)
+                    tt.sync((grad, hess))
+            if guard and not _all_finite(grad, hess):
+                # caught before growing: the round grows nothing
+                poisoned = "gradients/hessians"
+            if feat_masks is None:
+                with timetag.scope("GBDT::bagging"), resource.oom_guard(
+                        "bag_mask", lambda: resource.render_shapes(
+                            td.score[0]), dev):
+                    row_weight = self._bagging_mask(it)
+            self._round_weight = row_weight
+            # every class's tree and deltas first, the commits after: a
+            # unit that dies in an allocation leaves the booster as it was
+            grown = []
+            for cls in range(self.num_class) if poisoned is None else ():
+                self._feat_mask = (feat_masks[cls] if feat_masks is not None
+                                   else self._feature_mask())
+                view = self._view
+                with (contextlib.nullcontext() if fused
+                      else timetag.scope("GBDT::tree")) as tt, \
+                        resource.oom_guard(
+                            "train_step", lambda: resource.render_shapes(
+                                grad[cls], hess[cls], self._round_weight,
+                                view.bins, view.bins_rm), dev):
+                    ta, leaf_id, delta = self._grow(grad[cls], hess[cls])
+                    if tt is not None:
+                        tt.sync(delta)
+                host_lin = None
+                if self._linear is not None:
+                    # the grower's leaf of every row is the leaf a re-walk
+                    # of the grown structure over the bins finds (tested)
+                    with (contextlib.nullcontext() if fused
+                          else timetag.scope("Bin::linear_fit")) as tt, \
+                            resource.oom_guard(
+                                "linear_fit", lambda: resource.render_shapes(
+                                    td.raw, grad[cls], leaf_id), dev):
+                        ta, host_lin, delta = self._fit_linear(
+                            ta, leaf_id, grad[cls], hess[cls])
+                        if tt is not None:
+                            tt.sync(delta)
+                grown.append((cls, ta, host_lin, delta))
+            if tt_fused is not None:
+                tt_fused.sync([d for _, _, _, d in grown])
+        with timetag.scope("GBDT::host_tree"):
+            grown = [(cls, ta, self._host_tree(ta, host_lin), delta)
+                     for cls, ta, host_lin, delta in grown]
+        # a class's valid-set deltas under its GBDT::valid_score, as the
+        # JAX round scores them (one scope a class, valid sets or not)
+        replays = [[] for _ in self.valid_data]
+        for _, _, tree, _ in grown:
+            with timetag.scope("GBDT::valid_score") as tt:
+                for dd, out in zip(self.valid_data, replays):
+                    with resource.oom_guard(
+                            "valid_replay", lambda: resource.render_shapes(
+                                dd.bins, dd.score), dev,
+                            profile="predict_forest"):
+                        out.append(self._host_tree_delta(dd, tree))
+                tt.sync([out[-1] for out in replays])
         with resource.oom_guard("score_update",
-                                lambda: resource.render_shapes(td.score)):
+                                lambda: resource.render_shapes(td.score),
+                                dev):
             for (cls, _, _, delta) in grown:
-                td.score[cls] += delta
+                with (contextlib.nullcontext() if fused
+                      else timetag.scope("GBDT::train_score")) as tt:
+                    td.score[cls] += delta
+                    if tt is not None:
+                        tt.sync(td.score)
             for dd, deltas in zip(self.valid_data, replays):
                 for (cls, _, _, _), d in zip(grown, deltas):
                     dd.score[cls] += d
@@ -1319,7 +1376,6 @@ class GBDT:
             if not self._screen_observes_late:
                 self._observe_pending()
         saturated = all(t.num_leaves <= 1 for t in trees)
-        rec = self._telemetry
         if rec is not None:
             # the shapes of trees already on the host: no device read
             shapes = [{"num_leaves": int(t.num_leaves),
@@ -1335,8 +1391,22 @@ class GBDT:
         else:
             self._models.extend(trees)
             self.iter_ += 1
-        self._note_iter_event(it, t_iter0)
+        self._note_iter_event(it, t_iter0, tt0)
         return saturated
+
+    def _host_tree(self, ta, host_lin) -> Tree:
+        """The host ``Tree`` of a grown tree's arrays (and linear
+        leaves); the arrays' bytes are the round's ``host_tree``
+        device-to-host account (the grower read them off the card)."""
+        obs.devprof.transfer(
+            "d2h", "host_tree",
+            sum(int(v.nbytes) for v in ta if isinstance(v, torch.Tensor)))
+        tree = Tree.from_arrays(ta, self.train_set.mappers,
+                                self.train_set.used_feature_map,
+                                self.shrinkage_rate)
+        if host_lin is not None:
+            attach_linear(tree, *host_lin, self.train_set.used_feature_map)
+        return tree
 
     # -- telemetry (obs/) ----------------------------------------------
     def set_event_recorder(self, recorder) -> None:
@@ -1346,15 +1416,24 @@ class GBDT:
         ``callback.log_telemetry``).  ``None`` detaches."""
         self._telemetry = recorder
 
-    def _note_iter_event(self, it: int, t0: float) -> None:
-        """The round's host-side fields of its event record.  ``phases``
-        stays empty: the TIMETAG deltas come with device-time
-        attribution (the JAX booster's, with TIMETAG off)."""
+    def _note_iter_event(self, it: int, t0: float, tt0=None) -> None:
+        """Close the trace window when its last round ends, then note the
+        round's host-side fields of its event record.  ``phases`` holds
+        the round's TIMETAG deltas against ``tt0``, the accumulator at
+        the round's start (None while TIMETAG is off: then ``{}``, as
+        the JAX booster writes it)."""
+        if self._trace is not None:
+            self._trace.iter_end(it, sync=self.train_data.score)
         rec = self._telemetry
         if rec is None:
             return
+        phases = {}
+        if tt0 is not None:
+            now = timetag.get_timings()
+            phases = {k: round(v - tt0.get(k, 0.0), 6)
+                      for k, v in now.items() if v > tt0.get(k, 0.0)}
         rec.note(it, wall_s=round(time.perf_counter() - t0, 6),
-                 phases={}, bag_cnt=int(self._bag_cnt),
+                 phases=phases, bag_cnt=int(self._bag_cnt),
                  comm_bytes_cum=int(self._cum_comm_bytes),
                  comm_calls_cum=int(self._cum_comm_calls))
 
@@ -1368,9 +1447,12 @@ class GBDT:
         self.train_data.score = score0
         for dd, s0 in zip(self.valid_data, vscores0):
             dd.score = s0
+        obs.inc("nan_iterations_dropped")
         rec = self._telemetry
         if rec is not None:
             rec.note(it, nan_poisoned=what, nan_policy=self._nan_policy)
+        if self._trace is not None:
+            self._trace.iter_end(it, sync=self.train_data.score)
         obj = getattr(self.objective, "name", "?")
         if self._nan_policy == "fail_fast":
             log.fatal(
@@ -1631,7 +1713,12 @@ class GBDT:
     def eval_set(self, key: str) -> List[tuple]:
         """[(metric name, value, bigger is better)] on the set named
         ``key`` (``training`` or ``valid_<i>``), from an f64 host copy of
-        its scores."""
+        its scores; one ``GBDT::metric`` TIMETAG scope (the JAX
+        ``Booster.__eval_at``'s)."""
+        with timetag.scope("GBDT::metric"):
+            return self._eval_set(key)
+
+    def _eval_set(self, key: str) -> List[tuple]:
         for k, dd, metrics in self._metric_sets():
             if k == key:
                 score = dd.host_score()
@@ -1641,9 +1728,11 @@ class GBDT:
         raise KeyError(key)
 
     def eval_metrics(self) -> Dict[str, Dict[str, float]]:
-        """Every metric of the training set and each valid set."""
-        return {k: {name: v for name, v, _ in self.eval_set(k)}
-                for k, _, metrics in self._metric_sets() if metrics}
+        """Every metric of the training set and each valid set, under one
+        ``GBDT::metric`` TIMETAG scope (the JAX ``eval_metrics``'s)."""
+        with timetag.scope("GBDT::metric"):
+            return {k: {name: v for name, v, _ in self._eval_set(k)}
+                    for k, _, metrics in self._metric_sets() if metrics}
 
     def rollback_one_iter(self) -> None:
         """GBDT::RollbackOneIter (gbdt.cpp:384-402): pop the last round's

@@ -20,14 +20,19 @@ The port's counterpart of the JAX package's ``obs``:
 - ``metrics_server``: the training ``GET /metrics`` listener
   (``metrics_port`` / ``LIGHTGBM_TPU_METRICS_PORT``);
 - ``drift`` (``DataFingerprint`` and the serve-side ``DriftCollector``)
-  and ``memwatch`` (the caching allocator's watermarks).
-
-Device-time attribution (the JAX ``devprof``, ``devcaps``, ``trace``,
-the compile ledger and the TIMETAG sink of ``span``) is not ported yet.
+  and ``memwatch`` (the caching allocator's watermarks, sampled at every
+  span exit while ``memwatch`` is on);
+- device-time attribution: ``devprof`` (CUDA-event samples of each named
+  unit of device work, roofline gauges, transfer accounts), ``devcaps``
+  (the capability table, the H100 row among its rows), ``trace``
+  (``TraceCapture``, a ``torch.profiler`` window over boosting rounds)
+  and ``compile_ledger`` (one event an nvcc build); the TIMETAG sink of
+  ``span`` feeds ``utils/timetag.py``.
 """
 
 from __future__ import annotations
 
+from . import compile_ledger, devcaps, devprof, memwatch  # noqa: F401
 from . import registry  # noqa: F401
 from .events import SCHEMA_VERSION, EventRecorder, read_events
 from .phases import HOST_PHASES, span_series
@@ -36,6 +41,7 @@ from .registry import (DEFAULT_TIME_BUCKETS, REGISTRY, get_counter,
                        get_gauge, get_histogram, histogram_quantile, inc,
                        merge, observe, reset, set_gauge, snapshot)
 from .spans import span, timed
+from .trace import TraceCapture
 from .tracing import TRACER
 
 
@@ -62,8 +68,9 @@ def trace_link(src, dst):
 
 
 __all__ = ["DEFAULT_TIME_BUCKETS", "EventRecorder", "HOST_PHASES",
-           "REGISTRY", "SCHEMA_VERSION", "TRACER", "get_counter",
+           "REGISTRY", "SCHEMA_VERSION", "TRACER", "TraceCapture",
+           "compile_ledger", "devcaps", "devprof", "get_counter",
            "get_gauge", "get_histogram", "histogram_quantile", "inc",
-           "labeled_name", "merge", "observe", "read_events", "reset",
-           "set_gauge", "snapshot", "span", "span_series", "split_series",
+           "labeled_name", "memwatch", "merge", "observe", "read_events",
+           "reset", "set_gauge", "snapshot", "span", "span_series", "split_series",
            "timed", "trace_begin", "trace_end", "trace_link", "trace_span"]

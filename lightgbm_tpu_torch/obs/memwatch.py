@@ -11,21 +11,57 @@ A process without a card reports nothing.  The JAX version's live-array
 walk (``jax.live_arrays``) has no counterpart: the allocator's own
 count is what the port reads.
 
-The JAX package samples at every span exit when its ``memwatch`` key
-is on; those hooks wait for the port's span tracer, and until then the
-key is inert (``config.INERT``).  Here ``sample()`` serves the
-device-OOM diagnosis (``utils/resource.py``) and the estimate check of
-``chip_smoke.py``.
+The switch is the JAX module's: the ``memwatch`` key or
+``LIGHTGBM_TPU_MEMWATCH`` (the variable wins), resolved for each run by
+``configure`` (``engine.train``, ``serve_from_config``).  While it is
+on, ``obs.span`` samples at every span exit under the span's name, so
+``memwatch_device_bytes_in_use_gbdt_iteration`` is a round's watermark.
+``sample()`` also serves the device-OOM diagnosis
+(``utils/resource.py``) whatever the switch.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import os
+from typing import Any, Dict, Optional
 
 import torch
 
+from ..utils import coerce_bool as _coerce
 from . import registry
 from .prom import sanitize
+
+ENV = "LIGHTGBM_TPU_MEMWATCH"
+
+ENABLED = False
+
+
+def enable(on: bool = True) -> None:
+    global ENABLED
+    ENABLED = bool(on)
+
+
+def configure(flag: Any = None) -> bool:
+    """The switch of a run: ``LIGHTGBM_TPU_MEMWATCH`` wins over the
+    ``memwatch`` flag; neither disarms (each run's configuration holds).
+    Returns the new state."""
+    env = os.environ.get(ENV, "").strip()
+    if env:
+        enable(_coerce(env))
+    else:
+        enable(_coerce(flag) if flag is not None else False)
+    return ENABLED
+
+
+def reset_peak(device: Optional[torch.device] = None) -> None:
+    """Restart the allocator's peak (``memwatch_device_peak_bytes``) at
+    what is allocated now; nothing without a card."""
+    if device is None:
+        if not torch.cuda.is_available():
+            return
+        device = torch.device("cuda", torch.cuda.current_device())
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
 
 
 def sample(phase: Optional[str] = None,

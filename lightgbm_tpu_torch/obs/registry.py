@@ -153,14 +153,17 @@ class Registry:
             return h.to_dict() if h is not None else None
 
     def snapshot(self) -> Dict[str, Any]:
-        """``{"counters", "gauges", "histograms"}`` as plain dicts (the
-        JAX package's adds its TIMETAG phase timers, not ported)."""
+        """``{"counters", "gauges", "histograms", "phase_seconds"}`` as
+        plain dicts, as the JAX registry's: ``phase_seconds`` are the
+        ``utils/timetag.py`` totals (empty unless TIMETAG is on)."""
+        from ..utils import timetag
         with self._lock:
             return {
                 "counters": dict(self._counters),
                 "gauges": dict(self._gauges),
                 "histograms": {k: h.to_dict()
                                for k, h in self._histograms.items()},
+                "phase_seconds": timetag.get_timings(),
             }
 
     def merge(self, snap: Mapping[str, Any]) -> None:

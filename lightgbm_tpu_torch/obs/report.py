@@ -31,9 +31,11 @@ same command reads the sibling inputs, with the JAX package's formats:
 - ``--drift``: the drift observatory's offender table from registry
   snapshots or ``/stats`` drift blocks.
 
-The compile ledger and the device-time series are written by the JAX
-package's compile ledger and devprof, which the port does not have yet:
-here the two sections are readers of those files and series.
+The compile ledger and the device-time series are written by the port's
+``obs/compile_ledger.py`` (one event an nvcc build) and
+``obs/devprof.py``, or by the JAX package's: each section reads either
+package's files alike.  ``--profile``'s device row is
+``devcaps.capabilities()``, the card's peaks.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ import json
 import sys
 from typing import Any, Dict, List, Optional, Sequence
 
+from . import devcaps
+from .compile_ledger import read_ledger
 from .events import read_events
 
 
@@ -66,36 +70,6 @@ def _merge_by_iter(evs: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
             else:
                 rec[k] = dict(v) if isinstance(v, dict) else v
     return [merged[it] for it in order]
-
-
-def read_ledger(path: str) -> List[Dict[str, Any]]:
-    """Parse a compile ledger JSONL into event dicts (the JAX package's
-    ``compile_ledger.read_ledger``: a torn final line from a crashed run
-    is dropped, not fatal)."""
-    out: List[Dict[str, Any]] = []
-    with open(path) as fh:
-        for line in fh:
-            line = line.strip()
-            if not line:
-                continue
-            try:
-                out.append(json.loads(line))
-            except json.JSONDecodeError:
-                continue
-    return out
-
-
-def device_row() -> Dict[str, Any]:
-    """This process's device in the JAX ``devcaps.capabilities()`` form.
-    The peaks stay None (``source`` ``unknown``) until the port's
-    capability table comes with its device-time attribution."""
-    import torch
-    if torch.cuda.is_available():
-        platform, kind = "gpu", torch.cuda.get_device_name(0)
-    else:
-        platform = kind = "cpu"
-    return {"platform": platform, "device_kind": kind, "peak_flops": None,
-            "peak_bytes_per_sec": None, "source": "unknown"}
 
 
 def summarize_compile(path: str, top_k: int = 5) -> Dict[str, Any]:
@@ -271,7 +245,7 @@ def profile_summary(snap: Optional[Dict[str, Any]] = None,
                if k.startswith("device_seconds_") and "_bucket_" in k}
     return {
         "mode": mode,
-        "device": device_row(),
+        "device": devcaps.capabilities(),
         "rounds": {
             "count": int(c.get("devprof_rounds_total", 0)),
             "host_seconds": round(float(rh.get("sum", 0.0)), 6),

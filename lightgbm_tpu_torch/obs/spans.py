@@ -14,9 +14,15 @@ is disarmed), which the batcher links its requests' queue spans into.
 
 ``timed(name)`` wraps a function in a span.
 
-Not here yet, because the device-time attribution they feed is not
-ported: the JAX span's TIMETAG sink (its ``sync(x)`` requests and the
-timetag accumulator) and the ``memwatch`` sample at span exit.
+Two more instruments ride on the span boundaries, as in the JAX span,
+each gated on one module-attribute read:
+
+- TIMETAG (``utils/timetag.py``): while it is on, a span also feeds the
+  timetag accumulator for ``name`` and honours ``sync(x)`` requests,
+  waiting on ``x`` before its clock stops through the counted
+  ``devprof.sync``;
+- memwatch (``obs/memwatch.py``): while it is on, every span exit
+  samples the allocator's watermarks under the span's name.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import time
 from contextlib import contextmanager
 from typing import Callable, Optional, Sequence
 
-from . import phases, registry, tracing
+from . import devprof, memwatch, phases, registry, tracing
 
 # span names are a small fixed set: memoize the name -> series string
 _series_cache: dict = {}
@@ -40,23 +46,31 @@ def _series(name: str) -> str:
 
 
 class _SpanHandle:
-    """Yielded by ``span``; ``trace`` is the causal-tracing handle (None
-    unless the tracer is armed)."""
+    """Yielded by ``span``: ``sync(x)`` registers tensors to wait on
+    before the clock stops, honoured only under TIMETAG; ``trace`` is
+    the causal-tracing handle (None unless the tracer is armed)."""
 
-    __slots__ = ("trace",)
+    __slots__ = ("value", "trace")
 
     def __init__(self):
+        self.value = None
         self.trace = None
+
+    def sync(self, value) -> None:
+        self.value = value
 
 
 @contextmanager
 def span(name: str, buckets: Optional[Sequence[float]] = None,
          reg: Optional[registry.Registry] = None):
     """Time this block into the ``span_series(name)`` wall-time
-    histogram (and the span tree when the tracer is armed).  An
+    histogram (the span tree when the tracer is armed, the timetag
+    accumulator under TIMETAG).  An
     exception in the block passes through; the span still ends."""
+    from ..utils import timetag
     r = reg if reg is not None else registry.REGISTRY
     handle = _SpanHandle()
+    serialize = timetag.ENABLED
     token = None
     if tracing.TRACER.enabled:
         handle.trace = tracing.TRACER.begin(name)
@@ -65,10 +79,18 @@ def span(name: str, buckets: Optional[Sequence[float]] = None,
     try:
         yield handle
     finally:
-        r.observe(_series(name), time.perf_counter() - t0, buckets)
+        if serialize and handle.value is not None:
+            # counted: the serializing mode's wait shows in its profile
+            devprof.sync(handle.value, source=name)
+        dt = time.perf_counter() - t0
+        r.observe(_series(name), dt, buckets)
+        if serialize:
+            timetag.add(name, dt)
         if handle.trace is not None:
             tracing.pop(token)
             tracing.TRACER.end(handle.trace)
+        if memwatch.ENABLED:
+            memwatch.sample(name, reg=r)
 
 
 def timed(name: str, buckets: Optional[Sequence[float]] = None) -> Callable:

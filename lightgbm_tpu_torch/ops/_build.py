@@ -13,6 +13,12 @@ Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 spill report is kept beside the library (``lib<name>-<hash>.log``).
 No ``--use_fast_math``: the kernels' f32 arithmetic must round as the
 plain PyTorch versions do.
+
+Each nvcc run is one event of the compile ledger (``obs/compile_ledger.py``):
+program = the source's name, shapes = ``sm_90a,<digest>``, seconds =
+that nvcc process's own wall time (each is waited on by a thread of its
+own, so a build that ends first is not charged the others' time).  A
+library loaded from ``build/`` records nothing.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Dict, Iterable
 
 import torch
 
+from ..obs import compile_ledger
 from ..utils.log import LightGBMError
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -36,6 +43,7 @@ SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("forest_walk", "leaf_hist", "children_hist", "roll_chain",
            "window_hist")
+ARCH = "sm_90a"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -86,7 +94,7 @@ def build_log(name: str) -> str:
 
 def _start(name: str):
     """Launch nvcc for ``name`` unless its library is current; returns
-    ``(process, tmp_path, final_path)`` or None."""
+    ``(process, tmp_path, final_path, start_time)`` or None."""
     out = library_path(name)
     if out.is_file():
         return None
@@ -94,14 +102,21 @@ def _start(name: str):
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
            str(SRC_DIR / f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return proc, tmp, out, t0
 
 
-def _finish(name: str, started) -> None:
-    proc, tmp, out = started
+def _wait(started) -> tuple:
+    """``(output, nvcc's wall seconds)`` of a started build."""
+    proc, _, _, t0 = started
     text, _ = proc.communicate()
+    return text, time.perf_counter() - t0
+
+
+def _finish(name: str, started, text: str, seconds: float) -> None:
+    proc, tmp, out, _ = started
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise LightGBMError(
@@ -109,21 +124,33 @@ def _finish(name: str, started) -> None:
             f"{proc.returncode}):\n{text}")
     out.with_suffix(".log").write_text(text)
     os.replace(tmp, out)      # atomic: a reader never sees a partial .so
+    compile_ledger.record(name, f"{ARCH},{_digest(name)}", seconds)
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     """Build every named source, one nvcc per source, all started
-    together.  Returns wall seconds per source (0.0 when current)."""
-    t0 = time.perf_counter()
+    together.  Returns nvcc's wall seconds per source (0.0 when
+    current)."""
     with _lock:
         started = {n: _start(n) for n in names}
+        done: Dict[str, tuple] = {}
+
+        def wait(n):
+            done[n] = _wait(started[n])
+
+        waiters = [threading.Thread(target=wait, args=(n,), daemon=True)
+                   for n, s in started.items() if s is not None]
+        for w in waiters:
+            w.start()
+        for w in waiters:
+            w.join()
         secs = {}
         for n, s in started.items():
             if s is None:
                 secs[n] = 0.0
                 continue
-            _finish(n, s)
-            secs[n] = time.perf_counter() - t0
+            text, secs[n] = done[n]
+            _finish(n, s, text, secs[n])
     return secs
 
 

@@ -63,6 +63,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from ..obs import devprof
 from ..utils.log import LightGBMError
 from . import _build
 from .histogram import build_children_histograms, build_root_histogram
@@ -103,6 +104,19 @@ def launch_counts() -> Dict[str, int]:
 def _count(name: str) -> None:
     with _count_lock:
         LAUNCHES[name] += 1
+
+
+def launch_cost(N: int, F: int, itemsize: int, max_bin: int, scan: bool,
+                leaf: bool = True) -> int:
+    """Bytes one K2 (``scan`` False) or K3 launch must move: the bins
+    (``itemsize`` bytes each), g, h and w f32 and, unless the root form
+    takes none, the int32 leaf ids of the ``N`` rows read once; the
+    output written once (K2's [2, F, max_bin, 3] f32 sums, K3's
+    [2, F, 8] f32 candidates; K3's scratch stays in L2).
+    ``obs/devprof.py``'s roofline and ``chip_smoke.py``'s ``bound_ms``
+    both read it."""
+    out = 2 * F * 8 * 4 if scan else 2 * F * max_bin * 3 * 4
+    return N * F * itemsize + (16 if leaf else 12) * N + out
 
 
 def gain_tolerance(left_g, left_h, total_g, total_h, abs_g, abs_h,
@@ -343,6 +357,9 @@ def _children_kernel(bins, grad, hess, weight, leaf_id, parent_leaf,
         raise LightGBMError(
             f"children_histograms kernel launch failed: CUDA error {err}")
     _count("children_histograms")
+    if devprof.ENABLED:
+        devprof.add_bytes(launch_cost(N, F, bins.element_size(), max_bin,
+                                      False, leaf_id is not None))
     return out
 
 
@@ -419,4 +436,7 @@ def fused_split_candidates(bins, grad, hess, weight, leaf_id, parent_leaf,
         raise LightGBMError(
             f"fused_split_candidates kernel launch failed: CUDA error {err}")
     _count("fused_split_candidates")
+    if devprof.ENABLED:
+        devprof.add_bytes(launch_cost(N, F, bins.element_size(), max_bin,
+                                      True))
     return out

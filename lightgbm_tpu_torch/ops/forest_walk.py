@@ -36,6 +36,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..obs import devprof
 from ..utils.log import LightGBMError
 from . import _build
 from .predict import predict_binned_forest, predict_binned_forest_linear
@@ -83,6 +84,26 @@ def launch_counts() -> Dict[str, int]:
 def _count(name: str) -> None:
     with _count_lock:
         LAUNCHES[name] += 1
+
+
+def launch_cost(tables: "WalkTables", F: int, B: int, raw: bool,
+                bin_itemsize: int = 1, cut_cols: int = 0) -> int:
+    """Bytes one K4 launch must move: its input rows read once (binned:
+    the [F, B] bins of ``bin_itemsize`` bytes and a linear forest's f32
+    covariates; raw: the [F, B] f32 rows and the [F, ``cut_cols``] f32
+    and int32 cut tables with the [F] uint8 flags), the tables once
+    (nodes, leaves, a linear forest's coefficients and features) and
+    the [K, B] f32 output written once.  ``obs/devprof.py``'s roofline
+    and ``chip_smoke.py``'s ``bound_ms`` both read it."""
+    table = (tables.nodes.numel() * 4
+             + tables.leaves.numel() * tables.leaves.element_size())
+    if tables.linear:
+        table += tables.coeff.numel() * 4 + tables.feat.numel() * 4
+    if raw:
+        rows = F * B * 4 + F * cut_cols * 8 + F
+    else:
+        rows = F * B * bin_itemsize + (F * B * 4 if tables.linear else 0)
+    return rows + table + tables.num_class * B * 4
 
 
 class WalkTables(NamedTuple):
@@ -545,6 +566,9 @@ def forest_walk(tables: WalkTables, bins: torch.Tensor,
     name = tables.variant(raw=False)
     _raise_on(err, name)
     _count(name)
+    if devprof.ENABLED:
+        devprof.add_bytes(launch_cost(tables, F, B, False,
+                                      bins.element_size()))
     return out
 
 
@@ -590,4 +614,6 @@ def forest_walk_raw(tables: WalkTables, bnd: torch.Tensor,
     name = tables.variant(raw=True)
     _raise_on(err, name)
     _count(name)
+    if devprof.ENABLED:
+        devprof.add_bytes(launch_cost(tables, F, B, True, cut_cols=C))
     return out

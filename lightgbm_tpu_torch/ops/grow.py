@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from . import leafhist
+from ..obs.trace import device_range
 from .bundle import decode_feature_bins, expand_digit_sums, expand_histogram
 from .histogram import (children_histograms, children_split_candidates,
                         root_histogram)
@@ -235,25 +236,34 @@ class SerialComm(NamedTuple):
                 totals = torch.stack([
                     torch.stack([root_g, root_h, root_c]),
                     torch.zeros(3, dtype=torch.float32, device=dev)])
-                cand = children_split_candidates(
-                    bins, g, h, w,
-                    torch.zeros(bins.shape[1], dtype=torch.int32,
-                                device=dev),
-                    0, -2, totals, num_bin, is_cat, feat_mask, max_bin, sp)
-                return combine_feature_candidates(
-                    _first(cand), root_g, root_h, true, sp), None
-            hist = root_histogram(bins, g, h, w, max_bin)
-            if bundle is not None:
-                hist = expand_histogram(hist, bundle)
-            return find_best_split(hist, root_g, root_h, root_c, num_bin,
-                                   is_cat, feat_mask, true, sp), None
+                with device_range("hist"):
+                    cand = children_split_candidates(
+                        bins, g, h, w,
+                        torch.zeros(bins.shape[1], dtype=torch.int32,
+                                    device=dev),
+                        0, -2, totals, num_bin, is_cat, feat_mask, max_bin,
+                        sp)
+                with device_range("find_split"):
+                    return combine_feature_candidates(
+                        _first(cand), root_g, root_h, true, sp), None
+            with device_range("hist"):
+                hist = root_histogram(bins, g, h, w, max_bin)
+                if bundle is not None:
+                    hist = expand_histogram(hist, bundle)
+            with device_range("find_split"):
+                return find_best_split(hist, root_g, root_h, root_c,
+                                       num_bin, is_cat, feat_mask, true,
+                                       sp), None
         F = bins.shape[0]
-        sums = leafhist.digit_histogram(prep.bins_rm, prep.digits, max_bin)
-        scan_sums = (sums if bundle is None
-                     else expand_digit_sums(sums, bundle))
-        hist = leafhist.combine_digit_sums(scan_sums, prep.scales)
-        split = find_best_split(hist, root_g, root_h, root_c, num_bin,
-                                is_cat, feat_mask, true, sp)
+        with device_range("hist"):
+            sums = leafhist.digit_histogram(prep.bins_rm, prep.digits,
+                                            max_bin)
+            scan_sums = (sums if bundle is None
+                         else expand_digit_sums(sums, bundle))
+            hist = leafhist.combine_digit_sums(scan_sums, prep.scales)
+        with device_range("find_split"):
+            split = find_best_split(hist, root_g, root_h, root_c, num_bin,
+                                    is_cat, feat_mask, true, sp)
         cache = torch.zeros((num_leaves, F, leafhist.NUM_STREAMS, max_bin),
                             dtype=torch.int32, device=dev)
         cache[0] = sums
@@ -266,20 +276,36 @@ class SerialComm(NamedTuple):
         if not self.leaf_cache:
             if self.fused_gain and bundle is None:
                 totals = torch.stack([totals_g, totals_h, totals_c], dim=-1)
-                cand = children_split_candidates(
-                    bins, g, h, w, step.leaf_id, step.parent_leaf,
-                    step.right_leaf, totals, num_bin, is_cat, feat_mask,
-                    max_bin, sp)
-                return combine_feature_candidates(cand, totals_g, totals_h,
-                                                  can, sp), cache
-            hists = children_histograms(bins, g, h, w, step.leaf_id,
-                                        step.parent_leaf, step.right_leaf,
-                                        max_bin)
-            if bundle is not None:
-                hists = expand_histogram(hists, bundle)
+                with device_range("hist"):
+                    cand = children_split_candidates(
+                        bins, g, h, w, step.leaf_id, step.parent_leaf,
+                        step.right_leaf, totals, num_bin, is_cat, feat_mask,
+                        max_bin, sp)
+                with device_range("find_split"):
+                    return combine_feature_candidates(
+                        cand, totals_g, totals_h, can, sp), cache
+            with device_range("hist"):
+                hists = children_histograms(bins, g, h, w, step.leaf_id,
+                                            step.parent_leaf,
+                                            step.right_leaf, max_bin)
+                if bundle is not None:
+                    hists = expand_histogram(hists, bundle)
+            with device_range("find_split"):
+                return find_best_split(hists, totals_g, totals_h, totals_c,
+                                       num_bin, is_cat, feat_mask, can,
+                                       sp), cache
+        with device_range("hist"):
+            hists = self._cached_children_hists(prep, cache, step, max_bin,
+                                                bundle)
+        with device_range("find_split"):
             return find_best_split(hists, totals_g, totals_h, totals_c,
                                    num_bin, is_cat, feat_mask, can,
                                    sp), cache
+
+    def _cached_children_hists(self, prep, cache, step: _StepInfo,
+                               max_bin: int, bundle=None):
+        """Both children's histograms from the smaller child's K1 pass
+        and the cached parent (the cache updated in place)."""
         classes = leafhist.size_classes(step.leaf_id.shape[0])
         # raw (unweighted) row counts decide which child is smaller, like
         # the reference's data-count rule (serial_tree_learner.cpp:404-420)
@@ -303,9 +329,7 @@ class SerialComm(NamedTuple):
         cache.index_copy_(0, pair, torch.where(step.do_split, both, cur))
         if bundle is not None:
             both = expand_digit_sums(both, bundle)
-        hists = leafhist.combine_digit_sums(both, prep.scales)
-        return find_best_split(hists, totals_g, totals_h, totals_c, num_bin,
-                               is_cat, feat_mask, can, sp), cache
+        return leafhist.combine_digit_sums(both, prep.scales)
 
 
 # ---------------------------------------------------------------------------
@@ -468,13 +492,14 @@ def _step(k: int, state: _GrowState, cache, comm: SerialComm, prep, bins,
 
     # partition: rows of best_leaf with bin > t (numerical) or bin != t
     # (categorical) move to the right child
-    feat_c = feat.clamp(min=0)
-    fbin = _feature_bins(bins, feat_c, bundle)
-    cat_f = is_cat.index_select(0, feat_c.reshape(1))[0]
-    go_right = torch.where(cat_f, fbin != tbin, fbin > tbin)
-    in_leaf = state.leaf_id == best_leaf
-    new_leaf_id = torch.where(do_split & in_leaf & go_right, right_leaf,
-                              state.leaf_id)
+    with device_range("split"):
+        feat_c = feat.clamp(min=0)
+        fbin = _feature_bins(bins, feat_c, bundle)
+        cat_f = is_cat.index_select(0, feat_c.reshape(1))[0]
+        go_right = torch.where(cat_f, fbin != tbin, fbin > tbin)
+        in_leaf = state.leaf_id == best_leaf
+        new_leaf_id = torch.where(do_split & in_leaf & go_right, right_leaf,
+                                  state.leaf_id)
 
     # split sums: rows (left, right) x cols (g, h, count)
     left = rf[1:4]

@@ -40,6 +40,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..obs import devprof
 from ..utils.log import LightGBMError
 from . import _build
 
@@ -86,6 +87,15 @@ def launch_counts() -> Dict[str, int]:
 def _count(name: str) -> None:
     with _count_lock:
         LAUNCHES[name] += 1
+
+
+def launch_cost(count: int, F: int, itemsize: int, max_bin: int) -> int:
+    """Bytes one K1 launch must move: the window's ``count`` rows of
+    bins (``itemsize`` bytes each) and of 9 int8 digits read once, the
+    [F, 9, max_bin] int32 output written once.  ``obs/devprof.py``'s
+    roofline and ``chip_smoke.py``'s ``bound_ms`` both read it."""
+    return (count * F * itemsize + NUM_STREAMS * count
+            + 4 * F * NUM_STREAMS * max_bin)
 
 
 # ---------------------------------------------------------------------------
@@ -307,6 +317,9 @@ def digit_histogram(bins_rm: torch.Tensor, digits: torch.Tensor,
         raise LightGBMError(
             f"digit_histogram kernel launch failed: CUDA error {err}")
     _count("digit_histogram")
+    if devprof.ENABLED:
+        devprof.add_bytes(launch_cost(count, F, bins_rm.element_size(),
+                                      max_bin))
     return out
 
 

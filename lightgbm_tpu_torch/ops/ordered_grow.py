@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ..utils.log import LightGBMError
+from ..obs.trace import device_range
 from . import leafhist
 from .grow import GrowParams, TreeArrays
 from .predict import predict_binned_tree
@@ -187,11 +188,13 @@ def grow_tree_ordered(bins_rm: torch.Tensor, num_bin: torch.Tensor,
         store = _storage(bins_rm.clone())
     work_bins = store.view(bins_rm.dtype)
 
-    sums_root = histogram(work_bins, digits, B)
-    root_split = find_best_split(
-        leafhist.combine_digit_sums(sums_root, scales), root_tot[0],
-        root_tot[1], root_tot[2], num_bin, is_cat, feat_mask,
-        torch.ones((), dtype=torch.bool, device=dev), sp)
+    with device_range("hist"):
+        sums_root = histogram(work_bins, digits, B)
+    with device_range("find_split"):
+        root_split = find_best_split(
+            leafhist.combine_digit_sums(sums_root, scales), root_tot[0],
+            root_tot[1], root_tot[2], num_bin, is_cat, feat_mask,
+            torch.ones((), dtype=torch.bool, device=dev), sp)
     root = _read(torch.cat([root_tot, _split_vector(root_split)]))
     cache = [None] * L
     cache[0] = sums_root
@@ -231,8 +234,9 @@ def grow_tree_ordered(bins_rm: torch.Tensor, num_bin: torch.Tensor,
         s, c = int(rb_i[_LI["start"]]), int(rb_i[_LI["cnt"]])
         depth, parent_node = int(rb_i[_LI["depth"]]), int(rb_i[_LI["parent"]])
 
-        cnt_dev = _partition(store, digits, row_ord, s, c, feat, tbin,
-                             is_cat[feat])
+        with device_range("split"):
+            cnt_dev = _partition(store, digits, row_ord, s, c, feat, tbin,
+                                 is_cat[feat])
         if host_counts:
             cnt_l = int(rb_f[_LF["best_left_c"]])
             counts_dev.append(cnt_dev)
@@ -240,11 +244,11 @@ def grow_tree_ordered(bins_rm: torch.Tensor, num_bin: torch.Tensor,
         else:
             cnt_l = int(_read(cnt_dev))
         small_left = cnt_l <= c - cnt_l
-        sums_small = histogram(work_bins, digits, B,
-                               s if small_left else s + cnt_l,
-                               min(cnt_l, c - cnt_l))
-        sums_parent = cache[best_leaf]
-        sums_large = sums_parent - sums_small
+        with device_range("hist"):
+            sums_small = histogram(work_bins, digits, B,
+                                   s if small_left else s + cnt_l,
+                                   min(cnt_l, c - cnt_l))
+            sums_large = cache[best_leaf] - sums_small
         sums_left = sums_small if small_left else sums_large
         sums_right = sums_large if small_left else sums_small
         cache[best_leaf], cache[right_leaf] = sums_left, sums_right
@@ -272,13 +276,14 @@ def grow_tree_ordered(bins_rm: torch.Tensor, num_bin: torch.Tensor,
         can = params.max_depth <= 0 or depth + 1 < params.max_depth
         totals = _upload(np.array([left_g, right_g, left_h, right_h, left_c,
                                    right_c], np.float32), dev)
-        child = find_best_split(
-            leafhist.combine_digit_sums(
-                torch.stack([sums_left, sums_right]), scales),
-            totals[0:2], totals[2:4], totals[4:6], num_bin, is_cat,
-            feat_mask, torch.full((2,), can, dtype=torch.bool, device=dev),
-            sp)
-        cs = _read(_split_vector(child).reshape(6, 2).T)   # [2, 6]
+        with device_range("find_split"):
+            child = find_best_split(
+                leafhist.combine_digit_sums(
+                    torch.stack([sums_left, sums_right]), scales),
+                totals[0:2], totals[2:4], totals[4:6], num_bin, is_cat,
+                feat_mask,
+                torch.full((2,), can, dtype=torch.bool, device=dev), sp)
+            cs = _read(_split_vector(child).reshape(6, 2).T)   # [2, 6]
         for leaf, ci, tot, val, seg_s, seg_c in (
                 (best_leaf, 0, (left_g, left_h, left_c), left_val, s, cnt_l),
                 (right_leaf, 1, (right_g, right_h, right_c), right_val,

@@ -29,6 +29,7 @@ from typing import Dict
 
 import torch
 
+from ..obs import devprof
 from ..utils.log import LightGBMError
 from . import _build
 
@@ -81,6 +82,13 @@ def _lib():
     return lib
 
 
+def launch_cost(numel: int) -> int:
+    """Bytes one P1 launch must move: the ``numel`` int32 input words
+    read once and the output written once (``chip_smoke.py``'s
+    ``bound_ms`` reads it)."""
+    return 2 * numel * 4
+
+
 def roll_chain(x: torch.Tensor) -> torch.Tensor:
     """The stage chain on ``x`` [WORDS, NB] int32 (contiguous) into a new
     tensor: the kernel on a card, the plain version on the CPU."""
@@ -95,6 +103,8 @@ def roll_chain(x: torch.Tensor) -> torch.Tensor:
             f"roll_chain kernel launch failed: CUDA error {err}")
     with _count_lock:
         LAUNCHES["roll_chain"] += 1
+    if devprof.ENABLED:
+        devprof.add_bytes(launch_cost(x.numel()))
     return out
 
 

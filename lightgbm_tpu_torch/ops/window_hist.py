@@ -244,6 +244,19 @@ def card_plan(bin_words, digits, num_features: int,
     return plan_window(bin_words.shape[1], num_features, max_bin, sms, bps)
 
 
+def launch_cost(count: int, words: int, matrix: bool, num_features: int,
+                max_bin: int) -> int:
+    """Bytes one P2 launch must move over a window of ``count`` rows:
+    ``words`` int32 bin words and the digits (a 9-byte int8 row, or 3
+    int32 words) of each row read once, the [off, count] window read
+    once and the [F, 9, max_bin] int32 output written once
+    (``chip_smoke.py``'s ``bound_ms`` reads it).  The window lies in
+    device memory, so the wrapper adds nothing to a devprof sample:
+    counting it would need a device read."""
+    return (count * (words * 4 + (9 if matrix else 12)) + 8
+            + 4 * num_features * leafhist.NUM_STREAMS * max_bin)
+
+
 def window_digit_histogram(bin_words, digits, window: torch.Tensor,
                            num_features: int, max_bin: int) -> torch.Tensor:
     """[F, 9, max_bin] int32 digit sums over the rows of ``window``

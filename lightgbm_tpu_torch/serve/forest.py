@@ -36,6 +36,16 @@ name; ``info()`` then reports ``serve_walk=gather``.  ``auto`` is always
 package's VMEM sizing rule (``auto`` falls back to ``gather`` when the
 walk's operands outgrow VMEM) has no counterpart on the card.
 
+Device-time attribution: each padded bucket is one unit under the OOM
+guard ``predict``, profiled (``devprof``) as the JAX program doing the
+same work: ``predict_forest_walk`` binned on the host,
+``serve_forest_walk`` binned in the kernel, ``predict_forest`` /
+``serve_forest`` under ``serve_walk=gather``.  Each bucket is one
+``Predict::forest`` TIMETAG scope; the kernel call is a ``forest_walk``
+profiler range; the tables' upload is the ``forest`` transfer account
+and a bucket's rows and scores the ``serve`` one (``predict`` when a
+``Booster`` predicts through its own forest).
+
 A replica's forest is :meth:`CompiledForest.to_device`: the same frozen
 arrays on another device.  The drift hook (``_drift``, a shared
 ``obs/drift.py`` ``DriftCollector`` or ``None``) gets every predicted
@@ -58,7 +68,8 @@ from ..ops.predict import predict_binned_forest, predict_binned_forest_linear
 from ..ops.forest_walk import (WalkTables, bin_index_dtype,
                                build_walk_tables, forest_walk,
                                forest_walk_raw)
-from ..utils import log, resource
+from ..obs.trace import device_range
+from ..utils import log, resource, timetag
 from ..utils.log import LightGBMError
 from .batcher import BucketLadder, pad_rows
 
@@ -362,6 +373,14 @@ class CompiledForest:
             self._tree_dev = tuple(self._to_device(a) for a in stacked)
             if lin is not None:
                 self._lin_dev = tuple(self._to_device(a) for a in lin)
+        t = self._tables
+        up = [self._bnd, self._cats, self._is_cat, t.nodes, t.leaves,
+              t.coeff, t.feat, *(self._tree_dev or ()),
+              *(self._lin_dev or ())]
+        up = [a for a in up if a is not None]
+        obs.devprof.transfer("h2d", "forest",
+                             sum(int(a.nbytes) for a in up), len(up))
+        self._xfer_phase = "serve"
         return self
 
     def to_device(self, device: DeviceLike) -> "CompiledForest":
@@ -490,40 +509,61 @@ class CompiledForest:
         cbin = torch.where(hit & ~isnan, jc.to(torch.int32), -1)
         return torch.where(self._is_cat.bool()[:, None], cbin, nbin), safe
 
+    def _uploaded(self, *tensors) -> None:
+        """A bucket's rows moved to the card: the transfer account."""
+        up = [t for t in tensors if t is not None]
+        obs.devprof.transfer("h2d", self._xfer_phase,
+                             sum(int(t.nbytes) for t in up), len(up))
+
     def _dispatch_binned(self, Xp: np.ndarray, mask: np.ndarray):
         """[K, B] raw scores of one padded bucket, binned on the host
         (the K4 predict, under the OOM guard ``predict``)."""
-        with resource.oom_guard("predict",
-                                lambda: resource.render_shapes(Xp, mask)):
+        with resource.oom_guard(
+                "predict", lambda: resource.render_shapes(Xp, mask),
+                self.device, profile=("predict_forest"
+                                      if self.walk_strategy == "gather"
+                                      else "predict_forest_walk"),
+                bucket=len(mask)):
             return self._walk_binned(Xp, mask)
 
     def _walk_binned(self, Xp: np.ndarray, mask: np.ndarray):
         xt = self.device_covariates(Xp) if self._tables.linear else None
         if self.walk_strategy == "gather":
-            raw = self._gather_walk(
-                self._to_device(self.bin_rows(np.asarray(Xp, np.float64))),
-                xt)
+            bins = self._to_device(self.bin_rows(np.asarray(Xp, np.float64)))
+            raw = self._gather_walk(bins, xt)
         else:
-            raw = forest_walk(self._tables, self.device_bins(Xp), xt)
-        return torch.where(self._to_device(mask)[None, :], raw, 0.0)
+            bins = self.device_bins(Xp)
+            with device_range("forest_walk"):
+                raw = forest_walk(self._tables, bins, xt)
+        m = self._to_device(mask)
+        self._uploaded(bins, xt, m)
+        return torch.where(m[None, :], raw, 0.0)
 
     def _dispatch_raw(self, Xp: np.ndarray, mask: np.ndarray):
         """(raw, transformed) [K, B] of one padded f32 bucket, binned
         inside the kernel (gather: binned in f32 by torch ops); the K4
         predict of every fleet replica, under the OOM guard
         ``predict``."""
-        with resource.oom_guard("predict",
-                                lambda: resource.render_shapes(Xp, mask)):
+        with resource.oom_guard(
+                "predict", lambda: resource.render_shapes(Xp, mask),
+                self.device, profile=("serve_forest"
+                                      if self.walk_strategy == "gather"
+                                      else "serve_forest_walk"),
+                bucket=len(mask)):
             return self._walk_raw(Xp, mask)
 
     def _walk_raw(self, Xp: np.ndarray, mask: np.ndarray):
+        xr = self.device_rows(Xp)
         if self.walk_strategy == "gather":
-            bins, safe = self._device_cut_bins(self.device_rows(Xp))
+            bins, safe = self._device_cut_bins(xr)
             raw = self._gather_walk(bins, safe)
         else:
-            raw = forest_walk_raw(self._tables, self._bnd, self._cats,
-                                  self._is_cat, self.device_rows(Xp))
-        m = self._to_device(mask)[None, :]
+            with device_range("forest_walk"):
+                raw = forest_walk_raw(self._tables, self._bnd, self._cats,
+                                      self._is_cat, xr)
+        m = self._to_device(mask)
+        self._uploaded(xr, m)
+        m = m[None, :]
         raw = torch.where(m, raw, 0.0)
         out = torch.where(m, self.transform_scores(raw), 0.0)
         return raw, out
@@ -538,8 +578,11 @@ class CompiledForest:
         parts = []
         for off, n, bucket in self.ladder.chunks(N):
             Xp, mask = pad_rows(X[off:off + n], bucket)
-            raw = self._dispatch_binned(Xp, mask)
-            parts.append(raw[:, :n].cpu().numpy().astype(np.float64))
+            with timetag.scope("Predict::forest"):
+                raw = self._dispatch_binned(Xp, mask)
+            host = raw[:, :n].cpu().numpy()
+            obs.devprof.transfer("d2h", self._xfer_phase, int(host.nbytes))
+            parts.append(host.astype(np.float64))
         raw_all = np.concatenate(parts, axis=1)
         col = self._drift
         if col is not None:
@@ -557,9 +600,13 @@ class CompiledForest:
         raws, outs = [], []
         for off, n, bucket in self.ladder.chunks(N):
             Xp, mask = pad_rows(X[off:off + n], bucket)
-            raw, out = self._dispatch_raw(Xp, mask)
+            with timetag.scope("Predict::forest"):
+                raw, out = self._dispatch_raw(Xp, mask)
             raws.append(raw[:, :n].cpu().numpy())
             outs.append(out[:, :n].cpu().numpy())
+            obs.devprof.transfer(
+                "d2h", self._xfer_phase,
+                int(raws[-1].nbytes) + int(outs[-1].nbytes), 2)
         raw_all = np.concatenate(raws, axis=1)
         # drift hook: the real rows and raw scores, on the host after
         # the kernel; drift=off is this one attribute read

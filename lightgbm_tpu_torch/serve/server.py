@@ -738,6 +738,11 @@ def serve_from_config(config, params=None) -> PredictServer:
     # the causal trace export (LIGHTGBM_TPU_TRACE_EVENTS wins); a server
     # configured without one disarms the tracer
     obs.TRACER.configure(config.trace_events_file or None)
+    # device-time attribution, each server's configuration authoritative
+    # (the env variables win inside configure)
+    obs.compile_ledger.configure(config.compile_ledger_file or None)
+    obs.memwatch.configure(config.memwatch)
+    obs.devprof.configure(config.devprof)
     max_batch = int(config.serve_max_batch)
     buckets = list(config.predict_buckets) or default_ladder()
     buckets = [b for b in buckets if b <= max_batch] or [max_batch]

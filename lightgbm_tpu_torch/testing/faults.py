@@ -3,6 +3,15 @@ happen, deterministically, through the real code paths.
 
 The port's own copy of the JAX package's testing/faults.py.
 
+Training rounds and bring-up:
+
+- ``poison_gradients``: the objective emits NaN (or any value) for every
+  gradient of a round, at an iteration, ``times`` times (``nan_policy``
+  is what must contain it);
+- ``fail_distributed_init``: ``torch.distributed.init_process_group``
+  raises for the first calls (the rendezvous ``initialize_with_retry``
+  must retry, then name).
+
 Crash-safe training (``snapshot.py``, ``utils/diskguard.py``):
 
 - ``torn_snapshot_write``: every snapshot write dies after N bytes of
@@ -32,6 +41,9 @@ is a context manager that patches one seam and restores it on exit:
 - ``slow_replica``: added service latency (the straggler);
 - ``skew_predictions``: every replica of one model answers shifted by a
   constant (the silently wrong model only the quality gate can see);
+- ``skew_features``: every row one model's replicas serve arrives with
+  some feature columns shifted (upstream drift only the drift gate can
+  localise);
 - ``fail_warmup``: ``CompiledForest.warmup`` raises (a hot reload dying
   mid-warm);
 - ``corrupt_model_file``: a truncated, footer-less or bit-rotted model
@@ -68,6 +80,69 @@ from typing import Iterator, Optional
 
 class InjectedCrash(RuntimeError):
     """The error an injector raises where the real failure would."""
+
+
+@contextlib.contextmanager
+def poison_gradients(booster, at_iteration: int,
+                     value: float = float("nan"),
+                     times: int = 1) -> Iterator[object]:
+    """Make the objective emit ``value`` for every gradient, ``times``
+    times, from boosting iteration ``at_iteration`` (0-based, absolute
+    ``iter_``) on.  Transient by default: one poisoned round, whose retry
+    of the same iteration under ``nan_policy=skip_tree`` then grows from
+    clean gradients; a large ``times`` is a persistently degenerate
+    objective.
+
+    Takes a ``basic.Booster`` or a ``models.gbdt.GBDT`` and wraps the
+    instance's ``_gradients`` hook.  The port's round has no fused step
+    (the JAX injector forces ``LGBT_NO_FUSED_STEP``): every round calls
+    the hook."""
+    gb = getattr(booster, "_booster", booster)
+    orig = gb._gradients
+    fired = [0]
+
+    def poisoned_gradients():
+        grad, hess = orig()
+        if gb.iter_ >= at_iteration and fired[0] < times:
+            fired[0] += 1
+            import torch
+            grad = torch.full_like(grad, value)
+        return grad, hess
+
+    gb._gradients = poisoned_gradients
+    try:
+        yield gb
+    finally:
+        gb.__dict__.pop("_gradients", None)
+
+
+@contextlib.contextmanager
+def fail_distributed_init(times: int = 1,
+                          message: str = "injected coordinator connect "
+                          "failure") -> Iterator[dict]:
+    """Patch ``torch.distributed.init_process_group`` to raise
+    ``RuntimeError`` for the first ``times`` calls; later calls succeed
+    as recorded no-ops (one test process cannot bring up a real
+    rendezvous).  Yields a stats dict: ``failed`` / ``succeeded`` call
+    counts and the ``args`` and ``kwargs`` of every attempt."""
+    import torch.distributed as dist
+
+    stats = {"failed": 0, "succeeded": 0, "args": [], "kwargs": []}
+    orig = dist.init_process_group
+
+    def flaky_init(*args, **kwargs):
+        stats["args"].append(args)
+        stats["kwargs"].append(kwargs)
+        if stats["failed"] < times:
+            stats["failed"] += 1
+            raise RuntimeError(message)
+        stats["succeeded"] += 1
+
+    dist.init_process_group = flaky_init
+    try:
+        yield stats
+    finally:
+        dist.init_process_group = orig
 
 
 # ---------------------------------------------------------------------------
@@ -400,6 +475,38 @@ def skew_predictions(fleet, offset: float,
         stats = {"offset": off, "replicas": ids, "per_replica": [
             stack.enter_context(_patched_predict(fleet, rid, skewed, model))
             for rid in ids]}
+        yield stats
+
+
+@contextlib.contextmanager
+def skew_features(fleet, features, shift: float,
+                  model: str = "canary") -> Iterator[dict]:
+    """Every row served by every replica of ``model`` arrives with the
+    ``features`` columns shifted by ``shift``: upstream feature-pipeline
+    drift (a stale join, a units change) that predictions alone cannot
+    localise.  The skewed rows flow through the real device path, so the
+    forest's drift collector observes them as served traffic."""
+    import numpy as np
+
+    feats = [int(f) for f in features]
+    off = float(shift)
+
+    def skewed(inner, rows):
+        rows = np.array(rows, copy=True)
+        rows[:, feats] += off
+        return inner(rows)
+
+    with fleet._cond:
+        rs = fleet._primary if model == "primary" else fleet._canary
+        if rs is None:
+            raise ValueError(f"fleet has no {model!r} replica set")
+        ids = [rep.replica_id for rep in rs.replicas]
+    with contextlib.ExitStack() as stack:
+        stats = {"features": feats, "shift": off, "replicas": ids,
+                 "per_replica": [
+                     stack.enter_context(
+                         _patched_predict(fleet, rid, skewed, model))
+                     for rid in ids]}
         yield stats
 
 

@@ -22,7 +22,10 @@ the port has no such dispatch, so each named unit of work (``train_step``,
 shapes)``.  A CUDA allocation failure escaping it becomes a
 :class:`DeviceOOM` naming the program, the shapes of its inputs, a
 memwatch line of what the card held and the last admission table;
-anything else passes through untouched.
+anything else passes through untouched.  The same guard is the seam of
+device-time attribution: with ``devprof`` on, the unit runs inside one
+``obs/devprof.py`` ``dispatch`` under the JAX program name ``profile``
+(default: ``program``) on ``device``.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from ..obs import devprof
 from . import log
 from .log import LightGBMError
 
@@ -227,20 +231,30 @@ _injected: Dict[str, Dict[str, int]] = {}
 
 
 @contextlib.contextmanager
-def oom_guard(program: str, shapes: Any = "") -> Iterator[None]:
+def oom_guard(program: str, shapes: Any = "", device=None,
+              profile: Optional[str] = None,
+              bucket: Optional[int] = None) -> Iterator[None]:
     """Run a named unit of device work: an allocation failure escaping
     it is raised as a :class:`DeviceOOM` (:func:`reraise_if_oom`), any
     other error passes through untouched.  ``shapes`` is the rendered
     signature or a callable that renders it (called only on failure).
     A guarded unit commits nothing before it returns, so the booster
-    trains on after a ``DeviceOOM``."""
+    trains on after a ``DeviceOOM``.  With ``devprof`` on the unit is
+    one profiled dispatch of ``profile`` (default ``program``) on
+    ``device`` (a serving bucket's under ``devprof.bucket_scope(
+    bucket)``); off, that costs one attribute read."""
     try:
         armed = _injected.get(program)
         if armed is not None and armed["fired"] < armed["times"]:
             armed["fired"] += 1
             from ..testing.faults import make_resource_exhausted
             raise make_resource_exhausted(program)
-        yield
+        if devprof.ENABLED:
+            with devprof.bucket_scope(bucket), \
+                    devprof.dispatch(profile or program, device):
+                yield
+        else:
+            yield
     except Exception as exc:
         if is_resource_exhausted(exc):
             reraise_if_oom(exc, program,

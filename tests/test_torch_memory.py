@@ -316,8 +316,10 @@ def test_guard_passes_other_errors_through_untouched():
 
 
 def test_memwatch_key_is_inert_and_sample_empty_without_a_card():
-    # the key waits for the span hooks; sample() serves the diagnosis
-    from lightgbm_tpu_torch.config import INERT
+    # since the span hooks came the key is read (it arms the sample at
+    # every span exit); sample() serves the diagnosis either way
+    from lightgbm_tpu_torch.config import INERT, Config
     from lightgbm_tpu_torch.obs import memwatch
-    assert "memwatch" in INERT
+    assert "memwatch" not in INERT
+    assert Config({"memwatch": "true"})["memwatch"] is True
     assert memwatch.sample(device=CPU) == {}

@@ -29,6 +29,7 @@ from lightgbm_tpu.obs import report as jreport
 
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch import cli
+from lightgbm_tpu_torch.obs import devcaps as lt_devcaps
 from lightgbm_tpu_torch.obs import report
 
 from test_torch_sampling import BASE, _poisoning_fobj
@@ -207,8 +208,9 @@ def test_profile_and_drift_readers_like_jax(tmp_path, capsys):
         assert got[0] == want[0] == 0
         w, g = json.loads(want[1]), json.loads(got[1])
         if flag == "--profile":
-            assert g.pop("device") == report.device_row()
-            w.pop("device")
+            # the port's capability row: the JAX row of this host's CPU
+            assert g.pop("device") == w.pop("device") == \
+                lt_devcaps.capabilities()
             assert g["top"] == ["leaf_hist", "forest_walk"]
             assert g["rounds"]["count"] == 4 and g["mode"] == "sample:4"
         else:

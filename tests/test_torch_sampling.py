@@ -407,15 +407,20 @@ def test_every_jax_key_is_read_refused_or_inert():
     assert read - set(JAX_DEFAULTS) == {"device"}
     # the distributed learners' keys are read, and since the
     # crash-safe slice the collective watchdog, the consistency check,
-    # the snapshots and the sink policy; memwatch waits for the span
-    # hooks
+    # the snapshots and the sink policy; since device-time attribution
+    # the trace window, the compile ledger, memwatch and devprof
     assert {"num_machines", "tree_learner", "top_k", "machine_list_file",
             "local_listen_port", "time_out", "distributed_init_retries",
             "distributed_init_backoff", "distributed_heartbeat_ms",
             "collective_timeout_s", "distributed_consistency_check",
             "desync_policy", "snapshot_dir", "snapshot_freq",
             "snapshot_keep", "sink_error_policy"} <= read
-    assert "memwatch" in inert
+    assert {"trace_dir", "trace_start_iter", "trace_num_iters",
+            "compile_ledger_file", "memwatch", "devprof"} <= read
+    assert inert == {"seed", "num_threads", "enable_load_from_binary_file",
+                     "is_save_binary_file", "is_pre_partition",
+                     "tpu_histogram_impl", "tpu_double_hist",
+                     "compile_cache_dir"}
     # the data boundary is read since (bad_data_policy, the budgets, the
     # two-round loader): nothing is refused
     assert refused == set()
@@ -507,8 +512,9 @@ def test_inert_keys_warn_once(key, capsys):
     from lightgbm_tpu.config import Config as JaxConfig
     from lightgbm_tpu_torch.utils import log
     log._warned_once.discard(f"config:{key}")
-    if key == "serve_replicas":
-        # read since the serving fleet was ported: no warning
+    if key in ("serve_replicas", "trace_dir"):
+        # read since the serving fleet / the trace window was ported: no
+        # warning
         assert tconfig.Config({key: "4"})[key] == JaxConfig({key: "4"})[key]
         assert f"config:{key}" not in log._warned_once
         return
