@@ -7,7 +7,7 @@ NVIDIA card.
 Every phase prints one JSON line (the probes phase first prints the
 probes' own lines) and a ``phase_wall`` line with its wall seconds (also
 on stderr); any failure raises and exits non-zero.  ``examples``,
-``estimators``, ``boundary`` and ``sparse`` need none of the other
+``estimators``, ``boundary``, ``sparse`` and ``capi`` need none of the other
 phases' datasets or models: they run in order in a second process
 (``--side``, SIDE_PHASES) started after ``memory`` and joined before
 ``telemetry``, beside ``distributed``, ``resilience``, ``objectives``,
@@ -412,6 +412,21 @@ their round times are taken beside that load.
    tree, and CUDA-event medians of K1 at the root over 100 and over 2000
    columns and of the two expansions.  Prints the host seconds of
    binning and planning and each run's seconds a round.
+   ``capi``: the C API (``lightgbm_tpu_torch/capi/``), its library built
+   by the host C compiler, from two hosts: ``ctypes`` in the side process
+   at the Higgs cell's width (1M x 28 rows, ``TRAIN_PARAMS`` and
+   ``device=cuda``, 10 x ``LGBM_BoosterUpdateOneIter`` through K1, the
+   100k valid rows through ``LGBM_BoosterPredictForMat`` and K4), held
+   against ``lt.Booster`` on the same rows: model text byte-equal (to the
+   Booster whose Dataset got its label after binning, as the C API's
+   does; to ``lt.Dataset(X, y)``'s but for the fingerprint's
+   ``label_hist`` line), predictions and leaf indices bit-equal, K1
+   launches equal, one K4 launch a bucket, ``SetLeafValue`` moving exactly
+   its leaf's rows; and ``capi/demo.c``, a C program that boots its own
+   interpreter, on a 100k-row slice (5 rounds, 4096 predicted rows): its
+   model file and predictions byte-equal to the same calls from Python.
+   Prints the build seconds, both hosts' round seconds beside the Python
+   API's, the predict seconds and a call's round trip in microseconds.
 5. ``probes``: the probes' own entry points, ``python -m
    lightgbm_tpu_torch.tools.probe_roll`` and ``probe_dynhist`` (their
    ``main``) at the JAX probes' sizes, each with its launch counter set
@@ -7754,13 +7769,310 @@ def probe_timing(dev, reps):
     return rows
 
 
+# the capi phase: the C-host flow's rows, rounds and test rows; the
+# GetCurrentIteration round trips a host times; the demo's time limit
+CAPI_SLICE_ROWS, CAPI_C_ROUNDS, CAPI_C_TEST_ROWS = 100_000, 5, 4096
+CAPI_CALL_REPS = 1000
+CAPI_DEMO_TIMEOUT_S = 300
+CAPI_LEAF_ROWS = 5
+
+
+class CApiCalls:
+    """The port's C library through ``ctypes`` (``cdef.declare``'s
+    prototypes), with the calls the ``capi`` phase makes."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def ok(self, rc, what):
+        check(rc == 0, f"capi: {what}: "
+              f"{self.lib.LGBM_GetLastError().decode()}")
+
+    def dataset(self, X, y, params):
+        import ctypes
+        X = np.ascontiguousarray(X, np.float64)
+        y = np.ascontiguousarray(y, np.float32)
+        h = ctypes.c_void_p()
+        self.ok(self.lib.LGBM_DatasetCreateFromMat(
+            X.ctypes.data, 1, X.shape[0], X.shape[1], 1, params.encode(),
+            None, ctypes.byref(h)), "LGBM_DatasetCreateFromMat")
+        self.ok(self.lib.LGBM_DatasetSetField(
+            h, b"label", y.ctypes.data, len(y), 0), "LGBM_DatasetSetField")
+        return h
+
+    def booster(self, ds, params):
+        import ctypes
+        b = ctypes.c_void_p()
+        self.ok(self.lib.LGBM_BoosterCreate(ds, params.encode(),
+                                            ctypes.byref(b)),
+                "LGBM_BoosterCreate")
+        return b
+
+    def update(self, b):
+        import ctypes
+        self.ok(self.lib.LGBM_BoosterUpdateOneIter(
+            b, ctypes.byref(ctypes.c_int())), "LGBM_BoosterUpdateOneIter")
+
+    def predict(self, b, X, predict_type=0):
+        import ctypes
+        X = np.ascontiguousarray(X, np.float64)
+        per = ctypes.c_int64()
+        self.ok(self.lib.LGBM_BoosterCalcNumPredict(
+            b, 1, predict_type, -1, ctypes.byref(per)),
+            "LGBM_BoosterCalcNumPredict")
+        out = np.zeros(X.shape[0] * per.value)
+        n = ctypes.c_int64()
+        self.ok(self.lib.LGBM_BoosterPredictForMat(
+            b, X.ctypes.data, 1, X.shape[0], X.shape[1], 1, predict_type, -1,
+            ctypes.byref(n), out.ctypes.data_as(
+                ctypes.POINTER(ctypes.c_double))),
+            "LGBM_BoosterPredictForMat")
+        check(n.value == len(out), f"capi: predicted {n.value} values")
+        return out
+
+    def model_text(self, b):
+        import ctypes
+        n = ctypes.c_int()
+        self.ok(self.lib.LGBM_BoosterSaveModelToString(
+            b, -1, 0, ctypes.byref(n), None), "LGBM_BoosterSaveModelToString")
+        buf = ctypes.create_string_buffer(n.value)
+        self.ok(self.lib.LGBM_BoosterSaveModelToString(
+            b, -1, n.value, ctypes.byref(n), buf),
+            "LGBM_BoosterSaveModelToString")
+        return buf.value.decode()
+
+    def call_us(self, b):
+        """Mean microseconds of a GetCurrentIteration round trip."""
+        import ctypes
+        it = ctypes.c_int()
+        t0 = time.perf_counter()
+        for _ in range(CAPI_CALL_REPS):
+            self.lib.LGBM_BoosterGetCurrentIteration(b, ctypes.byref(it))
+        return (time.perf_counter() - t0) / CAPI_CALL_REPS * 1e6
+
+
+def _label_hist_free(text):
+    return "\n".join(ln for ln in text.splitlines()
+                     if not ln.startswith("label_hist="))
+
+
+def _median_from_third(times):
+    return float(np.median(times[2:]))
+
+
+def _timed_round(step):
+    """Seconds of one boosting round, to the card's end, and its K1
+    launches."""
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, _launches()[0]
+
+
+def phase_capi(seed, workdir):
+    """The C API on the card (``lightgbm_tpu_torch/capi/``): the library
+    built from its C shim by the host compiler, then two hosts.
+    The Python host (``ctypes`` in this process) at the Higgs cell's
+    width: 1M x 28 rows through ``LGBM_DatasetCreateFromMat`` and
+    ``SetField("label")``, ``LGBM_BoosterCreate`` with ``TRAIN_PARAMS``
+    and ``device=cuda``, ``TRAIN_ROUNDS`` x ``UpdateOneIter`` (K1, the
+    ordered grower), the 100k valid rows through ``PredictForMat`` (K4)
+    and leaf indices of 5 rows.  Held against ``lt.Booster`` trained the
+    same rounds on the card: the model text byte-equal to the Booster's
+    whose Dataset got its label after construction (the C API's route),
+    and to ``lt.Dataset(X, y)``'s but for the fingerprint's
+    ``label_hist`` line (the C API builds its dataset before it has a
+    label); predictions and leaf indices bit-equal; K1 launches equal;
+    one K4 launch a bucket of the predict ladder; ``SetLeafValue`` then
+    ``PredictForMat`` moves exactly the rows that reach that leaf.  The
+    C host: ``capi/demo.c`` compiled and run in a process of its own,
+    which boots its own interpreter, on a 100k-row slice written as a
+    raw .f64 file, 5 rounds and 4096 predicted rows: its model file and
+    predictions byte-equal to the same calls from this process.
+    Returns the launches of the counted runs."""
+    import ctypes
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.capi import build as capi_build
+    from lightgbm_tpu_torch.capi import cdef
+    from lightgbm_tpu_torch.capi import impl
+    t_phase = time.perf_counter()
+    try:
+        import cffi  # noqa: F401
+        has_cffi = True
+    except ImportError:
+        has_cffi = False
+    t0 = time.perf_counter()
+    lib_path = capi_build.build_library(force=True)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    demo = capi_build.build_demo()
+    demo_build_s = time.perf_counter() - t0
+    lib = ctypes.CDLL(lib_path)
+    cdef.declare(lib)
+    api = CApiCalls(lib)
+    t0 = time.perf_counter()
+    lib.LGBM_DatasetGetNumData(None, ctypes.byref(ctypes.c_int()))
+    boot_s = time.perf_counter() - t0
+    check(impl.bind_library(lib_path) == len(cdef.API_NAMES) - 1,
+          "capi: the library did not take every callback")
+
+    X, y = make_higgs_like(TRAIN_ROWS, seed=seed + 40)
+    Xv, yv = make_higgs_like(VALID_ROWS, seed=seed + 41)
+    params = " ".join(f"{k}={v}" for k, v in TRAIN_PARAMS.items())
+    card = f"{params} device=cuda"
+    t0 = time.perf_counter()
+    ds = api.dataset(X, y, params)
+    dataset_s = time.perf_counter() - t0
+    b = api.booster(ds, card)
+    # the Python API on the same rows, its label set after binning (the
+    # C API's route); the two boosters' rounds alternate (C API first in
+    # even rounds), so that a drift of the host reads on both
+    late_set = lt.Dataset(X, params=TRAIN_PARAMS)
+    late_set.construct().set_label(y)
+    late = lt.Booster(params=TRAIN_PARAMS, train_set=late_set)
+    steps = {"capi": lambda: api.update(b), "python_api": late.update}
+    round_s = {name: [] for name in steps}
+    k1 = dict.fromkeys(steps, 0)
+    for r in range(TRAIN_ROUNDS):
+        for name in (("capi", "python_api") if r % 2 == 0
+                     else ("python_api", "capi")):
+            sec, n = _timed_round(steps[name])
+            round_s[name].append(sec)
+            k1[name] += n
+    capi_rounds, py_rounds = round_s["capi"], round_s["python_api"]
+    k1_capi, k1_py = k1["capi"], k1["python_api"]
+    check(k1_py == k1_capi, f"capi: K1 launches {k1_capi} against the "
+                            f"Python API's {k1_py}")
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = api.predict(b, Xv)
+    predict_s = time.perf_counter() - t0
+    k4_capi = _launches()[1]
+    buckets = len(impl._handles[b.value].forest(-1).ladder.chunks(
+        VALID_ROWS))
+    check(sum(k4_capi.values()) == buckets,
+          f"capi: K4 launches {k4_capi} for {buckets} buckets")
+    leaves = api.predict(b, Xv[:CAPI_LEAF_ROWS], 2)
+    text = api.model_text(b)
+    py_call_us = api.call_us(b)
+    check(text == late.model_to_string(),
+          "capi: model text differs from the Python API's: "
+          + first_line_diff(text, late.model_to_string()))
+    _reset_launches()
+    want = late.predict(Xv)
+    k4_py = _launches()[1]
+    check(np.array_equal(pred, want), "capi: predictions differ from "
+          f"Booster.predict by {np.abs(pred - want).max()}")
+    check(np.array_equal(leaves, late.predict(
+        Xv[:CAPI_LEAF_ROWS], pred_leaf=True).reshape(-1)),
+          "capi: leaf indices differ from the Python API's")
+    del late, late_set, steps
+    labelled = lt.Booster(params=TRAIN_PARAMS,
+                          train_set=lt.Dataset(X, y, params=TRAIN_PARAMS))
+    for _ in range(TRAIN_ROUNDS):
+        labelled.update()
+    other = labelled.model_to_string()
+    del labelled
+    extra = [ln for ln in other.splitlines() if ln not in text.splitlines()]
+    check([ln.split("=")[0] for ln in extra] == ["label_hist"]
+          and _label_hist_free(other) == _label_hist_free(text),
+          "capi: against lt.Dataset(X, y): " + first_line_diff(text, other))
+
+    # SetLeafValue, then PredictForMat: exactly the rows of that leaf move
+    rows = Xv[:4096]
+    before = api.predict(b, rows, 1)
+    leaf_of = api.predict(b, rows, 2).reshape(len(rows), -1)[:, 0]
+    leaf = int(np.bincount(leaf_of.astype(np.int64)).argmax())
+    old = ctypes.c_double()
+    api.ok(lib.LGBM_BoosterGetLeafValue(b, 0, leaf, ctypes.byref(old)),
+           "LGBM_BoosterGetLeafValue")
+    api.ok(lib.LGBM_BoosterSetLeafValue(b, 0, leaf, old.value + 0.5),
+           "LGBM_BoosterSetLeafValue")
+    _reset_launches()
+    after = api.predict(b, rows, 1)
+    k4_leaf = _launches()[1]
+    hit = leaf_of == leaf
+    check(hit.any() and np.array_equal(after[~hit], before[~hit])
+          and np.allclose(after[hit] - before[hit], 0.5, rtol=0, atol=1e-5),
+          "capi: a predict after SetLeafValue did not move exactly that "
+          "leaf's rows")
+
+    # the C host: demo.c on a 100k-row slice, and the same calls here
+    train_f64 = os.path.join(workdir, "capi_train.f64")
+    test_f64 = os.path.join(workdir, "capi_test.f64")
+    np.column_stack([y[:CAPI_SLICE_ROWS], X[:CAPI_SLICE_ROWS]]).astype(
+        np.float64).tofile(train_f64)
+    np.column_stack([yv[:CAPI_C_TEST_ROWS], Xv[:CAPI_C_TEST_ROWS]]).astype(
+        np.float64).tofile(test_f64)
+    model_c = os.path.join(workdir, "capi_model_c.txt")
+    pred_c = os.path.join(workdir, "capi_pred_c.f64")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [demo, lib_path, train_f64, test_f64, str(X.shape[1]), card,
+         str(CAPI_C_ROUNDS), model_c, pred_c], capture_output=True,
+        text=True, timeout=CAPI_DEMO_TIMEOUT_S, cwd=workdir)
+    c_wall_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"capi: the C host exited "
+                                f"{proc.returncode}: {proc.stderr[-2000:]}")
+    c_host = json.loads(proc.stdout.strip().splitlines()[-1])
+    ds_s = api.dataset(X[:CAPI_SLICE_ROWS], y[:CAPI_SLICE_ROWS], params)
+    b_s = api.booster(ds_s, card)
+    slice_rounds = [_timed_round(lambda: api.update(b_s))[0]
+                    for _ in range(CAPI_C_ROUNDS)]
+    slice_text = api.model_text(b_s)
+    slice_pred = api.predict(b_s, Xv[:CAPI_C_TEST_ROWS])
+    with open(model_c) as fh:
+        check(fh.read() == slice_text, "capi: the C host's model differs "
+              "from the Python host's")
+    check(np.array_equal(np.fromfile(pred_c, np.float64), slice_pred),
+          "capi: the C host's predictions differ from the Python host's")
+    for h in (b, b_s):
+        api.ok(lib.LGBM_BoosterFree(h), "LGBM_BoosterFree")
+    for h in (ds, ds_s):
+        api.ok(lib.LGBM_DatasetFree(h), "LGBM_DatasetFree")
+
+    k4 = {name: k4_capi.get(name, 0) + k4_py.get(name, 0)
+          + k4_leaf.get(name, 0) for name in {*k4_capi, *k4_py, *k4_leaf}}
+    emit({"phase": "capi", "cffi_imports": has_cffi,
+          "compiler": capi_build.compiler(), "library": lib_path,
+          "build_s": build_s, "demo_build_s": demo_build_s,
+          "python_host": {
+              "boot_s": boot_s, "dataset_s": dataset_s,
+              "rows": TRAIN_ROWS, "rounds": TRAIN_ROUNDS,
+              "round_s": capi_rounds,
+              "round_s_median_3_10": _median_from_third(capi_rounds),
+              "python_api_round_s": py_rounds,
+              "python_api_round_s_median_3_10":
+                  _median_from_third(py_rounds),
+              "capi_over_python_api": _median_from_third(capi_rounds)
+              / _median_from_third(py_rounds),
+              "predict_rows": VALID_ROWS, "predict_s": predict_s,
+              "call_us": py_call_us, "k1_launches": k1_capi,
+              "k4_launches": k4_capi, "k4_buckets": buckets,
+              "model_text_equal_to_python_api": True,
+              "predictions_bit_equal": True},
+          "c_host": {**c_host, "wall_s": c_wall_s,
+                     "round_s_median_3_5": _median_from_third(
+                         c_host["round_s"]),
+                     "python_host_round_s": slice_rounds,
+                     "python_host_round_s_median_3_5":
+                         _median_from_third(slice_rounds),
+                     "model_text_equal": True,
+                     "predictions_bit_equal": True},
+          "seconds": time.perf_counter() - t_phase})
+    return {"digit_histogram": k1_capi + k1_py, **k4}
+
+
 # the side process (``--side JOB``): the phases that need none of the main
 # sequence's datasets and models, run in order in a process of their own
 # beside ``distributed``, ``resilience``, ``objectives``, ``sampling`` and
 # ``engine`` (started after ``memory``, whose real OOM must have the card
 # to itself, and joined before ``telemetry``, whose round times compare
 # two modes); its torch threads, and how long the main process waits
-SIDE_PHASES = ("examples", "estimators", "boundary", "sparse")
+SIDE_PHASES = ("examples", "estimators", "boundary", "sparse", "capi")
 SIDE_THREADS = 4
 SIDE_TIMEOUT_S = 900
 
@@ -7780,7 +8092,8 @@ def side_main(job_path) -> int:
     runs = {"examples": lambda: phase_examples(workdir),
             "estimators": lambda: phase_estimators(seed, workdir, errs),
             "boundary": lambda: phase_boundary(seed, workdir),
-            "sparse": lambda: phase_sparse(seed, workdir, reps)}
+            "sparse": lambda: phase_sparse(seed, workdir, reps),
+            "capi": lambda: phase_capi(seed, workdir)}
     for name in SIDE_PHASES:
         for kernel, n in runs[name]().items():
             launches[kernel] = launches.get(kernel, 0) + n

@@ -289,6 +289,19 @@ class _PredictionObjective:
         return score
 
 
+def _check_bin_width(config, train_set) -> None:
+    """Refuse a booster whose ``max_bin`` is below its dataset's: the
+    histograms are ``config.max_bin`` wide, so a wider dataset's bin
+    codes would fall outside them (the JAX package drops those bins
+    silently; on the card K1 would write past its histogram)."""
+    if int(train_set.max_bin) > int(config.max_bin):
+        raise LightGBMError(
+            f"the dataset was binned with max_bin={int(train_set.max_bin)}"
+            f", above the booster's max_bin={int(config.max_bin)}: its "
+            f"histograms hold {int(config.max_bin)} bins a feature; build "
+            f"the dataset with the booster's max_bin")
+
+
 def _to_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
     """A host tensor on ``dev``, without waiting for the device."""
     if dev.type == "cuda":
@@ -427,6 +440,7 @@ class GBDT:
 
     def _setup(self, config, train_set, device: torch.device) -> None:
         config.check_trainable()
+        _check_bin_width(config, train_set)
         self.config = config
         self.device = device
         self.train_set = train_set
@@ -540,6 +554,7 @@ class GBDT:
             self.config = config
             return
         config.check_trainable()
+        _check_bin_width(config, self.train_set)
         self._observe_pending()
         old, self.config = self.config, config
         self.shrinkage_rate = config.learning_rate
