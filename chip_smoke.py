@@ -7,8 +7,8 @@ NVIDIA card.
 Every phase prints one JSON line (the probes phase first prints the
 probes' own lines) and a ``phase_wall`` line with its wall seconds (also
 on stderr); any failure raises and exits non-zero.  ``examples``,
-``estimators``, ``boundary``, ``sparse`` and ``capi`` need none of the other
-phases' datasets or models: they run in order in a second process
+``estimators``, ``boundary``, ``sparse``, ``capi`` and ``loader`` need none
+of the other phases' datasets or models: they run in order in a second process
 (``--side``, SIDE_PHASES) started after ``memory`` and joined before
 ``telemetry``, beside ``distributed``, ``resilience``, ``objectives``,
 ``sampling`` and ``engine``; their lines are printed at the join, and
@@ -69,6 +69,12 @@ their round times are taken beside that load.
    fails); then the probe's 10-call loop for each of its five runs, each
    offset computed on the card from the last output, under
    ``torch.cuda.set_sync_debug_mode("error")``, against a plain replay.
+   Codes past ``max_bin`` (``compare_wide_codes``): K1, K2, K3 and P2
+   bit-equal (K2 and K3 within their tolerances) to their plain versions
+   where one column's codes reach ``max_bin + 38`` (the column first,
+   then last; a 294-bin categorical column in K3), at 1M x 28 uint16
+   with 255 bins, and P2 on the probe's rows at max_bin 200; each wide
+   column's K1 sums are its in-range rows' (the codes are dropped).
 3. ``serve``: the serving path at full width.  A Higgs-sized forest
    (binary, 28 features, 500 trees, 255 leaves, 255 cut values per
    feature: LightGBM's published Higgs experiment settings) is written
@@ -368,8 +374,10 @@ their round times are taken beside that load.
    bad_data_policy=quarantine max_bad_row_fraction=0.05`` and trained 20
    rounds (K1): the quarantine file's lines equal the injected ones,
    ``bad_rows_total`` their count, and the model text equals that of a
-   one-round fail-fast load of the clean file with those lines deleted,
-   trained the same way, up to the one-round load's fingerprint section
+   one-round fail-fast load of the clean file with those lines deleted
+   (read through the Python parser, as the two-round loader reads: the
+   native loader's decimals can differ in the last bits), trained the
+   same way, up to the one-round load's fingerprint section
    (the two-round loader builds none, as in the JAX package);
    ``concurrent_append`` during a two-round load raises the named drift
    error, ``max_bad_rows=10`` the budget error.  Prints the seconds and
@@ -427,6 +435,21 @@ their round times are taken beside that load.
    model file and predictions byte-equal to the same calls from Python.
    Prints the build seconds, both hosts' round seconds beside the Python
    API's, the predict seconds and a call's round trip in microseconds.
+   ``loader``: the native host loader (``lightgbm_tpu_torch/io/
+   native.py`` over ``csrc/data_loader.cpp``), built by the host C++
+   compiler (its path, the build seconds; fails unless its status is
+   built or loaded).  A seeded Higgs-like CSV (28 features, every value
+   written with ``repr``; 250k rows, cut from the Higgs cell's 1M for
+   time) read by ``parse_file`` natively and through Python (seconds,
+   MB/s; labels equal, features within 8 ulps), ``value_to_bin`` native
+   against ``searchsorted`` on a 250k-value column (equal codes); 10
+   rounds through ``lt.Dataset(path)`` on the card (K1) whose model text
+   is byte-equal to ``lt.Dataset(X, y)``'s on the natively parsed
+   arrays, the file predicted through K4 (``Booster.predict(path)``,
+   equal to the arrays' predictions) and through the C API's
+   ``LGBM_BoosterPredictForFile``; a 300-category CSV (a 294-bin mapper
+   at ``max_bin=255``) read natively and trained on the card and on the
+   CPU: trees structure-equal, leaves within ``EXAMPLE_LEAF_RTOL``.
 5. ``probes``: the probes' own entry points, ``python -m
    lightgbm_tpu_torch.tools.probe_roll`` and ``probe_dynhist`` (their
    ``main``) at the JAX probes' sizes, each with its launch counter set
@@ -1175,6 +1198,7 @@ def phase_kernels(seed, dev, higgs_model, higgs_grid, linear_set, errs):
     results["digit_histogram"] = compare_leaf_hist(seed, dev, errs)
     results["children_hist"] = compare_children_hist(seed, dev, errs)
     results["probes"] = compare_probes(seed, dev, errs)
+    results["wide_codes"] = compare_wide_codes(seed, dev, errs)
     emit({"phase": "kernels", "max_abs_diff": results,
           "launches": {**fw.launch_counts(), **lh.launch_counts(),
                        **ch.launch_counts(), **rc.launch_counts(),
@@ -1225,6 +1249,146 @@ def compare_leaf_hist(seed, dev, errs):
         for path in ("small", "large"):
             held(bins, dig, B, 5, S, f"class{cls}/{path}", path=path)
     return out
+
+
+WIDE_EXTRA = 39                # codes max_bin .. max_bin + 38: 294 bins at 255
+WIDE_P2_MAX_BIN = 200          # P2's uint8 words: codes 200 .. 238
+
+
+def widen_column(rng, bins: np.ndarray, col: int, axis: int, max_bin: int):
+    """Column ``col`` of ``bins`` (features along ``axis``) redrawn from
+    [0, max_bin + WIDE_EXTRA), its first rows every code past
+    ``max_bin``, as a 294-bin categorical mapper gives at max_bin 255.
+    Returns the in-range mask of that column."""
+    n = bins.shape[1 - axis]
+    vals = rng.randint(0, max_bin + WIDE_EXTRA, size=n)
+    vals[:WIDE_EXTRA] = max_bin + np.arange(WIDE_EXTRA)
+    if axis == 0:
+        bins[col] = vals
+    else:
+        bins[:, col] = vals
+    return vals < max_bin
+
+
+def compare_wide_codes(seed, dev, errs):
+    """K1, K2, K3 and P2 against their plain versions where one column's
+    bin codes reach past ``max_bin`` (``max_bin + 38``; the 300-category
+    mapper of ``phase_loader`` has 294 bins at ``max_bin=255``), with the
+    wide column first and then last: each kernel skips such codes, and
+    each plain version drops them too (no other feature's bins and no
+    other child's change).  K1 at the Higgs root (1M x 28 uint16, both
+    paths and a 4097-row window), K2 and K3 over 1M rows in three leaves
+    and in the root form, the wide column categorical with 294 bins in
+    K3; P2 on the probe's 2^20 rows in uint8 words at max_bin 200 (codes
+    to 238) over a half window.  Each wide column's K1 digit sums equal
+    the sums of its in-range rows.  Each call adds one to its counter."""
+    from lightgbm_tpu_torch.ops import children_hist as ch
+    from lightgbm_tpu_torch.ops import leafhist as lh
+    from lightgbm_tpu_torch.ops import ordered_grow as og
+    from lightgbm_tpu_torch.ops import window_hist as wh
+    from lightgbm_tpu_torch.ops.split import SplitParams
+    from lightgbm_tpu_torch.tools import probe_dynhist as pd
+    rng = np.random.RandomState(seed + 17)
+    F, B, N = 28, 255, TRAIN_ROWS
+    sp = SplitParams(TRAIN_PARAMS["min_data_in_leaf"], 1e-3)
+    out, ties = {}, []
+
+    def counted(counts, name, fn):
+        before = counts()[name]
+        res = fn()
+        torch.cuda.synchronize()
+        check(counts()[name] == before + 1,
+              f"wide {name}: launch counter did not move by one")
+        return res
+
+    g = torch.from_numpy(rng.normal(size=N).astype(np.float32)).to(dev)
+    h = torch.from_numpy(rng.uniform(0.01, 0.25, size=N)
+                         .astype(np.float32)).to(dev)
+    w = torch.ones(N, dtype=torch.float32, device=dev)
+    dig = lh.quantize_digits(g, h, w, lh.compute_scales(g, h, w))
+    leaf = torch.from_numpy(rng.randint(0, 3, size=N).astype(np.int32)
+                            ).to(dev)
+    for col in (0, F - 1):
+        label = f"col{col}"
+        rm = rng.randint(0, B, size=(N, F)).astype(np.uint16)
+        keep = torch.from_numpy(widen_column(rng, rm, col, 1, B)).to(dev)
+        bins_rm = torch.from_numpy(rm).to(dev)
+        want1 = lh.digit_histogram_plain(bins_rm, dig, B)
+        check(torch.equal(want1[col].sum(-1).long(),
+                          dig[keep].long().sum(0)),
+              f"wide K1 {label}: the plain version kept a code past "
+              f"max_bin")
+        for path in K1_PATHS:
+            got = counted(lh.launch_counts, "digit_histogram",
+                          lambda: lh.digit_histogram(bins_rm, dig, B,
+                                                     path=path))
+            check(torch.equal(got, want1), f"wide K1 {label}/{path}: not "
+                                           f"bit-equal to the plain version")
+        got = counted(lh.launch_counts, "digit_histogram",
+                      lambda: lh.digit_histogram(bins_rm, dig, B, 11, 4097))
+        check(torch.equal(got, lh.digit_histogram_plain(bins_rm, dig, B, 11,
+                                                        4097)),
+              f"wide K1 {label}/window4097: not bit-equal")
+        del bins_rm, want1
+        bins = torch.from_numpy(np.ascontiguousarray(rm.T)).to(dev)
+        del rm
+        got2 = counted(ch.launch_counts, "children_histograms",
+                       lambda: ch.children_histograms(bins, g, h, w, leaf,
+                                                      1, 2, B))
+        scale = abs_hist(bins, g, h, w, leaf, 1, 2, B)
+        d2 = check_hist(got2, ch.build_children_histograms(
+            bins, g, h, w, leaf, 1, 2, B), scale, f"wide K2 {label}")
+        root = counted(ch.launch_counts, "children_histograms",
+                       lambda: ch.root_histogram(bins, g, h, w, B))
+        zero = torch.zeros(N, dtype=torch.int32, device=dev)
+        d2r = check_hist(root, ch.build_root_histogram(bins, g, h, w, B),
+                         abs_hist(bins, g, h, w, zero, 0, -2, B)[0],
+                         f"wide K2 root {label}")
+        nb = torch.full((F,), B, dtype=torch.int32, device=dev)
+        nb[col] = B + WIDE_EXTRA
+        cat = torch.zeros(F, dtype=torch.bool, device=dev)
+        cat[col] = True
+        totals = child_totals(g, h, w, leaf)
+        args = (bins, g, h, w, leaf, 1, 2, totals, nb, cat,
+                torch.ones(F, dtype=torch.bool, device=dev), B, sp)
+        got3 = counted(ch.launch_counts, "fused_split_candidates",
+                       lambda: ch.fused_split_candidates(*args))
+        d3, r3 = check_candidates(got3, ch.fused_split_candidates_plain(
+            *args), scale, totals, cat, f"wide K3 {label}", ties)
+        errs["children_histograms"] = max(errs["children_histograms"], d2,
+                                          d2r)
+        errs["fused_split_candidates"] = max(
+            errs["fused_split_candidates"], d3)
+        out[label] = {"k1": 0.0, "k2": d2, "k2_root": d2r, "k3_gain": d3,
+                      "k3_gain_over_tolerance": r3}
+        del bins, scale, zero
+
+    pb, pdig = pd.make_inputs(pd.N)
+    n = pb.shape[0]
+    pb = pb % WIDE_P2_MAX_BIN
+    dmat = torch.from_numpy(pdig).to(dev)
+    win = torch.tensor([pd.FIRST_OFF, n // 2], dtype=torch.int32,
+                       device=dev)
+    for col in (0, pd.F - 1):
+        b8 = pb.copy()
+        widen_column(rng, b8, col, 1, WIDE_P2_MAX_BIN)
+        bw = og.pack_u8_words(torch.from_numpy(b8).to(dev))
+        want = wh.window_digit_histogram_plain(bw, dmat, win, pd.F,
+                                               WIDE_P2_MAX_BIN)
+        lo, hi = wh.clamp_window(pd.FIRST_OFF, n // 2, n)
+        check(torch.equal(want, lh.digit_histogram_plain(
+            torch.from_numpy(b8).to(dev), dmat, WIDE_P2_MAX_BIN, lo,
+            hi - lo)), f"wide P2 plain col{col}: not equal to K1's plain")
+        got = counted(wh.launch_counts, "window_digit_histogram",
+                      lambda: wh.window_digit_histogram(
+                          bw, dmat, win, pd.F, WIDE_P2_MAX_BIN))
+        check(torch.equal(got, want), f"wide P2 col{col}: not bit-equal to "
+                                      f"the plain version")
+        out[f"p2_col{col}"] = 0.0
+    return {"max_abs_diff": out, "near_ties": ties,
+            "codes": {"k1_k2_k3": [B, B + WIDE_EXTRA - 1],
+                      "p2": [WIDE_P2_MAX_BIN,
+                             WIDE_P2_MAX_BIN + WIDE_EXTRA - 1]}}
 
 
 def children_inputs(rng, rows: int, F: int, max_bin: int, dtype, dev):
@@ -6492,15 +6656,18 @@ def phase_boundary(seed, workdir):
     quarantine file's lines equal the injected ones, the
     ``bad_rows_total`` counter their number, and the model text equals
     that of a one-round fail-fast load of the clean file with those
-    lines deleted, trained the same way, up to the one-round load's
+    lines deleted (read through the Python parser, as the two-round
+    loader reads), trained the same way, up to the one-round load's
     drift fingerprint section, which the two-round loader does not build
     (nor does the JAX package's).  A ``concurrent_append`` during a
     two-round load raises the named drift error; ``max_bad_rows`` below
     the injected count raises the budget error.  Prints each load's
     seconds and peak host RSS (two rounds beside one, the same dirty
     file, each in a process of its own).  Returns the launches."""
+    from unittest import mock
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.io import native
     from lightgbm_tpu_torch.io.guard import read_quarantine
     from lightgbm_tpu_torch.obs.drift import SECTION_HEADER
     from lightgbm_tpu_torch.testing import faults
@@ -6555,9 +6722,13 @@ def phase_boundary(seed, workdir):
     train_s = time.perf_counter() - t0
     k1_dirty = _launches()[0]
     _reset_launches()
-    clean_booster = lt.train(BOUNDARY_PARAMS,
-                             lt.Dataset(clean, params=BOUNDARY_PARAMS),
-                             BOUNDARY_ROUNDS, verbose_eval=False)
+    # the clean file through the Python parser, the two-round loader's
+    # value source (the native loader's decimals can differ in the last
+    # bits, in the JAX package too)
+    with mock.patch.object(native, "parse_file_native", return_value=None):
+        clean_set = lt.Dataset(clean, params=BOUNDARY_PARAMS).construct()
+    clean_booster = lt.train(BOUNDARY_PARAMS, clean_set, BOUNDARY_ROUNDS,
+                             verbose_eval=False)
     k1_clean = _launches()[0]
     a = booster.model_to_string()
     b = clean_booster.model_to_string()
@@ -8066,13 +8237,237 @@ def phase_capi(seed, workdir):
     return {"digit_histogram": k1_capi + k1_py, **k4}
 
 
+# the loader phase: the Higgs-like file's rows (cut from the Higgs cell's
+# 1M for time: the Python read of 1M rows alone takes ~25 s), the largest
+# distance of a natively parsed feature from its correctly rounded value
+# (the loader's parse_double is not correctly rounded; 6 ulps measured),
+# the 300-category file's rows, columns and rounds
+LOADER_ROWS = 250_000
+LOADER_MAX_ULPS = 8
+LOADER_CAT_ROWS, LOADER_CAT_FEATURES, LOADER_CAT_ROUNDS = 100_000, 28, 10
+LOADER_CATEGORIES = 300
+
+
+def write_repr_csv(path, y, X):
+    """Label then features, every value as ``repr`` writes it."""
+    with open(path, "w") as fh:
+        for lab, row in zip(y.tolist(), X.tolist()):
+            fh.write(",".join(map(repr, [lab, *row])) + "\n")
+
+
+def max_ulps(a, b):
+    """Units in the last place between two f64 arrays of like signs."""
+    return int(np.abs(np.ascontiguousarray(a, np.float64).view(np.int64)
+                      - np.ascontiguousarray(b, np.float64).view(np.int64)
+                      ).max())
+
+
+def phase_loader(seed, workdir):
+    """The native host loader on the card's host (``io/native.py``).
+    Builds the library (a timed compile of its own into the workdir, and
+    the one ``parse_file`` loads); a 250k x 28 Higgs-like CSV written
+    with ``repr``; ``parse_file`` natively and through Python (its native
+    read patched away), labels equal and features within
+    ``LOADER_MAX_ULPS``; ``value_to_bin`` native against
+    ``searchsorted``; 10 rounds through ``lt.Dataset(path)`` on the card
+    (K1) against ``lt.Dataset(X, y)`` on the parsed arrays, model texts
+    byte-equal; the file predicted through K4 by ``Booster.predict`` and
+    by ``LGBM_BoosterPredictForFile``; a 300-category CSV trained on the
+    card and on the CPU.  Returns the launches of the counted runs."""
+    import ctypes
+    from pathlib import Path
+    from unittest import mock
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.capi import impl as capi
+    from lightgbm_tpu_torch.io import native
+    from lightgbm_tpu_torch.io import parser
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    first_use_s = time.perf_counter() - t0
+    status = native.status()
+    check(lib is not None and status in ("built", "loaded"),
+          f"loader: the native library is unavailable: {status}")
+    cxx = native.compiler()
+    probe = Path(workdir) / "libdata_loader-timed.so"
+    t0 = time.perf_counter()
+    why = native._build(cxx, probe)
+    build_s = time.perf_counter() - t0
+    check(why is None, f"loader: the timed build failed: {why}")
+    compiler_version = subprocess.run(
+        [cxx, "--version"], capture_output=True, text=True
+    ).stdout.splitlines()[0]
+
+    # the Higgs-like file, natively and through Python
+    X, y = make_higgs_like(LOADER_ROWS, seed=seed + 70)
+    path = os.path.join(workdir, "higgs_like.csv")
+    t0 = time.perf_counter()
+    write_repr_csv(path, y, X)
+    write_s = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 1e6
+    native.reset_counts()
+    t0 = time.perf_counter()
+    yn, Xn, _ = parser.parse_file(path)
+    native_s = time.perf_counter() - t0
+    check(native.counts()["parse"] == 1,
+          f"loader: parse_file did not read natively: {native.counts()}")
+    with mock.patch.object(native, "parse_file_native", return_value=None):
+        t0 = time.perf_counter()
+        yp, Xp, _ = parser.parse_file(path)
+        python_s = time.perf_counter() - t0
+    check(np.array_equal(yn, yp), "loader: labels differ between the "
+                                  "native and the Python read")
+    check(np.array_equal(Xp, X), "loader: the Python read is not the "
+                                 "written values")
+    ulps = np.abs(Xn.view(np.int64) - Xp.view(np.int64))
+    worst = int(ulps.max())
+    check(worst <= LOADER_MAX_ULPS, f"loader: a feature {worst} ulps from "
+                                    f"its correctly rounded value")
+
+    # value_to_bin, native against searchsorted, on a mapper of the file
+    params = {**TRAIN_PARAMS, "verbose": -1}
+    ds = lt.Dataset(path, params=params)
+    mapper = ds.construct()._binned.mappers[0]
+    col = Xn[:, 0]
+    native.reset_counts()
+    t0 = time.perf_counter()
+    got = mapper.value_to_bin(col)
+    bin_native_s = time.perf_counter() - t0
+    check(native.counts()["bins"] == 1,
+          "loader: value_to_bin did not bin natively")
+    t0 = time.perf_counter()
+    want = np.searchsorted(mapper.bin_upper_bound[:-1], col, side="left")
+    want = np.where(np.isnan(col), 0, want)
+    bin_search_s = time.perf_counter() - t0
+    check(np.array_equal(got, want), "loader: native codes differ from "
+                                     "searchsorted's")
+
+    # 10 rounds through Dataset(path) on the card, and Dataset(X, y)
+    _reset_launches()
+    from_file = lt.train(params, ds, TRAIN_ROUNDS, device="cuda",
+                         verbose_eval=False)
+    torch.cuda.synchronize()
+    k1_file = _launches()[0]
+    check(k1_file > 0, "loader: Dataset(path) trained without K1")
+    _reset_launches()
+    from_arrays = lt.train(params, lt.Dataset(Xn, yn), TRAIN_ROUNDS,
+                           device="cuda", verbose_eval=False)
+    k1_arrays = _launches()[0]
+    text = from_file.model_to_string()
+    check(text == from_arrays.model_to_string(),
+          "loader: Dataset(path)'s model differs from Dataset(X, y)'s: "
+          + first_line_diff(text, from_arrays.model_to_string()))
+    del from_arrays
+    _reset_launches()
+    t0 = time.perf_counter()
+    pred = from_file.predict(path)
+    predict_s = time.perf_counter() - t0
+    k4_file = _launches()[1]
+    check(sum(k4_file.values()) > 0, "loader: the file's predict ran no K4")
+    check(np.array_equal(pred, from_file.predict(Xn)),
+          "loader: the file's predictions differ from the arrays'")
+    model_path = os.path.join(workdir, "loader_model.txt")
+    from_file.save_model(model_path)
+    out_path = os.path.join(workdir, "loader_pred.txt")
+    booster = [0]
+    native.reset_counts()
+    check(capi.LGBM_BoosterCreateFromModelfile(
+        ctypes.c_char_p(model_path.encode()), [0], booster) == 0,
+        "loader: LGBM_BoosterCreateFromModelfile failed")
+    _reset_launches()
+    try:
+        check(capi.LGBM_BoosterPredictForFile(
+            booster[0], ctypes.c_char_p(path.encode()), 0, 0, -1,
+            ctypes.c_char_p(out_path.encode())) == 0,
+            "loader: LGBM_BoosterPredictForFile failed")
+    finally:
+        capi.LGBM_BoosterFree(booster[0])
+    k4_capi = _launches()[1]
+    check(native.counts()["parse"] == 1, "loader: the C API's file "
+                                         "predict did not read natively")
+    check(sum(k4_capi.values()) > 0, "loader: the C API's file predict "
+                                     "ran no K4")
+    capi_pred = np.loadtxt(out_path)
+    check(np.allclose(capi_pred, pred, rtol=1e-5, atol=1e-6),
+          "loader: LGBM_BoosterPredictForFile differs from "
+          "Booster.predict beyond the file's %g digits")
+    del from_file, ds, X, Xn, Xp, yp
+
+    # 300 equally frequent categories at max_bin 255: a 294-bin mapper
+    rng = np.random.RandomState(seed + 71)
+    Xc = rng.normal(size=(LOADER_CAT_ROWS, LOADER_CAT_FEATURES))
+    cats = np.arange(LOADER_CAT_ROWS) % LOADER_CATEGORIES
+    rng.shuffle(cats)
+    Xc[:, 0] = cats
+    yc = ((np.sin(cats / 17.0) + 0.5 * Xc[:, 1]
+           + rng.normal(scale=0.5, size=LOADER_CAT_ROWS)) > 0).astype(
+               np.float64)
+    cat_path = os.path.join(workdir, "categories300.csv")
+    write_repr_csv(cat_path, yc, Xc)
+    texts, widths = {}, {}
+    for where in ("cuda", "cpu"):
+        native.reset_counts()
+        _reset_launches()
+        cset = lt.Dataset(cat_path, params=params)
+        b = lt.train(params, cset, LOADER_CAT_ROUNDS,
+                     categorical_feature=[0], device=where,
+                     verbose_eval=False)
+        check(native.counts()["parse"] == 1,
+              f"loader: the 300-category file was not read natively "
+              f"({where})")
+        widths[where] = [m.num_bin for m in cset._binned.mappers]
+        if where == "cuda":
+            k1_cat = _launches()[0]
+        texts[where] = b.model_to_string()
+        del b, cset
+    check(widths["cuda"][0] == 294 and widths["cuda"] == widths["cpu"],
+          f"loader: the 300-category mappers are {widths['cuda'][:3]}...")
+    check(k1_cat > 0, "loader: the 300-category run ran no K1")
+    trees, flip, leaf_rel = compare_model_texts(
+        texts["cuda"], texts["cpu"], "loader 300 categories")
+    check(flip is None, f"loader: the 300-category trees flipped: {flip}")
+    emit({"phase": "loader", "status": status, "compiler": cxx,
+          "compiler_version": compiler_version, "library": native.get_lib()
+          ._name, "first_use_s": first_use_s, "build_s": build_s,
+          "file": {"rows": LOADER_ROWS, "features": HIGGS["num_features"],
+                   "mb": mb, "write_s": write_s,
+                   "cut": "rows 1M -> 250k (time)"},
+          "parse": {"native_s": native_s, "python_s": python_s,
+                    "native_mb_s": mb / native_s,
+                    "python_mb_s": mb / python_s,
+                    "python_over_native": python_s / native_s,
+                    "labels_equal": True, "max_ulps": worst,
+                    "share_differing": float((ulps > 0).mean()),
+                    "mean_ulps": float(ulps.mean())},
+          "value_to_bin": {"values": len(col), "native_s": bin_native_s,
+                           "searchsorted_s": bin_search_s,
+                           "codes_equal": True},
+          "train": {"rounds": TRAIN_ROUNDS, "k1_launches": k1_file,
+                    "k1_launches_arrays": k1_arrays,
+                    "model_text_equal_to_arrays": True},
+          "predict": {"rows": LOADER_ROWS, "s": predict_s,
+                      "k4_launches": k4_file,
+                      "equal_to_arrays": True,
+                      "capi_k4_launches": k4_capi},
+          "categories300": {"rows": LOADER_CAT_ROWS,
+                            "mapper_bins": widths["cuda"][0],
+                            "max_bin": TRAIN_PARAMS["max_bin"],
+                            "trees": trees, "k1_launches": k1_cat,
+                            "leaf_rel_max": leaf_rel},
+          "seconds": time.perf_counter() - t_phase})
+    k4 = {name: k4_file.get(name, 0) + k4_capi.get(name, 0)
+          for name in {*k4_file, *k4_capi}}
+    return {"digit_histogram": k1_file + k1_arrays + k1_cat, **k4}
+
+
 # the side process (``--side JOB``): the phases that need none of the main
 # sequence's datasets and models, run in order in a process of their own
 # beside ``distributed``, ``resilience``, ``objectives``, ``sampling`` and
 # ``engine`` (started after ``memory``, whose real OOM must have the card
 # to itself, and joined before ``telemetry``, whose round times compare
 # two modes); its torch threads, and how long the main process waits
-SIDE_PHASES = ("examples", "estimators", "boundary", "sparse", "capi")
+SIDE_PHASES = ("examples", "estimators", "boundary", "sparse", "capi",
+               "loader")
 SIDE_THREADS = 4
 SIDE_TIMEOUT_S = 900
 
@@ -8093,7 +8488,8 @@ def side_main(job_path) -> int:
             "estimators": lambda: phase_estimators(seed, workdir, errs),
             "boundary": lambda: phase_boundary(seed, workdir),
             "sparse": lambda: phase_sparse(seed, workdir, reps),
-            "capi": lambda: phase_capi(seed, workdir)}
+            "capi": lambda: phase_capi(seed, workdir),
+            "loader": lambda: phase_loader(seed, workdir)}
     for name in SIDE_PHASES:
         for kernel, n in runs[name]().items():
             launches[kernel] = launches.get(kernel, 0) + n

@@ -3,7 +3,10 @@
 The port's own copy of the JAX package's io/binning.py (numpy only, no
 JAX): greedy equal-count binning with a distinct-value fast path,
 zero-count handling, categorical mode, trivial-feature filtering, and
-searchsorted ValueToBin (reference bin.cpp:71-246, bin.h:385-407).
+ValueToBin (reference bin.cpp:71-246, bin.h:385-407): ``searchsorted``,
+or for a numerical column of :data:`NATIVE_BIN_MIN` values or more the
+native host loader's binary search (``io/native.py``), as in the JAX
+package; both give the same codes.
 Binning runs once on the host at dataset construction; the card sees
 only the dense uint8/uint16 bin codes.  ``from_state`` accepts the dict
 the JAX mapper's ``to_state()`` gives, so both packages can share one
@@ -16,8 +19,12 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from . import native
+
 NUMERICAL = 0
 CATEGORICAL = 1
+#: values from which a numerical column bins natively (JAX binning.py:229)
+NATIVE_BIN_MIN = 65536
 
 
 def _need_filter(cnt_in_bin: Sequence[int], total_cnt: int, filter_cnt: int,
@@ -227,6 +234,13 @@ class BinMapper:
         scalar = values.ndim == 0
         values = np.atleast_1d(values)
         if self.bin_type == NUMERICAL:
+            if values.size >= NATIVE_BIN_MIN:
+                got = native.values_to_bins_native(
+                    values, self.bin_upper_bound,
+                    np.uint16 if self.num_bin > 256 else np.uint8)
+                if got is not None:
+                    bins = got.astype(np.int64)
+                    return bins[0] if scalar else bins
             # First bound >= value.  NaN lands in bin 0 like the reference's
             # binary search (bin.h:385-407: `upper_bounds[m] < v` is false
             # for NaN) — searchsorted alone would put it in the last bin.

@@ -16,9 +16,16 @@ index, a row of empty fields) goes through the file's
 :class:`~.guard.IngestGuard`: under ``bad_data_policy=fail_fast`` (the
 default) it raises a ``LightGBMError`` naming ``file:line``, the reason
 and the token; under ``quarantine`` the row is skipped into
-``<data>.quarantine`` under an error budget.  The JAX package's native
-C++ loader is not ported: its one-round path reads a clean file with
-it and a dirty one with the Python path this module ports.
+``<data>.quarantine`` under an error budget.
+
+:func:`parse_file` reads a whole file with the native host loader
+(``io/native.py``, the port's copy of the JAX package's C++ loader) when
+it builds, as the JAX package does: a clean file comes back from C++, to
+the same bits as in the JAX package; a file the loader flags as
+malformed is read again through the guarded Python path, which owns the
+diagnostics and the policy.  :func:`parse_file_chunks` (predictions and
+the two-round loader) always reads through Python, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils import log
 from ..utils.log import LightGBMError
+from . import native
 from .guard import IngestGuard, column_index, feature_value
 
 #: lines that decide the format
@@ -234,12 +243,18 @@ def _parse_chunk(lines: Sequence[str], fmt: str, label_idx: int,
         label, feats = _parse_delimited(lines, "," if fmt == "csv" else "\t",
                                         label_idx, guard=guard,
                                         line_numbers=line_numbers)
-    if num_features is not None and feats.shape[1] != num_features:
-        fixed = np.zeros((feats.shape[0], num_features), np.float64)
-        upto = min(num_features, feats.shape[1])
-        fixed[:, :upto] = feats[:, :upto]
-        feats = fixed
-    return label, feats
+    return label, _to_width(feats, num_features)
+
+
+def _to_width(feats: np.ndarray, num_features: Optional[int]) -> np.ndarray:
+    """``feats`` widened with zeros or cut to ``num_features`` columns
+    (unchanged when it is None)."""
+    if num_features is None or feats.shape[1] == num_features:
+        return feats
+    fixed = np.zeros((feats.shape[0], num_features), np.float64)
+    upto = min(num_features, feats.shape[1])
+    fixed[:, :upto] = feats[:, :upto]
+    return fixed
 
 
 def parse_file_chunks(path: str, has_header: bool = False,
@@ -293,20 +308,40 @@ def parse_file(path: str, has_header: bool = False, label_idx: int = 0,
     """(label [N], features [N, F], the header's feature names or None)
     of a whole data file, its bad lines through ``guard`` (default: fail
     fast).  The header's names leave out the label column (not for
-    LibSVM, whose header is not column-aligned)."""
+    LibSVM, whose header is not column-aligned).  A clean file is read
+    by the native loader where it builds (JAX ``parser.py:261-296``);
+    any other through Python."""
+    got = native.parse_file_native(path, has_header=has_header,
+                                   label_idx=label_idx)
+    if got is not None and got[2] == "libsvm" and num_features is not None \
+            and got[1].shape[1] > num_features:
+        # a column index past the width asked for: the Python path names
+        # the line (JAX's native path cuts the column away silently)
+        got = None
+    if got is not None and got[3] >= 0:
+        log.debug("the native loader flagged data row %d of %s: reading "
+                  "it through the guarded Python path", got[3], path)
+        got = None
+    if got is not None:
+        label, feats = got[0], _to_width(got[1], num_features)
+        (guard if guard is not None else IngestGuard(path)).finish()
+    else:
+        parts = list(parse_file_chunks(path, has_header, label_idx,
+                                       num_features, guard=guard))
+        if parts:
+            # LibSVM chunks densify to their own widths without
+            # num_features
+            width = max(p[1].shape[1] for p in parts)
+            label = np.concatenate([p[0] for p in parts])
+            feats = np.concatenate(
+                [np.pad(X, ((0, 0), (0, width - X.shape[1])))
+                 for _, X in parts], axis=0)
+        else:
+            label, feats = np.zeros(0), np.zeros((0, num_features or 0))
     header: Optional[List[str]] = None
     if has_header:
         names, fmt = read_header(path)
         if label_idx >= 0 and fmt != "libsvm" and len(names) > label_idx:
             names = names[:label_idx] + names[label_idx + 1:]
         header = names
-    parts = list(parse_file_chunks(path, has_header, label_idx,
-                                   num_features, guard=guard))
-    if not parts:
-        return np.zeros(0), np.zeros((0, num_features or 0)), header
-    # LibSVM chunks densify to their own widths without num_features
-    width = max(p[1].shape[1] for p in parts)
-    parts = [(lab, np.pad(X, ((0, 0), (0, width - X.shape[1]))))
-             for lab, X in parts]
-    return (np.concatenate([p[0] for p in parts]),
-            np.concatenate([p[1] for p in parts], axis=0), header)
+    return label, feats, header

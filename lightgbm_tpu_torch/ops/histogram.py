@@ -3,9 +3,10 @@ dispatchers.
 
 Port of the JAX package's ops/histogram.py.  The plain versions are one
 f32 ``index_add_`` keyed by (child, feature, bin) over every row, with a
-dump slot for rows of neither child: building both children of a split
-in one pass over all rows costs the same as building one, so the
-full-pass growers keep no per-leaf histogram state.  Values accumulated
+dump slot for rows of neither child and for bin codes at or past
+``max_bin`` (which K2 and K3 skip, as the TPU kernels do): building both
+children of a split in one pass over all rows costs the same as building
+one, so the full-pass growers keep no per-leaf histogram state.  Values accumulated
 per (feature, bin) are (sum of gradients, sum of hessians, count), with
 counts the row-weight sums.
 
@@ -105,8 +106,9 @@ def build_children_histograms(bins, grad, hess, weight, leaf_id,
     in_leaf = is_left | is_right
     child = is_right.to(torch.int64)                           # [N]
     feat = torch.arange(F, dtype=torch.int64, device=bins.device)[:, None]
-    seg = child[None, :] * (F * B) + feat * B + int_bins(bins)
-    seg = torch.where(in_leaf[None, :], seg,
+    b = int_bins(bins)
+    seg = child[None, :] * (F * B) + feat * B + b
+    seg = torch.where(in_leaf[None, :] & (b < B), seg,
                       torch.full_like(seg, 2 * F * B))        # dump slot
     flat = histogram_scatter(bins, seg, 2 * F * B, grad, hess, weight)
     return flat.reshape(2, F, B, 3)
@@ -118,6 +120,7 @@ def build_root_histogram(bins, grad, hess, weight,
     F, N = bins.shape
     B = max_bin
     feat = torch.arange(F, dtype=torch.int64, device=bins.device)[:, None]
-    seg = feat * B + int_bins(bins)
+    b = int_bins(bins)
+    seg = torch.where(b < B, feat * B + b, F * B)             # dump slot
     flat = histogram_scatter(bins, seg, F * B, grad, hess, weight)
     return flat.reshape(F, B, 3)

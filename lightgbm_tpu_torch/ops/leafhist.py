@@ -13,9 +13,12 @@ a split is the parent's sums minus the smaller child's, exactly
 tensor it launches the hand-written kernel ``csrc/leaf_hist.cu`` (which
 replaces the TPU kernel ``digit_histogram_pallas``) or raises; on a CPU
 tensor it runs :func:`digit_histogram_plain`, one ``index_add_`` keyed by
-``feature * max_bin + bin``.  The launch is planned by the pure function
-:func:`plan`: windows up to :data:`SMALL_WINDOW_MAX_ROWS` rows take the
-small-window path (one thread-block cluster a feature group, the
+``feature * max_bin + bin``.  A bin code at or past ``max_bin`` (a
+categorical mapper can hold more bins than ``max_bin``) adds to no bin
+in either version, as in the TPU kernel.  The launch is planned by the
+pure function :func:`plan`: windows up to :data:`SMALL_WINDOW_MAX_ROWS`
+rows take the small-window path (one thread-block cluster a feature
+group, the
 cluster's sums stored whole: one launch, nothing zero-filled), larger
 ones the large-window path (each block's non-zero sums added with global
 atomics into an output the kernel's launcher zeroes).  Both are exact
@@ -27,8 +30,8 @@ compacts the rows of a mask into a window of a power-of-two size class
 (:func:`size_classes`, :func:`compact_rows`: a stable sort of the mask)
 and hands the window to :func:`digit_histogram`.
 
-Preconditions: every bin code is below ``max_bin``, and a window holds
-fewer than 2^24 rows (|digit| <= 128, so 128 * rows stays below 2^31).
+Precondition: a window holds fewer than 2^24 rows (|digit| <= 128, so
+128 * rows stays below 2^31).
 """
 
 from __future__ import annotations
@@ -172,7 +175,10 @@ def digit_histogram_plain(bins_rm: torch.Tensor, digits: torch.Tensor,
     """[F, 9, max_bin] int32 digit sums over rows [start, start + count):
     one ``index_add_`` keyed by ``feature * max_bin + bin`` accumulating
     the 9 digit streams in int32 (the JAX ``digit_histogram_scatter``).
-    It materializes ``count * F * 9`` int32 values."""
+    A code ``>= max_bin`` goes to a dump slot past the last feature and is
+    dropped, as the kernel and the TPU kernel drop it (JAX's CPU scatter
+    files it under the next feature instead).  It materializes
+    ``count * F * 9`` int32 values."""
     start, count = _window(bins_rm, digits, start, count)
     F = bins_rm.shape[1]
     b = bins_rm[start:start + count]
@@ -180,12 +186,14 @@ def digit_histogram_plain(bins_rm: torch.Tensor, digits: torch.Tensor,
     if b.dtype == torch.uint16:
         b = b.view(torch.int16).to(torch.int32) & 0xFFFF
     feat = torch.arange(F, dtype=torch.int64, device=b.device)[None, :]
-    seg = feat * max_bin + b.to(torch.int64)                       # [S, F]
+    b = b.to(torch.int64)
+    seg = torch.where(b < max_bin, feat * max_bin + b, F * max_bin)  # [S, F]
     vals = d.to(torch.int32)[:, None, :].expand(count, F, NUM_STREAMS)
-    out = torch.zeros((F * max_bin, NUM_STREAMS), dtype=torch.int32,
+    out = torch.zeros((F * max_bin + 1, NUM_STREAMS), dtype=torch.int32,
                       device=b.device)
     out.index_add_(0, seg.reshape(-1), vals.reshape(-1, NUM_STREAMS))
-    return out.reshape(F, max_bin, NUM_STREAMS).permute(0, 2, 1).contiguous()
+    return out[:F * max_bin].reshape(F, max_bin, NUM_STREAMS) \
+        .permute(0, 2, 1).contiguous()
 
 
 def feature_group(F: int, max_bin: int) -> int:

@@ -18,6 +18,9 @@ JAX package's own tests run them on the CPU, in interpret mode.
     left sums to 1e-5 relative (the prefix sums associate differently:
     XLA's f32 cumulative sum against torch's f64-accumulated one on the
     CPU).
+  * Bin codes at or past ``max_bin`` (a categorical mapper can be wider
+    than ``max_bin``) add to no bin of K2's and K3's plain versions, as
+    in the Pallas kernels, with the wide column first and last.
   * The dispatchers send CPU tensors to the plain versions, and the
     wrappers check their inputs.  The CUDA kernels are held against the
     plain versions by the ``cuda``-marked test, which skips without a
@@ -230,6 +233,57 @@ def test_fused_candidates_categorical_one_vs_rest():
                              parent=0, right=-2, can=(True, False))
     assert int(tbest.feature[0]) == 0
     assert int(tbest.threshold[0]) == 0          # "cat == 0 goes left"
+
+
+# ---------------------------------------------------------------------------
+# bin codes past max_bin (a categorical mapper wider than max_bin): K2, K3
+# and their plain versions drop them, as the Pallas kernels do
+
+
+def _wide_rows(seed, n, f, wide, B):
+    bins, g, h, w, leaf = _rows(seed, n, f, B, np.uint16)
+    rng = np.random.RandomState(seed + 100)
+    bins[wide] = rng.randint(0, B + 39, size=n)
+    bins[wide, :39] = B + np.arange(39)              # every wide code
+    return bins, g, h, w, leaf
+
+
+@pytest.mark.parametrize("wide", [0, 4])
+def test_children_and_root_plain_drop_codes_past_max_bin(wide):
+    B = 255
+    bins, g, h, w, leaf = _wide_rows(11, 1000, 5, wide, B)
+    jargs = [jnp.asarray(a) for a in (bins, g, h, w, leaf)]
+    got = th.build_children_histograms(*_t(bins, g, h, w, leaf), 1, 3, B)
+    want = np.asarray(children_histograms_pallas(
+        *jargs, 1, 3, B, n_blk=N_BLK, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+    root = th.build_root_histogram(*_t(bins, g, h, w), B)
+    want = np.asarray(root_histogram_pallas(*jargs[:4], B, n_blk=N_BLK,
+                                            interpret=True))
+    np.testing.assert_allclose(root.numpy(), want, rtol=1e-5, atol=1e-4)
+    # the wide feature's counts are exactly its in-range rows' weights
+    keep = bins[wide] < B
+    np.testing.assert_allclose(root[wide, :, 2].sum().item(),
+                               w[keep].sum(), rtol=1e-6)
+    for c, lf in enumerate((1, 3)):
+        m = keep & (leaf == lf)
+        np.testing.assert_allclose(got[c, wide, :, 2].sum().item(),
+                                   w[m].sum(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("wide", [0, 5])
+def test_fused_candidates_drop_codes_past_max_bin(wide):
+    # the scale of tests/test_fused_gain.py's scenarios (700 rows, 21 bins)
+    B = 21
+    bins, g, h, w, leaf = _wide_rows(12, 700, 6, wide, B)
+    leaf = leaf % 3
+    num_bin = np.full(6, B, np.int32)
+    num_bin[wide] = B + 39
+    is_cat = np.zeros(6, bool)
+    is_cat[wide] = True
+    scn = [bins, g, h, w, leaf, num_bin, is_cat, np.ones(6, bool)]
+    jraw, *_ = _assert_same(scn, B, (5, 1e-3, 0.0, 0.0, 0.0))
+    assert np.isfinite(jraw[..., 0]).any(), "degenerate scenario"
 
 
 # ---------------------------------------------------------------------------

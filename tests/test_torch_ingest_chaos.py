@@ -17,6 +17,7 @@ the port's surface reaches.
   the tolerances of ``tests/torch_example_parity.py``.
 """
 
+import contextlib
 import shutil
 from unittest import mock
 
@@ -47,9 +48,15 @@ TRAIN_PARAMS = {"objective": "binary", "num_iterations": 5,
                 "learning_rate": 0.2, "verbose": -1}
 
 
+@contextlib.contextmanager
 def _no_native():
-    return mock.patch("lightgbm_tpu.io.native.parse_file_native",
-                      return_value=None)
+    """Both packages' native loaders patched away: every read goes through
+    the Python parsers these tests compare."""
+    with mock.patch("lightgbm_tpu.io.native.parse_file_native",
+                    return_value=None), \
+            mock.patch("lightgbm_tpu_torch.io.native.parse_file_native",
+                       return_value=None):
+        yield
 
 
 def _write_train_file(path, n=400, seed=7):

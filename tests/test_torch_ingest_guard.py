@@ -13,11 +13,12 @@ a header and blank lines, undecodable bytes, and the two-round loader's
 accounting (a bad line sampled in round 1b and met again in round 2
 counted once, the field count from the first data line, the sampled
 good rows counted once in the fraction, LibSVM indices validated before
-they size the matrix) and its refusal of positional side files.  The
-JAX package's native C++ loader is patched away: its one-round path
-reads a dirty file with the Python path these tests compare against.
+they size the matrix) and its refusal of positional side files.  Both
+packages' native C++ loaders are patched away: their one-round paths
+read a dirty file with the Python paths these tests compare.
 """
 
+import contextlib
 import os
 import types
 from unittest import mock
@@ -44,9 +45,15 @@ PORT = types.SimpleNamespace(guard=tguard, parser=tparser,
                              Error=LightGBMError)
 
 
+@contextlib.contextmanager
 def _no_native():
-    return mock.patch("lightgbm_tpu.io.native.parse_file_native",
-                      return_value=None)
+    """Both packages' native loaders patched away: every read goes through
+    the Python parsers these tests compare."""
+    with mock.patch("lightgbm_tpu.io.native.parse_file_native",
+                    return_value=None), \
+            mock.patch("lightgbm_tpu_torch.io.native.parse_file_native",
+                       return_value=None):
+        yield
 
 
 def _outcome(pkg, fn):

@@ -7,7 +7,10 @@ negative values, and the round trip through ``combine_digit_sums`` within
 1e-6 relative.  ``digit_histogram_plain`` (and the CPU path of the
 ``digit_histogram`` wrapper) must equal the JAX scatter version and the
 Pallas kernel run in interpret mode, int32 exactly, on uint8 and uint16
-bins and on windows of odd sizes.  The CUDA kernel is held against the
+bins and on windows of odd sizes.  Bin codes at or past ``max_bin`` (a
+categorical mapper can be wider than ``max_bin``) add to no bin, as in
+the Pallas kernel; JAX's CPU scatter files them under the next feature,
+which one test shows.  The CUDA kernel is held against the
 plain version by the ``cuda``-marked test, which skips on a host without
 a card.
 """
@@ -123,6 +126,58 @@ def test_plain_matches_pallas_interpret():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _wide_bins(n, f, wide, max_bin, seed):
+    """uint16 codes in [0, max_bin) with column ``wide`` reaching
+    ``max_bin + 38`` (a 294-bin categorical mapper at ``max_bin=255``)."""
+    rng = np.random.RandomState(seed)
+    bins = rng.randint(0, max_bin, size=(n, f)).astype(np.uint16)
+    bins[:, wide] = rng.randint(0, max_bin + 39, size=n)
+    bins[:39, wide] = max_bin + np.arange(39)       # every wide code
+    return bins
+
+
+@pytest.mark.parametrize("wide", [0, 1])
+def test_plain_drops_codes_past_max_bin_as_pallas_does(wide):
+    n, f, b = 512, 2, 255
+    bins = _wide_bins(n, f, wide, b, seed=7)
+    g, h, w = _gh(n, seed=8)
+    _, jd, _, td = _both_digits(g, h, w)
+    want = np.asarray(jlh.digit_histogram_pallas(
+        jnp.asarray(bins), jnp.asarray(jd), b, n_blk=256, interpret=True))
+    got = tlh.digit_histogram_plain(torch.from_numpy(bins),
+                                    torch.from_numpy(td), b)
+    assert got.shape == (f, 9, b)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the wide column keeps exactly its in-range rows
+    keep = bins[:, wide] < b
+    np.testing.assert_array_equal(
+        got[wide].sum(-1).numpy(),
+        td[keep].astype(np.int64).sum(0).astype(np.int32))
+    assert torch.equal(tlh.digit_histogram(torch.from_numpy(bins),
+                                           torch.from_numpy(td), b), got)
+
+
+def test_jax_cpu_scatter_files_a_wide_code_under_the_next_feature():
+    n, f, b = 512, 2, 255
+    bins = _wide_bins(n, f, 0, b, seed=9)
+    g, h, w = _gh(n, seed=10)
+    _, jd, _, td = _both_digits(g, h, w)
+    pallas = np.asarray(jlh.digit_histogram_pallas(
+        jnp.asarray(bins), jnp.asarray(jd), b, n_blk=256, interpret=True))
+    scatter = np.asarray(jlh.digit_histogram_scatter(
+        jnp.asarray(bins), jnp.asarray(jd), b))
+    got = tlh.digit_histogram_plain(torch.from_numpy(bins),
+                                    torch.from_numpy(td), b).numpy()
+    # code 255 + k of feature 0 lands in bin k of feature 1 in JAX's scatter
+    np.testing.assert_array_equal(scatter[0], pallas[0])
+    assert not np.array_equal(scatter[1], pallas[1])
+    k = bins[:, 0][bins[:, 0] >= b] - b
+    extra = np.zeros((9, b), np.int64)
+    np.add.at(extra.T, k, jd[bins[:, 0] >= b].astype(np.int64))
+    np.testing.assert_array_equal(scatter[1] - pallas[1], extra)
+    np.testing.assert_array_equal(got, pallas)
+
+
 def test_wrapper_counts_no_launch_on_cpu_and_checks_inputs():
     bins = torch.from_numpy(_bins(100, 4, 16, np.uint8))
     dig = torch.zeros((100, 9), dtype=torch.int8)
@@ -154,9 +209,11 @@ def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     dev = torch.device("cuda", 0)
-    for dtype, b in ((np.uint8, 255), (np.uint16, 300)):
+    for dtype, b in ((np.uint8, 255), (np.uint16, 300), (np.uint16, 255)):
         n = 70000
-        bins = torch.from_numpy(_bins(n, 28, b, dtype)).to(dev)
+        raw = _bins(n, 28, b, dtype) if dtype == np.uint8 or b == 300 \
+            else _wide_bins(n, 28, 27, b, seed=11)     # codes past max_bin
+        bins = torch.from_numpy(raw).to(dev)
         g, h, w = _gh(n, seed=6)
         td = torch.from_numpy(_both_digits(g, h, w)[3]).to(dev)
         for start, count in ((0, n), (5, 0), (3, 1), (11, 4097)):

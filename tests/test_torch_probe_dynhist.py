@@ -11,7 +11,9 @@ it, at N = 2^14 rows and nb = 2048, on windows whose blocks lie inside
 N.  The same numpy inputs go to both sides and every comparison is exact
 (int32 digit sums, int32 words).  The plain version is also held against
 K1's plain version on the unpacked window at the edges (a window ending
-at N, one clamped past N or below 0, bin 255).  The words of each kind
+at N, one clamped past N or below 0, bin 255), and against the Pallas
+K1 in interpret mode on codes past ``max_bin``, which add to no bin,
+with the wide column first and last.  The words of each kind
 go to the port stacked as the rows of one buffer.  The CUDA kernel is
 held against the plain version and K1, with one kernel launch a call and
 nothing zero-filled before it, by the ``cuda``-marked test, which skips
@@ -29,6 +31,7 @@ import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
+from lightgbm_tpu.ops import leafhist as jlh
 from lightgbm_tpu.ops import ordered_grow as jog
 from tools import probe_dynhist as jprobe
 
@@ -175,6 +178,28 @@ def test_plain_equals_k1_on_the_unpacked_window(inputs, matrix):
     want = np.bincount(bins[rows, 3], weights=inputs["digits"][rows, 0],
                        minlength=256)
     np.testing.assert_array_equal(got[3, 0].numpy(), want.astype(np.int32))
+
+
+@pytest.mark.parametrize("wide", [0, 4])
+def test_plain_drops_codes_past_max_bin_as_pallas_k1_does(wide):
+    """Codes at or past ``max_bin`` (here 200, codes up to 238) add to no
+    bin, as in JAX's Pallas K1 (interpret mode) on the same window."""
+    n, f, b = 1024, 5, 200
+    rng = np.random.RandomState(13 + wide)
+    bins = rng.randint(0, b, size=(n, f)).astype(np.uint8)
+    bins[:, wide] = rng.randint(0, b + 39, size=n)
+    bins[:39, wide] = b + np.arange(39)
+    digits = rng.randint(-128, 127, size=(n, 9)).astype(np.int8)
+    bw = tog.pack_u8_words(torch.from_numpy(bins))
+    off, count = 3, 1000
+    got = wh.window_digit_histogram_plain(
+        bw, torch.from_numpy(digits), _window(off, count), f, b)
+    want = np.asarray(jlh.digit_histogram_pallas(
+        jnp.asarray(bins[off:off + count]),
+        jnp.asarray(digits[off:off + count]), b, n_blk=256,
+        interpret=True))
+    assert tuple(got.shape) == (f, 9, b)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_wrapper_on_cpu_counts_nothing_and_checks_inputs(inputs):

@@ -6,8 +6,9 @@ JAX package; and the keys the port only warns about.
 Each alias drives its feature and gives the JAX package's answer for
 the canonical key: the port's CLI against the JAX CLI on the same CSV
 files (trees structure-equal with thresholds to 1e-9 relative, as
-``tests/torch_example_parity.py`` compares them: the JAX CLI parses with
-its native loader; leaf values within 1e-5 of the tree's largest; the
+``tests/torch_example_parity.py`` compares them: a package whose native
+loader does not build parses with Python's ``float``; leaf values within
+1e-5 of the tree's largest; the
 same stop round; leaf indices equal).  Through the Python API these
 keys belong to ``train``'s arguments (``init_model``,
 ``early_stopping_rounds``): as params they change nothing, in either

@@ -31,6 +31,7 @@ from lightgbm_tpu_torch import cli
 from lightgbm_tpu_torch.config import Config, parse_cli_args
 from lightgbm_tpu_torch.io.binning import BinMapper
 from lightgbm_tpu_torch.io.dataset import BinnedDataset
+from lightgbm_tpu_torch.io.parser import parse_file
 
 pytestmark = pytest.mark.torch
 
@@ -324,7 +325,9 @@ def test_cli_train_model_loads_in_jax(tmp_path, trained):
             "is_training_metric=true"] + [
         f"{k}={v}" for k, v in PARAMS.items() if k != "verbose"]
     assert cli.main(["task=train"] + argv) == 0
-    want = lt.train(PARAMS, lt.Dataset(X, y), 4, device="cpu",
+    # the API on the arrays the CLI reads (the native loader's values)
+    yf, Xf, _ = parse_file(str(data))
+    want = lt.train(PARAMS, lt.Dataset(Xf, yf), 4, device="cpu",
                     verbose_eval=False).model_to_string()
     assert model.read_text() == want
     pj = lgb.Booster(model_file=str(model)).predict(X)

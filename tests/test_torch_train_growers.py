@@ -27,6 +27,7 @@ from lightgbm_tpu.models.gbdt import estimate_train_memory as jax_estimate
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch import cli
 from lightgbm_tpu_torch.config import Config
+from lightgbm_tpu_torch.io.parser import parse_file
 from lightgbm_tpu_torch.models.gbdt import estimate_train_memory
 from lightgbm_tpu_torch.utils import log
 
@@ -198,8 +199,10 @@ def test_cli_train_fused_model_loads_in_jax(tmp_path):
             "verbose=-1", "num_iterations=4", "serial_grow=fused"] + [
         f"{k}={v}" for k, v in PARAMS.items() if k != "verbose"]
     assert cli.main(["task=train"] + argv) == 0
-    want = lt.train({**PARAMS, "serial_grow": "fused"}, lt.Dataset(X, y), 4,
-                    device="cpu", verbose_eval=False).model_to_string()
+    # the API on the arrays the CLI reads (the native loader's values)
+    yf, Xf, _ = parse_file(str(data))
+    want = lt.train({**PARAMS, "serial_grow": "fused"}, lt.Dataset(Xf, yf),
+                    4, device="cpu", verbose_eval=False).model_to_string()
     assert model.read_text() == want
     pj = lgb.Booster(model_file=str(model)).predict(X)
     pt = lt.Booster(model_file=str(model), device="cpu").predict(X)

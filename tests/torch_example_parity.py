@@ -6,9 +6,11 @@
 conf's bagging and feature fraction too), logs each round's metrics,
 then runs
 ``predict.conf`` on the example's test file with each model, and the
-port's CLI once more on the JAX model.  (The JAX CLI reads the files
-with its native loader, whose decimal conversion can differ from the
-port's ``float`` in the last bit; thresholds are compared to 1e-9.)
+port's CLI once more on the JAX model.  (Both CLIs read the files with
+their native loaders, which convert decimals to the same bits where the
+library builds; where it does not, a package reads through Python's
+``float``, which can differ in the last bit, so thresholds are compared
+to 1e-9.  ``tests/test_torch_native_loader.py`` holds them exactly.)
 The checks, with the comparisons of ``chip_smoke.py`` (which holds the
 card's run against the CPU's the same way):
 
