@@ -124,7 +124,20 @@ their round times are taken beside that load.
    the lone replica: ejected, 503 at once, re-admitted on probation by
    the probe, healthy after three clean requests.  ``serve_walk=gather``
    against K4's answers, both timed at B = 1, 256 and 4096.  K4 launches
-   counted over the phase.
+   counted over the phase.  Every server above warms in the background
+   as ``task=serve`` does, and is sent traffic once ready.  The
+   background warm itself (``fleet_background_warm``): the Higgs forest
+   frozen by ``Booster.compile``; K4's library built anew into an empty
+   directory for each of two modes: the order before (the fleet warmed,
+   then bound) and ``warm_in_background=True``, each timed from start to
+   the first ``/healthz`` 200.  In the background mode, with the warm held
+   on an event, ``/healthz`` answers ``ready: false`` and ``/readyz`` and
+   ``/predict`` 503 ``warming`` and K4 has not launched; released, the
+   warm (the build and the buckets, timed) launches K4 binned and raw
+   once a bucket (2 x 9), then ``/predict`` equals ``Booster.predict`` on
+   the same f32-exact rows (TOL).  A second server stopped while its warm
+   is held in the first bucket exits cleanly after that bucket's two
+   launches.
 4. ``train``: the training path at full width: the bench operating point
    (binary, ``make_higgs_like(1000000)`` from ``--seed``, 28 features,
    ``num_leaves=63``, ``max_bin=255``, ``learning_rate=0.1``,
@@ -156,6 +169,12 @@ their round times are taken beside that load.
    part (1e-5), AUC rising, and the fit's share of a round.  Every run
    also counts its histogram kernel's launches by the power-of-two
    class of the rows each scans (``train_windows``: printed only).
+   The model layer's own loop (``train_model_layer``): ``create_boosting``
+   + ``add_valid_dataset`` + ``GBDT.train(3)`` on the same datasets with
+   the ordered grower, its model text byte-equal to ``lt.train``'s for the
+   same parameters and rounds, K1 launched once a leaf; then
+   ``save_model_to_file``, the file loaded by a Booster and the valid rows
+   predicted through K4 within 1e-5 of ``GBDT.predict``.
    ``train_delta``: the ordered run's model continued 5 rounds on
    100k fresh rows with feature 0 shifted 2 sigma: one skew warning
    counted, the fresh fingerprint carried, K1 launched.
@@ -193,7 +212,7 @@ their round times are taken beside that load.
    Then ``examples/parallel_learning/train.conf`` through the CLI as
    written but for its 100 trees (in the script's process: it warns and
    trains serial) and as two CLI processes with ``num_machines=2`` and a
-   machine list, 10 trees each,
+   machine list, 5 trees each,
    byte-equal models.  A rank that fails or outlives its timeout fails
    the phase; every rank's process group is killed at the end.
    ``resilience``: crash-safe training.  (a) On the train phase's
@@ -282,23 +301,23 @@ their round times are taken beside that load.
    training cell: 1M rows, 28 features, 63 leaves, 255 bins, the
    ordered grower, the 100k-row valid set).  An early-stopped run
    (learning rate 1.0, patience 3) must stop, its ``best_iteration`` the
-   best round of its recorded valid logloss; a 3-fold stratified ``cv``
-   of 10 rounds, timed.  Then 10 rounds saved and continued 10 more
+   best round of its recorded valid logloss; a 2-fold stratified ``cv``
+   of 6 rounds, timed.  Then 6 rounds saved and continued 6 more
    from the file and from the in-memory Booster (and the same with
-   ``linear_tree=true``, 5 + 5): the init scores come from K4 (the
+   ``linear_tree=true``, 3 + 3): the init scores come from K4 (the
    linear variant for the linear model; launches counted) within 1e-5
-   of the f64 host walk on 200k rows, the carried trees' text is
+   of the f64 host walk on 100k rows, the carried trees' text is
    byte-equal to the init model's, every tree structure-equal to an
-   uninterrupted 20-round (10-round) run's up to a reported near-tie, K1
+   uninterrupted 12-round (6-round) run's up to a reported near-tie, K1
    launched once per leaf grown, and the saved model predicts the score
    buffer to 1e-5.  ``pred_leaf`` of the file-continued run (the f64
    host walk) equals the card's plain binned walk's leaves on the valid
-   rows; 12 ``rollback_one_iter`` from its round 20, two of them into
+   rows; 8 ``rollback_one_iter`` from its round 12, two of them into
    the init model's rounds, leave each score buffer within 1e-6 of the
    largest of the buffer recorded at that round (or of the init model's
    K4 prediction); ``merge(shrinkage_decay=0.5)`` of the base and the
    uninterrupted model predicts base + 0.5 * other (1e-5).  On the
-   binary example conf's data, the card against the CPU: a 5-fold
+   binary example conf's data, the card against the CPU: a 3-fold
    stratified ``cv`` (means and stdvs within 1e-4; a ranking metric
    beyond it only at a near-tie of scores, shown by recomputing it from
    both runs' fold scores, as the examples phase does) and the conf through
@@ -547,6 +566,8 @@ TIMING_SIZES = (1, 256, 4096, 65536)
 TRAIN_PARAMS = {"objective": "binary", "metric": "auc", "num_leaves": 63,
                 "max_bin": 255, "learning_rate": 0.1, "min_data_in_leaf": 50}
 TRAIN_ROWS, VALID_ROWS, TRAIN_ROUNDS = 1_000_000, 100_000, 10
+# the model layer's own loop (GBDT.train) on the training cell
+MODEL_LAYER_ROUNDS = 3
 HIST_SIZES = (0, 1, 4097, 65536, 1_000_000)
 HIST_FEATURES = (5, 28, 30)
 HIST_TIMING_SIZES = (4096, 65536, 500_000, 1_000_000)
@@ -610,18 +631,21 @@ GRAD_RTOL = 1e-6
 # and patience), the cv folds, the prefix of the training rows held
 # against the f64 host walk, and the binary example conf's early-stopped
 # CLI run's learning rate (so that it stops within ~30 rounds)
-ENGINE_ROUNDS, ENGINE_LINEAR_ROUNDS, ENGINE_ROLLBACKS = 10, 5, 12
+ENGINE_ROUNDS, ENGINE_LINEAR_ROUNDS, ENGINE_ROLLBACKS = 6, 3, 8
 # two linear runs of the same data differ in the fit's f32 atomic sums:
 # their leaf values are held to 1e-3 of the tree's largest, as
 # ``compare_regrown`` holds a re-fit (a card read 3.2e-4)
 LINEAR_LEAF_RTOL = 1e-3
 ES_PARAMS = {"learning_rate": 1.0, "metric": "binary_logloss"}
 ES_ROUNDS, ES_PATIENCE = 40, 3
-CV_FOLDS = 5                   # the example conf's cv, card against CPU
-# the 1M-row cv: 3 folds, cut from 5 to pay for the telemetry phase's
-# alternated runs
-HIGGS_CV_FOLDS = 3
-HOST_WALK_ROWS = 200_000
+# the example conf's cv, card against CPU (cut from 5 folds to pay for
+# the fleet's background warm and the train phase's model-layer run; at
+# 2 folds the card's and the CPU's AUC means part by more than 1e-4)
+CV_FOLDS = 3
+# the 1M-row cv: 2 folds, cut from 5 to pay for the telemetry phase's
+# alternated runs, then from 3 for the background warm
+HIGGS_CV_FOLDS = 2
+HOST_WALK_ROWS = 100_000
 EXAMPLE_ES_LR = 0.3
 # the sampling phase: the regression example conf's bagging and feature
 # fraction, GOSS (0.2 + 0.1 of the rows after int(1 / 0.1) = 10 warmup
@@ -684,7 +708,7 @@ DIST_RUNS = (("data_reduce_scatter", {"tree_learner": "data"},
 DIST_EXACT = ("data_reduce_scatter", "data_psum", "feature", "voting_top28")
 DIST_TIMEOUT_S = 420
 DIST_CLI_TIMEOUT_S = 300
-DIST_CLI_TREES = 10
+DIST_CLI_TREES = 5
 DIST_AUC_PIN = 1e-3
 
 
@@ -697,8 +721,8 @@ DIST_AUC_PIN = 1e-3
 # hung rank wakes after; the corrupted round); each launch's timeout
 RES_ROUNDS, RES_SNAP_FREQ, RES_CRASH_AT = 8, 2, 5
 # (the kill's ranks cut from 1M rows to 250k and its deadline from 20 s
-# to 8 s, for the script's time)
-RES_DIST_ROWS, RES_DIST_ROUNDS, RES_KILL_AT = 250_000, 8, 3
+# to 8 s, and its rounds from 8 to 6, for the script's time)
+RES_DIST_ROWS, RES_DIST_ROUNDS, RES_KILL_AT = 250_000, 6, 3
 RES_HEARTBEAT_MS, RES_KILL_TIMEOUT_S, RES_ABORT_SLACK_S = 100.0, 8.0, 10.0
 RES_SMALL_ROWS, RES_SMALL_ROUNDS, RES_HANG_AT = 250_000, 6, 2
 RES_HANG_TIMEOUT_S, RES_CORRUPT_AT = 5.0, 2
@@ -1788,6 +1812,15 @@ def phase_probes(reps):
     return launches
 
 
+def started(srv, timeout_s: float = 300.0):
+    """``srv.start()``, then its background warm: ``serve_from_config``
+    binds at once and answers 503 ``warming`` until the K4 warm ends."""
+    srv.start()
+    check(srv._ready.wait(timeout_s),
+          f"the server's background warm did not end in {timeout_s} s")
+    return srv
+
+
 def _post_rows(base: str, rows: np.ndarray):
     body = json.dumps({"rows": rows.tolist()}).encode()
     req = urllib.request.Request(base + "/predict", data=body,
@@ -1820,6 +1853,8 @@ def phase_serve(seed, dev, higgs_model, higgs_grid, workdir, errs):
         "task=serve", f"input_model={path}", "serve_port=0",
         "serve_max_batch=4096", "serve_max_delay_ms=2"]))
     srv = serve_from_config(cfg).start()
+    bound_s = time.perf_counter() - t0
+    check(srv._ready.wait(300.0), "the background warm did not end")
     startup_s = time.perf_counter() - t0
     try:
         host, port = srv.address
@@ -1893,7 +1928,8 @@ def phase_serve(seed, dev, higgs_model, higgs_grid, workdir, errs):
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched on the main path: {launches}")
     emit({"phase": "serve", "model": {**HIGGS, "seed": seed},
-          "startup_s": startup_s, "requests": counters["serve_requests"],
+          "startup_s": startup_s, "bound_s": bound_s,
+          "requests": counters["serve_requests"],
           "batches": counters["serve_batches"],
           "rows": counters["serve_rows"],
           "launches": launches,
@@ -1942,7 +1978,7 @@ def phase_serve_linear(seed, dev, lin_model, lin_grid, higgs_model,
 
     fw.reset_launch_counts()
     t0 = time.perf_counter()
-    srv = serve_from_config(serve_config(paths["linear"])).start()
+    srv = started(serve_from_config(serve_config(paths["linear"])))
     startup_s = time.perf_counter() - t0
     try:
         host, port = srv.address
@@ -2059,12 +2095,12 @@ def fingerprinted(g, grid, seed):
     return g
 
 
-def _request(base, path, payload, timeout=120):
-    """(status, json body, headers, ms) of one POST; errors included."""
-    req = urllib.request.Request(base + path,
-                                 data=json.dumps(payload).encode(),
-                                 headers={"Content-Type":
-                                          "application/json"})
+def _request(base, path, payload=None, timeout=120):
+    """(status, json body, headers, ms) of one POST (a GET without
+    ``payload``); errors included."""
+    req = base + path if payload is None else urllib.request.Request(
+        base + path, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
     t0 = time.perf_counter()
     try:
         resp = urllib.request.urlopen(req, timeout=timeout)
@@ -2478,6 +2514,197 @@ def fleet_gather(path, fused, X):
     return rows
 
 
+@contextlib.contextmanager
+def _cold_walk_build(workdir, tag, seconds):
+    """K4's library built anew at its first use inside the block, as in a
+    fresh process: an empty build directory and no loaded handle; each
+    nvcc build's wall seconds are appended to ``seconds``.  The script's own build and
+    handle come back after."""
+    from lightgbm_tpu_torch.ops import _build
+    import pathlib
+    saved_dir, saved_lib = _build.BUILD_DIR, _build._libs.pop("forest_walk",
+                                                              None)
+    build_all = _build.build_all
+
+    def timed(names=_build.SOURCES):
+        secs = build_all(names)
+        if any(secs.values()):
+            seconds.append(sum(secs.values()))
+        return secs
+
+    _build.BUILD_DIR = pathlib.Path(workdir) / f"walk_build_{tag}"
+    _build.build_all = timed
+    try:
+        yield
+    finally:
+        _build.build_all = build_all
+        _build.BUILD_DIR = saved_dir
+        _build._libs.pop("forest_walk", None)
+        if saved_lib is not None:
+            _build._libs["forest_walk"] = saved_lib
+
+
+def _first_healthz(base, t0, timeout_s=300.0):
+    """Seconds from ``t0`` to the first 200 from ``/healthz``, and its
+    body."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            code, body = _request(base, "/healthz", timeout=5)[:2]
+            if code == 200:
+                return time.perf_counter() - t0, body
+        except OSError:
+            pass
+        check(time.monotonic() < deadline, "/healthz never answered")
+        time.sleep(0.005)
+
+
+def fleet_background_warm(seed, path, grid, workdir):
+    """The Higgs forest (500 trees, 255 leaves) served as ``task=serve``
+    serves it, warming in the background, against the order before it
+    (the warm in the foreground, then the bind).  Each mode builds K4's
+    library anew at first use (``_cold_walk_build``).  In the background
+    mode ``/healthz`` answers 200 ``ready: false`` and ``/readyz`` and
+    ``/predict`` 503 ``warming`` while the warm is held on an event (as
+    tests/test_serve_chaos.py's ``SlowWarmForest`` holds its stub), with
+    no K4 launch; released, the warm launches K4 binned and raw once a
+    bucket, and ``/predict`` answers equal ``Booster.predict`` on the
+    same rows (TOL).  A second server stopped while its warm is held in
+    the first bucket exits cleanly after that bucket's two launches and
+    launches nothing more.  Returns (fields, K4 launches)."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import forest_walk as fw
+    from lightgbm_tpu_torch.serve.batcher import default_ladder
+    from lightgbm_tpu_torch.serve.fleet import Fleet
+    from lightgbm_tpu_torch.serve.server import PredictServer
+
+    t_phase = time.perf_counter()
+    max_batch = 4096
+    buckets = [b for b in default_ladder() if b <= max_batch]
+    booster = lt.Booster(model_file=path)
+    t0 = time.perf_counter()
+    forest = booster.compile(buckets=buckets)
+    torch.cuda.synchronize()
+    freeze_s = time.perf_counter() - t0
+    # f32-exact rows: the server's f32 binning and Booster.predict's f64
+    # binning then agree at every cut
+    X = random_rows(np.random.RandomState(seed + 89), 64, grid).astype(
+        np.float32).astype(np.float64)
+    real_warmup = forest.warmup
+    launches, builds = {}, []
+
+    def take_launches():
+        torch.cuda.synchronize()
+        got = {k: v for k, v in fw.launch_counts().items() if v}
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        fw.reset_launch_counts()
+        return got
+
+    def hold(release, started, warmed):
+        def warmup(buckets=None, max_bucket=None):
+            started.set()
+            check(release.wait(120.0), "the held warm was never released")
+            warmed.extend(buckets or [])
+            return real_warmup(buckets=buckets, max_bucket=max_bucket)
+        return warmup
+
+    fw.reset_launch_counts()
+    try:
+        # before: the fleet warms (the build, then each bucket), then binds
+        with _cold_walk_build(workdir, "foreground", builds):
+            t0 = time.perf_counter()
+            fleet = Fleet.build(forest, devices=[None], max_batch=max_batch,
+                                max_delay_s=0.002, warm=True)
+            srv = PredictServer(fleet, port=0, max_batch=max_batch,
+                                max_delay_ms=2.0).start()
+            try:
+                healthz_fg, _ = _first_healthz(
+                    f"http://{srv.address[0]}:{srv.address[1]}", t0)
+            finally:
+                srv.stop()
+        fg = take_launches()
+        check(fg == {"forest_walk": len(buckets),
+                     "forest_walk_raw": len(buckets)},
+              f"the foreground warm's K4 launches {fg}")
+        # after: bind, then the warm on its own thread
+        release, started, warmed = (threading.Event(), threading.Event(),
+                                    [])
+        forest.warmup = hold(release, started, warmed)
+        with _cold_walk_build(workdir, "background", builds):
+            t0 = time.perf_counter()
+            srv = PredictServer(forest, port=0, max_batch=max_batch,
+                                max_delay_ms=2.0,
+                                warm_in_background=True).start()
+            base = f"http://{srv.address[0]}:{srv.address[1]}"
+            try:
+                healthz_bg, health = _first_healthz(base, t0)
+                check(health["ready"] is False,
+                      f"/healthz while warming: {health}")
+                check(started.wait(60.0), "the background warm never began")
+                ready = _request(base, "/readyz")
+                check(ready[0] == 503 and ready[1]["status"] == "warming",
+                      f"/readyz while warming: {ready[:2]}")
+                held = _request(base, "/predict", {"rows": X[:4].tolist()})
+                check(held[0] == 503 and held[1]["error"]
+                      == "server warming",
+                      f"/predict while warming: {held[:2]}")
+                check(not take_launches(), "K4 launched before the warm")
+                t_rel = time.perf_counter()
+                release.set()
+                check(srv._ready.wait(300.0), "the background warm failed")
+                warm_s = time.perf_counter() - t_rel
+                warm = take_launches()
+                check(warmed == buckets and warm == {
+                    "forest_walk": len(buckets),
+                    "forest_walk_raw": len(buckets)},
+                    f"the background warm: buckets {warmed}, K4 {warm}")
+                check(_request(base, "/readyz")[1]["status"] == "ready",
+                      "/readyz after the warm")
+                code, resp = _request(base, "/predict",
+                                      {"rows": X.tolist()})[:2]
+                check(code == 200, f"/predict after the warm: {code}")
+                want = booster.predict(X)
+                d_pred = float(np.abs(np.asarray(resp["predictions"])
+                                      - want).max())
+                check(d_pred <= TOL, f"/predict against Booster.predict: "
+                                     f"{d_pred}")
+            finally:
+                release.set()
+                srv.stop()
+        take_launches()
+        # a shutdown while the warm is held in its first bucket
+        release, started, warmed = (threading.Event(), threading.Event(),
+                                    [])
+        forest.warmup = hold(release, started, warmed)
+        srv = PredictServer(forest, port=0, max_batch=max_batch,
+                            warm_in_background=True).start()
+        check(started.wait(60.0), "the second warm never began")
+        stopper = threading.Thread(target=srv.stop)
+        stopper.start()
+        check(_until(srv._stop_requested.is_set, 30.0), "stop() not asked")
+        release.set()
+        stopper.join(120.0)
+        check(not stopper.is_alive() and not srv._warm_thread.is_alive(),
+              "the server stopped mid-warm did not exit")
+        aborted = take_launches()
+        check(warmed == buckets[:1] and not srv._ready.is_set()
+              and aborted == {"forest_walk": 1, "forest_walk_raw": 1},
+              f"stopped mid-warm: buckets {warmed}, K4 {aborted}")
+    finally:
+        forest.warmup = real_warmup
+    fields = {"model": {**HIGGS, "seed": seed}, "buckets": buckets,
+              "freeze_s": freeze_s,
+              "healthz_after_start_s": {"foreground_warm": healthz_fg,
+                                        "background_warm": healthz_bg},
+              "background_warm_s": warm_s, "nvcc_s": builds,
+              "k4_warm_launches": warm, "predict_vs_booster": d_pred,
+              "stopped_mid_warm": {"buckets": warmed,
+                                   "k4_launches": aborted},
+              "seconds": time.perf_counter() - t_phase}
+    return fields, launches
+
+
 def phase_fleet(seed, dev, higgs_model, higgs_grid, workdir):
     """The serving fleet on the card (see the module docstring); returns
     the K4 launches it made."""
@@ -2506,11 +2733,11 @@ def phase_fleet(seed, dev, higgs_model, higgs_grid, workdir):
     obs.reset()
     fw.reset_launch_counts()
     t0 = time.perf_counter()
-    srv = serve_from_config(config(
+    srv = started(serve_from_config(config(
         paths["a"], "serve_canary_weight=0.25", "lifecycle_window_s=3",
         "lifecycle_min_samples=50", "lifecycle_latency_ratio=5",
         "serve_shadow=0.5", "drift=on", "drift_window=3600",
-        f"serve_state_file={state}")).start()
+        f"serve_state_file={state}")))
     startup_s = time.perf_counter() - t0
     base = f"http://{srv.address[0]}:{srv.address[1]}"
     try:
@@ -2547,17 +2774,17 @@ def phase_fleet(seed, dev, higgs_model, higgs_grid, workdir):
     _progress("restart", t_phase)
     small = ("serve_max_batch=64", "predict_buckets=16,64")
     obs.reset()
-    srv = serve_from_config(config(paths["a"], "serve_queue_depth=2",
-                                   *small)).start()
+    srv = started(serve_from_config(config(paths["a"],
+                                           "serve_queue_depth=2", *small)))
     try:
         admission = fleet_admission(
             f"http://{srv.address[0]}:{srv.address[1]}", srv, higgs_grid)
     finally:
         srv.stop()
     _progress("admission", t_phase)
-    srv = serve_from_config(config(paths["a"], "serve_watchdog_ms=20",
-                                   "serve_stall_ms=300",
-                                   "serve_retry_limit=0", *small)).start()
+    srv = started(serve_from_config(config(paths["a"], "serve_watchdog_ms=20",
+                                           "serve_stall_ms=300",
+                                           "serve_retry_limit=0", *small)))
     try:
         watchdog = fleet_watchdog(
             f"http://{srv.address[0]}:{srv.address[1]}", srv, higgs_grid)
@@ -2569,6 +2796,11 @@ def phase_fleet(seed, dev, higgs_model, higgs_grid, workdir):
     check(set(launches) == {"forest_walk", "forest_walk_raw"}
           and all(launches.values()),
           f"K4 launches in the fleet phase: {launches}")
+    background, warm_launches = fleet_background_warm(
+        seed, paths["a"], higgs_grid, workdir)
+    for k, v in warm_launches.items():
+        launches[k] += v
+    _progress("background warm", t_phase)
     gather = fleet_gather(paths["a"], forests[1], random_rows(
         np.random.RandomState(seed + 87), 4096, higgs_grid))
     emit({"phase": "fleet", "startup_s": startup_s,
@@ -2576,6 +2808,7 @@ def phase_fleet(seed, dev, higgs_model, higgs_grid, workdir):
           "canary": canary, "rollback": rollback, "drift": drift,
           "restored_primary": "promoted canary (fleet_a)",
           "admission": admission, "watchdog": watchdog, "gather": gather,
+          "background_warm": background,
           "generation": stats["fleet"]["generation"],
           "counters": {k: v for k, v in stats["counters"].items()
                        if "{" not in k and k.startswith(("serve_", "life"))},
@@ -2695,6 +2928,61 @@ def phase_train(seed, dev, workdir):
     emit({"phase": "train_windows", "runs": [g[0] for g in GROWERS],
           "launches_by_window_rows": windows})
     return launches, windows, datasets, ordered["round_s_median"]
+
+
+def train_model_layer(dev, datasets, workdir):
+    """The model layer's own loop on the training cell (the ordered
+    grower): ``create_boosting`` + ``add_valid_dataset`` +
+    ``GBDT.train(MODEL_LAYER_ROUNDS)``, its model text byte-equal to
+    ``lt.train``'s with the same parameters and rounds, K1 launched once
+    a leaf grown; then ``save_model_to_file``, the file loaded by a
+    Booster and the valid rows predicted through K4, against the loop's
+    own f64 host walk (``GBDT.predict``, 1e-5).  Returns the launches."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.models import create_boosting
+    from lightgbm_tpu_torch.ops import forest_walk as fw
+    from lightgbm_tpu_torch.ops import leafhist as lh
+    train_set, valid_set, _, Xv = datasets
+    params = {**TRAIN_PARAMS, **CONST}
+    ref = lt.train(params, train_set, MODEL_LAYER_ROUNDS,
+                   valid_sets=[valid_set], verbose_eval=False)
+    lh.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gb = create_boosting(Config({**train_set.params, **params,
+                                 "task": "train"}), train_set._binned,
+                         device=dev)
+    gb.add_valid_dataset(valid_set._binned)
+    gb.train(MODEL_LAYER_ROUNDS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k1 = lh.launch_counts()["digit_histogram"]
+    leaves = sum(int(ta.num_leaves) for ta in gb.tree_arrays)
+    check(gb.iter_ == MODEL_LAYER_ROUNDS and gb.grow_kind == "ordered"
+          and k1 == leaves, f"GBDT.train: {gb.iter_} rounds "
+                            f"({gb.grow_kind}), K1 {k1} for {leaves} leaves")
+    text = gb.save_model_to_string()
+    check(text == ref.model_to_string(), "GBDT.train's model text against "
+          "lt.train's: " + first_line_diff(text, ref.model_to_string()))
+    path = f"{workdir}/model_layer.txt"
+    gb.save_model_to_file(path)
+    with open(path) as fh:
+        check(fh.read() == text, "save_model_to_file wrote another text")
+    fw.reset_launch_counts()
+    pred = lt.Booster(model_file=path).predict(Xv)
+    torch.cuda.synchronize()
+    k4 = fw.launch_counts()["forest_walk"]
+    d_host = float(np.abs(pred - gb.predict(Xv)[0]).max())
+    check(k4 > 0 and d_host <= 1e-5,
+          f"the saved model through K4 ({k4} launches) against "
+          f"GBDT.predict: {d_host}")
+    emit({"phase": "model_layer", "rounds": MODEL_LAYER_ROUNDS,
+          "seconds_train": seconds, "k1_launches": k1,
+          "text_equals_lt_train": True, "k4_launches": k4,
+          "predicted_rows": len(Xv), "booster_vs_gbdt_predict": d_host,
+          "best_iteration": gb.best_iteration})
+    return {"digit_histogram": k1, "forest_walk": k4}
 
 
 def leaf_rows_hist(bins, g, h, w, leaf_id, parent_leaf, right_leaf,
@@ -5197,8 +5485,8 @@ def engine_early_stop(train_set, valid_set):
 
 
 def engine_cv(seed, train_set):
-    """3-fold stratified ``cv`` at 1M rows, 10 rounds, timed; K1 in every
-    fold's rounds."""
+    """HIGGS_CV_FOLDS-fold stratified ``cv`` at 1M rows, ENGINE_ROUNDS
+    rounds, timed; K1 in every fold's rounds."""
     import lightgbm_tpu_torch as lt
     _reset_launches()
     torch.cuda.synchronize()
@@ -5288,7 +5576,8 @@ def compare_cv(a, b, folds_a, folds_b, label):
 
 def engine_example(workdir):
     """On the binary example conf's data, the card against the CPU: a
-    5-fold stratified ``cv`` of the conf's parameters (10 rounds; every
+    CV_FOLDS-fold stratified ``cv`` of the conf's parameters
+    (ENGINE_ROUNDS rounds; every
     mean and stdv as ``compare_cv`` holds them) and the conf through the
     CLI with ``early_stopping_round=3`` (learning rate EXAMPLE_ES_LR):
     the same stop round and best round, every round's metrics as
@@ -5348,8 +5637,8 @@ def phase_engine(seed, datasets, workdir):
     """The engine on the train phase's datasets (the Higgs training
     cell): the early-stopped run, ``cv`` and the base runs first (the
     training set has no init scores yet), then continued training
-    (constant 10 + 10, linear 5 + 5; ``engine_continued``), ``pred_leaf``
-    of the file-continued constant run, 12 rollbacks from its round 20,
+    (constant 6 + 6, linear 3 + 3; ``engine_continued``), ``pred_leaf``
+    of the file-continued constant run, 8 rollbacks from its round 12,
     ``merge``, and the binary example conf card against CPU.  The launch counters are set to
     0 before each counted run and read after it.  Returns the launches."""
     train_set, valid_set, X, Xv = datasets
@@ -5636,7 +5925,7 @@ def _serve_pass(model_path, bodies, trace=None):
             "serve_max_batch=4096", "serve_max_delay_ms=2"]
     if trace:
         argv.append(f"trace_events_file={trace}")
-    srv = serve_from_config(Config(parse_cli_args(argv))).start()
+    srv = started(serve_from_config(Config(parse_cli_args(argv))))
     try:
         check(tracing.TRACER.enabled == bool(trace),
               f"serve_from_config left the tracer enabled="
@@ -6054,10 +6343,10 @@ def attribution_serving(model_path, seed, higgs_grid):
     devprof.reset()
     fw.reset_launch_counts()
     before = obs.snapshot()
-    srv = serve_from_config(Config(parse_cli_args([
+    srv = started(serve_from_config(Config(parse_cli_args([
         "task=serve", f"input_model={model_path}", "serve_port=0",
         "serve_max_batch=4096", "serve_max_delay_ms=2",
-        "devprof=full"]))).start()
+        "devprof=full"]))))
     try:
         check(devprof.MODE == "full", f"serve_from_config left devprof "
               f"{devprof.MODE}")
@@ -8600,6 +8889,8 @@ def main(argv=None) -> int:
         trained, windows, datasets, ordered_round_s = phase_train(
             args.seed, dev, workdir)
         launches.update(trained)
+        for name, n in train_model_layer(dev, datasets, workdir).items():
+            launches[name] += n
         clock.lap("train")
         for name, n in fleet_train_delta(args.seed, workdir).items():
             launches[name] += n

@@ -39,10 +39,13 @@ them.  Entry points run on the first CUDA card unless the caller passes
 ``device="cpu"``.
 """
 
+from .config import Config
+from .io import BinMapper, BinnedDataset, Metadata
 from . import obs
 from .basic import Booster, Dataset
 from .callback import (early_stopping, log_telemetry, print_evaluation,
                        record_evaluation, reset_parameter)
+from . import serve
 from .engine import CVBooster, cv, train, train_delta
 from .serve.forest import CompiledForest
 from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
@@ -57,9 +60,9 @@ except ImportError:  # matplotlib not installed
 
 __version__ = "0.4.0"
 
-__all__ = ["Booster", "CVBooster", "CompiledForest", "Dataset",
+__all__ = ["Booster", "CVBooster", "CompiledForest", "Config", "Dataset",
            "LGBMClassifier", "LGBMModel", "LGBMRanker", "LGBMRegressor",
            "LightGBMError", "__version__", "cv", "early_stopping",
            "log_telemetry", "obs", "print_evaluation",
-           "record_evaluation", "reset_parameter", "train",
+           "record_evaluation", "reset_parameter", "serve", "train",
            "train_delta"] + _PLOTTING

@@ -382,11 +382,12 @@ class Dataset:
                 setter(value)
         return self
 
-    def subset(self, used_indices) -> "Dataset":
-        """The rows ``used_indices`` of this Dataset on its mappers."""
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """The rows ``used_indices`` of this Dataset on its mappers, with
+        ``params`` (default this Dataset's own)."""
         sub = Dataset(None, reference=self, feature_name=self.feature_name,
                       categorical_feature=self.categorical_feature,
-                      params=self.params)
+                      params=params or self.params)
         sub.used_indices = np.asarray(used_indices)
         return sub
 
@@ -490,7 +491,7 @@ class Booster:
     def __init__(self, model_file: Optional[str] = None,
                  model_str: Optional[str] = None, params=None,
                  device: DeviceLike = None,
-                 train_set: Optional[Dataset] = None):
+                 train_set: Optional[Dataset] = None, silent: bool = False):
         given = sum(x is not None for x in (model_file, model_str,
                                             train_set))
         if given != 1:
@@ -513,7 +514,7 @@ class Booster:
             self.config = Config({**train_set.params, **params,
                                   "task": "train"})
             self._booster = create_boosting(self.config, train_set._binned,
-                                            self.device)
+                                            device=self.device)
             return
         self.config = Config({**dict(params or {}), "task": "predict"})
         if model_file is not None:
@@ -689,13 +690,18 @@ class Booster:
             _, state = found
         return restore_booster_state(self, state)
 
-    def compile(self, num_iteration: int = -1, buckets=None):
+    def compile(self, num_iteration: int = -1, buckets=None,
+                warmup: bool = False):
         """Freeze the model into a ``CompiledForest`` on this booster's
-        device (the artifact ``predict`` and the server use)."""
+        device (the artifact ``predict`` and the server use).
+        ``warmup=True`` builds the walk kernel and launches it once a
+        bucket, so no later predict pays the build or a first launch."""
         from .serve.forest import CompiledForest
         cf = CompiledForest.from_booster(
             self, device=self.device, num_iteration=num_iteration,
             buckets=buckets or list(self.config.predict_buckets) or None)
+        if warmup:
+            cf.warmup()
         self._forest = (int(num_iteration), cf)
         return cf
 

@@ -593,7 +593,7 @@ def LGBM_BoosterCreate(train_data, parameters, out):
     ds = _from_handle(train_data)
     cfg = Config(_parse_params(parameters))
     device = resolve_device(cfg.device)
-    booster = create_boosting(cfg, ds.binned, device)
+    booster = create_boosting(cfg, ds.binned, device=device)
     out[0] = _register(_CBooster(booster, cfg, device))
 
 

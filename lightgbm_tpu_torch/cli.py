@@ -169,8 +169,9 @@ def run_train(config: Config, params: Dict[str, str]) -> None:
 
 
 def run_serve(config: Config, params: Dict[str, str]) -> None:
-    """task=serve: freeze ``input_model`` on the card, warm it, and serve
-    over HTTP until SIGINT/SIGTERM."""
+    """task=serve: freeze ``input_model`` on the card, bind, warm in the
+    background (``/readyz`` 503 ``warming`` until then), and serve over
+    HTTP until SIGINT/SIGTERM."""
     from .serve.server import serve_from_config
     serve_from_config(config, params).serve_forever()
 

@@ -362,6 +362,12 @@ _DEFAULT_METRIC = {
 }
 
 
+def default_metric_for_objective(objective: str) -> List[str]:
+    """GetMetricType's default: the metric that matches the objective
+    (config.cpp); none for an objective without one."""
+    return list(_DEFAULT_METRIC.get(objective, []))
+
+
 def apply_aliases(params: Mapping[str, Any]) -> Dict[str, Any]:
     """Canonical keys win over aliases (reference config.h:405-415)."""
     out: Dict[str, Any] = {}
@@ -535,7 +541,7 @@ class Config:
                 v["bagging_fraction"] < 1.0 and v["bagging_freq"] > 0):
             raise ValueError("cannot use bagging in GOSS")
         if not v["metric"]:
-            v["metric"] = list(_DEFAULT_METRIC.get(v["objective"], []))
+            v["metric"] = default_metric_for_objective(v["objective"])
         if v["num_leaves"] <= 1:
             raise ValueError("num_leaves must be > 1")
         if v["linear_lambda"] < 0.0:
@@ -672,6 +678,19 @@ class Config:
 
     def get(self, name: str, default: Any = None) -> Any:
         return self._values.get(name, default)
+
+    def raw_params(self) -> Dict[str, Any]:
+        """The user-supplied (alias-resolved) parameter dict."""
+        return dict(self.raw)
+
+    def to_dict(self) -> Dict[str, Any]:
+        """Every canonical key's typed value."""
+        return dict(self._values)
+
+    def updated(self, **kwargs: Any) -> "Config":
+        """A new Config of the user's parameters with ``kwargs`` over
+        them."""
+        return Config({**self.raw, **kwargs})
 
 
 def parse_config_file(path: str) -> Dict[str, str]:

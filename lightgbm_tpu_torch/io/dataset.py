@@ -191,6 +191,8 @@ class BinnedDataset:
         self.feature_names: List[str] = []
         self.metadata = Metadata()
         self.max_bin = 255
+        # the label's column in the file the matrix came from
+        self.label_idx = 0
         self.raw: Optional[np.ndarray] = None
         self.bundle_plan: Optional[BundlePlan] = None
         self.data_fingerprint = None
@@ -204,6 +206,7 @@ class BinnedDataset:
                     ignore_features: Sequence[int] = (),
                     feature_names: Optional[Sequence[str]] = None,
                     data_random_seed: int = 1,
+                    label_idx: int = 0,
                     predefined_mappers=None,
                     enable_bundle: bool = False,
                     max_conflict_rate: float = 0.0,
@@ -214,7 +217,8 @@ class BinnedDataset:
         ``ignore_features`` (the ignored, weight and group columns) get
         no mapper and are not used; ``keep_raw`` also keeps the used
         features' raw values; ``enable_bundle`` plans EFB bundles over
-        the binning sample (``io/bundling.py``)."""
+        the binning sample (``io/bundling.py``); ``label_idx`` records
+        the label's column in the source file."""
         data = np.ascontiguousarray(np.asarray(data, dtype=np.float64))
         if data.ndim != 2:
             raise ValueError("data must be 2-D [num_data, num_features]")
@@ -222,6 +226,7 @@ class BinnedDataset:
         self = cls()
         self.num_total_features = num_features
         self.max_bin = max_bin
+        self.label_idx = label_idx
         self.feature_names = (list(feature_names) if feature_names
                               is not None else
                               [f"Column_{i}" for i in range(num_features)])

@@ -30,8 +30,9 @@ class DART(GBDT):
     # the JAX DART booster materialises each round's trees at once
     _screen_observes_late = False
 
-    def __init__(self, config=None, train_set=None, device=None):
-        super().__init__(config, train_set, device)
+    def __init__(self, config=None, train_set=None, device=None,
+                 objective=None):
+        super().__init__(config, train_set, device, objective)
         self.tree_weights: List[float] = []
         self.sum_weight = 0.0
         self.drop_index: List[int] = []

@@ -122,6 +122,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..device import resolve_device
 from ..io.bundling import BundlePlan
 from ..metric import create_metric
 from ..obs.drift import DataFingerprint
@@ -391,8 +392,10 @@ class GBDT:
     """A boosted forest: class-major ``models`` plus the header.
 
     ``GBDT()`` holds a loaded forest (``from_string``);
-    ``GBDT(config, train_set, device)`` sets up serial training on
-    ``device`` from a ``BinnedDataset``."""
+    ``GBDT(config, train_set, device, objective)`` sets up serial
+    training on ``device`` (default the card) from a ``BinnedDataset``,
+    with ``objective`` (default the config's); ``train`` is the model
+    layer's own loop over ``train_one_iter``."""
 
     submodel_name = "gbdt"
     #: the JAX booster materialises a round's trees during the next round
@@ -417,7 +420,7 @@ class GBDT:
     _telemetry = None
 
     def __init__(self, config=None, train_set=None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, objective=None):
         self.num_class = 1
         self.label_idx = 0
         self.max_feature_idx = 0
@@ -433,12 +436,13 @@ class GBDT:
         # loaded from a model file
         self.num_init_iteration = 0
         if train_set is not None:
-            self._setup(config, train_set, device)
+            self._setup(config, train_set, resolve_device(device), objective)
 
     # ------------------------------------------------------------------
     # training
 
-    def _setup(self, config, train_set, device: torch.device) -> None:
+    def _setup(self, config, train_set, device: torch.device,
+               objective=None) -> None:
         config.check_trainable()
         _check_bin_width(config, train_set)
         self.config = config
@@ -447,7 +451,7 @@ class GBDT:
         # the training data's fingerprint: a continued run carries the
         # fresh data's, not the init model's
         self.data_fingerprint = getattr(train_set, "data_fingerprint", None)
-        self.objective = create_objective(config)
+        self.objective = objective or create_objective(config)
         self.objective.init(train_set.metadata, train_set.num_data)
         self.num_class = self.objective.num_tree_per_iteration
         self.num_data = train_set.num_data
@@ -1749,6 +1753,67 @@ class GBDT:
             return {k: {name: v for name, v, _ in self._eval_set(k)}
                     for k, _, metrics in self._metric_sets() if metrics}
 
+    def eval_and_check_early_stopping(self) -> bool:
+        """Metric evaluation and the early-stop bookkeeping on the first
+        metric of each valid set (gbdt.cpp:404-509); logs
+        ``Iteration:N, valid_1 auc : x`` lines every ``output_freq``
+        rounds.  Returns True to stop training."""
+        cfg = self.config
+        out_lines = []
+        if cfg.is_training_metric and self.train_metrics:
+            with timetag.scope("GBDT::metric"):
+                score = self.train_data.host_score()
+                for m in self.train_metrics:
+                    for name, v in zip(m.names, m.eval(score)):
+                        out_lines.append(f"Iteration:{self.iter_}, "
+                                         f"training {name} : {v:g}")
+        stop = False
+        for vi, (dd, metrics) in enumerate(zip(self.valid_data,
+                                               self.valid_metrics)):
+            score = dd.host_score()
+            for mi, m in enumerate(metrics):
+                values = m.eval(score)
+                for name, v in zip(m.names, values):
+                    out_lines.append(f"Iteration:{self.iter_}, "
+                                     f"valid_{vi + 1} {name} : {v:g}")
+                key = (vi, m.names[0])
+                cur = m.factor_to_bigger_better * values[0]
+                if key not in self.best_score or cur > self.best_score[key]:
+                    self.best_score[key] = cur
+                    if mi == 0:
+                        self.best_iteration = self.iter_
+                        self.best_msg[vi] = "\n".join(out_lines)
+                elif cfg.early_stopping_round > 0 and mi == 0:
+                    if (self.iter_ - self.best_iteration
+                            >= cfg.early_stopping_round):
+                        log.info("Early stopping at iteration %d, best "
+                                 "iteration %d", self.iter_,
+                                 self.best_iteration)
+                        stop = True
+        if out_lines and self.iter_ % max(cfg.output_freq, 1) == 0:
+            for line in out_lines:
+                log.info("%s", line)
+        return stop
+
+    def train(self, num_iterations: Optional[int] = None) -> None:
+        """The model layer's own loop (Application::Train,
+        application.cpp:224-240): ``train_one_iter`` rounds, the round
+        ``engine.train`` runs, each followed by
+        ``eval_and_check_early_stopping`` when there is a metric to read,
+        until ``num_iterations`` (default ``num_iterations`` of the
+        config), saturation or early stopping."""
+        n = num_iterations or self.config.num_iterations
+        try:
+            for _ in range(n):
+                stop = self.train_one_iter()
+                if not stop and (self.valid_data
+                                 or self.config.is_training_metric):
+                    stop = self.eval_and_check_early_stopping() or stop
+                if stop:
+                    break
+        finally:
+            self.close_trace()
+
     def rollback_one_iter(self) -> None:
         """GBDT::RollbackOneIter (gbdt.cpp:384-402): pop the last round's
         ``num_class`` trees and add each one negated to the training and
@@ -1838,6 +1903,14 @@ class GBDT:
             out[i % self.num_class] += self.models[i].predict(X)
         return out
 
+    def predict(self, X: np.ndarray, num_iteration: int = -1) -> np.ndarray:
+        """[K, n] scores through the objective's transform (sigmoid,
+        softmax or identity; gbdt.cpp:799-815), from the f64 host walk."""
+        raw = self.predict_raw(X, num_iteration)
+        if self.objective is None:
+            return raw
+        return np.asarray(self.objective.convert_output(raw))
+
     # ------------------------------------------------------------------
     def feature_importance(self, importance_type: str = "split"
                            ) -> np.ndarray:
@@ -1892,6 +1965,13 @@ class GBDT:
                 fp.set_score_hist(self.train_data.host_score())
             buf.write("\n" + fp.to_text())
         return buf.getvalue()
+
+    def save_model_to_file(self, path: str, num_iteration: int = -1) -> None:
+        """The model text written atomically (``utils/diskguard.py``): a
+        full disk is a named error and the previous file survives."""
+        from ..utils.diskguard import write_artifact_atomic
+        text = self.save_model_to_string(num_iteration)
+        write_artifact_atomic(path, text.encode(), "model_file")
 
     def load_model_from_string(self, text: str) -> None:
         """gbdt.cpp:679-760, with the JAX loader's corruption checks:

@@ -32,8 +32,9 @@ class GOSS(GBDT):
     submodel_name = "goss"
     _masks_before_gradients = False
 
-    def __init__(self, config=None, train_set=None, device=None):
-        super().__init__(config, train_set, device)
+    def __init__(self, config=None, train_set=None, device=None,
+                 objective=None):
+        super().__init__(config, train_set, device, objective)
         if train_set is None:
             return
         self.top_rate = float(config.top_rate)

@@ -52,6 +52,12 @@ class ObjectiveFunction:
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         raise NotImplementedError
 
+    def gradients(self, score: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``gradients_with`` over this objective's own arrays, on the
+        score's device."""
+        return self.gradients_with(self.gradient_arrays(score.device), score)
+
     @staticmethod
     def _apply_weight(arrays, grad, hess):
         w = arrays.get("weights")
@@ -60,7 +66,12 @@ class ObjectiveFunction:
         return grad * w, hess * w
 
     def convert_output(self, score: np.ndarray) -> np.ndarray:
+        """Raw score -> prediction transform (GBDT::Predict,
+        gbdt.cpp:799-815)."""
         return score
+
+    def boost_from_average(self) -> float:
+        return 0.0
 
 
 class RegressionL2Loss(ObjectiveFunction):
@@ -431,6 +442,9 @@ class NoneObjective(ObjectiveFunction):
     def gradients_with(self, arrays, score):
         raise RuntimeError("objective=none requires a custom fobj passed "
                            "to train()/update()")
+
+    def convert_output(self, score):
+        return score
 
 
 _OBJECTIVES = {

@@ -32,14 +32,16 @@ The port's counterpart of the JAX package's ``obs``:
 
 from __future__ import annotations
 
-from . import compile_ledger, devcaps, devprof, memwatch  # noqa: F401
+from . import compile_ledger, devcaps, devprof, drift, memwatch  # noqa: F401
 from . import registry  # noqa: F401
 from .events import SCHEMA_VERSION, EventRecorder, read_events
-from .phases import HOST_PHASES, span_series
+from .phases import (DEVICE_PARENT, DEVICE_PHASES, HOST_PHASES,
+                     JITTED_HOST_PHASES, TRANSFER_PHASES, span_series)
 from .prom import labeled_name, split_series
-from .registry import (DEFAULT_TIME_BUCKETS, REGISTRY, get_counter,
-                       get_gauge, get_histogram, histogram_quantile, inc,
-                       merge, observe, reset, set_gauge, snapshot)
+from .registry import (DEFAULT_BYTE_BUCKETS, DEFAULT_TIME_BUCKETS, REGISTRY,
+                       Registry, get_counter, get_gauge, get_histogram,
+                       histogram_quantile, inc, merge, observe, reset,
+                       restore, set_gauge, snapshot)
 from .spans import span, timed
 from .trace import TraceCapture
 from .tracing import TRACER
@@ -67,10 +69,13 @@ def trace_link(src, dst):
     TRACER.link(src, dst)
 
 
-__all__ = ["DEFAULT_TIME_BUCKETS", "EventRecorder", "HOST_PHASES",
-           "REGISTRY", "SCHEMA_VERSION", "TRACER", "TraceCapture",
-           "compile_ledger", "devcaps", "devprof", "get_counter",
-           "get_gauge", "get_histogram", "histogram_quantile", "inc",
-           "labeled_name", "memwatch", "merge", "observe", "read_events",
-           "reset", "set_gauge", "snapshot", "span", "span_series", "split_series",
-           "timed", "trace_begin", "trace_end", "trace_link", "trace_span"]
+__all__ = ["DEFAULT_BYTE_BUCKETS", "DEFAULT_TIME_BUCKETS", "DEVICE_PARENT",
+           "DEVICE_PHASES", "EventRecorder", "HOST_PHASES",
+           "JITTED_HOST_PHASES", "REGISTRY", "Registry", "SCHEMA_VERSION",
+           "TRACER", "TRANSFER_PHASES", "TraceCapture", "compile_ledger",
+           "devcaps", "devprof", "drift", "get_counter", "get_gauge",
+           "get_histogram", "histogram_quantile", "inc", "labeled_name",
+           "memwatch", "merge", "observe", "read_events", "reset",
+           "restore", "set_gauge", "snapshot", "span", "span_series",
+           "split_series", "timed", "trace_begin", "trace_end",
+           "trace_link", "trace_span"]

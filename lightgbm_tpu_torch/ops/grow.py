@@ -205,15 +205,18 @@ class SerialComm(NamedTuple):
     expand K2's histograms, ``fused_gain`` running the ``leaf_cache=False``
     pass: K3's scan cannot expand, and the JAX package's half-fused pass
     there (K2, the expansion, ``per_feature_candidates``) chooses the
-    splits ``find_best_split`` chooses.
-
-    The JAX version's ``traffic_per_tree`` (collective accounting of the
-    distributed learners) is not ported."""
+    splits ``find_best_split`` chooses."""
     leaf_cache: bool = True
     fused_gain: bool = False
 
     def reduce_sums(self, sums):
         return sums
+
+    def traffic_per_tree(self, num_features: int, max_bin: int,
+                         num_leaves: int):
+        """The collective account of one tree (``parallel/comm.py``'s
+        interface): serial growth issues no collectives."""
+        return {}
 
     def prepare(self, bins, bins_rm, g, h, w, params: GrowParams):
         if not self.leaf_cache:

@@ -1,7 +1,8 @@
 """Absorbing per-level gather walk on binned rows, in plain PyTorch.
 
 Port of the JAX package's ops/predict.py (``predict_binned_tree`` /
-``predict_binned_forest`` / ``predict_binned_forest_linear``): every row
+``predict_binned_forest`` / ``predict_binned_forest_linear`` /
+``predict_leaf_indices_forest``): every row
 advances one tree level per step, in every tree of a stack at once
 (:func:`forest_leaves`); rows that reached a leaf (negative child code
 ``~leaf``) stay put.  The per-class forest sum is the same
@@ -106,6 +107,17 @@ def forest_leaves(split_feature, split_bin, is_cat_node, left_child,
             node = torch.where(live, nxt, node)
         out.append(torch.where(node < 0, ~node, torch.zeros_like(node)))
     return torch.cat(out, 0)
+
+
+def predict_leaf_indices_forest(split_feature, split_bin, is_cat_node,
+                                left_child, right_child, leaf_value,
+                                bins: torch.Tensor,
+                                max_steps: int) -> torch.Tensor:
+    """[T, N] int32 leaf index of every row in every tree of a [T, ...]
+    stack (PredictLeafIndex, gbdt.cpp:817-826), on the stack's device."""
+    return forest_leaves(split_feature, split_bin, is_cat_node, left_child,
+                         right_child, leaf_value.shape[1], bins,
+                         max_steps).to(torch.int32)
 
 
 def predict_binned_forest(split_feature, split_bin, is_cat_node, left_child,

@@ -394,6 +394,29 @@ class Fleet:
         obs.set_gauge("serve_healthy_replicas",
                       health_mod.healthy_count(self._live_sets()))
 
+    def warm_all(self, should_abort: Optional[Callable[[], bool]] = None
+                 ) -> bool:
+        """Warm every live replica's forest on its own device, bucket by
+        bucket up to the one a ``max_batch``-row request dispatches to
+        (the HTTP server's background warm: readiness comes up only after
+        this returns True).  ``should_abort`` is polled between buckets,
+        so a shutdown mid-warm stops after the current bucket's build
+        and launches.  Returns False when aborted."""
+        with self._cond:
+            reps = [rep for s in self._live_sets() for rep in s.replicas]
+        for rep in reps:
+            ladder = rep.forest.ladder
+            # bucket_for rounds up: a max_batch between two rungs sends
+            # its largest requests to the rung above, which must be warm
+            cap = ladder.bucket_for(self.max_batch)
+            sizes = [s for s in ladder.sizes if s <= cap] \
+                or list(ladder.sizes)[:1]
+            for s in sizes:
+                if should_abort is not None and should_abort():
+                    return False
+                rep.forest.warmup(buckets=[s])
+        return True
+
     def stats(self) -> Dict[str, Any]:
         with self._cond:
             sets = self._live_sets()

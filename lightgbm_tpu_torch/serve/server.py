@@ -5,9 +5,11 @@ Port of the JAX package's serve/server.py:
 serve_port=8080`` loads the model, freezes one ``CompiledForest`` a
 device (``serve/fleet.py``; the visible cards capped by
 ``serve_replicas``, or ``serve_replicas`` copies on the CPU with
-``device=cpu``), warms every bucket up to ``serve_max_batch`` on every
-replica and serves over stdlib HTTP.  Each replica answers through the
-forest-walk kernel K4 behind its own micro-batcher.
+``device=cpu``), binds at once and serves over stdlib HTTP while it warms
+every bucket up to ``serve_max_batch`` on every replica in the
+background (``/readyz`` answers 503 ``warming`` until the warm ends).
+Each replica answers through the forest-walk kernel K4 behind its own
+micro-batcher.
 
 - ``POST /predict``: JSON ``{"rows": [[...], ...], "raw_score": false,
   "deadline_ms": null}`` (or one flat row, or a bare list of rows), or
@@ -16,7 +18,7 @@ forest-walk kernel K4 behind its own micro-batcher.
   400 names the offending row; 413 for a body over
   ``serve_max_body_bytes``; 429 with ``Retry-After`` when admission
   control sheds the request (``serve_queue_depth``,
-  ``serve_max_inflight``); 503 while draining, on timeout and
+  ``serve_max_inflight``); 503 while warming or draining, on timeout and
   at zero healthy replicas; 504 when the request's own deadline
   expires.
 - ``POST /reload``: ``{"model": "<path>", "target": "primary"}``, the
@@ -26,7 +28,7 @@ forest-walk kernel K4 behind its own micro-batcher.
 - ``POST /feedback``: ``{"request_id": id, "label": y}`` joins a label
   back to the model that served the prediction (404 for an unknown id).
 - ``GET /healthz`` (liveness, the forest's shape, the generation),
-  ``GET /readyz`` (503 once draining), ``GET /stats``
+  ``GET /readyz`` (503 while warming and once draining), ``GET /stats``
   (the registry as JSON, the fleet, lifecycle and drift blocks, and the
   forest-walk kernels' launch counts) and ``GET /metrics`` (the
   registry as Prometheus text, ``obs/prom.py``, with ``rank_labels()``).
@@ -205,13 +207,15 @@ class _Handler(BaseHTTPRequestHandler):
         req_id = next(_request_ids)
         if self.path == "/healthz":
             # LIVENESS: the process is up and handling HTTP (200 while
-            # draining too)
+            # warming or draining: restarting a warming server only makes
+            # the warm recur)
             self._reply(200, {"status": "ok",
                               "ready": srv.is_ready(),
                               "generation": srv.fleet.generation,
                               **srv.forest.info()}, req_id)
         elif self.path == "/readyz":
-            # READINESS: out of rotation during the shutdown drain
+            # READINESS: out of rotation until the warm completes and
+            # during the shutdown drain
             ready, why = srv.readiness()
             self._reply(200 if ready else 503,
                         {"status": why,
@@ -308,7 +312,8 @@ class _Handler(BaseHTTPRequestHandler):
                                req_id)
         ready, why = srv.readiness()
         if not ready:
-            # not in rotation: draining
+            # not in rotation: warming (the background warm still
+            # building or launching) or draining (shutdown requested)
             return self._reply(503, {"error": f"server {why}"}, req_id,
                                headers={"Retry-After": 1})
         deadline_s = None
@@ -479,6 +484,7 @@ class PredictServer:
                  request_timeout: float = 60.0,
                  params: Optional[dict] = None,
                  state_file: Optional[str] = None,
+                 warm_in_background: bool = False,
                  max_body_bytes: int = 33554432,
                  nonfinite_policy: str = "reject",
                  shadow_fraction: float = 0.0,
@@ -488,6 +494,7 @@ class PredictServer:
                  lifecycle_latency_ratio: float = 3.0,
                  lifecycle_error_rate: float = 0.05,
                  lifecycle_cooldown_s: float = 60.0,
+                 lifecycle_interval_s: float = 0.25,
                  drift: str = "off",
                  drift_window: float = 30.0,
                  drift_top_k: int = 5,
@@ -516,6 +523,16 @@ class PredictServer:
         self._stop_requested = threading.Event()
         self._stop_lock = threading.Lock()
         self._stopped = False
+        # readiness (GET /readyz): liveness comes up with the listener,
+        # readiness once the fleet is warm.  With ``warm_in_background``
+        # start() runs fleet.warm_all() on a thread and readiness comes
+        # up when it returns True, so an orchestrator can health-check
+        # the process while the walk kernel builds and warms.
+        self._warm_in_background = bool(warm_in_background)
+        self._warm_thread: Optional[threading.Thread] = None
+        self._ready = threading.Event()
+        if not self._warm_in_background:
+            self._ready.set()       # the caller handed over a warm fleet
         # guarded model lifecycle (serve/lifecycle.py): the feedback
         # join is always on (a dict and two deques); shadow scoring and
         # the promotion controller are built only when configured
@@ -553,7 +570,8 @@ class PredictServer:
                 window_s=float(lifecycle_window_s),
                 max_window_s=float(lifecycle_max_window_s),
                 cooldown_s=float(lifecycle_cooldown_s),
-                feedback=self.feedback)
+                feedback=self.feedback,
+                interval_s=float(lifecycle_interval_s))
 
     def lifecycle_stats(self) -> dict:
         """The ``GET /stats`` ``lifecycle`` block: controller phase +
@@ -630,16 +648,36 @@ class PredictServer:
                     **{m: c.stats() for m, c in self.drift.items()}}
 
     def is_ready(self) -> bool:
-        return not self._stop_requested.is_set()
+        return self._ready.is_set() and not self._stop_requested.is_set()
 
     def readiness(self):
-        """(ready, state) for ``GET /readyz``: ``draining`` once shutdown
-        has been requested, ``ready`` otherwise (the fleet it is given is
-        warm; the JAX server's ``warming`` state belongs to its
-        background warmup)."""
+        """(ready, state) for ``GET /readyz``: ``warming`` before the
+        fleet's warm completes, ``draining`` once shutdown has been
+        requested, ``ready`` otherwise."""
         if self._stop_requested.is_set():
             return False, "draining"
+        if not self._ready.is_set():
+            return False, "warming"
         return True, "ready"
+
+    def _warm_fleet(self) -> None:
+        t0 = time.monotonic()
+        try:
+            done = self.fleet.warm_all(
+                should_abort=self._stop_requested.is_set)
+        except Exception as exc:
+            # stay not ready: the readiness gate keeps traffic away and
+            # the orchestrator's policy decides whether to restart; no
+            # fallback to another walk
+            log.warning("serve: background warmup failed: %r; readiness "
+                        "stays false", exc)
+            return
+        if not done:
+            log.info("serve: background warmup aborted by shutdown")
+            return
+        self._ready.set()
+        log.info("serve: fleet warm in %.3f s, readiness up",
+                 time.monotonic() - t0)
 
     @property
     def forest(self) -> CompiledForest:
@@ -655,12 +693,18 @@ class PredictServer:
         self._thread = threading.Thread(target=self.httpd.serve_forever,
                                         name="lgbt-serve-http", daemon=True)
         self._thread.start()
+        if self._warm_in_background and not self._ready.is_set():
+            self._warm_thread = threading.Thread(
+                target=self._warm_fleet, name="lgbt-serve-warmup",
+                daemon=True)
+            self._warm_thread.start()
         host, port = self.address
         st = self.fleet.stats()
         log.info("serving CompiledForest (%d trees, %d class) on "
-                 "http://%s:%d — %d replica(s), generation %d",
+                 "http://%s:%d — %d replica(s), generation %d%s",
                  self.forest.num_trees, self.forest.num_class, host, port,
-                 len(st["replicas"]), st["generation"])
+                 len(st["replicas"]), st["generation"],
+                 "" if self.is_ready() else " (warming in background)")
         return self
 
     def stop(self) -> None:
@@ -684,6 +728,10 @@ class PredictServer:
             drift_cols, self.drift = list(self.drift.values()), {}
         for col in drift_cols:
             col.close()
+        if self._warm_thread is not None and self._warm_thread.is_alive():
+            # wait out the current bucket (the warm polls _stop_requested
+            # between buckets): no launch or build races the teardown
+            self._warm_thread.join(timeout=120.0)
         self.fleet.close(drain=True)
         self.httpd.server_close()
         # the causal trace after the drain, so the last batch's spans
@@ -722,10 +770,11 @@ class PredictServer:
 def serve_from_config(config, params=None) -> PredictServer:
     """CLI entry (``task=serve``): load ``input_model`` (or the last-good
     model ``serve_state_file`` names), freeze one forest a device of
-    ``fleet_devices(serve_replicas, device)``, warm every bucket up to
-    ``serve_max_batch`` on every replica, and return the server (not yet
-    started; the JAX package warms in the background after start, the
-    port before it returns).  ``serve_canary_model`` adds a second model
+    ``fleet_devices(serve_replicas, device)`` and return the server, not
+    yet started and not yet warm: ``start()`` binds at once and warms
+    every bucket up to ``serve_max_batch`` on every replica in the
+    background (``/readyz`` and ``/predict`` answer 503 ``warming`` until
+    it ends), as the JAX server does.  ``serve_canary_model`` adds a second model
     at ``serve_canary_weight`` of the traffic; every fleet, lifecycle and
     drift key is read as the JAX server reads it."""
     from ..basic import Booster
@@ -781,7 +830,8 @@ def serve_from_config(config, params=None) -> PredictServer:
             or cfg_canary
     if canary_path:
         canary = _freeze(canary_path)
-    log.info("serve: %d bucket(s) for %d trees on %d replica(s)%s",
+    log.info("serve: %d bucket(s) for %d trees on %d replica(s)%s; "
+             "warming in background, readiness at /readyz",
              len(forest.ladder.sizes), forest.num_trees, len(devices),
              " + canary" if canary is not None else "")
     fleet = Fleet.build(
@@ -796,12 +846,12 @@ def serve_from_config(config, params=None) -> PredictServer:
         watchdog_interval_s=float(config.serve_watchdog_ms) / 1000.0,
         stall_s=float(config.serve_stall_ms) / 1000.0,
         latency_outlier=float(config.serve_latency_outlier),
-        warm=True)
+        warm=False)
     server = PredictServer(
         fleet, host=str(config.serve_host or "127.0.0.1"),
         port=int(config.serve_port), max_batch=max_batch,
         max_delay_ms=float(config.serve_max_delay_ms), params=params,
-        state_file=state_file,
+        state_file=state_file, warm_in_background=True,
         max_body_bytes=int(config.serve_max_body_bytes),
         nonfinite_policy=str(config.serve_nonfinite_policy),
         shadow_fraction=float(config.serve_shadow),

@@ -1,5 +1,7 @@
 """Host helpers shared by the port's modules."""
 
+from . import log  # noqa: F401
+
 
 def coerce_bool(value) -> bool:
     """The bool-coercion rule of config params (CLI spellings)."""

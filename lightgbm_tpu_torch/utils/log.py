@@ -1,5 +1,11 @@
 """Leveled logger gated by ``verbose`` (the JAX package's utils/log.py,
-which follows the reference include/LightGBM/utils/log.h)."""
+which follows the reference include/LightGBM/utils/log.h).
+
+``enable_stdlib_bridge()`` mirrors every record into a stdlib
+``logging.Logger`` at its mapped level, whatever ``set_verbosity`` says,
+so an embedder routes, filters and formats with its own handlers; the
+``verbose`` gate controls only the print to stderr.
+"""
 
 from __future__ import annotations
 
@@ -9,15 +15,39 @@ from typing import Set
 _current_level = 1
 _warned_once: Set[str] = set()
 
+_bridge_logger = None
+# stderr tag -> stdlib logging level
+_STDLIB_LEVELS = {"Fatal": 50, "Warning": 30, "Info": 20, "Debug": 10}
+
 
 def set_verbosity(verbose: int) -> None:
     global _current_level
     _current_level = int(verbose)
 
 
+def enable_stdlib_bridge(name: str = "lightgbm_tpu_torch"):
+    """Mirror every record into ``logging.getLogger(name)`` and return
+    that logger.  The bridge forwards each record at its mapped level
+    whatever ``set_verbosity`` says: filtering is the embedder's."""
+    global _bridge_logger
+    import logging
+    _bridge_logger = logging.getLogger(name)
+    return _bridge_logger
+
+
+def disable_stdlib_bridge() -> None:
+    global _bridge_logger
+    _bridge_logger = None
+
+
 def _emit(tag: str, level: int, msg: str, *args) -> None:
+    bridge = _bridge_logger
+    if bridge is None and level > _current_level:
+        return
+    text = msg % args if args else msg
+    if bridge is not None:
+        bridge.log(_STDLIB_LEVELS.get(tag, 20), "%s", text)
     if level <= _current_level:
-        text = msg % args if args else msg
         print(f"[LightGBM-TPU-torch] [{tag}] {text}", file=sys.stderr,
               flush=True)
 
@@ -73,4 +103,7 @@ class LightGBMError(Exception):
 
 
 def fatal(msg: str, *args) -> None:
-    raise LightGBMError(msg % args if args else msg)
+    text = msg % args if args else msg
+    if _bridge_logger is not None:
+        _bridge_logger.log(_STDLIB_LEVELS["Fatal"], "%s", text)
+    raise LightGBMError(text)

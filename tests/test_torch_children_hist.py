@@ -17,7 +17,9 @@ JAX package's own tests run them on the CPU, in interpret mode.
     tests/test_fused_gain.py: features and thresholds exactly, gains and
     left sums to 1e-5 relative (the prefix sums associate differently:
     XLA's f32 cumulative sum against torch's f64-accumulated one on the
-    CPU).
+    CPU).  At 255 bins and 28 features the gains miss that tolerance,
+    so the choices are held where the top two gains are further apart
+    than the measured gap (``GAIN_GAP_255``).
   * Bin codes at or past ``max_bin`` (a categorical mapper can be wider
     than ``max_bin``) add to no bin of K2's and K3's plain versions, as
     in the Pallas kernels, with the wide column first and last.
@@ -196,6 +198,82 @@ def test_fused_candidates_match_pallas(seed):
 def test_fused_candidates_with_l1_and_min_gain():
     _assert_same(_scenario(seed=3, n=900, max_bin=17), 17,
                  (10, 0.5, 0.3, 0.7, 0.05))
+
+
+# ---------------------------------------------------------------------------
+# K3 at 255 bins and the bench point's width (28 features)
+#
+# At this width the plain K3's gains miss the 1e-5 relative tolerance
+# against the Pallas kernel's: over 40 seeds of 3000 rows x 28 features
+# x 255 bins they differ by up to 9.9e-3 of the gain (seed 11).  A small
+# left sum carries the rounding of its histogram entries (a scatter
+# against the one-hot products) and of its prefix sum (torch's
+# f64-accumulated cumsum against XLA's blocked f32 one) into the gain.
+# So at this width the choices are held wherever the top two gains are
+# more than GAIN_GAP_255 apart, and the left sums to the tolerance.
+
+GAIN_GAP_255 = 1e-2
+SP_255 = (20, 1e-3, 0.0, 0.0, 0.0)
+
+
+def _scenario_255(seed, n_cat):
+    return _scenario(seed=seed, n=3000, f=28, max_bin=255, n_cat=n_cat)
+
+
+def _threshold_margins(hist, totals, num_bin, is_cat, fm, sp):
+    """([2, F] best gain, [2, F] best minus second-best gain) over each
+    feature's valid thresholds, in f64 from the histogram."""
+    min_data, min_hess, l1, l2, _ = sp
+    h = hist.astype(np.float64)
+    left = np.where(is_cat[None, :, None, None], h, np.cumsum(h, axis=2))
+    right = totals[:, None, None, :].astype(np.float64) - left
+
+    def lsg(g, hh):
+        r = np.maximum(np.abs(g) - l1, 0.0)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            return r * r / (hh + l2)
+
+    gain = lsg(left[..., 0], left[..., 1]) + lsg(right[..., 0],
+                                                 right[..., 1])
+    t = np.arange(h.shape[2])
+    limit = np.where(is_cat, num_bin, num_bin - 1)
+    valid = ((t[None, None, :] < limit[None, :, None])
+             & (left[..., 2] >= min_data) & (right[..., 2] >= min_data)
+             & (left[..., 1] >= min_hess) & (right[..., 1] >= min_hess)
+             & fm[None, :, None] & (num_bin[None, :, None] > 1))
+    top = np.sort(np.where(valid, gain, -np.inf), axis=-1)
+    with np.errstate(invalid="ignore"):
+        return top[..., -1], top[..., -1] - top[..., -2]
+
+
+@pytest.mark.parametrize("seed,n_cat", [(0, 0), (1, 2), (2, 0), (11, 0),
+                                        (12, 2), (14, 0), (35, 0)])
+def test_fused_candidates_at_255_bins_choose_as_pallas(seed, n_cat):
+    scn = _scenario_255(seed, n_cat)
+    bins, grad, hess, weight, leaf_id, num_bin, is_cat, fm = scn
+    jraw, traw, jbest, tbest = _both(scn, 255, SP_255)
+    fin = np.isfinite(jraw[..., 0])
+    np.testing.assert_array_equal(np.isfinite(traw[..., 0]), fin)
+    np.testing.assert_allclose(traw[..., 2:5], jraw[..., 2:5], rtol=1e-5,
+                               atol=1e-5)
+    # a feature's threshold wherever its top two thresholds' gains are
+    # more than the gap apart
+    hist = np.asarray(children_histograms_pallas(
+        *[jnp.asarray(a) for a in (bins, grad, hess, weight, leaf_id)],
+        0, 1, 255, n_blk=N_BLK, interpret=True))
+    best, margin = _threshold_margins(
+        hist, _totals(grad, hess, weight, leaf_id, 0, 1), num_bin, is_cat,
+        fm, SP_255)
+    clear = fin & (margin > GAIN_GAP_255 * np.abs(best))
+    assert clear.sum() >= fin.sum() // 2, "scenario without clear choices"
+    np.testing.assert_array_equal(traw[..., 1][clear], jraw[..., 1][clear])
+    # each child's feature and threshold wherever its top two features'
+    # gains are more than the gap apart
+    top = np.sort(np.where(fin, jraw[..., 0], -np.inf), axis=-1)
+    for c in range(2):
+        if top[c, -1] - top[c, -2] > GAIN_GAP_255 * abs(top[c, -1]):
+            assert int(tbest.feature[c]) == int(jbest.feature[c])
+            assert int(tbest.threshold[c]) == int(jbest.threshold[c])
 
 
 def test_fused_candidates_min_data_edge():
@@ -428,3 +506,58 @@ def test_kernels_match_plain_on_card():
         same = (k3[..., 1] == p3[..., 1]) & fin
         assert bool(((k3[..., 0] - p3[..., 0]).abs()[same]
                      <= tol[same]).all())
+
+
+# ---------------------------------------------------------------------------
+# The 255-bin gain gap, measured:
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_children_hist.py
+# prints, over 40 seeds of _scenario_255, the largest relative gain gap
+# of the plain K3 against the Pallas kernel, with the port's scan and
+# with its prefix sums associated as XLA's CPU cumsum associates them
+# (sequential f32 sums in blocks of 16, the block totals carried).
+
+
+def _xla_cumsum(x, dim):
+    a = np.moveaxis(x.numpy(), dim, -1)
+    n, b = a.shape[-1], 16
+    if n <= b:
+        out = np.cumsum(a, axis=-1, dtype=np.float32)
+    else:
+        m = -(-n // b)
+        pad = np.zeros(a.shape[:-1] + (m * b,), np.float32)
+        pad[..., :n] = a
+        out = np.cumsum(pad.reshape(a.shape[:-1] + (m, b)), axis=-1,
+                        dtype=np.float32)
+        carry = _xla_cumsum(torch.from_numpy(
+            np.ascontiguousarray(out[..., -1])), -1).numpy()
+        out[..., 1:, :] += carry[..., :-1, None]
+        out = out.reshape(a.shape[:-1] + (m * b,))[..., :n]
+    return torch.from_numpy(np.ascontiguousarray(np.moveaxis(out, -1, dim)))
+
+
+def _gap_255(seeds=range(40)):
+    import jax
+    from lightgbm_tpu_torch.ops import split as tsplit
+    x = np.random.RandomState(0).normal(size=(28, 255, 3)).astype(np.float32)
+    same = np.array_equal(_xla_cumsum(torch.from_numpy(x), 1).numpy(),
+                          np.asarray(jax.jit(lambda a: jnp.cumsum(a, 1))(x)))
+    print(f"blocked f32 cumsum bit-equal to jnp.cumsum: {same}")
+    proxy = types.ModuleType("torch_with_xla_cumsum")
+    proxy.__dict__.update(torch.__dict__)
+    proxy.cumsum = lambda t, dim: _xla_cumsum(t, dim)
+    for name, module in (("torch.cumsum", torch), ("XLA's association", proxy)):
+        tsplit.torch = module
+        worst = (0.0, None)
+        for seed in seeds:
+            jraw, traw, _, _ = _both(_scenario_255(seed, 0), 255, SP_255)
+            fin = np.isfinite(jraw[..., 0])
+            rel = float((np.abs(traw[..., 0][fin] - jraw[..., 0][fin])
+                         / np.abs(jraw[..., 0][fin])).max())
+            worst = max(worst, (rel, seed))
+        print(f"{name}: largest relative gain gap {worst[0]:.3g} "
+              f"(seed {worst[1]}) over {len(seeds)} seeds")
+    tsplit.torch = torch
+
+
+if __name__ == "__main__":
+    _gap_255()

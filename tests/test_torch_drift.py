@@ -243,6 +243,7 @@ def test_drift_over_http_psi_equals_host_recompute(tmp_path):
     srv = lt.serve.serve_from_config(serve_config(
         f"input_model={path}", "drift=on", "drift_window=3600",
         "drift_top_k=2", "serve_nonfinite_policy=propagate")).start()
+    assert srv._ready.wait(60.0)    # the background warm
     base = base_url(srv)
     try:
         health = get(base, "/healthz")

@@ -297,6 +297,7 @@ def test_hot_reload_under_four_clients_zero_failures(tmp_path):
     path_b, _ = train_and_save(tmp_path, "b.txt", 6, seed=1, lr=0.3)
     srv = serve_from_config(serve_config(f"input_model={path_a}",
                                          "serve_replicas=2")).start()
+    assert srv._ready.wait(60.0)    # the background warm
     base = base_url(srv)
     forests = {1: srv.forest}
     old_set = srv.fleet._primary
@@ -387,6 +388,7 @@ def test_stats_and_metrics_key_sets_equal_jax(tmp_path):
                 f"input_model={path}", "predict_buckets=16,64",
                 "serve_canary_weight=0.25", f"serve_canary_model={path_b}",
                 "drift=on")).start()
+            assert srv._ready.wait(60.0)    # the background warm
         base = base_url(srv)
         try:
             rid = None
@@ -418,6 +420,7 @@ def test_failed_reload_keeps_the_serving_generation(tmp_path, fault):
     path_a, X = train_and_save(tmp_path, "a.txt", 3, seed=0)
     path_b, _ = train_and_save(tmp_path, "b.txt", 5, seed=1)
     srv = serve_from_config(serve_config(f"input_model={path_a}")).start()
+    assert srv._ready.wait(60.0)    # the background warm
     base = base_url(srv)
     try:
         with pytest.raises(urllib.error.HTTPError) as err:
@@ -443,6 +446,7 @@ def test_zero_healthy_replicas_503_and_expired_deadline_504(tmp_path):
     path, X = train_and_save(tmp_path, "m.txt", 3)
     srv = serve_from_config(serve_config(f"input_model={path}",
                                          "serve_watchdog_ms=0")).start()
+    assert srv._ready.wait(60.0)    # the background warm
     base = base_url(srv)
     try:
         with pytest.raises(urllib.error.HTTPError) as err:
@@ -470,12 +474,14 @@ def test_state_file_restores_last_good_primary(tmp_path):
     state = str(tmp_path / "serve_state.json")
     args = (f"input_model={path_a}", f"serve_state_file={state}")
     srv = serve_from_config(serve_config(*args)).start()
+    assert srv._ready.wait(60.0)    # the background warm
     try:
         post(base_url(srv), "/reload", {"model": path_b})
     finally:
         srv.stop()
     assert json.load(open(state))["primary"]["model"] == path_b
     srv = serve_from_config(serve_config(*args)).start()
+    assert srv._ready.wait(60.0)    # the background warm
     try:
         r, _ = post(base_url(srv), "/predict", {"rows": X[:3].tolist()})
         want = JaxForest.from_booster(lgb.Booster(model_file=path_b)) \

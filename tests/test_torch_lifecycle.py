@@ -286,6 +286,7 @@ def test_canary_promoted_then_skewed_canary_rolled_back(tmp_path):
         f"input_model={path_a}", "serve_canary_weight=0.25",
         "lifecycle_window_s=1", "lifecycle_min_samples=20",
         "serve_shadow=0.5", "lifecycle_latency_ratio=50")).start()
+    assert srv._ready.wait(60.0)    # the background warm
     srv.controller.interval_s = 0.05
     base = base_url(srv)
     failures = []

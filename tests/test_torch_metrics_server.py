@@ -197,6 +197,7 @@ def test_rank_labels_on_every_sample(monkeypatch, tmp_path):
                                      for _, labels, _ in parsed["samples"])
     path, X = train_and_save(tmp_path, "m.txt", 2)
     srv = serve_from_config(serve_config(f"input_model={path}")).start()
+    assert srv._ready.wait(60.0)    # the background warm
     try:
         post(base_url(srv), "/predict", {"rows": X[:2].tolist()})
         text = urllib.request.urlopen(base_url(srv) + "/metrics",

@@ -310,6 +310,7 @@ def test_serve_from_config_on_port_zero(trained, tmp_path):
         "serve_max_batch=64", "predict_buckets=16,64,256",
         "serve_nonfinite_policy=propagate"]))
     srv = serve_from_config(cfg).start()
+    assert srv._ready.wait(60.0)    # the background warm
     try:
         host, port = srv.address
         Xn = X[:5].copy()

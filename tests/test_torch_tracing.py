@@ -388,6 +388,7 @@ def test_http_round_trip_critical_path(tmp_path, monkeypatch):
     srv = serve_from_config(serve_config(
         f"input_model={path}", f"trace_events_file={trace}",
         "serve_max_delay_ms=30")).start()
+    assert srv._ready.wait(60.0)    # the background warm
     base = base_url(srv)
     try:
         def call():

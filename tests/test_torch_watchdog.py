@@ -136,6 +136,7 @@ def test_wedged_lone_replica_ejected_503_then_readmitted(tmp_path):
     srv = serve_from_config(serve_config(
         f"input_model={path}", "serve_watchdog_ms=20",
         "serve_stall_ms=200", "serve_retry_limit=0")).start()
+    assert srv._ready.wait(60.0)    # the background warm
     base = base_url(srv)
     fleet = srv.fleet
     rep = fleet._primary.replicas[0]
@@ -172,6 +173,7 @@ def test_poisoned_replica_hedges_onto_its_peer(tmp_path):
     srv = serve_from_config(serve_config(
         f"input_model={path}", "serve_replicas=2",
         "serve_watchdog_ms=20")).start()
+    assert srv._ready.wait(60.0)    # the background warm
     base = base_url(srv)
     try:
         with faults.poison_predict(srv.fleet, 0):
