@@ -3183,10 +3183,9 @@ def train_run(name, extra, kernel, train_set, valid_set, X, workdir,
     and its saved model is also held against the f64 host walk with its
     affine part."""
     import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import obs
     from lightgbm_tpu_torch.ops import children_hist as ch
-    from lightgbm_tpu_torch.ops import grow as gr
     from lightgbm_tpu_torch.ops import leafhist as lh
-    from lightgbm_tpu_torch.ops import ordered_grow as og
     params = {**TRAIN_PARAMS, **extra}
     L = params["num_leaves"]
     linear = name == "linear"
@@ -3194,8 +3193,7 @@ def train_run(name, extra, kernel, train_set, valid_set, X, workdir,
     evals = {}
     lh.reset_launch_counts()
     ch.reset_launch_counts()
-    og.reset_host_syncs()
-    gr.reset_host_syncs()
+    reads0 = obs.get_counter("grower_host_reads")
     t0 = time.perf_counter()
     with _timed_calls() as rounds, _window_classes() as windows:
         booster = lt.train(params, train_set, TRAIN_ROUNDS,
@@ -3208,7 +3206,7 @@ def train_run(name, extra, kernel, train_set, valid_set, X, workdir,
               for k, v in launches.items()),
           f"{name}: launches by window class {windows.counts} do not add "
           f"up to {launches}")
-    syncs = og.host_syncs() + gr.host_syncs()
+    syncs = obs.get_counter("grower_host_reads") - reads0
     train_s = time.perf_counter() - t0
 
     gbdt = booster._booster
@@ -5815,15 +5813,14 @@ class _Scraper:
 def telemetry_run(name, params, rounds, train_set, valid_set, workdir):
     """``rounds`` rounds of the training cell, bare or (``name`` ending
     in ``instrumented``) with ``events_file``, ``trace_events_file`` and a
-    ``metrics_port`` scraped from a process of its own.  The launch and
-    host-read counters set to 0 before, read after."""
+    ``metrics_port`` scraped from a process of its own.  The launch
+    counters set to 0 before, read after, and the host reads the run
+    added to the registry's ``grower_host_reads``."""
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch import obs
     from lightgbm_tpu_torch.obs import metrics_server
     from lightgbm_tpu_torch.ops import children_hist as ch
-    from lightgbm_tpu_torch.ops import grow as gr
     from lightgbm_tpu_torch.ops import leafhist as lh
-    from lightgbm_tpu_torch.ops import ordered_grow as og
     from lightgbm_tpu_torch.parallel.launch import free_port
     out = {"name": name}
     callbacks, scraper = [], None
@@ -5839,8 +5836,7 @@ def telemetry_run(name, params, rounds, train_set, valid_set, workdir):
         callbacks.append(scraper.final)
     lh.reset_launch_counts()
     ch.reset_launch_counts()
-    og.reset_host_syncs()
-    gr.reset_host_syncs()
+    reads0 = obs.get_counter("grower_host_reads")
     torch.cuda.synchronize()
     try:
         with _timed_calls() as timer, _timed_exports() as exports:
@@ -5855,8 +5851,9 @@ def telemetry_run(name, params, rounds, train_set, valid_set, workdir):
     out.update(booster=booster, round_s=timer.seconds,
                k1=lh.launch_counts()["digit_histogram"],
                k3=ch.launch_counts()["fused_split_candidates"],
-               syncs_per_tree=(og.host_syncs() + gr.host_syncs())
-               / booster.num_trees(), export_s=exports.seconds,
+               syncs_per_tree=(obs.get_counter("grower_host_reads")
+                               - reads0) / booster.num_trees(),
+               export_s=exports.seconds,
                listener_after=metrics_server.active_server())
     if scraper is not None:
         out.update(scraper.results())
@@ -6203,21 +6200,18 @@ def attribution_run(name, params, rounds, train_set, valid_set,
                     callbacks=()):
     """``rounds`` rounds of the training cell through ``lt.train`` with
     ``params`` (a devprof mode among them), devprof's accumulators and
-    the launch and host-read counters set to 0 before and read after;
-    the synchronized seconds of each round and the attribution series
-    the run changed."""
+    the launch counters set to 0 before and read after, the host reads
+    the run added to ``grower_host_reads``; the synchronized seconds of
+    each round and the attribution series the run changed."""
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch import obs
     from lightgbm_tpu_torch.obs import devprof
     from lightgbm_tpu_torch.ops import children_hist as ch
-    from lightgbm_tpu_torch.ops import grow as gr
     from lightgbm_tpu_torch.ops import leafhist as lh
-    from lightgbm_tpu_torch.ops import ordered_grow as og
     devprof.reset()
     lh.reset_launch_counts()
     ch.reset_launch_counts()
-    og.reset_host_syncs()
-    gr.reset_host_syncs()
+    reads0 = obs.get_counter("grower_host_reads")
     torch.cuda.synchronize()
     before = obs.snapshot()
     with _timed_calls() as timer:
@@ -6230,8 +6224,9 @@ def attribution_run(name, params, rounds, train_set, valid_set,
     k = {**lh.launch_counts(), **ch.launch_counts()}
     return {"name": name, "booster": booster, "round_s": timer.seconds,
             "launches": {n: v for n, v in k.items() if v},
-            "syncs_per_tree": (og.host_syncs() + gr.host_syncs())
-            / booster.num_trees(), "est": devprof.estimates(),
+            "syncs_per_tree": (obs.get_counter("grower_host_reads")
+                               - reads0) / booster.num_trees(),
+            "est": devprof.estimates(),
             "delta": delta}
 
 

@@ -40,6 +40,7 @@ from .io.parser import parse_file, parse_file_chunks, read_header
 from .io.streaming import (_probe_format, load_file_two_round,
                            read_header_names)
 from .models import create_boosting
+from .obs.trace import device_range
 from .utils import log
 from .utils.log import LightGBMError
 
@@ -779,8 +780,10 @@ class Booster:
             raw = np.zeros((b.num_class, X.shape[0]), np.float64)
         else:
             raw = self._compiled(num_iteration).raw_scores(X)
-        return raw if raw_score else np.asarray(
-            b.objective.convert_output(raw))
+        if raw_score:
+            return raw
+        with device_range("transform"):
+            return np.asarray(b.objective.convert_output(raw))
 
     # -- telemetry (obs/) ------------------------------------------------
     def set_event_recorder(self, recorder) -> "Booster":

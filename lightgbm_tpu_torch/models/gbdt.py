@@ -126,6 +126,7 @@ from ..device import resolve_device
 from ..io.bundling import BundlePlan
 from ..metric import create_metric
 from ..obs.drift import DataFingerprint
+from ..obs.trace import device_range
 from ..objective import create_objective
 from ..ops.bundle import BundleDecode
 from ..ops.grow import GrowParams, SerialComm, _read, grow_tree
@@ -1227,8 +1228,10 @@ class GBDT:
 
         The round is one ``GBDT::iteration`` span: a wall-time histogram
         observe and, with the tracer armed, the root of the round's span
-        tree; it never synchronizes the device.  With ``devprof`` on,
-        ``round_scope`` splits the round into host and device shares."""
+        tree; it never synchronizes the device.  A ``trace_dir`` window
+        opens before a round's span and closes after it.  With
+        ``devprof`` on, ``round_scope`` splits the round into host and
+        device shares."""
         resynced = self._maybe_check_consistency()
         if resynced and grad is not None:
             log.warning(
@@ -1236,8 +1239,18 @@ class GBDT:
                 "round's custom-objective gradients were computed from "
                 "the pre-resync scores; the pod stays consistent but "
                 "this one round ingests the stale gradients", self.iter_)
-        with obs.devprof.round_scope(), obs.span("GBDT::iteration"):
-            return self._train_one_iter_impl(grad, hess)
+        # the trace window opens and closes outside the round's span, so
+        # every round inside it is one whole GBDT::iteration range
+        it = self.iter_
+        if self._trace is not None:
+            self._trace.iter_begin(it)
+        try:
+            with obs.devprof.round_scope(), obs.span("GBDT::iteration"):
+                return self._train_one_iter_impl(grad, hess)
+        finally:
+            # a round that fails fast on NaN still closes its window
+            if self._trace is not None:
+                self._trace.iter_end(it, sync=self.train_data.score)
 
     def close_trace(self) -> None:
         """Stop a trace window the training loop ended inside."""
@@ -1255,15 +1268,17 @@ class GBDT:
         ``GBDT::tree``, ``Bin::linear_fit``, ``GBDT::train_score`` and
         ``GBDT::valid_score``; both end in one ``GBDT::host_tree``, the
         grown trees built on the host.  Off, each scope is one flag
-        read.  Each unit of device work runs under its OOM guard, the
-        devprof seam, on the training device."""
+        read.  Under a recording profiler every scope is also a range,
+        and both shapes add the ranges TIMETAG's fused account lacks:
+        ``GBDT::boosting`` around the fused gradients, ``GBDT::bagging``
+        around the feature masks, ``GBDT::train_score`` around the fused
+        score update.  Each unit of device work runs under its OOM
+        guard, the devprof seam, on the training device."""
         it = self.iter_
         rec = self._telemetry
         t_iter0 = time.perf_counter() if rec is not None else 0.0
         tt0 = (timetag.get_timings()
                if rec is not None and timetag.ENABLED else None)
-        if self._trace is not None:
-            self._trace.iter_begin(it)
         dev = self.device
         # the screening view and mask, before any mask draw reads them
         self._view = self._select_view()
@@ -1285,11 +1300,12 @@ class GBDT:
                         "bag_mask", lambda: resource.render_shapes(
                             td.score[0]), dev):
                     row_weight = self._bagging_mask(it)
-                feat_masks = [self._feature_mask()
-                              for _ in range(self.num_class)]
-                with resource.oom_guard("train_gradients",
-                                        lambda: resource.render_shapes(
-                                            td.score), dev):
+                with device_range("GBDT::bagging"):
+                    feat_masks = [self._feature_mask()
+                                  for _ in range(self.num_class)]
+                with device_range("GBDT::boosting"), resource.oom_guard(
+                        "train_gradients", lambda: resource.render_shapes(
+                            td.score), dev):
                     grad, hess = self._gradients()
             else:
                 with timetag.scope("GBDT::boosting") as tt:
@@ -1319,8 +1335,11 @@ class GBDT:
             # unit that dies in an allocation leaves the booster as it was
             grown = []
             for cls in range(self.num_class) if poisoned is None else ():
-                self._feat_mask = (feat_masks[cls] if feat_masks is not None
-                                   else self._feature_mask())
+                if feat_masks is not None:
+                    self._feat_mask = feat_masks[cls]
+                else:
+                    with device_range("GBDT::bagging"):
+                        self._feat_mask = self._feature_mask()
                 view = self._view
                 with (contextlib.nullcontext() if fused
                       else timetag.scope("GBDT::tree")) as tt, \
@@ -1366,10 +1385,10 @@ class GBDT:
                                 lambda: resource.render_shapes(td.score),
                                 dev):
             for (cls, _, _, delta) in grown:
-                with (contextlib.nullcontext() if fused
+                with (device_range("GBDT::train_score") if fused
                       else timetag.scope("GBDT::train_score")) as tt:
                     td.score[cls] += delta
-                    if tt is not None:
+                    if not fused:
                         tt.sync(td.score)
             for dd, deltas in zip(self.valid_data, replays):
                 for (cls, _, _, _), d in zip(grown, deltas):
@@ -1436,13 +1455,10 @@ class GBDT:
         self._telemetry = recorder
 
     def _note_iter_event(self, it: int, t0: float, tt0=None) -> None:
-        """Close the trace window when its last round ends, then note the
-        round's host-side fields of its event record.  ``phases`` holds
-        the round's TIMETAG deltas against ``tt0``, the accumulator at
-        the round's start (None while TIMETAG is off: then ``{}``, as
-        the JAX booster writes it)."""
-        if self._trace is not None:
-            self._trace.iter_end(it, sync=self.train_data.score)
+        """Note the round's host-side fields of its event record.
+        ``phases`` holds the round's TIMETAG deltas against ``tt0``, the
+        accumulator at the round's start (None while TIMETAG is off: then
+        ``{}``, as the JAX booster writes it)."""
         rec = self._telemetry
         if rec is None:
             return
@@ -1470,8 +1486,6 @@ class GBDT:
         rec = self._telemetry
         if rec is not None:
             rec.note(it, nan_poisoned=what, nan_policy=self._nan_policy)
-        if self._trace is not None:
-            self._trace.iter_end(it, sync=self.train_data.score)
         obj = getattr(self.objective, "name", "?")
         if self._nan_policy == "fail_fast":
             log.fatal(

@@ -25,9 +25,15 @@ The port's counterpart of the JAX package's ``obs``:
 - device-time attribution: ``devprof`` (CUDA-event samples of each named
   unit of device work, roofline gauges, transfer accounts), ``devcaps``
   (the capability table, the H100 row among its rows), ``trace``
-  (``TraceCapture``, a ``torch.profiler`` window over boosting rounds)
-  and ``compile_ledger`` (one event an nvcc build); the TIMETAG sink of
-  ``span`` feeds ``utils/timetag.py``.
+  (``TraceCapture``, a ``torch.profiler`` window over boosting rounds,
+  and the phase ranges: every ``span``, TIMETAG scope and device phase
+  is a ``record_function`` range under any recording profiler, and the
+  window's close sets a per-phase account of host seconds, device
+  seconds and launches, ``trace_window_*``) and ``compile_ledger`` (one
+  event an nvcc build); the TIMETAG sink of ``span`` feeds
+  ``utils/timetag.py``;
+- ``grower_host_reads``: the growers' device-to-host reads, one counter
+  (``ops/grow.py`` ``_read``), on ``/metrics`` with the rest.
 """
 
 from __future__ import annotations

@@ -20,9 +20,9 @@ the sets equal and scans the port's span sites against them):
 - TRANSFER_PHASES close the namespace of host<->device transfer
   accounts.
 
-The device-side taxonomies are read by device-time attribution, which
-is not ported yet; they are copied now so the sets cannot drift apart.
-This module stays import-free (pure literals).
+The trace window's per-phase account (``obs/trace.py``) keeps the
+ranges named in HOST_PHASES and DEVICE_PHASES.  This module stays
+import-free (pure literals).
 """
 
 HOST_PHASES = frozenset({

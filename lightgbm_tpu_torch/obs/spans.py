@@ -11,6 +11,11 @@ current span for its body, so ``GBDT::iteration`` and ``Serve::batch``
 land in the Chrome trace export with their children; the yielded
 handle's ``trace`` is that tracing ``SpanHandle`` (None while the tracer
 is disarmed), which the batcher links its requests' queue spans into.
+Under a recording profiler (any ``torch.profiler`` window on the span's
+thread, ``obs/trace.py``) the span is also a ``record_function`` range
+of its own name, so one phase boundary feeds the histogram, the span
+tree, TIMETAG and the device trace at once; with no profiler on that
+costs one call of ``trace.recording``.
 
 ``timed(name)`` wraps a function in a span.
 
@@ -32,7 +37,7 @@ import time
 from contextlib import contextmanager
 from typing import Callable, Optional, Sequence
 
-from . import devprof, memwatch, phases, registry, tracing
+from . import devprof, memwatch, phases, registry, trace, tracing
 
 # span names are a small fixed set: memoize the name -> series string
 _series_cache: dict = {}
@@ -65,8 +70,9 @@ def span(name: str, buckets: Optional[Sequence[float]] = None,
          reg: Optional[registry.Registry] = None):
     """Time this block into the ``span_series(name)`` wall-time
     histogram (the span tree when the tracer is armed, the timetag
-    accumulator under TIMETAG).  An
-    exception in the block passes through; the span still ends."""
+    accumulator under TIMETAG, a ``record_function`` range under a
+    recording profiler).  An exception in the block passes through; the
+    span still ends."""
     from ..utils import timetag
     r = reg if reg is not None else registry.REGISTRY
     handle = _SpanHandle()
@@ -75,22 +81,24 @@ def span(name: str, buckets: Optional[Sequence[float]] = None,
     if tracing.TRACER.enabled:
         handle.trace = tracing.TRACER.begin(name)
         token = tracing.push(handle.trace)
-    t0 = time.perf_counter()
-    try:
-        yield handle
-    finally:
-        if serialize and handle.value is not None:
-            # counted: the serializing mode's wait shows in its profile
-            devprof.sync(handle.value, source=name)
-        dt = time.perf_counter() - t0
-        r.observe(_series(name), dt, buckets)
-        if serialize:
-            timetag.add(name, dt)
-        if handle.trace is not None:
-            tracing.pop(token)
-            tracing.TRACER.end(handle.trace)
-        if memwatch.ENABLED:
-            memwatch.sample(name, reg=r)
+    with trace.device_range(name):
+        t0 = time.perf_counter()
+        try:
+            yield handle
+        finally:
+            if serialize and handle.value is not None:
+                # counted: the serializing mode's wait shows in its
+                # profile
+                devprof.sync(handle.value, source=name)
+            dt = time.perf_counter() - t0
+            r.observe(_series(name), dt, buckets)
+            if serialize:
+                timetag.add(name, dt)
+            if handle.trace is not None:
+                tracing.pop(token)
+                tracing.TRACER.end(handle.trace)
+            if memwatch.ENABLED:
+                memwatch.sample(name, reg=r)
 
 
 def timed(name: str, buckets: Optional[Sequence[float]] = None) -> Callable:

@@ -27,7 +27,8 @@ are read with ``index_select`` and written with ``index_copy_`` and
 ``fused`` strategies therefore read nothing to the host during growth:
 one read at the end brings the packed ``TreeArrays`` over.  The
 ``cached`` strategy reads the smaller child's row count once per split
-to pick its compaction size class.  :func:`host_syncs` counts the reads.
+to pick its compaction size class.  The registry's ``grower_host_reads``
+counts the reads.
 
 Over EFB bundled columns (``bundle``, an ``ops.bundle.BundleDecode``)
 ``bins`` holds C columns and every histogram pass runs over them: the
@@ -40,13 +41,13 @@ split feature's bins from its column.
 
 from __future__ import annotations
 
-import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from . import leafhist
+from ..obs import registry
 from ..obs.trace import device_range
 from .bundle import decode_feature_bins, expand_digit_sums, expand_histogram
 from .histogram import (children_histograms, children_split_candidates,
@@ -129,28 +130,14 @@ def unpack_tree_arrays(ints, flts, num_leaves: int) -> TreeArrays:
 
 
 # ---------------------------------------------------------------------------
-# host reads of grow_tree
-
-_sync_lock = threading.Lock()
-_SYNCS = {"host_syncs": 0}
-
-
-def host_syncs() -> int:
-    """Device-to-host reads ``grow_tree`` and the linear fit
-    (``models/gbdt.py``) have made since the last reset."""
-    with _sync_lock:
-        return _SYNCS["host_syncs"]
-
-
-def reset_host_syncs() -> None:
-    with _sync_lock:
-        _SYNCS["host_syncs"] = 0
+# host reads of the growers
 
 
 def _read(t: torch.Tensor) -> np.ndarray:
-    """One counted device-to-host read."""
-    with _sync_lock:
-        _SYNCS["host_syncs"] += 1
+    """One device-to-host read of a grower (``grow_tree``, the ordered
+    grower, the linear fit of ``models/gbdt.py``), counted in the
+    registry's ``grower_host_reads``."""
+    registry.inc("grower_host_reads")
     return t.cpu().numpy()
 
 

@@ -41,12 +41,11 @@ count from the partition instead.
 Host syncs per tree: one to read the root sums and split, one per split
 to read the two children's best splits, one at the end to check the
 partition counts, and with ``compact_inactive`` one for the sample's
-size; :func:`host_syncs` counts them.
+size; the registry's ``grower_host_reads`` counts them (``grow._read``).
 """
 
 from __future__ import annotations
 
-import threading
 from typing import Callable, Optional
 
 import numpy as np
@@ -55,7 +54,7 @@ import torch
 from ..utils.log import LightGBMError
 from ..obs.trace import device_range
 from . import leafhist
-from .grow import GrowParams, TreeArrays
+from .grow import GrowParams, TreeArrays, _read
 from .predict import predict_binned_tree
 from .split import K_MIN_SCORE, find_best_split, leaf_output
 
@@ -63,27 +62,6 @@ from .split import K_MIN_SCORE, find_best_split, leaf_output
 _LF = dict(best_gain=0, best_left_g=1, best_left_h=2, best_left_c=3,
            total_g=4, total_h=5, total_c=6, cur_value=7)
 _LI = dict(best_feat=0, best_bin=1, parent=2, depth=3, start=4, cnt=5)
-
-_sync_lock = threading.Lock()
-_SYNCS = {"host_syncs": 0}
-
-
-def host_syncs() -> int:
-    """Device-to-host reads the grower has made since the last reset."""
-    with _sync_lock:
-        return _SYNCS["host_syncs"]
-
-
-def reset_host_syncs() -> None:
-    with _sync_lock:
-        _SYNCS["host_syncs"] = 0
-
-
-def _read(t: torch.Tensor) -> np.ndarray:
-    """One counted device-to-host read."""
-    with _sync_lock:
-        _SYNCS["host_syncs"] += 1
-    return t.cpu().numpy()
 
 
 def pack_u8_words(x_u8: torch.Tensor) -> torch.Tensor:

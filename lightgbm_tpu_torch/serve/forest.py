@@ -399,27 +399,31 @@ class CompiledForest:
     # host-side exact binning (f64 compares; feeds the binned kernel)
     def bin_rows(self, X: np.ndarray) -> np.ndarray:
         """[N, F] raw f64 -> [F, N] int32 cut-table bins (exact); a
-        categorical miss is -1."""
-        N = X.shape[0]
-        bins = np.zeros((self.num_features, N), np.int32)
-        for f, cuts in self._cuts_num.items():
-            col = X[:, f]
-            isnan = np.isnan(col)
-            b = np.searchsorted(cuts, np.where(isnan, 0.0, col), side="left")
-            bins[f] = np.where(isnan, self._nan_bin, b)
-        for f, cats in self._cuts_cat.items():
-            col = X[:, f]
-            isnan = np.isnan(col)
-            iv = np.where(isnan, 0, col).astype(np.int64)
-            j = np.searchsorted(cats, iv, side="left")
-            jc = np.minimum(j, len(cats) - 1)
-            hit = (cats[jc] == iv) & ~isnan
-            bins[f] = np.where(hit, jc, -1)
-        return bins
+        categorical miss is -1.  The ``bin_lookup`` range."""
+        with device_range("bin_lookup"):
+            N = X.shape[0]
+            bins = np.zeros((self.num_features, N), np.int32)
+            for f, cuts in self._cuts_num.items():
+                col = X[:, f]
+                isnan = np.isnan(col)
+                b = np.searchsorted(cuts, np.where(isnan, 0.0, col),
+                                    side="left")
+                bins[f] = np.where(isnan, self._nan_bin, b)
+            for f, cats in self._cuts_cat.items():
+                col = X[:, f]
+                isnan = np.isnan(col)
+                iv = np.where(isnan, 0, col).astype(np.int64)
+                j = np.searchsorted(cats, iv, side="left")
+                jc = np.minimum(j, len(cats) - 1)
+                hit = (cats[jc] == iv) & ~isnan
+                bins[f] = np.where(hit, jc, -1)
+            return bins
 
     def host_transform(self, raw: np.ndarray) -> np.ndarray:
-        """The output transform in host f64."""
-        return np.asarray(self._objective.convert_output(np.asarray(raw)))
+        """The output transform in host f64 (the ``transform`` range)."""
+        with device_range("transform"):
+            return np.asarray(
+                self._objective.convert_output(np.asarray(raw)))
 
     def transform_scores(self, raw: torch.Tensor) -> torch.Tensor:
         """The output transform on [K, B] f32 raw scores, in torch on the
@@ -570,7 +574,9 @@ class CompiledForest:
 
     def raw_scores(self, X) -> np.ndarray:
         """[K, N] f64 raw scores: host f64 binning, then the binned
-        kernel, bucket by bucket."""
+        kernel, bucket by bucket; a bucket, its read included, is one
+        ``Predict::forest`` scope (a range under a recording profiler,
+        holding ``bin_lookup`` and ``forest_walk``)."""
         X = self._check_width(np.asarray(X, np.float64))
         N = X.shape[0]
         if N == 0 or self.num_trees == 0:
@@ -578,9 +584,10 @@ class CompiledForest:
         parts = []
         for off, n, bucket in self.ladder.chunks(N):
             Xp, mask = pad_rows(X[off:off + n], bucket)
+            # the bucket's read waits on its walk: charged to its scope
             with timetag.scope("Predict::forest"):
                 raw = self._dispatch_binned(Xp, mask)
-            host = raw[:, :n].cpu().numpy()
+                host = raw[:, :n].cpu().numpy()
             obs.devprof.transfer("d2h", self._xfer_phase, int(host.nbytes))
             parts.append(host.astype(np.float64))
         raw_all = np.concatenate(parts, axis=1)
@@ -602,8 +609,8 @@ class CompiledForest:
             Xp, mask = pad_rows(X[off:off + n], bucket)
             with timetag.scope("Predict::forest"):
                 raw, out = self._dispatch_raw(Xp, mask)
-            raws.append(raw[:, :n].cpu().numpy())
-            outs.append(out[:, :n].cpu().numpy())
+                raws.append(raw[:, :n].cpu().numpy())
+                outs.append(out[:, :n].cpu().numpy())
             obs.devprof.transfer(
                 "d2h", self._xfer_phase,
                 int(raws[-1].nbytes) + int(outs[-1].nbytes), 2)

@@ -15,9 +15,12 @@ the totals at shutdown; here the same phase taxonomy:
 - ``obs.span`` feeds the same accumulator while enabled, and every
   scope mirrors its time into the span's ``phase_seconds_<name>``
   histogram: one account, two sinks;
-- the growers carry ``torch.profiler`` ranges with the device phase
-  names (``obs/trace.py``), so a trace window breaks device time down
-  by phase without a re-run.
+- under a recording profiler (the trace window, or any
+  ``torch.profiler`` on the scope's thread) every scope is also a
+  ``record_function`` range of its name, as the growers' device phases
+  are (``obs/trace.py``), so a trace breaks device time down by phase
+  without a re-run and without TIMETAG's waits; with no profiler on
+  that costs one call of ``obs.trace.recording``.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from contextlib import contextmanager
 from typing import Dict
 
 from . import log
+from ..obs.trace import device_range
 
 ENABLED = os.environ.get("LIGHTGBM_TPU_TIMETAG", "") not in ("", "0")
 
@@ -79,23 +83,26 @@ _NOOP = _NoopSync()
 @contextmanager
 def scope(name: str):
     """Accumulate wall time under ``name``; the yielded object's
-    ``sync(x)`` makes the scope wait on ``x`` before the clock stops."""
-    if not ENABLED:
-        yield _NOOP
-        return
-    s = _Sync()
-    t0 = time.perf_counter()
-    try:
-        yield s
-    finally:
-        if s.value is not None:
-            from ..obs import devprof
-            devprof.sync(s.value, source=name)
-        dt = time.perf_counter() - t0
-        _acc[name] += dt
-        _cnt[name] += 1
-        from ..obs import registry, spans
-        registry.observe(spans._series(name), dt)
+    ``sync(x)`` makes the scope wait on ``x`` before the clock stops.
+    A ``record_function`` range of ``name`` under a recording
+    profiler, enabled or not."""
+    with device_range(name):
+        if not ENABLED:
+            yield _NOOP
+            return
+        s = _Sync()
+        t0 = time.perf_counter()
+        try:
+            yield s
+        finally:
+            if s.value is not None:
+                from ..obs import devprof
+                devprof.sync(s.value, source=name)
+            dt = time.perf_counter() - t0
+            _acc[name] += dt
+            _cnt[name] += 1
+            from ..obs import registry, spans
+            registry.observe(spans._series(name), dt)
 
 
 def get_timings() -> Dict[str, float]:

@@ -18,8 +18,9 @@ JAX package on the CPU.
   with one warning and a ``sink_write_errors_total`` count while the
   run trains on to the same model.
 - Two gloo ranks write ``.rank0`` / ``.rank1`` streams with ``rank``.
-- The stream adds no host read: ``host_syncs()`` per tree is the same
-  with ``events_file`` as without, for the ordered and fused growers.
+- The stream adds no host read: the registry's ``grower_host_reads`` per
+  tree is the same with ``events_file`` as without, for the ordered and
+  fused growers.
 """
 
 import json
@@ -38,9 +39,7 @@ from lightgbm_tpu.obs import events as jevents
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch import obs
 from lightgbm_tpu_torch.config import Config
-from lightgbm_tpu_torch.obs import events
-from lightgbm_tpu_torch.ops import grow as gr
-from lightgbm_tpu_torch.ops import ordered_grow as og
+from lightgbm_tpu_torch.obs import events, prom
 from lightgbm_tpu_torch.parallel.launch import machine_list, run_ranks
 from lightgbm_tpu_torch.testing import faults
 from lightgbm_tpu_torch.utils import diskguard, log
@@ -267,17 +266,22 @@ def test_host_reads_per_tree_unchanged_by_the_stream(tmp_path, grower):
     params = {**BAGGED, "serial_grow": grower}
     reads = []
     for events_file in (None, tmp_path / "ev.jsonl"):
-        og.reset_host_syncs()
-        gr.reset_host_syncs()
+        reads0 = obs.get_counter("grower_host_reads")
         ds = lt.Dataset(X, y)
         b = lt.train({**params, **({"events_file": str(events_file)}
                                    if events_file else {})},
                      ds, 4, device="cpu", verbose_eval=False)
-        reads.append((og.host_syncs() + gr.host_syncs()) / b.num_trees())
+        reads.append((obs.get_counter("grower_host_reads") - reads0)
+                     / b.num_trees())
     assert reads[0] == reads[1] > 0
     if grower == "fused":
         assert reads[0] == 1
     assert len(events.read_events(str(tmp_path / "ev.jsonl"))) == 4
+    # operators read the counter on /metrics
+    parsed = prom.parse_text(prom.render(obs.snapshot()))
+    assert parsed["types"]["lightgbm_tpu_grower_host_reads"] == "counter"
+    assert ("lightgbm_tpu_grower_host_reads", {},
+            float(obs.get_counter("grower_host_reads"))) in parsed["samples"]
 
 
 def test_telemetry_keys_like_jax(tmp_path):

@@ -27,7 +27,8 @@ from lightgbm_tpu.ops.grow import GrowParams as JaxGrowParams
 from lightgbm_tpu.ops.grow import grow_tree as jax_grow_tree
 from lightgbm_tpu.ops.ordered_grow import grow_tree_ordered as jax_ordered
 
-from lightgbm_tpu_torch.ops import leafhist, ordered_grow
+from lightgbm_tpu_torch import obs
+from lightgbm_tpu_torch.ops import leafhist
 from lightgbm_tpu_torch.ops.grow import (GrowParams, pack_tree_arrays,
                                          unpack_tree_arrays)
 from lightgbm_tpu_torch.ops.ordered_grow import grow_tree_ordered
@@ -63,7 +64,6 @@ def _grow_both(bins, num_bin, is_cat, grad, hess, params, jax_kind):
         jnp.asarray(mask), jnp.asarray(grad), jnp.asarray(hess),
         jnp.asarray(w), jnp.float32(0.1), JaxGrowParams(*params),
         bins_rm=jnp.asarray(rm))
-    ordered_grow.reset_host_syncs()
     tt, tleaf, tdelta = grow_tree_ordered(
         torch.from_numpy(rm), torch.from_numpy(num_bin),
         torch.from_numpy(is_cat), torch.from_numpy(mask),
@@ -95,11 +95,12 @@ def test_ordered_grower_matches_jax_uint8(num_leaves, cat, max_depth):
     bins, num_bin, is_cat, g, h = _data(6000, 8, 48, np.uint8, seed=1,
                                         cat=cat)
     params = (num_leaves, 48, 20, 1.0, 0.0, 0.0, 0.0, max_depth)
+    reads0 = obs.get_counter("grower_host_reads")
     j, t = _grow_both(bins, num_bin, is_cat, g, h, params, "ordered")
     _check(j, t)
     n_leaves = int(t[0].num_leaves)
     # one read for the root, one per split, one to check the partition
-    assert ordered_grow.host_syncs() == n_leaves + 1
+    assert obs.get_counter("grower_host_reads") - reads0 == n_leaves + 1
     if max_depth > 0:
         assert int(t[0].leaf_depth.max()) <= max_depth
         assert n_leaves < num_leaves

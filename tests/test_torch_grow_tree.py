@@ -34,7 +34,8 @@ from lightgbm_tpu.ops.grow import GrowParams as JaxGrowParams
 from lightgbm_tpu.ops.grow import SerialComm as JaxSerialComm
 from lightgbm_tpu.ops.grow import grow_tree as jax_grow_tree
 
-from lightgbm_tpu_torch.ops import grow, leafhist
+from lightgbm_tpu_torch import obs
+from lightgbm_tpu_torch.ops import leafhist
 from lightgbm_tpu_torch.ops.grow import GrowParams, SerialComm, grow_tree
 from lightgbm_tpu_torch.ops.ordered_grow import grow_tree_ordered
 
@@ -77,7 +78,6 @@ def _grow_both(data, params, strategy):
         jnp.ones(f, bool), jnp.asarray(grad), jnp.asarray(hess),
         jnp.ones(n, jnp.float32), jnp.float32(0.1), JaxGrowParams(*params),
         JaxSerialComm(*comm))
-    grow.reset_host_syncs()
     tt, tleaf, tdelta = grow_tree(*_torch_args(*data), GrowParams(*params),
                                   SerialComm(*comm))
     return (jt, np.asarray(jleaf), np.asarray(jdelta)), (tt, tleaf, tdelta)
@@ -119,13 +119,14 @@ SCENARIOS = {
 def test_grow_tree_matches_jax(strategy, scenario):
     params, (n, f, b, cat) = SCENARIOS[scenario]
     data = _data(n, f, b, np.uint8, seed=len(scenario), cat=cat)
+    reads0 = obs.get_counter("grower_host_reads")
     j, t = _grow_both(data, params, strategy)
     _check(j, t)
     num_leaves = int(t[0].num_leaves)
     # one read at the end of the tree; the cached strategy adds one a
     # step for the smaller child's count
     want = 1 + (params[0] - 1 if strategy == "cached" else 0)
-    assert grow.host_syncs() == want
+    assert obs.get_counter("grower_host_reads") - reads0 == want
     if scenario == "max_depth":
         assert int(t[0].leaf_depth.max()) <= 3 and num_leaves < params[0]
     if scenario == "stops_early":
